@@ -1,0 +1,109 @@
+"""Dense Llama forward over stacked layer parameters, in torch.
+
+Port of deft_tpu/models/llama.py: KVPool and kv_store (:84-111), mm (:136),
+rms_norm (:161), the per-layer body (:318-417, a lax.scan there, a Python
+loop over layers here), decode_forward (:420) and prefill_forward (:456).
+MoE, Gemma norms, qk-norm, qkv biases and int8 weights or KV come in later
+slices; loader.check_supported refuses such configs.
+
+Attention is a pluggable AttnFn (ops/attn_impls.py), as in deft_tpu:
+    (q, k_new, v_new, k_pool, v_pool, layer_idx, batch, scale) -> (R, Hq, D)
+Norm and softmax math runs in fp32; matmuls run in the weight dtype.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict
+
+import torch
+
+from deft_tpu_torch.models.config import LlamaConfig
+from deft_tpu_torch.models.rope import apply_rope
+
+
+@dataclasses.dataclass
+class KVPool:
+    """Paged KV arena for one of K/V: ``data`` is token-major and
+    head-flattened, (L, S, Hkv*D) — one row is every head's K (or V) of one
+    token, the layout the paged kernels read (deft_tpu llama.py:84)."""
+
+    data: torch.Tensor
+
+
+def kv_store(pool: KVPool, li: int, out_loc: torch.Tensor,
+             x: torch.Tensor) -> None:
+    """Write new per-token rows x (n, Hkv, D) to pool slots ``out_loc`` of
+    layer ``li``, IN PLACE (``index_copy_``; deft_tpu's functional scatter
+    llama.py:102).  Padded rows all carry DUMP_SLOT: duplicate indices there
+    race harmlessly, and no plan reads that slot as live."""
+    n = x.shape[0]
+    pool.data[li].index_copy_(0, out_loc, x.reshape(n, -1).to(pool.data.dtype))
+
+
+def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in the weight dtype (deft_tpu llama.py:136, bf16/fp32 path)."""
+    return x @ w
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+AttnFn = Callable[..., torch.Tensor]
+
+
+def forward_layers(cfg: LlamaConfig, params: Dict[str, torch.Tensor],
+                   rope_tbl: torch.Tensor, k_pool: KVPool, v_pool: KVPool,
+                   tokens: torch.Tensor, positions: torch.Tensor,
+                   out_loc: torch.Tensor, attn: AttnFn, batch) -> torch.Tensor:
+    """Embed, run every decoder layer (writing each layer's new K/V into the
+    pools before its attention reads them), final norm; returns (n, E)."""
+    x = params["embed"][tokens]
+    n = x.shape[0]
+    D = cfg.head_dim
+    nq_d, nkv_d = cfg.num_q_heads * D, cfg.num_kv_heads * D
+    scale = D ** -0.5
+    eps = cfg.rms_norm_eps
+    I = cfg.intermediate_size
+    for li in range(cfg.num_layers):
+        h = rms_norm(x, params["ln1"][li], eps)
+        qkv = mm(h, params["wqkv"][li])
+        q = qkv[:, :nq_d].reshape(n, cfg.num_q_heads, D)
+        k = qkv[:, nq_d:nq_d + nkv_d].reshape(n, cfg.num_kv_heads, D)
+        v = qkv[:, nq_d + nkv_d:].reshape(n, cfg.num_kv_heads, D)
+        qk = apply_rope(torch.cat([q, k], dim=1), positions, rope_tbl)
+        q, k = qk[:, :cfg.num_q_heads], qk[:, cfg.num_q_heads:]
+        kv_store(k_pool, li, out_loc, k)
+        kv_store(v_pool, li, out_loc, v)
+        o = attn(q, k, v, k_pool, v_pool, li, batch, scale)
+        x = x + mm(o.reshape(n, -1).to(x.dtype), params["wo"][li])
+        h = rms_norm(x, params["ln2"][li], eps)
+        gu = mm(h, params["wgu"][li])
+        g, u = gu[:, :I], gu[:, I:]
+        x = x + mm(torch.nn.functional.silu(g.float()).to(x.dtype) * u,
+                   params["wdown"][li])
+    return rms_norm(x, params["ln_f"], eps)
+
+
+def decode_forward(cfg: LlamaConfig, params, rope_tbl, k_pool: KVPool,
+                   v_pool: KVPool, batch, attn: AttnFn) -> torch.Tensor:
+    """One tree-decode step over ``batch`` (q_tokens, q_pos, out_loc and the
+    attention plan's arrays); returns (R, V) fp32 logits."""
+    x = forward_layers(cfg, params, rope_tbl, k_pool, v_pool, batch.q_tokens,
+                       batch.q_pos, batch.out_loc, attn, batch)
+    return mm(x, params["lm_head"]).float()
+
+
+def prefill_forward(cfg: LlamaConfig, params, rope_tbl, k_pool: KVPool,
+                    v_pool: KVPool, tokens: torch.Tensor, out_loc: torch.Tensor,
+                    attn: AttnFn) -> torch.Tensor:
+    """Prefill one prompt (positions 0..n-1); returns the last token's (V,)
+    fp32 logits.  ``attn`` is causal attention over the in-flight
+    projections (the pool rows are written, not re-read)."""
+    positions = torch.arange(tokens.shape[0], device=tokens.device)
+    x = forward_layers(cfg, params, rope_tbl, k_pool, v_pool, tokens,
+                       positions, out_loc, attn, None)
+    return mm(x[-1:], params["lm_head"])[0].float()

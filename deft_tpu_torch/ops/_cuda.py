@@ -1,0 +1,133 @@
+"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+
+Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
+a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
+takes seconds).  Libraries land in ``build/`` at the root of the checkout,
+named by a hash of the sources, so an edited source is rebuilt and an
+unchanged one is reused.  Nothing here runs at import: the first launch
+builds what it needs, and ``build_all`` builds every kernel at once, one
+``nvcc`` per source, in parallel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD = Path(__file__).resolve().parents[2] / "build"
+SOURCES = ("prefill", "paged_flatten", "paged_seq")
+HEADERS = ("flash_common.cuh",)
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+# ptxas register / shared-memory report of each build, by source name
+build_log: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels build on a machine "
+                       "with the CUDA toolkit (set CUDA_HOME)")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for f in [CSRC / f"{name}.cu"] + [CSRC / x for x in HEADERS]:
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def _start(name: str) -> Optional[tuple]:
+    """Start nvcc for ``name`` unless its library is already built."""
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return name, proc, tmp, out
+
+
+def _finish(job: tuple) -> None:
+    name, proc, tmp, out = job
+    log, _ = proc.communicate()
+    build_log[name] = log
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    os.replace(tmp, out)
+
+
+def build_all(names: Iterable[str] = SOURCES) -> None:
+    """Build every listed kernel library, all nvcc processes at once."""
+    with _lock:
+        jobs = [j for j in (_start(n) for n in names) if j is not None]
+        errors = []
+        for job in jobs:
+            try:
+                _finish(job)
+            except RuntimeError as e:
+                errors.append(str(e))
+        if errors:
+            raise RuntimeError("\n".join(errors))
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built on first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        build_all([name])
+        with _lock:
+            lib = _libs.get(name)
+            if lib is None:
+                lib = ctypes.CDLL(str(_lib_path(name)))
+                _libs[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C launcher returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def stream_ptr(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def dtype_code(dtype) -> int:
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    if dtype not in codes:
+        raise TypeError(f"CUDA kernels take float32 or bfloat16, not {dtype}")
+    return codes[dtype]
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def require_device(first: torch.Tensor, *rest: torch.Tensor) -> None:
+    """Every tensor on the CUDA device of ``first``."""
+    require(first.device.type == "cuda"
+            and all(t.device == first.device for t in rest),
+            f"the kernel takes tensors on one CUDA device, got "
+            f"{sorted({str(t.device) for t in (first, *rest)})}")

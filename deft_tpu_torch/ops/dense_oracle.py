@@ -1,0 +1,63 @@
+"""Dense masked attention in plain torch: the oracle every kernel is held
+against, and the arithmetic of each kernel's plain version.
+
+Port of deft_tpu/ops/dense_oracle.py:18 (dense_tree_attention) and :48
+(dense_causal_attention), plus the per-leaf path attention of
+deft_tpu/ops/attn_impls.py:34 (seq_attn_xla).  All in fp32, cast back to the
+query dtype.  A fully masked row yields 0 (masked terms are zeroed after the
+exp, so its normaliser is 0), the convention of the kernels.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _masked_softmax(s: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """softmax over the last axis of ``s`` restricted to ``mask``; rows
+    with no True entry give all zeros."""
+    m = s.masked_fill(~mask, float("-inf")).amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(s - m) * mask
+    l = p.sum(dim=-1, keepdim=True)
+    return p / torch.where(l == 0, torch.ones_like(l), l)
+
+
+def dense_tree_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         tok_lo: torch.Tensor, tok_hi: torch.Tensor,
+                         scale: float) -> torch.Tensor:
+    """Exact tree attention: q (R, Hq, D) over tree KV k, v (T, Hkv, D) in
+    DFS order; query row (leaf) r attends token t iff
+    tok_lo[t] <= r < tok_hi[t].  Query head h*qpk + g reads KV head h."""
+    R, Hq, D = q.shape
+    Hkv = k.shape[1]
+    qg = q.float().view(R, Hkv, Hq // Hkv, D)
+    s = torch.einsum("rhgd,thd->rhgt", qg, k.float()) * scale
+    leaf = torch.arange(R, device=q.device)[:, None]
+    mask = (tok_lo[None, :] <= leaf) & (leaf < tok_hi[None, :])  # (R, T)
+    p = _masked_softmax(s, mask[:, None, None, :])
+    return torch.einsum("rhgt,thd->rhgd", p, v.float()).reshape(R, Hq, D).to(q.dtype)
+
+
+def dense_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           scale: float) -> torch.Tensor:
+    """Causal self-attention of one prompt: q (N, Hq, D), k, v (N, Hkv, D)."""
+    N, Hq, D = q.shape
+    Hkv = k.shape[1]
+    qg = q.float().view(N, Hkv, Hq // Hkv, D)
+    s = torch.einsum("nhgd,thd->hgnt", qg, k.float()) * scale
+    causal = torch.ones(N, N, dtype=torch.bool, device=q.device).tril()
+    p = _masked_softmax(s, causal)
+    return torch.einsum("hgnt,thd->nhgd", p, v.float()).reshape(N, Hq, D).to(q.dtype)
+
+
+def dense_path_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         live: torch.Tensor, scale: float) -> torch.Tensor:
+    """Per-leaf attention over each leaf's own path: q (R, Hq, D), k, v
+    (R, C, Hkv, D), live (R, C) marks the path tokens."""
+    R, Hq, D = q.shape
+    Hkv = k.shape[2]
+    qg = q.float().view(R, Hkv, Hq // Hkv, D)
+    s = torch.einsum("rhgd,rthd->rhgt", qg, k.float()) * scale
+    p = _masked_softmax(s, live[:, None, None, :])
+    return torch.einsum("rhgt,rthd->rhgd", p, v.float()).reshape(R, Hq, D).to(q.dtype)
