@@ -5,7 +5,7 @@ flags of this slice: --random-model, --mode flatten|seq, --Branch_controller
 Simple_Tree, --max_width, --max_depth, --max_seq_len, --prompt_len,
 --block_len, --dtype, --kv_pool_slots, --seed, --output_file,
 --print-branches and --device cuda|cpu (default cuda; a missing GPU raises).
-Other modes and workloads raise NotImplementedError.
+The other modes and workloads are not ported yet, so argparse refuses them.
 
 Usage:
     python -m deft_tpu_torch.cli.run --device cpu --random-model tiny \
@@ -25,12 +25,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--random-model", type=str, required=True,
                    choices=["tiny", "1b", "3b", "7b", "8b", "8b-8l"],
                    help="random-init preset (no weights needed)")
-    p.add_argument("--mode", default="flatten",
-                   choices=["node", "seq", "flatten", "tree", "node_chunk",
-                            "tree_index"])
+    p.add_argument("--mode", default="flatten", choices=["seq", "flatten"])
     p.add_argument("--Branch_controller", default="Simple_Tree",
-                   choices=["Simple_Tree", "Beam_Search", "Random_Tree",
-                            "Practical_Tree", "Speculative_Decoding"])
+                   choices=["Simple_Tree"])
     p.add_argument("--max_depth", type=int, default=10)
     p.add_argument("--max_width", type=int, default=50)
     p.add_argument("--prompt_len", type=int, default=None)
@@ -57,11 +54,6 @@ def make_prompt(prompt_len, max_seq_len: int, vocab_size: int, seed: int) -> lis
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mode not in ("flatten", "seq"):
-        raise NotImplementedError(f"--mode {args.mode} is not ported yet")
-    if args.Branch_controller != "Simple_Tree":
-        raise NotImplementedError(
-            f"--Branch_controller {args.Branch_controller} is not ported yet")
     print("Generation starts with arguments:",
           ", ".join(f"{k}={v}" for k, v in vars(args).items()))
 

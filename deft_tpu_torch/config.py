@@ -22,23 +22,19 @@ class AttentionConfig:
         tree_cache.py:587).  Default 256, deft_tpu's choice for its TPU
         kernels, kept so both packages build the same plans; the Hopper
         kernels take any multiple of 64.
-    max_q_tile: query *rows* per kernel tile in deft_tpu (leaves x
-        q_heads_per_kv_head); the reference limits 32 queries per partial
-        (tree_cache.py:661-723).  Kept for parity; the port's kernels do not
-        read it.
-    node_chunk_len: when set, DeFT-Node plans chunk node KV runs to at most
-        this many tokens (the reference's MAX_BLOCK_LEN node_chunk mode,
-        examples/run_DeFT_llama_paged.py:145-150).
+
+    deft_tpu's max_q_tile and node_chunk_len are not here: no ported code
+    reads them yet.
     """
 
     block_len: int = 256
-    max_q_tile: int = 128
-    node_chunk_len: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Top-level engine knobs."""
+    """Top-level engine knobs.  deft_tpu's max_leaves, kv_dtype and
+    weight_dtype come with the code that reads them (int8 KV and weights
+    are queued, ROADMAP B4/B5/B9)."""
 
     attention: AttentionConfig = dataclasses.field(default_factory=AttentionConfig)
     # KV pool sizing: number of token slots.  None -> from free device memory.
@@ -47,15 +43,7 @@ class EngineConfig:
     max_context_len: int = 32768
     # Plan shape buckets: pad token counts to these granularities.
     min_token_bucket: int = 1024
-    max_leaves: int = 128
     dtype: str = "bfloat16"
-    # KV cache element type: "inherit" (same as dtype) or "int8"
-    # (per-(token, head) fp32 scales; halves KV HBM footprint and IO)
-    kv_dtype: str = "inherit"
-    # Weight element type: "inherit" (dtype) or "int8" (weight-only
-    # quantization, per-output-channel fp32 scales); the port runs
-    # "inherit" only so far, as it does for kv_dtype
-    weight_dtype: str = "inherit"
     # Fraction of free device memory the KV pool may claim when
     # kv_pool_slots is None.
     mem_fraction: float = 0.8

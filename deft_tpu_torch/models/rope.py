@@ -1,9 +1,9 @@
 """Rotary position embeddings, HF-Llama (rotate-half) convention, with
 Llama-3 frequency scaling.
 
-Port of deft_tpu/models/rope.py:92 (rope_table, a numpy copy with the same
-scalings) and :177 (apply_rope, now torch).  The cos/sin table is built once
-on the host and moved to the runner's device.
+Port of deft_tpu/models/rope.py:92 (rope_table, a numpy copy with its
+Llama-3 scaling) and :177 (apply_rope, now torch).  The cos/sin table is
+built once on the host and moved to the runner's device.
 """
 
 from __future__ import annotations
@@ -37,138 +37,28 @@ def _llama3_scale_freqs(inv_freq: np.ndarray, scaling: Dict[str, Any]) -> np.nda
     return scaled
 
 
-def _yarn_correction_dim(num_rot: float, dim: int, base: float,
-                         orig_max: int) -> float:
-    return (dim * math.log(orig_max / (num_rot * 2 * math.pi))) / (
-        2 * math.log(base)
-    )
-
-
-def _yarn_ramp_mask(low: float, high: float, n: int) -> np.ndarray:
-    if low == high:
-        high += 1e-3
-    r = (np.arange(n, dtype=np.float64) - low) / (high - low)
-    return np.clip(r, 0.0, 1.0)
-
-
-def _yarn_scale_freqs(inv_freq: np.ndarray, scaling: Dict[str, Any],
-                      base: float, head_dim: int):
-    """YaRN (+ deepseek variant) frequency interpolation with ramp between
-    the beta_fast/beta_slow correction dims; returns (inv_freq, mscale)
-    where mscale multiplies cos/sin (attention temperature).  Parity:
-    reference rotary_embedding.py YaRNScalingRotaryEmbedding /
-    DeepseekScalingRotaryEmbedding."""
-    factor = float(scaling["factor"])
-    orig_max = int(scaling.get("original_max_position_embeddings", 4096))
-    beta_fast = float(scaling.get("beta_fast", 32))
-    beta_slow = float(scaling.get("beta_slow", 1))
-    half = len(inv_freq)
-    low = max(math.floor(
-        _yarn_correction_dim(beta_fast, head_dim, base, orig_max)), 0)
-    high = min(math.ceil(
-        _yarn_correction_dim(beta_slow, head_dim, base, orig_max)),
-        head_dim - 1)
-    # 1 where extrapolation (high-freq dims), 0 where interpolation;
-    # ramp bounds are in correction-dim units over the half-dim axis
-    extrap_mask = 1.0 - _yarn_ramp_mask(float(low), float(high), half)
-    inv = inv_freq / factor * (1.0 - extrap_mask) + inv_freq * extrap_mask
-
-    attn_factor = float(scaling.get("attention_factor") or
-                        scaling.get("attn_factor") or 0.0)
-    if attn_factor:
-        mscale = attn_factor
-    elif scaling.get("rope_type", scaling.get("type")) == "deepseek_yarn":
-        def _ms(s, m):
-            return 1.0 if s <= 1 else 0.1 * m * math.log(s) + 1.0
-        mscale = _ms(factor, float(scaling.get("mscale", 1.0))) / _ms(
-            factor, float(scaling.get("mscale_all_dim", 0.0)) or 1.0)
-    else:
-        mscale = 0.1 * math.log(factor) + 1.0 if factor > 1 else 1.0
-    return inv, mscale
-
-
 def rope_table(
     head_dim: int,
     max_pos: int,
     theta: float = 10000.0,
     scaling: Optional[Dict[str, Any]] = None,
-    orig_max_pos: Optional[int] = None,
 ) -> np.ndarray:
     """(max_pos, head_dim) fp32 numpy table: [cos | sin] halves, HF layout
     (cos/sin each repeated over the two rotated halves).
 
-    Scaling parity with the reference's vLLM-derived family
-    (DeFT's deft/layers/rotary_embedding.py:647-788):
-    linear, dynamic NTK, YaRN, Deepseek-YaRN, Llama-3."""
+    Scalings: none and Llama-3 (DeFT's deft/layers/rotary_embedding.py);
+    deft_tpu's linear, dynamic NTK, YaRN and LongRoPE come with the presets
+    that need them, and raise here until then."""
     half = head_dim // 2
     inv_freq = 1.0 / (theta ** (np.arange(0, half, dtype=np.float64) * 2 / head_dim))
-    mscale = 1.0
     if scaling is not None:
         rtype = scaling.get("rope_type", scaling.get("type", ""))
         if rtype == "llama3":
             inv_freq = _llama3_scale_freqs(inv_freq, scaling)
-        elif rtype == "linear":
-            inv_freq = inv_freq / scaling["factor"]
-        elif rtype == "dynamic":
-            # NTK: rescale the base for the full table length.  The
-            # PRE-scaling max matters: HF dynamic configs carry it as
-            # max_position_embeddings itself (context_len multiplies it by
-            # factor) — defaulting to the already-scaled max_pos would
-            # collapse base to theta (an unscaled table)
-            factor = float(scaling["factor"])
-            orig_max = int(scaling.get(
-                "original_max_position_embeddings",
-                orig_max_pos if orig_max_pos else max_pos,
-            ))
-            seq_len = max(max_pos, orig_max)
-            base = theta * (
-                factor * seq_len / orig_max - (factor - 1)
-            ) ** (head_dim / (head_dim - 2))
-            inv_freq = 1.0 / (
-                base ** (np.arange(0, half, dtype=np.float64) * 2 / head_dim)
-            )
-        elif rtype in ("yarn", "deepseek_yarn"):
-            inv_freq, mscale = _yarn_scale_freqs(
-                inv_freq, scaling, theta, head_dim
-            )
-        elif rtype == "longrope":
-            # Phi-3 LongRoPE (transformers _compute_longrope_parameters):
-            # per-dim frequency rescale + attention factor on cos/sin.  HF
-            # switches short->long factors by the RUNTIME sequence length,
-            # which with a KV cache means tokens WRITTEN while seq <=
-            # orig_max keep their short-factor rope forever; a static
-            # engine table reproduces exactly that incremental-decode
-            # behavior by choosing factors PER POSITION (short below
-            # orig_max, long at/after it — the vLLM Phi3LongRoPE layout).
-            # attention_factor follows the CONFIG max ratio and applies to
-            # the whole table, as in HF.
-            orig_in_cfg = scaling.get("original_max_position_embeddings")
-            orig_max = int(orig_in_cfg or orig_max_pos or max_pos)
-            inv_s = inv_freq / np.asarray(scaling["short_factor"],
-                                          dtype=np.float64)
-            inv_l = inv_freq / np.asarray(scaling["long_factor"],
-                                          dtype=np.float64)
-            is_long = (np.arange(max_pos) >= orig_max)[:, None]
-            inv_freq = np.where(is_long, inv_l[None, :], inv_s[None, :])
-            af = scaling.get("attention_factor")
-            if af is None:
-                # HF overrides any explicit factor with the config-max
-                # ratio ONLY when the config carries the original max
-                factor = scaling.get("factor")
-                if orig_in_cfg and orig_max_pos:
-                    factor = orig_max_pos / orig_max
-                af = (math.sqrt(1 + math.log(factor) / math.log(orig_max))
-                      if factor and factor > 1.0 else 1.0)
-            mscale = float(af)
-        elif rtype in ("default", "", None):
-            pass
-        else:
-            raise NotImplementedError(f"rope scaling {rtype!r}")
-    pos = np.arange(max_pos, dtype=np.float64)
-    # longrope produces per-position frequencies (max_pos, half)
-    freqs = (pos[:, None] * inv_freq if inv_freq.ndim == 2
-             else np.outer(pos, inv_freq))
-    table = np.concatenate([np.cos(freqs), np.sin(freqs)], axis=-1) * mscale
+        elif rtype not in ("default", "", None):
+            raise NotImplementedError(f"rope scaling {rtype!r} is not ported yet")
+    freqs = np.outer(np.arange(max_pos, dtype=np.float64), inv_freq)
+    table = np.concatenate([np.cos(freqs), np.sin(freqs)], axis=-1)
     return table.astype(np.float32)
 
 

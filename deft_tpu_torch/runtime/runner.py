@@ -99,8 +99,6 @@ class ModelRunner:
         self.retain_full_logits = retain_full_logits
         self.dtype = (torch.bfloat16 if engine_config.dtype == "bfloat16"
                       else torch.float32)
-        if engine_config.kv_dtype != "inherit" or engine_config.weight_dtype != "inherit":
-            raise NotImplementedError("int8 KV / weights are not ported yet")
         if params is None:
             logger.info("random-init params (seed=%d)", seed)
             params = random_params(model_config, seed, self.device, self.dtype)
@@ -109,9 +107,7 @@ class ModelRunner:
         max_pos = min(self.cfg.context_len, engine_config.max_context_len)
         self._rope_tbl = torch.from_numpy(rope_table(
             self.cfg.head_dim, max_pos, self.cfg.rope_theta,
-            self.cfg.rope_scaling,
-            orig_max_pos=self.cfg.max_position_embeddings,
-        )).to(self.device)
+            self.cfg.rope_scaling)).to(self.device)
 
         slots = engine_config.kv_pool_slots or self._profile_slots()
         logger.info("KV pool: %d slots (%.1f MB per side)", slots,

@@ -102,13 +102,14 @@ def test_cli_runs_on_cpu(tmp_path, capsys):
     text = capsys.readouterr().out
     assert "TPOT (ms/token)" in text and text.count("Branch ID") == 2
     assert out.exists()
-    with pytest.raises(NotImplementedError):
-        run.main(["--device", "cpu", "--random-model", "tiny", "--mode", "node"])
+    for flag, value in (("--mode", "node"), ("--Branch_controller", "Beam_Search")):
+        with pytest.raises(SystemExit):  # not ported yet: argparse refuses it
+            run.main(["--device", "cpu", "--random-model", "tiny", flag, value])
 
 
 def test_refusals():
     """No silent fallbacks: CUDA without a GPU, gather plans and unported
-    configs raise."""
+    configs, rope scalings and engine options raise."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             ModelRunner(PRESETS["tiny"], EngineConfig(**ECFG), device="cuda")
@@ -127,6 +128,12 @@ def test_refusals():
     moe = dataclasses.replace(PRESETS["tiny"], num_experts=4)
     with pytest.raises(NotImplementedError):
         ModelRunner(moe, EngineConfig(**ECFG), device="cpu")
+    yarn = dataclasses.replace(PRESETS["tiny"],
+                               rope_scaling={"rope_type": "yarn", "factor": 4.0})
+    with pytest.raises(NotImplementedError, match="yarn"):
+        ModelRunner(yarn, EngineConfig(**ECFG), device="cpu")
+    with pytest.raises(TypeError):  # int8 KV is not ported: no such option
+        EngineConfig(**ECFG, kv_dtype="int8")
 
 
 def test_port_imports_neither_jax_nor_deft_tpu():
