@@ -1,16 +1,17 @@
 """Experiment CLI: one tree generation with random weights.
 
 Port of deft_tpu/cli/run.py:26 (build_parser) and :200 (main), with the
-flags of this slice: --random-model, --mode flatten|seq, --Branch_controller
+flags ported so far: --random-model, --mode flatten|seq, --Branch_controller
 Simple_Tree, --max_width, --max_depth, --max_seq_len, --prompt_len,
---block_len, --dtype, --kv_pool_slots, --seed, --output_file,
---print-branches and --device cuda|cpu (default cuda; a missing GPU raises).
-The other modes and workloads are not ported yet, so argparse refuses them.
+--block_len, --dtype, --kv-dtype inherit|int8, --kv_pool_slots, --seed,
+--output_file, --print-branches and --device cuda|cpu (default cuda; a
+missing GPU raises).  The other modes and workloads are not ported yet, so
+argparse refuses them.
 
-Usage:
+Usage (the default 16-token prompt; add --kv-dtype int8 for the int8 cache):
     python -m deft_tpu_torch.cli.run --device cpu --random-model tiny \
-        --mode flatten --Branch_controller Simple_Tree --max_width 2 \
-        --prompt_len 300 --max_seq_len 310 --dtype float32
+        --mode flatten --max_width 3 --max_seq_len 40 --dtype float32 \
+        --kv_pool_slots 4096
 """
 
 from __future__ import annotations
@@ -36,6 +37,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--block_len", type=int, default=256)
     p.add_argument("--dtype", choices=["bfloat16", "float32"],
                    default="bfloat16")
+    p.add_argument("--kv-dtype", choices=["inherit", "int8"],
+                   default="inherit",
+                   help="int8: quantized KV cache (per-token-head scales)")
     p.add_argument("--kv_pool_slots", type=int, default=None)
     p.add_argument("--print-branches", action="store_true")
     p.add_argument("--seed", type=int, default=0)
@@ -64,7 +68,8 @@ def main(argv=None) -> int:
 
     cfg = PRESETS[args.random_model]
     ecfg = EngineConfig(attention=AttentionConfig(block_len=args.block_len),
-                        kv_pool_slots=args.kv_pool_slots, dtype=args.dtype)
+                        kv_pool_slots=args.kv_pool_slots, dtype=args.dtype,
+                        kv_dtype=args.kv_dtype)
     runner = ModelRunner(cfg, ecfg, device=args.device, seed=args.seed,
                          topk_k=max(64, args.max_width))
     prompt_ids = make_prompt(args.prompt_len, args.max_seq_len, cfg.vocab_size,

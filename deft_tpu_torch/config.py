@@ -32,9 +32,8 @@ class AttentionConfig:
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Top-level engine knobs.  deft_tpu's max_leaves, kv_dtype and
-    weight_dtype come with the code that reads them (int8 KV and weights
-    are queued, ROADMAP B4/B5/B9)."""
+    """Top-level engine knobs.  deft_tpu's max_leaves and weight_dtype come
+    with the code that reads them (int8 weights are queued, ROADMAP B9)."""
 
     attention: AttentionConfig = dataclasses.field(default_factory=AttentionConfig)
     # KV pool sizing: number of token slots.  None -> from free device memory.
@@ -44,6 +43,13 @@ class EngineConfig:
     # Plan shape buckets: pad token counts to these granularities.
     min_token_bucket: int = 1024
     dtype: str = "bfloat16"
+    # KV cache element type (deft_tpu config.py:54): "inherit" (dtype) or
+    # "int8" (per-(token, head) fp32 scales; halves the KV bytes).
+    kv_dtype: str = "inherit"
     # Fraction of free device memory the KV pool may claim when
     # kv_pool_slots is None.
     mem_fraction: float = 0.8
+
+    def __post_init__(self):
+        if self.kv_dtype not in ("inherit", "int8"):
+            raise ValueError(f"kv_dtype {self.kv_dtype!r}: 'inherit' or 'int8'")

@@ -1,17 +1,24 @@
-// Shared pieces of the two tensor-core attention kernels (prefill.cu,
-// paged_flatten.cu): one thread block owns kBM = 64 folded query rows of one
-// KV head, four warps of 16 rows each, and walks KV tiles of kBN = 64 tokens
-// staged in shared memory.  Per tile, S = Q K^T and O += P V are warp-level
-// products; the online softmax runs in the exp2 domain on the S fragments
-// held in registers (scores are multiplied by scale * log2(e)), with the
-// running max clamped at -1e5 so a fully masked row keeps l == 0 and ends at
-// 0 — the convention of the Pallas kernels (deft_tpu ops/paged_flatten_attn.py
-// :51-60, ops/prefill.py:61-79).
+// Shared pieces of the tensor-core attention kernels (prefill.cu and the
+// flatten kernels of flatten_body.cuh): one thread block owns kBM = 64 folded
+// query rows of one KV head, four warps of 16 rows each, and walks KV tiles
+// of kBN = 64 tokens staged in shared memory.  Per tile, S = Q K^T and
+// O += P V are warp-level products; the online softmax runs in the exp2
+// domain on the S fragments held in registers (scores are multiplied by
+// scale * log2(e)), with the running max clamped at -1e5 so a fully masked
+// row keeps l == 0 and ends at 0 — the convention of the Pallas kernels
+// (deft_tpu ops/paged_flatten_attn.py:51-60, ops/prefill.py:61-79).
 //
 // bf16 tiles use mma.sync.m16n8k16 with fp32 accumulation; P is rounded to
 // bf16 for the PV product, as the Pallas kernels cast p to the pool dtype.
 // fp32 tiles (the exactness checks) compute the same fragments with FMA
 // loops over shared memory, so both types share the layout and the softmax.
+//
+// int8 KV (Smem<T, D, int8_t>): the tiles arrive as int8 in a staging area
+// and are widened to T in shared memory — exact, |x| <= 127 fits bf16's
+// 8-bit mantissa — beside the tile's per-token fp32 K and V scales.  The
+// scores are multiplied by the K scales after the product and P by the V
+// scales before it is rounded for PV, the order of deft_tpu
+// ops/paged_quant.py:150-177; l sums the unscaled P.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -59,17 +66,24 @@ __device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
 
 // Shared memory of one block.  The row pitch is padded by 16 bytes so the
 // fragment loads (eight rows x four 32-bit words per warp) and the ldmatrix
-// row reads hit 32 distinct banks.
-template <typename T, int D>
+// row reads hit 32 distinct banks.  KV is the pool's element type: T, or
+// int8_t with fp32 scales.
+template <typename T, int D, typename KV = T>
 struct Smem {
   static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr bool kQ = std::is_same<KV, int8_t>::value;
   static constexpr int QS = D + 16 / sizeof(T);  // pitch of Q, K and V tiles
   static constexpr int PS = kBN + 4;             // pitch of the fp32 P tile
-  T q[kBM * QS];
-  T k[kBN * QS];
-  T v[kBN * QS];
-  float p[kF32 ? kWarps * 16 * PS : 1];
+  alignas(16) T q[kBM * QS];
+  alignas(16) T k[kBN * QS];
+  alignas(16) T v[kBN * QS];
+  alignas(16) float p[kF32 ? kWarps * 16 * PS : 4];
+  alignas(16) int8_t kst[kQ ? kBN * D : 16];  // int8 tiles as loaded
+  alignas(16) int8_t vst[kQ ? kBN * D : 16];
+  float ks[kQ ? kBN : 1];  // per-token K and V scales of the tile's head
+  float vs[kQ ? kBN : 1];
   long long roff[kBN];  // element offset of each tile token's row, -1: zeros
+  long long soff[kQ ? kBN : 1];  // offset of its scales, -1: none
   int lo[kBN];
   int hi[kBN];
 };
@@ -121,6 +135,52 @@ __device__ __forceinline__ void load_kv_tile(Smem<T, D>& sm, const T* __restrict
   cp_async_wait_all();
 }
 
+// Widen a staged (kBN, D) int8 tile to T rows of pitch QS, 16 values a step.
+template <typename T, int D>
+__device__ __forceinline__ void widen_rows(T* dst, const int8_t* src) {
+  constexpr int QS = Smem<T, D, int8_t>::QS;
+  for (int i = threadIdx.x; i < kBN * D / 16; i += kThreads) {
+    const int r = i / (D / 16), c = (i % (D / 16)) * 16;
+    const int4 raw = *reinterpret_cast<const int4*>(src + r * D + c);
+    const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+    T* d = dst + r * QS + c;
+    if constexpr (std::is_same<T, float>::value) {
+#pragma unroll
+      for (int j = 0; j < 16; j += 4)
+        *reinterpret_cast<float4*>(d + j) = make_float4(b[j], b[j + 1], b[j + 2], b[j + 3]);
+    } else {
+      uint32_t w[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) w[j] = pack_bf16(b[2 * j], b[2 * j + 1]);
+      *reinterpret_cast<uint4*>(d) = make_uint4(w[0], w[1], w[2], w[3]);
+      *reinterpret_cast<uint4*>(d + 8) = make_uint4(w[4], w[5], w[6], w[7]);
+    }
+  }
+}
+
+// int8 pools: load the int8 K and V tiles of the tokens in sm.roff and their
+// scales (offsets in sm.soff) from the (L, Hkv, S) scale pools, then widen
+// the tiles to T.  Syncs the block inside; the caller syncs it again before
+// reading the tiles.
+template <typename T, int D>
+__device__ __forceinline__ void load_kv_tile(Smem<T, D, int8_t>& sm,
+                                             const int8_t* __restrict__ kp,
+                                             const int8_t* __restrict__ vp,
+                                             const float* __restrict__ ksp,
+                                             const float* __restrict__ vsp) {
+  load_rows<int8_t, D>(sm.kst, D, kp, sm.roff, kBN);
+  load_rows<int8_t, D>(sm.vst, D, vp, sm.roff, kBN);
+  if (threadIdx.x < kBN) {
+    const long long so = sm.soff[threadIdx.x];
+    sm.ks[threadIdx.x] = so >= 0 ? ksp[so] : 0.f;
+    sm.vs[threadIdx.x] = so >= 0 ? vsp[so] : 0.f;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  widen_rows<T, D>(sm.k, sm.kst);
+  widen_rows<T, D>(sm.v, sm.vst);
+}
+
 // Two transposed 8x8 b16 matrices from shared memory: the B fragment of
 // m16n8k16 when B (k x n) is stored row-major, as V[token][dim] is.
 __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1,
@@ -131,8 +191,8 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1,
                : "r"(a));
 }
 
-template <typename T, int D>
-__device__ __forceinline__ void init_state(RowState<D>& st, const Smem<T, D>& sm) {
+template <typename T, int D, typename KV>
+__device__ __forceinline__ void init_state(RowState<D>& st, const Smem<T, D, KV>& sm) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g = lane / 4, tig = lane % 4;
 #pragma unroll
@@ -141,8 +201,8 @@ __device__ __forceinline__ void init_state(RowState<D>& st, const Smem<T, D>& sm
     for (int i = 0; i < 4; ++i) st.o[n][i] = 0.f;
   st.m[0] = st.m[1] = kNeg;
   st.l[0] = st.l[1] = 0.f;
-  if constexpr (!Smem<T, D>::kF32) {
-    using S = Smem<T, D>;
+  if constexpr (!Smem<T, D, KV>::kF32) {
+    using S = Smem<T, D, KV>;
     const T* q0 = sm.q + (warp * 16 + g) * S::QS + tig * 2;
     const T* q1 = q0 + 8 * S::QS;
 #pragma unroll
@@ -156,11 +216,12 @@ __device__ __forceinline__ void init_state(RowState<D>& st, const Smem<T, D>& sm
 }
 
 // s[n][i]: score of the thread's fragment element (row g or g+8, token
-// n*8 + tig*2 + (i&1)) times s2 = scale * log2(e).
-template <typename T, int D>
+// n*8 + tig*2 + (i&1)) times s2 = scale * log2(e) (and the token's K scale
+// on int8 pools).
+template <typename T, int D, typename KV>
 __device__ __forceinline__ void tile_scores(float s[kBN / 8][4], const RowState<D>& st,
-                                            const Smem<T, D>& sm, float s2) {
-  using S = Smem<T, D>;
+                                            const Smem<T, D, KV>& sm, float s2) {
+  using S = Smem<T, D, KV>;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g = lane / 4, tig = lane % 4;
 #pragma unroll
@@ -188,15 +249,22 @@ __device__ __forceinline__ void tile_scores(float s[kBN / 8][4], const RowState<
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) s[n][i] *= s2;
+    if constexpr (S::kQ) {
+      const int c = n * 8 + tig * 2;
+      s[n][0] *= sm.ks[c];
+      s[n][1] *= sm.ks[c + 1];
+      s[n][2] *= sm.ks[c];
+      s[n][3] *= sm.ks[c + 1];
+    }
   }
 }
 
 // Online-softmax update with the (already masked) scores of one tile, then
 // O += P V.  Masked scores hold kNeg, so exp2 sends them to exactly 0.
-template <typename T, int D>
+template <typename T, int D, typename KV>
 __device__ __forceinline__ void tile_update(float s[kBN / 8][4], RowState<D>& st,
-                                            Smem<T, D>& sm) {
-  using S = Smem<T, D>;
+                                            Smem<T, D, KV>& sm) {
+  using S = Smem<T, D, KV>;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g = lane / 4, tig = lane % 4;
   float alpha[2];
@@ -227,6 +295,16 @@ __device__ __forceinline__ void tile_update(float s[kBN / 8][4], RowState<D>& st
     st.o[n][1] *= alpha[0];
     st.o[n][2] *= alpha[1];
     st.o[n][3] *= alpha[1];
+  }
+  if constexpr (S::kQ) {  // P times the V scales, after l took the unscaled P
+#pragma unroll
+    for (int n = 0; n < kBN / 8; ++n) {
+      const int c = n * 8 + tig * 2;
+      s[n][0] *= sm.vs[c];
+      s[n][1] *= sm.vs[c + 1];
+      s[n][2] *= sm.vs[c];
+      s[n][3] *= sm.vs[c + 1];
+    }
   }
   if constexpr (S::kF32) {
     float* pw = sm.p + warp * 16 * S::PS;

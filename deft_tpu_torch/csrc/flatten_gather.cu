@@ -1,0 +1,47 @@
+// DeFT-Flatten tree-decode attention for plans that are not segment-aligned:
+// every plan token carries its own pool row.
+//
+// Replaces the Pallas TPU kernel B6, deft_tpu/ops/flatten_attn.py:77
+// (_flatten_kernel, launched by flatten_attention :141 from
+// flatten_attn_pallas :204).  deft_tpu first gathers the tree's KV in XLA
+// into a contiguous (Hkv, T, D) copy (dequantised for int8 pools), then runs
+// the kernel over it.  This kernel reads row kv_idx[t] of the pool inside
+// the kernel instead: the same function, one copy of the tree's KV less per
+// layer.  The plan's tail pads point at DUMP_SLOT with empty leaf intervals
+// (tok_lo = 2^30), so they are masked, never read as live.
+//
+// Bound on this card: bytes.  T * Hkv * D * 2 * itemsize per layer (plus the
+// int8 scales, T * Hkv * 4 * 2) and 4 bytes of kv_idx a token, against
+// 3.35 TB/s.  Design: the split-KV kernels of flatten_body.cuh (B1's), with
+// each 64-token tile's rows taken from kv_idx instead of the segment table;
+// dead blocks and tiles no row sees are skipped and FULL blocks take no
+// mask, as in B1.  int8 pools are widened and scaled as in B4.
+#include "flatten_body.cuh"
+
+// The arguments of every flatten entry (paged_flatten.cu); seg_len is unread.
+// dtype: 0 = float32, 1 = bfloat16 (q and o; the pools too unless int8).
+// k_scale / v_scale: (L, Hkv, S) fp32 scales of int8 pools, null for pools
+// of the q type.  q, o: (R, Hq, D); pools (L, S, Hkv*D); layer_off = li * S
+// * Hkv * D; scale_off = li * Hkv * S; kv_idx, tok_lo/hi (nb * block_len,);
+// blk_lo/hi (nb,); acc (n_spans, Hkv, R*qpk, D) and m, l (n_spans, Hkv,
+// R*qpk) fp32 scratch.  Returns a cudaError_t code.
+extern "C" int deft_flatten_gather(const void* q, const void* k_pool, const void* v_pool,
+                                   const float* k_scale, const float* v_scale,
+                                   long long layer_off, long long scale_off, int S,
+                                   const int* kv_idx, const int* tok_lo,
+                                   const int* tok_hi, const int* blk_lo,
+                                   const int* blk_hi, float* acc, float* m, float* l,
+                                   void* o, int R, int Hq, int Hkv, int D, int nb,
+                                   int block_len, int /*seg_len*/, int n_spans, int dtype,
+                                   float scale, void* stream) {
+  if (!k_scale != !v_scale) return cudaErrorInvalidValue;
+  const deft::IdxRows rows{kv_idx};
+  if (k_scale)
+    return deft::dispatch_flatten<int8_t, int8_t>(
+        q, k_pool, v_pool, k_scale, v_scale, layer_off, scale_off, S, rows, tok_lo,
+        tok_hi, blk_lo, blk_hi, acc, m, l, o, R, Hq, Hkv, D, nb, block_len, n_spans, dtype,
+        scale, stream);
+  return deft::dispatch_flatten<float, __nv_bfloat16>(
+      q, k_pool, v_pool, nullptr, nullptr, layer_off, 0, 0, rows, tok_lo, tok_hi, blk_lo,
+      blk_hi, acc, m, l, o, R, Hq, Hkv, D, nb, block_len, n_spans, dtype, scale, stream);
+}

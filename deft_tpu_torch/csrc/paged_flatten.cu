@@ -1,210 +1,66 @@
 // DeFT-Flatten tree-decode attention reading KV straight from the paged pool.
 //
-// Replaces the Pallas TPU kernel deft_tpu/ops/paged_flatten_attn.py:63
-// (_paged_kernel, launched by _paged_call :296 for paged_flatten_attention
-// :381).  The plan (plan/flatten.py) lays the tree's KV out in DFS order in
-// blocks of block_len tokens; segment j of block b is the pool span
-// [seg_src[b*nseg + j], + seg_len).  Folded row r (leaf r / qpk, query head
-// h * qpk + r % qpk) sees token t iff tok_lo[t] <= r / qpk < tok_hi[t].
-// Blocks with blk_lo >= blk_hi are dead; blk_lo < -(1 << 20) marks a FULL
-// block (every token live for every leaf), which takes no mask.
+// Replaces two Pallas TPU kernels:
+//   B1 deft_tpu/ops/paged_flatten_attn.py:63 (_paged_kernel, launched by
+//      _paged_call :296 for paged_flatten_attention :381), bf16/fp32 pools:
+//      entry deft_paged_flatten;
+//   B4 deft_tpu/ops/paged_quant.py:32 (_paged_q_kernel, launched by
+//      _paged_q_call :236 for paged_flatten_attention_q :305), int8 pools
+//      with per-(token, head) fp32 scales stored head-major (L, Hkv, S):
+//      entry deft_paged_flatten_q.
+// The plan (plan/flatten.py) lays the tree's KV out in DFS order in blocks of
+// block_len tokens; segment j of block b is the pool span
+// [seg_src[b*nseg + j], + seg_len).  Both entries run the split-KV kernels
+// of flatten_body.cuh over that segment table.
 //
-// Bound on this card: bytes.  The KV of the flattened tree, T * Hkv * D * 2 *
-// itemsize per layer, against 3.35 TB/s; each block of KV is read once per
-// 64-row query tile that attends it.  The TPU kernel walks the blocks in
-// order on one core and carries (m, l, acc) in VMEM; CUDA blocks run at once,
-// so the work is split (split-KV):
-//   kernel 1: one block per (64 folded rows, KV head, span of plan blocks)
-//             writes the unnormalised (acc, m, l) of its span.  Dead blocks,
-//             and blocks whose leaf interval misses the row tile (the
-//             narrow-q case of the TPU kernel), are skipped; 64-token tiles
-//             whose tokens no row of the tile sees are skipped too.
-//   kernel 2: merges the spans by the LSE rule of deft_tpu
-//             ops/sharded_flatten.py:158-165 (base 2) and writes 0 where l == 0.
-// The number of spans is chosen by the caller so that the partial state is
-// a fraction of the KV read.
-#include "flash_common.cuh"
+// Bound on this card: bytes.  The KV of the flattened tree per layer,
+// T * Hkv * D * 2 * itemsize, plus for int8 the scales, T * Hkv * 4 * 2,
+// against 3.35 TB/s; each block of KV is read once per 64-row query tile
+// that attends it.  B4 reads half B1's KV bytes: its tiles arrive as int8
+// (cp.async into a staging area) and are widened to the q type in shared
+// memory, so the tensor-core products and the online softmax are B1's, with
+// the K scales applied to the scores after the product and the V scales to
+// P before PV, as deft_tpu ops/paged_quant.py:150-177 orders them.
+#include "flatten_body.cuh"
 
-namespace deft {
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flatten_partial_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                           const T* __restrict__ v_pool, long long layer_off,
-                           const int* __restrict__ seg_src, const int* __restrict__ tok_lo,
-                           const int* __restrict__ tok_hi, const int* __restrict__ blk_lo,
-                           const int* __restrict__ blk_hi, float* __restrict__ acc,
-                           float* __restrict__ m_out, float* __restrict__ l_out, int R,
-                           int Hq, int Hkv, int nb, int block_len, int seg_len,
-                           int blocks_per_span, float s2) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<T, D>& sm = *reinterpret_cast<Smem<T, D>*>(smem_raw);
-  using S = Smem<T, D>;
-  const int qpk = Hq / Hkv;
-  const int Rq = R * qpk;
-  const int r0 = blockIdx.x * kBM;
-  const int h = blockIdx.y;
-  const int span = blockIdx.z;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, tig = lane % 4;
-  const int nseg = block_len / seg_len;
-  const int leaf_a = r0 / qpk;                          // first leaf of the tile
-  const int leaf_b = (min(Rq, r0 + kBM) - 1) / qpk;     // last leaf of the tile
-
-  if (threadIdx.x < kBM) {
-    const int r = r0 + threadIdx.x;
-    sm.roff[threadIdx.x] =
-        r < Rq ? ((long long)(r / qpk) * Hq + h * qpk + r % qpk) * D : -1;
-  }
-  __syncthreads();
-  load_rows<T, D>(sm.q, S::QS, q, sm.roff, kBM);
-  cp_async_wait_all();
-  __syncthreads();
-  RowState<D> st;
-  init_state<T, D>(st, sm);
-
-  const int row0 = r0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
-  const int leaf0 = row0 / qpk, leaf1 = (row0 + 8) / qpk;
-  const int b_end = min(nb, (span + 1) * blocks_per_span);
-  for (int b = span * blocks_per_span; b < b_end; ++b) {
-    const int blo = blk_lo[b], bhi = blk_hi[b];
-    const bool full = blo < -(1 << 20);
-    if (!full && blo >= bhi) continue;               // dead block
-    if (bhi <= leaf_a || (!full && blo > leaf_b)) continue;  // misses the tile
-    for (int sub = 0; sub < block_len; sub += kBN) {
-      __syncthreads();  // the previous tile is consumed
-      int any = 0;
-      if (threadIdx.x < kBN) {
-        const int bt = sub + threadIdx.x;  // token within the block
-        const int row = seg_src[b * nseg + bt / seg_len] + bt % seg_len;
-        sm.roff[threadIdx.x] = layer_off + ((long long)row * Hkv + h) * D;
-        const int t = b * block_len + bt;
-        const int lo = tok_lo[t], hi = tok_hi[t];
-        sm.lo[threadIdx.x] = lo;
-        sm.hi[threadIdx.x] = hi;
-        any = lo < hi && lo <= leaf_b && hi > leaf_a;
-      }
-      if (!full && !__syncthreads_or(any)) continue;  // no row sees this tile
-      if (full) __syncthreads();
-      load_kv_tile<T, D>(sm, k_pool, v_pool);
-      __syncthreads();
-      float s[kBN / 8][4];
-      tile_scores<T, D>(s, st, sm, s2);
-      if (!full) {
-#pragma unroll
-        for (int n = 0; n < kBN / 8; ++n) {
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int t = n * 8 + tig * 2 + c;
-            const int lo = sm.lo[t], hi = sm.hi[t];
-            if (!(lo <= leaf0 && leaf0 < hi)) s[n][c] = kNeg;
-            if (!(lo <= leaf1 && leaf1 < hi)) s[n][2 + c] = kNeg;
-          }
-        }
-      }
-      tile_update<T, D>(s, st, sm);
-    }
-  }
-
-  // unnormalised state of this span: acc (spans, Hkv, Rq, D), m/l (spans, Hkv, Rq)
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int r = row0 + 8 * hh;
-    if (r >= Rq) continue;
-    const long long base = ((long long)span * Hkv + h) * Rq + r;
-    float* arow = acc + base * D;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const int d = n * 8 + tig * 2;
-      *reinterpret_cast<float2*>(arow + d) = make_float2(st.o[n][2 * hh], st.o[n][2 * hh + 1]);
-    }
-    if (tig == 0) {
-      m_out[base] = st.m[hh];
-      l_out[base] = st.l[hh];
-    }
-  }
-}
-
-// One warp per folded row: o = sum_s acc_s 2^(m_s - M) / sum_s l_s 2^(m_s - M),
-// M = max_s m_s; 0 where the merged l is 0.  Written in the (R, Hq, D) layout.
-template <typename T>
-__global__ void flatten_merge_kernel(const float* __restrict__ acc,
-                                     const float* __restrict__ m_in,
-                                     const float* __restrict__ l_in, T* __restrict__ o,
-                                     int n_spans, int R, int Hq, int Hkv, int D) {
-  const int qpk = Hq / Hkv;
-  const int Rq = R * qpk;
-  const int r = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  const int h = blockIdx.y;
-  const int lane = threadIdx.x % 32;
-  if (r >= Rq) return;
-  const long long stride = (long long)Hkv * Rq;  // between spans
-  const long long base = (long long)h * Rq + r;
-  float mg = kNeg;
-  for (int s = 0; s < n_spans; ++s) mg = fmaxf(mg, m_in[s * stride + base]);
-  float lg = 0.f;
-  for (int s = 0; s < n_spans; ++s) lg += l_in[s * stride + base] * exp2f(m_in[s * stride + base] - mg);
-  const float inv = lg == 0.f ? 0.f : 1.f / lg;
-  T* orow = o + ((long long)(r / qpk) * Hq + h * qpk + r % qpk) * D;
-  for (int d = lane; d < D; d += 32) {
-    float sum = 0.f;
-    for (int s = 0; s < n_spans; ++s)
-      sum += acc[(s * stride + base) * D + d] * exp2f(m_in[s * stride + base] - mg);
-    orow[d] = from_f<T>(sum * inv);
-  }
-}
-
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
-                   long long layer_off, const int* seg_src, const int* tok_lo,
-                   const int* tok_hi, const int* blk_lo, const int* blk_hi, float* acc,
-                   float* m, float* l, void* o, int R, int Hq, int Hkv, int nb,
-                   int block_len, int seg_len, int n_spans, float scale,
-                   cudaStream_t stream) {
-  auto kernel = flatten_partial_kernel<T, D>;
-  const size_t smem = sizeof(Smem<T, D>);
-  static const cudaError_t attr = allow_smem(kernel, smem);
-  if (attr != cudaSuccess) return attr;
-  const int rq = R * (Hq / Hkv);
-  const int bps = (nb + n_spans - 1) / n_spans;
-  dim3 grid((rq + kBM - 1) / kBM, Hkv, n_spans);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), layer_off, seg_src, tok_lo, tok_hi, blk_lo,
-      blk_hi, acc, m, l, R, Hq, Hkv, nb, block_len, seg_len, bps, scale * kLog2e);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  dim3 mgrid((rq + 3) / 4, Hkv);
-  flatten_merge_kernel<T><<<mgrid, 128, 0, stream>>>(acc, m, l, static_cast<T*>(o),
-                                                     n_spans, R, Hq, Hkv, D);
-  return cudaGetLastError();
-}
-
-}  // namespace deft
-
-// dtype: 0 = float32, 1 = bfloat16.  q, o: (R, Hq, D); pools (L, S, Hkv*D);
-// layer_off = li * S * Hkv * D; tok_lo/hi (nb * block_len,); blk_lo/hi (nb,);
-// seg_src (nb * block_len / seg_len,); acc (n_spans, Hkv, R*qpk, D) and
-// m, l (n_spans, Hkv, R*qpk) fp32 scratch.  Returns a cudaError_t code.
+// Both entries take the arguments of every flatten entry (flatten_gather.cu
+// too).  dtype: 0 = float32, 1 = bfloat16 (q and o; B1's pools too).  q, o:
+// (R, Hq, D); pools (L, S, Hkv*D); layer_off = li * S * Hkv * D; B4's scale
+// pools (L, Hkv, S) fp32 with scale_off = li * Hkv * S (B1: null, 0, and S
+// unread); tok_lo/hi (nb * block_len,); blk_lo/hi (nb,); seg_src
+// (nb * block_len / seg_len,); acc (n_spans, Hkv, R*qpk, D) and m, l
+// (n_spans, Hkv, R*qpk) fp32 scratch.  Returns a cudaError_t code.
 extern "C" int deft_paged_flatten(const void* q, const void* k_pool, const void* v_pool,
-                                  long long layer_off, const int* seg_src,
-                                  const int* tok_lo, const int* tok_hi,
-                                  const int* blk_lo, const int* blk_hi, float* acc,
-                                  float* m, float* l, void* o, int R, int Hq, int Hkv,
-                                  int D, int nb, int block_len, int seg_len, int n_spans,
-                                  int dtype, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (R <= 0 || Hkv <= 0 || Hq % Hkv || n_spans <= 0 || seg_len <= 0 ||
-      block_len % seg_len || block_len % deft::kBN)
+                                  const float* k_scale, const float* v_scale,
+                                  long long layer_off, long long scale_off, int S,
+                                  const int* seg_src, const int* tok_lo,
+                                  const int* tok_hi, const int* blk_lo,
+                                  const int* blk_hi, float* acc, float* m, float* l,
+                                  void* o, int R, int Hq, int Hkv, int D, int nb,
+                                  int block_len, int seg_len, int n_spans, int dtype,
+                                  float scale, void* stream) {
+  if (seg_len <= 0 || block_len % seg_len || k_scale || v_scale)
     return cudaErrorInvalidValue;
-#define DEFT_FLATTEN(T, DD)                                                           \
-  return deft::launch<T, DD>(q, k_pool, v_pool, layer_off, seg_src, tok_lo, tok_hi, \
-                             blk_lo, blk_hi, acc, m, l, o, R, Hq, Hkv, nb, block_len, \
-                             seg_len, n_spans, scale, s)
-  if (dtype == 1 && D == 128) DEFT_FLATTEN(__nv_bfloat16, 128);
-  if (dtype == 1 && D == 64) DEFT_FLATTEN(__nv_bfloat16, 64);
-  if (dtype == 0 && D == 128) DEFT_FLATTEN(float, 128);
-  if (dtype == 0 && D == 64) DEFT_FLATTEN(float, 64);
-#undef DEFT_FLATTEN
-  return cudaErrorInvalidValue;
+  const deft::SegRows rows{seg_src, seg_len, block_len / seg_len};
+  return deft::dispatch_flatten<float, __nv_bfloat16>(
+      q, k_pool, v_pool, nullptr, nullptr, layer_off, 0, 0, rows, tok_lo, tok_hi, blk_lo,
+      blk_hi, acc, m, l, o, R, Hq, Hkv, D, nb, block_len, n_spans, dtype, scale, stream);
+}
+
+extern "C" int deft_paged_flatten_q(const void* q, const void* k_pool, const void* v_pool,
+                                    const float* k_scale, const float* v_scale,
+                                    long long layer_off, long long scale_off, int S,
+                                    const int* seg_src, const int* tok_lo,
+                                    const int* tok_hi, const int* blk_lo,
+                                    const int* blk_hi, float* acc, float* m, float* l,
+                                    void* o, int R, int Hq, int Hkv, int D, int nb,
+                                    int block_len, int seg_len, int n_spans, int dtype,
+                                    float scale, void* stream) {
+  if (seg_len <= 0 || block_len % seg_len || !k_scale || !v_scale)
+    return cudaErrorInvalidValue;
+  const deft::SegRows rows{seg_src, seg_len, block_len / seg_len};
+  return deft::dispatch_flatten<int8_t, int8_t>(
+      q, k_pool, v_pool, k_scale, v_scale, layer_off, scale_off, S, rows, tok_lo, tok_hi,
+      blk_lo, blk_hi, acc, m, l, o, R, Hq, Hkv, D, nb, block_len, n_spans, dtype, scale,
+      stream);
 }

@@ -1,0 +1,367 @@
+// The sequential per-leaf decode kernel, shared by paged_seq.cu (B2, B5:
+// each leaf's path read through its segment table) and seq_gather.cu (B7:
+// through its padded row of pool indices), over bf16/fp32 pools or int8
+// pools with fp32 scales.
+//
+// One block per (leaf, KV head) walks the leaf's path in tiles of 64 tokens,
+// each holding only live path tokens.  K and V tiles are staged in shared
+// memory with 16-byte loads (int8 tiles widened to the q type as they are
+// stored); scores and P V are fp32 FMA loops, with ~2 * qpk FLOPs per byte
+// the tensor cores would idle; the softmax is online in the exp2 domain, as
+// in the TPU kernels.  On bf16 inputs P is rounded to bf16 for P V, as the
+// TPU kernels and the flatten kernels round it.  int8 pools: scores times
+// the token's K scale after the product, P times its V scale before the
+// rounding, l over the unscaled P (deft_tpu ops/paged_seq_attn.py:197-222).
+// Every leaf re-reads its whole path, shared prefix included: that re-read
+// is the baseline's defining cost and is kept on purpose.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "flash_common.cuh"
+
+namespace deft_seq {
+
+constexpr int kBN = 64;  // path tokens per tile
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxQpk = 8;
+constexpr float kNeg = -1e30f;
+constexpr float kMClamp = -1e5f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// fp32 tile rows are only 4-byte aligned (odd pitch): two scalar loads
+__device__ __forceinline__ float2 to_f2(const float* p) { return make_float2(p[0], p[1]); }
+__device__ __forceinline__ float2 to_f2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+// P as the PV product takes it: in the q type, as the TPU kernel casts p
+// (deft_tpu ops/paged_seq_attn.py:220) and as the flatten kernels do.
+template <typename T>
+__device__ __forceinline__ float round_p(float x) {
+  if constexpr (std::is_same<T, float>::value) return x;
+  else return __bfloat162float(__float2bfloat16(x));
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Paged plans: leaf r's path is the live spans of its segments, segment j
+// covering pool rows seg_src + seg_off .. + seg_live, in path order; blocks
+// with blk_live == 0 hold no live token.
+struct SegPath {
+  const int* seg_src;
+  const int* seg_off;
+  const int* seg_live;
+  const int* blk_live;
+  int nseg;  // segments per leaf
+  int spb;   // segments per block
+};
+
+// Gather plans: leaf r's path is paths[r, c] for c < seq_lens[r].
+struct IdxPath {
+  const int* paths;
+  const int* seq_lens;
+  int C;  // padded path length
+};
+
+// KV pools: (L, S, Hkv*D) of KV, plus (L, Hkv, S) fp32 scales for int8.
+template <typename KV>
+struct SeqPools {
+  const KV* k;
+  const KV* v;
+  const float* ks;  // int8 only
+  const float* vs;
+  long long layer_off;  // li * S * Hkv * D
+  long long scale_off;  // li * Hkv * S
+  int S;
+};
+
+// Shared memory: K/V tiles with an odd number of 32-bit words per row, so a
+// warp reading one word from each of 32 token rows hits 32 banks.
+template <typename T, int D, typename KV>
+struct SeqSmem {
+  static constexpr bool kQ = std::is_same<KV, int8_t>::value;
+  static constexpr int KS = D + 4 / sizeof(T);  // bf16: D + 2, fp32: D + 1
+  T k[kBN * KS];
+  T v[kBN * KS];
+  float q[kMaxQpk * D];       // queries times scale * log2(e)
+  float p[kMaxQpk * kBN];     // scores, then probabilities
+  float alpha[kMaxQpk];
+  float m[kMaxQpk];
+  float l[kMaxQpk];
+  float ks[kQ ? kBN : 1];     // per-token K and V scales of the tile's head
+  float vs[kQ ? kBN : 1];
+  long long roff[kBN];
+  // followed by int cum[nseg + 1] (dynamic, paged plans)
+};
+
+// Store one 16-byte chunk of KV as T values at dst (4-byte aligned).
+template <typename T, typename KV>
+__device__ __forceinline__ void store_chunk(T* dst, const uint4& c) {
+  uint32_t* d = reinterpret_cast<uint32_t*>(dst);
+  if constexpr (!std::is_same<KV, int8_t>::value) {
+    d[0] = c.x; d[1] = c.y; d[2] = c.z; d[3] = c.w;
+  } else {
+    const int8_t* b = reinterpret_cast<const int8_t*>(&c);
+    if constexpr (std::is_same<T, float>::value) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) d[j] = __float_as_uint(float(b[j]));
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) d[j] = deft::pack_bf16(b[2 * j], b[2 * j + 1]);
+    }
+  }
+}
+
+template <typename T, typename KV, int D, typename Path>
+__global__ void __launch_bounds__(kThreads)
+    seq_kernel(const T* __restrict__ q, SeqPools<KV> pools, Path path, T* __restrict__ o,
+               int Hq, int Hkv, float s2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  using S = SeqSmem<T, D, KV>;
+  constexpr bool kPaged = std::is_same<Path, SegPath>::value;
+  S& sm = *reinterpret_cast<S*>(smem_raw);
+  int* cum = reinterpret_cast<int*>(smem_raw + sizeof(S));
+  const int leaf = blockIdx.x, h = blockIdx.y;
+  const int qpk = Hq / Hkv;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+
+  int total;
+  if constexpr (kPaged) {
+    const int nseg = path.nseg;
+    const int* live = path.seg_live + (long long)leaf * nseg;
+    const int* blive = path.blk_live + (long long)leaf * (nseg / path.spb);
+    // inclusive prefix sum of live counts: cum[j] = live tokens before segment j
+    if (warp == 0) {
+      int carry = 0;
+      if (lane == 0) cum[0] = 0;
+      for (int j0 = 0; j0 < nseg; j0 += 32) {
+        const int j = j0 + lane;
+        int x = (j < nseg && blive[j / path.spb] > 0) ? live[j] : 0;
+#pragma unroll
+        for (int d = 1; d < 32; d *= 2) {
+          const int y = __shfl_up_sync(0xffffffffu, x, d);
+          if (lane >= d) x += y;
+        }
+        if (j < nseg) cum[j + 1] = carry + x;
+        carry += __shfl_sync(0xffffffffu, x, 31);
+      }
+    }
+  }
+  for (int i = tid; i < qpk * D; i += kThreads) {
+    const int g = i / D, d = i % D;
+    sm.q[i] = float(q[((long long)leaf * Hq + h * qpk + g) * D + d]) * s2;
+  }
+  if (tid < qpk) {
+    sm.m[tid] = kNeg;
+    sm.l[tid] = 0.f;
+  }
+  __syncthreads();
+  if constexpr (kPaged) total = cum[path.nseg];
+  else total = path.seq_lens[leaf];
+
+  // each thread owns output pairs (row, d..d+1), idx = tid + k * kThreads
+  constexpr int kPairs = (kMaxQpk * D / 2 + kThreads - 1) / kThreads;
+  float2 acc[kPairs];
+#pragma unroll
+  for (int k = 0; k < kPairs; ++k) acc[k] = make_float2(0.f, 0.f);
+
+  for (int i0 = 0; i0 < total; i0 += kBN) {
+    const int n = min(kBN, total - i0);
+    if (tid < kBN) {
+      long long ro = -1;
+      float ksc = 0.f, vsc = 0.f;
+      if (tid < n) {
+        const int i = i0 + tid;
+        int row;
+        if constexpr (kPaged) {
+          const long long base = (long long)leaf * path.nseg;
+          int a = 0, b = path.nseg;  // largest j with cum[j] <= i
+          while (b - a > 1) {
+            const int c = (a + b) / 2;
+            if (cum[c] <= i) a = c; else b = c;
+          }
+          row = path.seg_src[base + a] + path.seg_off[base + a] + (i - cum[a]);
+        } else {
+          row = path.paths[(long long)leaf * path.C + i];
+        }
+        ro = pools.layer_off + ((long long)row * Hkv + h) * D;
+        if constexpr (S::kQ) {
+          const long long so = pools.scale_off + (long long)h * pools.S + row;
+          ksc = pools.ks[so];
+          vsc = pools.vs[so];
+        }
+      }
+      sm.roff[tid] = ro;
+      if constexpr (S::kQ) {
+        sm.ks[tid] = ksc;
+        sm.vs[tid] = vsc;
+      }
+    }
+    __syncthreads();
+    // 16-byte chunks, kBatch per thread in flight before any is stored (a
+    // load feeding a store in the same iteration would wait for each load)
+    constexpr int EPC = 16 / sizeof(KV);
+    constexpr int CPR = D / EPC;
+    constexpr int kIters = kBN * CPR / kThreads;
+    constexpr int kBatch = kIters < 8 ? kIters : 8;
+    static_assert(kIters * kThreads == kBN * CPR && kIters % kBatch == 0, "tile split");
+#pragma unroll
+    for (int u0 = 0; u0 < kIters; u0 += kBatch) {
+      uint4 kv[kBatch], vv[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = tid + (u0 + u) * kThreads;
+        const long long ro = sm.roff[i / CPR];
+        kv[u] = vv[u] = make_uint4(0, 0, 0, 0);
+        if (ro >= 0) {
+          kv[u] = *reinterpret_cast<const uint4*>(pools.k + ro + (i % CPR) * EPC);
+          vv[u] = *reinterpret_cast<const uint4*>(pools.v + ro + (i % CPR) * EPC);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = tid + (u0 + u) * kThreads;
+        const int t = i / CPR, c = i % CPR;
+        // rows are 4-byte aligned only (odd word pitch): stored word by word
+        store_chunk<T, KV>(sm.k + t * S::KS + c * EPC, kv[u]);
+        store_chunk<T, KV>(sm.v + t * S::KS + c * EPC, vv[u]);
+      }
+    }
+    __syncthreads();
+    // scores: one (row, token) pair per thread and pass
+    for (int i = tid; i < qpk * kBN; i += kThreads) {
+      const int g = i / kBN, t = i % kBN;
+      float s = kNeg;
+      if (t < n) {
+        const float* qr = sm.q + g * D;
+        const T* kr = sm.k + t * S::KS;
+        float a = 0.f;
+#pragma unroll 8
+        for (int d = 0; d < D; d += 2) {
+          const float2 kk = to_f2(kr + d);
+          a += qr[d] * kk.x + qr[d + 1] * kk.y;
+        }
+        s = a;
+        if constexpr (S::kQ) s *= sm.ks[t];
+      }
+      sm.p[i] = s;
+    }
+    __syncthreads();
+    // online softmax: one warp per row
+    for (int g = warp; g < qpk; g += kWarps) {
+      float* pr = sm.p + g * kBN;
+      float mx = fmaxf(pr[lane], pr[lane + 32]);
+#pragma unroll
+      for (int d = 16; d > 0; d /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, d));
+      const float m_old = sm.m[g];
+      const float m_new = fmaxf(fmaxf(m_old, mx), kMClamp);
+      const float p0 = exp2f(pr[lane] - m_new), p1 = exp2f(pr[lane + 32] - m_new);
+      if constexpr (S::kQ) {
+        pr[lane] = round_p<T>(p0 * sm.vs[lane]);
+        pr[lane + 32] = round_p<T>(p1 * sm.vs[lane + 32]);
+      } else {
+        pr[lane] = round_p<T>(p0);
+        pr[lane + 32] = round_p<T>(p1);
+      }
+      float sum = p0 + p1;  // l sums the unrounded, unscaled P
+#pragma unroll
+      for (int d = 16; d > 0; d /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, d);
+      __syncwarp();
+      if (lane == 0) {
+        const float a = exp2f(m_old - m_new);
+        sm.alpha[g] = a;
+        sm.l[g] = sm.l[g] * a + sum;
+        sm.m[g] = m_new;
+      }
+    }
+    __syncthreads();
+    // acc = acc * alpha + P V
+#pragma unroll
+    for (int k = 0; k < kPairs; ++k) {
+      const int idx = tid + k * kThreads;
+      if (idx < qpk * D / 2) {
+        const int g = idx / (D / 2), d = (idx % (D / 2)) * 2;
+        const float a = sm.alpha[g];
+        float2 r = make_float2(acc[k].x * a, acc[k].y * a);
+        const float* pr = sm.p + g * kBN;
+        for (int t = 0; t < n; ++t) {
+          const float2 vv = to_f2(sm.v + t * S::KS + d);
+          r.x += pr[t] * vv.x;
+          r.y += pr[t] * vv.y;
+        }
+        acc[k] = r;
+      }
+    }
+    __syncthreads();  // tiles and p are rewritten next
+  }
+
+#pragma unroll
+  for (int k = 0; k < kPairs; ++k) {
+    const int idx = tid + k * kThreads;
+    if (idx < qpk * D / 2) {
+      const int g = idx / (D / 2), d = (idx % (D / 2)) * 2;
+      const float l = sm.l[g];
+      const float inv = l == 0.f ? 0.f : 1.f / l;
+      store2(o + ((long long)leaf * Hq + h * qpk + g) * D + d, acc[k].x * inv, acc[k].y * inv);
+    }
+  }
+}
+
+template <typename T, typename KV, int D, typename Path>
+cudaError_t launch_seq(const void* q, SeqPools<KV> pools, Path path, void* o, int R,
+                       int Hq, int Hkv, size_t dyn_smem, float scale, cudaStream_t stream) {
+  auto kernel = seq_kernel<T, KV, D, Path>;
+  const size_t smem = sizeof(SeqSmem<T, D, KV>) + dyn_smem;
+  if (smem > 48 * 1024) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (attr != cudaSuccess) return attr;
+  }
+  dim3 grid(R, Hkv);
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), pools, path,
+                                           static_cast<T*>(o), Hq, Hkv, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+// Check the sizes, then instantiate launch_seq for the q type (dtype: 0 =
+// float32, 1 = bfloat16) and head_dim (64 or 128); the pools hold KV32
+// elements under fp32 q and KV16 under bf16 q.  dyn_smem: bytes of the
+// path's dynamic shared memory.
+template <typename KV32, typename KV16, typename Path>
+cudaError_t dispatch_seq(const void* q, const void* k, const void* v, const float* ks,
+                         const float* vs, void* o, long long layer_off, long long scale_off,
+                         int S, Path path, size_t dyn_smem, int R, int Hq, int Hkv, int D,
+                         int dtype, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (R <= 0 || Hkv <= 0 || Hq % Hkv || Hq / Hkv > kMaxQpk) return cudaErrorInvalidValue;
+  if (dtype == 1) {
+    SeqPools<KV16> p{static_cast<const KV16*>(k), static_cast<const KV16*>(v), ks, vs,
+                     layer_off, scale_off, S};
+    if (D == 128)
+      return launch_seq<__nv_bfloat16, KV16, 128>(q, p, path, o, R, Hq, Hkv, dyn_smem,
+                                                  scale, st);
+    if (D == 64)
+      return launch_seq<__nv_bfloat16, KV16, 64>(q, p, path, o, R, Hq, Hkv, dyn_smem,
+                                                 scale, st);
+  }
+  if (dtype == 0) {
+    SeqPools<KV32> p{static_cast<const KV32*>(k), static_cast<const KV32*>(v), ks, vs,
+                     layer_off, scale_off, S};
+    if (D == 128)
+      return launch_seq<float, KV32, 128>(q, p, path, o, R, Hq, Hkv, dyn_smem, scale, st);
+    if (D == 64)
+      return launch_seq<float, KV32, 64>(q, p, path, o, R, Hq, Hkv, dyn_smem, scale, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace deft_seq

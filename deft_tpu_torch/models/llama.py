@@ -1,10 +1,11 @@
 """Dense Llama forward over stacked layer parameters, in torch.
 
-Port of deft_tpu/models/llama.py: KVPool and kv_store (:84-111), mm (:136),
-rms_norm (:161), the per-layer body (:318-417, a lax.scan there, a Python
-loop over layers here), decode_forward (:420) and prefill_forward (:456).
-MoE, Gemma norms, qk-norm, qkv biases and int8 weights or KV come in later
-slices; loader.check_supported refuses such configs.
+Port of deft_tpu/models/llama.py: KVPool, kv_store and kv_gather_heads
+(:84-133, int8 KV included), mm (:136), rms_norm (:161), the per-layer body
+(:318-417, a lax.scan there, a Python loop over layers here), decode_forward
+(:420) and prefill_forward (:456).  MoE, Gemma norms, qk-norm, qkv biases
+and int8 weights come in later slices; loader.check_supported refuses such
+configs.
 
 Attention is a pluggable AttnFn (ops/attn_impls.py), as in deft_tpu:
     (q, k_new, v_new, k_pool, v_pool, layer_idx, batch, scale) -> (R, Hq, D)
@@ -14,7 +15,7 @@ Norm and softmax math runs in fp32; matmuls run in the weight dtype.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -26,19 +27,51 @@ from deft_tpu_torch.models.rope import apply_rope
 class KVPool:
     """Paged KV arena for one of K/V: ``data`` is token-major and
     head-flattened, (L, S, Hkv*D) — one row is every head's K (or V) of one
-    token, the layout the paged kernels read (deft_tpu llama.py:84)."""
+    token, the layout the paged kernels read (deft_tpu llama.py:84).  An
+    int8 pool adds per-(token, head) fp32 ``scale`` stored head-major,
+    (L, Hkv, S), so one head's scales of consecutive slots are contiguous."""
 
     data: torch.Tensor
+    scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.scale is not None
 
 
 def kv_store(pool: KVPool, li: int, out_loc: torch.Tensor,
              x: torch.Tensor) -> None:
     """Write new per-token rows x (n, Hkv, D) to pool slots ``out_loc`` of
     layer ``li``, IN PLACE (``index_copy_``; deft_tpu's functional scatter
-    llama.py:102).  Padded rows all carry DUMP_SLOT: duplicate indices there
-    race harmlessly, and no plan reads that slot as live."""
-    n = x.shape[0]
-    pool.data[li].index_copy_(0, out_loc, x.reshape(n, -1).to(pool.data.dtype))
+    llama.py:102), quantising them for an int8 pool: s = max(max|x| / 127,
+    1e-8) per (token, head), codes round(x / s) (half to even, as jnp.round)
+    clipped to +-127.  Padded rows all carry DUMP_SLOT: duplicate indices
+    there race harmlessly, and no plan reads that slot as live."""
+    n, Hkv, _ = x.shape
+    if not pool.quantized:
+        pool.data[li].index_copy_(0, out_loc, x.reshape(n, -1).to(pool.data.dtype))
+        return
+    xf = x.float()
+    s = torch.clamp_min(xf.abs().amax(dim=-1) / 127.0, 1e-8)  # (n, Hkv)
+    codes = torch.clamp(torch.round(xf / s[..., None]), -127, 127).to(torch.int8)
+    pool.data[li].index_copy_(0, out_loc, codes.reshape(n, -1))
+    pool.scale[li].index_copy_(1, out_loc, s.t().contiguous())
+
+
+def kv_gather_heads(pool: KVPool, li: int, idx: torch.Tensor, head_dim: int,
+                    out_dtype) -> torch.Tensor:
+    """Pool rows of layer ``li`` with the head axis un-flattened, int8 rows
+    dequantised to ``out_dtype`` (deft_tpu llama.py:123): idx (T,) gives
+    (T, Hkv, D), idx (R, C) gives (R, C, Hkv, D).  The kernels' plain
+    versions read the pools through it."""
+    flat = idx.reshape(-1).long()
+    d = pool.data[li].index_select(0, flat)
+    d = d.view(idx.shape + (-1, head_dim))
+    if not pool.quantized:
+        return d
+    s = pool.scale[li].index_select(1, flat).t()  # (n, Hkv)
+    s = s.reshape(idx.shape + (-1, 1))
+    return (d.float() * s).to(out_dtype)
 
 
 def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -24,8 +24,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("prefill", "paged_flatten", "paged_seq")
-HEADERS = ("flash_common.cuh",)
+SOURCES = ("prefill", "paged_flatten", "paged_seq", "flatten_gather", "seq_gather")
+HEADERS = ("flash_common.cuh", "flatten_body.cuh", "seq_body.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -118,6 +118,21 @@ def dtype_code(dtype) -> int:
     if dtype not in codes:
         raise TypeError(f"CUDA kernels take float32 or bfloat16, not {dtype}")
     return codes[dtype]
+
+
+def bind(name: str, entry: str, argtypes: list):
+    """The C function ``entry`` of csrc/<name>.cu, its argument types set
+    once (ctypes passes an unset pointer argument as a 32-bit int)."""
+    fn = getattr(library(name), entry)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """Device address of a tensor, None (a null pointer) for None."""
+    return None if t is None else t.data_ptr()
 
 
 def require(cond: bool, msg: str) -> None:

@@ -5,7 +5,9 @@ Pallas kernel _paged_kernel :63) and :458 (paged_flatten_attn_pallas).  The
 Hopper kernel is csrc/paged_flatten.cu (split-KV: per-span partial states,
 then an LSE merge); ``paged_flatten_attention_plain`` is the same function in
 plain torch over the same plan arrays, which the wrapper runs for CPU
-tensors only.
+tensors only.  ``launch_flatten`` and ``tree_attention_plain`` serve the
+other flatten kernels too: B4 (ops/paged_quant.py, int8 pools) and B6
+(ops/flatten_attn.py, plans that are not segment-aligned).
 
 Plan format (deft_tpu plan/flatten.py, unchanged): the tree's KV in DFS
 order, ``block_len`` tokens per block; segment j of block b is the pool span
@@ -17,37 +19,43 @@ blk_lo < -(1 << 20) (FULL_BLOCK_LO) marks a block every leaf sees in full.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
+from deft_tpu_torch.models.llama import KVPool, kv_gather_heads
 from deft_tpu_torch.ops import _cuda
 from deft_tpu_torch.ops.dense_oracle import dense_tree_attention
 
 _FULL_THRESHOLD = -(1 << 20)
 
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the C signature every flatten entry shares (csrc/paged_flatten.cu,
+# csrc/flatten_gather.cu)
+_FLATTEN_ARGS = [_P, _P, _P, _P, _P, _LL, _LL, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                 _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
 
-def flattened_kv(pool: torch.Tensor, li: int, seg_src: torch.Tensor,
-                 seg_len: int, head_dim: int) -> torch.Tensor:
-    """(T, Hkv, D) rows of layer ``li`` of a (L, S, Hkv*D) pool, read
-    through the plan's segment table (T = len(seg_src) * seg_len)."""
-    addr = (seg_src[:, None].long()
+
+def segment_rows(seg_src: torch.Tensor, seg_len: int) -> torch.Tensor:
+    """(T,) pool row of each plan token of a paged plan (T = len(seg_src)
+    * seg_len)."""
+    return (seg_src[:, None].long()
             + torch.arange(seg_len, device=seg_src.device)).reshape(-1)
-    rows = pool[li].index_select(0, addr)
-    return rows.view(addr.shape[0], -1, head_dim)
 
 
-def paged_flatten_attention_plain(q, k_pool, v_pool, li, seg_src, tok_lo,
-                                  tok_hi, blk_lo, blk_hi, scale, block_len,
-                                  seg_len):
-    """The kernel's function in plain torch: gather the flattened KV through
-    the segment table, then exact masked attention.  FULL blocks are seen
-    by every row (the kernel takes no mask there); dead blocks by none."""
+def tree_attention_plain(q, k_pool, v_pool, li, rows, tok_lo, tok_hi, blk_lo,
+                         blk_hi, scale, block_len, k_scale=None, v_scale=None):
+    """The flatten kernels' function in plain torch: read plan token t from
+    pool row rows[t] (int8 rows dequantised in fp32, as the kernels keep the
+    codes exact and the scales in fp32), then exact masked attention.  FULL
+    blocks are seen by every row (the kernels take no mask there); dead
+    blocks by none."""
     D = q.shape[-1]
-    k = flattened_kv(k_pool, li, seg_src, seg_len, D)
-    v = flattened_kv(v_pool, li, seg_src, seg_len, D)
-    full = (blk_lo < _FULL_THRESHOLD).repeat_interleave(block_len)
-    dead = (blk_lo >= blk_hi) & ~(blk_lo < _FULL_THRESHOLD)
-    dead = dead.repeat_interleave(block_len)
+    k = kv_gather_heads(KVPool(k_pool, k_scale), li, rows, D, torch.float32)
+    v = kv_gather_heads(KVPool(v_pool, v_scale), li, rows, D, torch.float32)
+    is_full = blk_lo < _FULL_THRESHOLD
+    full = is_full.repeat_interleave(block_len)
+    dead = ((blk_lo >= blk_hi) & ~is_full).repeat_interleave(block_len)
     R = q.shape[0]
     lo = torch.where(full, torch.zeros_like(tok_lo), tok_lo)
     hi = torch.where(full, torch.full_like(tok_hi, R), tok_hi)
@@ -55,20 +63,90 @@ def paged_flatten_attention_plain(q, k_pool, v_pool, li, seg_src, tok_lo,
     return dense_tree_attention(q, k, v, lo, hi, scale)
 
 
-def _fn():
-    fn = _cuda.library("paged_flatten").deft_paged_flatten
-    if fn.argtypes is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, ctypes.c_longlong, P, P, P, P, P, P, P, P, P,
-                       I, I, I, I, I, I, I, I, I, ctypes.c_float, P]
-        fn.restype = I
-    return fn
+def paged_flatten_attention_plain(q, k_pool, v_pool, li, seg_src, tok_lo,
+                                  tok_hi, blk_lo, blk_hi, scale, block_len,
+                                  seg_len):
+    """B1's function in plain torch: the flattened KV read through the
+    segment table, then exact masked attention."""
+    return tree_attention_plain(q, k_pool, v_pool, li,
+                                segment_rows(seg_src, seg_len), tok_lo, tok_hi,
+                                blk_lo, blk_hi, scale, block_len)
 
 
 def num_spans(num_blocks: int, kv_bytes: int, state_bytes: int) -> int:
     """Split-KV span count: the partial state written (state_bytes per
     span) stays at most a quarter of the KV read, and no span is empty."""
     return max(1, min(num_blocks, kv_bytes // max(4 * state_bytes, 1)))
+
+
+def check_pools(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                k_scale: Optional[torch.Tensor],
+                v_scale: Optional[torch.Tensor]) -> int:
+    """Refuse pools the kernels do not take; returns Hkv.  Pools hold the
+    q dtype, or int8 with (L, Hkv, S) fp32 scales."""
+    R, Hq, D = q.shape
+    L, S, HD = k_pool.shape
+    Hkv = HD // D
+    _cuda.require(Hkv * D == HD and Hq % Hkv == 0, "pool width != Hkv * D")
+    _cuda.require(v_pool.shape == k_pool.shape and v_pool.dtype == k_pool.dtype,
+                  "k/v pools differ")
+    _cuda.require(D in (64, 128), f"head_dim {D}: the kernels take 64 or 128")
+    _cuda.dtype_code(q.dtype)
+    if k_scale is None:
+        _cuda.require(v_scale is None and k_pool.dtype == q.dtype,
+                      "pools of another dtype than q need int8 data and scales")
+    else:
+        _cuda.require(k_pool.dtype == torch.int8 and v_scale is not None,
+                      "scales come with int8 pools, for K and V")
+        for s in (k_scale, v_scale):
+            _cuda.require(s.shape == (L, Hkv, S) and s.dtype == torch.float32
+                          and s.is_contiguous(),
+                          "scale pools must be contiguous (L, Hkv, S) float32")
+    _cuda.require(k_pool.is_contiguous() and v_pool.is_contiguous(),
+                  "pools must be contiguous")
+    return Hkv
+
+
+def launch_flatten(source: str, entry: str, q, k_pool, v_pool, k_scale,
+                   v_scale, li, rows, tok_lo, tok_hi, blk_lo, blk_hi, scale,
+                   block_len, seg_len) -> torch.Tensor:
+    """Launch a flatten kernel of csrc/<source>.cu (split-KV partials, then
+    the merge) on q (R, Hq, D); ``rows`` is the segment table (paged plans,
+    seg_len > 0) or one pool index a token (seg_len 0).  Returns (R, Hq, D)."""
+    R, Hq, D = q.shape
+    L, S, HD = k_pool.shape
+    Hkv = check_pools(q, k_pool, v_pool, k_scale, v_scale)
+    nb = blk_lo.shape[0]
+    T = tok_lo.shape[0]
+    _cuda.require(T == nb * block_len and block_len % 64 == 0
+                  and tok_hi.shape[0] == T and blk_hi.shape[0] == nb
+                  and rows.shape[0] == (T // seg_len if seg_len else T)
+                  and (not seg_len or block_len % seg_len == 0),
+                  "plan arrays disagree with block_len / seg_len")
+    for t in (rows, tok_lo, tok_hi, blk_lo, blk_hi):
+        _cuda.require(t.dtype == torch.int32 and t.is_contiguous(),
+                      "plan arrays must be contiguous int32")
+    scales = [s for s in (k_scale, v_scale) if s is not None]
+    _cuda.require_device(q, k_pool, v_pool, *scales, rows, tok_lo, tok_hi,
+                         blk_lo, blk_hi)
+    q = q.contiguous()
+    Rq = R * (Hq // Hkv)
+    kv_bytes = T * HD * 2 * k_pool.element_size() + (T * Hkv * 8 if scales else 0)
+    spans = num_spans(nb, kv_bytes, Hkv * Rq * (D + 2) * 4)
+    acc = torch.empty((spans, Hkv, Rq, D), dtype=torch.float32, device=q.device)
+    m = torch.empty((spans, Hkv, Rq), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    o = torch.empty_like(q)
+    fn = _cuda.bind(source, entry, _FLATTEN_ARGS)
+    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+             _cuda.ptr(k_scale), _cuda.ptr(v_scale), int(li) * S * HD,
+             int(li) * Hkv * S, S, rows.data_ptr(), tok_lo.data_ptr(),
+             tok_hi.data_ptr(), blk_lo.data_ptr(), blk_hi.data_ptr(),
+             acc.data_ptr(), m.data_ptr(), l.data_ptr(), o.data_ptr(),
+             R, Hq, Hkv, D, nb, block_len, seg_len, spans,
+             _cuda.dtype_code(q.dtype), float(scale), _cuda.stream_ptr(q.device))
+    _cuda.check(err, entry)
+    return o
 
 
 def paged_flatten_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -84,42 +162,10 @@ def paged_flatten_attention(q: torch.Tensor, k_pool: torch.Tensor,
         return paged_flatten_attention_plain(
             q, k_pool, v_pool, li, seg_src, tok_lo, tok_hi, blk_lo, blk_hi,
             scale, block_len, seg_len)
-    R, Hq, D = q.shape
-    L, S, HD = k_pool.shape
-    Hkv = HD // D
-    nb = blk_lo.shape[0]
-    T = tok_lo.shape[0]
-    _cuda.require(Hkv * D == HD and Hq % Hkv == 0, "pool width != Hkv * D")
-    _cuda.require(v_pool.shape == k_pool.shape, "k/v pools differ in shape")
-    _cuda.require(q.dtype == k_pool.dtype == v_pool.dtype, "dtypes differ")
-    _cuda.require(D in (64, 128), f"head_dim {D}: the kernel takes 64 or 128")
-    _cuda.require(T == nb * block_len and block_len % 64 == 0
-                  and block_len % seg_len == 0
-                  and seg_src.shape[0] == T // seg_len,
-                  "plan arrays disagree with block_len / seg_len")
-    for t in (seg_src, tok_lo, tok_hi, blk_lo, blk_hi):
-        _cuda.require(t.dtype == torch.int32 and t.is_contiguous(),
-                      "plan arrays must be contiguous int32")
-    _cuda.require_device(q, k_pool, v_pool, seg_src, tok_lo, tok_hi, blk_lo,
-                         blk_hi)
-    _cuda.require(k_pool.is_contiguous() and v_pool.is_contiguous(),
-                  "pools must be contiguous")
-    q = q.contiguous()
-    Rq = R * (Hq // Hkv)
-    spans = num_spans(nb, T * HD * 2 * k_pool.element_size(),
-                      Hkv * Rq * (D + 2) * 4)
-    acc = torch.empty((spans, Hkv, Rq, D), dtype=torch.float32, device=q.device)
-    m = torch.empty((spans, Hkv, Rq), dtype=torch.float32, device=q.device)
-    l = torch.empty_like(m)
-    o = torch.empty_like(q)
-    err = _fn()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                int(li) * S * HD, seg_src.data_ptr(), tok_lo.data_ptr(),
-                tok_hi.data_ptr(), blk_lo.data_ptr(), blk_hi.data_ptr(),
-                acc.data_ptr(), m.data_ptr(), l.data_ptr(), o.data_ptr(),
-                R, Hq, Hkv, D, nb, block_len, seg_len, spans,
-                _cuda.dtype_code(q.dtype), float(scale),
-                _cuda.stream_ptr(q.device))
-    _cuda.check(err, "paged flatten kernel")
+    _cuda.require(seg_len > 0, "a paged plan has a segment length")
+    o = launch_flatten("paged_flatten", "deft_paged_flatten", q, k_pool, v_pool,
+                       None, None, li, seg_src, tok_lo, tok_hi, blk_lo, blk_hi,
+                       scale, block_len, seg_len)
     paged_flatten_attention.launches += 1
     return o
 

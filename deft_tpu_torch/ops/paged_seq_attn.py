@@ -2,15 +2,20 @@
 seq (Flash-Decoding) baseline.
 
 Port of deft_tpu/ops/paged_seq_attn.py:328 (paged_seq_attention, the Pallas
-kernel _paged_seq_kernel :41) and :403 (paged_seq_attn_pallas).  The Hopper
-kernel is csrc/paged_seq.cu; ``paged_seq_attention_plain`` is the same
-function in plain torch over the same plan arrays, which the wrapper runs
-for CPU tensors only.
+kernel _paged_seq_kernel :41) and :403 (paged_seq_attn_pallas), and of its
+int8 variant :369 (paged_seq_attention_q, the same kernel with
+quantized=True) and :429 (paged_seq_attn_q_pallas).  The Hopper kernels are
+csrc/paged_seq.cu's two entries; ``paged_seq_attention_plain`` and
+``paged_seq_attention_q_plain`` are the same functions in plain torch over
+the same plan arrays, which the wrappers run for CPU tensors only.
+``launch_seq`` and ``path_attention_plain`` also serve B7
+(ops/seq_attn.py, plans that are not segment-aligned).
 
 Plan format (deft_tpu plan/seq.py, unchanged): leaf r's path is nb blocks of
 spb = block_len / seg_len segments; segment (r, j) holds the live pool rows
 [seg_src + seg_off, + seg_live); blk_live (R * nb,) is 0 for blocks with no
 live token.  Every leaf reads its whole path, shared prefix included.
+int8 pools hold codes with per-(token, head) fp32 scales, (L, Hkv, S).
 """
 
 from __future__ import annotations
@@ -19,46 +24,105 @@ import ctypes
 
 import torch
 
+from deft_tpu_torch.models.llama import KVPool, kv_gather_heads
 from deft_tpu_torch.ops import _cuda
 from deft_tpu_torch.ops.dense_oracle import dense_path_attention
+from deft_tpu_torch.ops.paged_flatten_attn import check_pools
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
-def path_kv(pool: torch.Tensor, li: int, seg_src: torch.Tensor,
-            seg_off: torch.Tensor, seg_live: torch.Tensor,
-            blk_live: torch.Tensor, R: int, seg_len: int, head_dim: int):
-    """Per-leaf padded paths of layer ``li``: ((R, C, Hkv, D) rows, (R, C)
-    live mask), C = segments per leaf * seg_len."""
+def segment_paths(seg_src, seg_off, seg_live, blk_live, R: int, seg_len: int):
+    """Per-leaf padded paths of a paged plan: ((R, C) pool rows, (R, C) live
+    mask), C = segments per leaf * seg_len."""
     nseg = seg_src.shape[0] // R
     spb = nseg // (blk_live.shape[0] // R)
     i = torch.arange(seg_len, device=seg_src.device)
-    addr = (seg_src.view(R, nseg, 1).long() + i).reshape(R, -1)
+    rows = (seg_src.view(R, nseg, 1).long() + i).reshape(R, -1)
     off = seg_off.view(R, nseg, 1)
     live = (i >= off) & (i < off + seg_live.view(R, nseg, 1))
     live = live & (blk_live.view(R, -1, 1) > 0).repeat_interleave(spb, dim=1)
-    rows = pool[li].index_select(0, addr.reshape(-1))
-    return rows.view(R, addr.shape[1], -1, head_dim), live.reshape(R, -1)
+    return rows, live.reshape(R, -1)
+
+
+def path_attention_plain(q, k_pool, v_pool, li, rows, live, scale,
+                         k_scale=None, v_scale=None):
+    """The seq kernels' function in plain torch: leaf r attends the pool
+    rows rows[r, c] where live[r, c] (int8 rows dequantised in fp32, as the
+    kernels keep the codes exact and the scales in fp32)."""
+    D = q.shape[-1]
+    k = kv_gather_heads(KVPool(k_pool, k_scale), li, rows, D, torch.float32)
+    v = kv_gather_heads(KVPool(v_pool, v_scale), li, rows, D, torch.float32)
+    return dense_path_attention(q, k, v, live, scale)
 
 
 def paged_seq_attention_plain(q, k_pool, v_pool, li, seg_src, seg_off,
                               seg_live, blk_live, scale, seg_len):
-    """The kernel's function in plain torch: gather each leaf's path
-    through its segment table, then attention over its live tokens."""
-    R, _, D = q.shape
-    k, live = path_kv(k_pool, li, seg_src, seg_off, seg_live, blk_live, R,
-                      seg_len, D)
-    v, _ = path_kv(v_pool, li, seg_src, seg_off, seg_live, blk_live, R,
-                   seg_len, D)
-    return dense_path_attention(q, k, v, live, scale)
+    """B2's function in plain torch: each leaf's path read through its
+    segment table, then attention over its live tokens."""
+    rows, live = segment_paths(seg_src, seg_off, seg_live, blk_live,
+                               q.shape[0], seg_len)
+    return path_attention_plain(q, k_pool, v_pool, li, rows, live, scale)
 
 
-def _fn():
-    fn = _cuda.library("paged_seq").deft_paged_seq
-    if fn.argtypes is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, ctypes.c_longlong, P, P, P, P,
-                       I, I, I, I, I, I, I, ctypes.c_float, P]
-        fn.restype = I
-    return fn
+def paged_seq_attention_q_plain(q, k_pool, v_pool, k_scale, v_scale, li,
+                                seg_src, seg_off, seg_live, blk_live, scale,
+                                seg_len):
+    """B5's function in plain torch: B2's over int8 rows dequantised in
+    fp32."""
+    rows, live = segment_paths(seg_src, seg_off, seg_live, blk_live,
+                               q.shape[0], seg_len)
+    return path_attention_plain(q, k_pool, v_pool, li, rows, live, scale,
+                                k_scale, v_scale)
+
+
+def launch_seq(source: str, entry: str, argtypes: list, q, k_pool, v_pool,
+               k_scale, v_scale, li, plan_arrays, lead, tail,
+               scale) -> torch.Tensor:
+    """Launch a seq kernel of csrc/<source>.cu on q (R, Hq, D).  Its C
+    arguments: q, k and v pools, k and v scales, o, layer and scale offsets,
+    S, *plan_arrays, R, *lead, Hq, Hkv, D, *tail, dtype, scale, stream.
+    Returns (R, Hq, D)."""
+    R, Hq, D = q.shape
+    L, S, HD = k_pool.shape
+    Hkv = check_pools(q, k_pool, v_pool, k_scale, v_scale)
+    _cuda.require(Hq // Hkv <= 8, "more than 8 q heads per KV head")
+    for t in plan_arrays:
+        _cuda.require(t.dtype == torch.int32 and t.is_contiguous(),
+                      "plan arrays must be contiguous int32")
+    scales = [s for s in (k_scale, v_scale) if s is not None]
+    _cuda.require_device(q, k_pool, v_pool, *scales, *plan_arrays)
+    q = q.contiguous()
+    o = torch.empty_like(q)
+    fn = _cuda.bind(source, entry, argtypes)
+    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+             _cuda.ptr(k_scale), _cuda.ptr(v_scale), o.data_ptr(),
+             int(li) * S * HD, int(li) * Hkv * S, S,
+             *(t.data_ptr() for t in plan_arrays), R, *lead, Hq, Hkv, D, *tail,
+             _cuda.dtype_code(q.dtype), float(scale), _cuda.stream_ptr(q.device))
+    _cuda.check(err, entry)
+    return o
+
+
+# (q, k, v, ks, vs, o, layer_off, scale_off, S, seg_src, seg_off, seg_live,
+#  blk_live, R, Hq, Hkv, D, nseg, spb, dtype, scale, stream)
+_PAGED_SEQ_ARGS = [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _P, _P, _P, _P,
+                   _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+
+
+def _launch_paged(entry, q, k_pool, v_pool, k_scale, v_scale, li, seg_src,
+                  seg_off, seg_live, blk_live, scale):
+    R = q.shape[0]
+    nseg = seg_src.shape[0] // R
+    nb = blk_live.shape[0] // R
+    _cuda.require(nseg * R == seg_src.shape[0] and nb * R == blk_live.shape[0]
+                  and nb > 0 and nseg % nb == 0
+                  and seg_off.shape == seg_live.shape == seg_src.shape,
+                  "plan arrays disagree with the leaf count")
+    return launch_seq("paged_seq", entry, _PAGED_SEQ_ARGS, q, k_pool, v_pool,
+                      k_scale, v_scale, li,
+                      (seg_src, seg_off, seg_live, blk_live), (),
+                      (nseg, nseg // nb), scale)
 
 
 def paged_seq_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -73,36 +137,34 @@ def paged_seq_attention(q: torch.Tensor, k_pool: torch.Tensor,
         return paged_seq_attention_plain(q, k_pool, v_pool, li, seg_src,
                                          seg_off, seg_live, blk_live, scale,
                                          seg_len)
-    R, Hq, D = q.shape
-    L, S, HD = k_pool.shape
-    Hkv = HD // D
-    nseg = seg_src.shape[0] // R
-    nb = blk_live.shape[0] // R
-    _cuda.require(Hkv * D == HD and Hq % Hkv == 0 and Hq // Hkv <= 8,
-                  "pool width != Hkv * D, or more than 8 q heads per KV head")
-    _cuda.require(v_pool.shape == k_pool.shape, "k/v pools differ in shape")
-    _cuda.require(q.dtype == k_pool.dtype == v_pool.dtype, "dtypes differ")
-    _cuda.require(D in (64, 128), f"head_dim {D}: the kernel takes 64 or 128")
-    _cuda.require(nseg * R == seg_src.shape[0] and nb * R == blk_live.shape[0]
-                  and nb > 0 and nseg % nb == 0
-                  and seg_off.shape == seg_live.shape == seg_src.shape,
-                  "plan arrays disagree with the leaf count")
-    for t in (seg_src, seg_off, seg_live, blk_live):
-        _cuda.require(t.dtype == torch.int32 and t.is_contiguous(),
-                      "plan arrays must be contiguous int32")
-    _cuda.require_device(q, k_pool, v_pool, seg_src, seg_off, seg_live, blk_live)
-    _cuda.require(k_pool.is_contiguous() and v_pool.is_contiguous(),
-                  "pools must be contiguous")
-    q = q.contiguous()
-    o = torch.empty_like(q)
-    err = _fn()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                o.data_ptr(), int(li) * S * HD, seg_src.data_ptr(),
-                seg_off.data_ptr(), seg_live.data_ptr(), blk_live.data_ptr(),
-                R, Hq, Hkv, D, nseg, nseg // nb, _cuda.dtype_code(q.dtype),
-                float(scale), _cuda.stream_ptr(q.device))
-    _cuda.check(err, "paged seq kernel")
+    o = _launch_paged("deft_paged_seq", q, k_pool, v_pool, None, None, li,
+                      seg_src, seg_off, seg_live, blk_live, scale)
     paged_seq_attention.launches += 1
     return o
 
 
 paged_seq_attention.launches = 0
+
+
+def paged_seq_attention_q(q: torch.Tensor, k_pool: torch.Tensor,
+                          v_pool: torch.Tensor, k_scale: torch.Tensor,
+                          v_scale: torch.Tensor, li: int,
+                          seg_src: torch.Tensor, seg_off: torch.Tensor,
+                          seg_live: torch.Tensor, blk_live: torch.Tensor,
+                          scale: float, seg_len: int) -> torch.Tensor:
+    """B2 over int8 (L, S, Hkv*D) pools and their (L, Hkv, S) scales;
+    returns (R, Hq, D).  CUDA tensors launch csrc/paged_seq.cu's int8 entry;
+    CPU tensors run the plain version."""
+    if q.device.type == "cpu":
+        return paged_seq_attention_q_plain(q, k_pool, v_pool, k_scale,
+                                           v_scale, li, seg_src, seg_off,
+                                           seg_live, blk_live, scale, seg_len)
+    _cuda.require(k_scale is not None and v_scale is not None,
+                  "the int8 seq kernel takes scale pools")
+    o = _launch_paged("deft_paged_seq_q", q, k_pool, v_pool, k_scale, v_scale,
+                      li, seg_src, seg_off, seg_live, blk_live, scale)
+    paged_seq_attention_q.launches += 1
+    return o
+
+
+paged_seq_attention_q.launches = 0

@@ -25,13 +25,8 @@ def prefill_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dense_causal_attention(q, k, v, scale)
 
 
-def _fn():
-    fn = _cuda.library("prefill").deft_prefill
-    if fn.argtypes is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, I, I, I, I, I, ctypes.c_float, P]
-        fn.restype = I
-    return fn
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_PREFILL_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P]
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -49,9 +44,10 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _cuda.require_device(q, k, v)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty_like(q)
-    err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), N, Hq,
-                k.shape[1], D, _cuda.dtype_code(q.dtype), float(scale),
-                _cuda.stream_ptr(q.device))
+    fn = _cuda.bind("prefill", "deft_prefill", _PREFILL_ARGS)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), N, Hq,
+             k.shape[1], D, _cuda.dtype_code(q.dtype), float(scale),
+             _cuda.stream_ptr(q.device))
     _cuda.check(err, "prefill kernel")
     prefill_attention.launches += 1
     return o

@@ -42,10 +42,14 @@ def tree_generate(
     assert max_gen_len > 0, "max_seq_len must exceed prompt length"
 
     branch_controller.set_execution_graph(tree_template)
-    # K+V bytes per token over all layers, counted at 2 bytes an element
-    # whatever the dtype, as deft_tpu counts them (generate.py:98-103)
-    kv_bytes_per_tok = (model.cfg.num_kv_heads * model.cfg.head_dim * 2 * 2
-                        * model.cfg.num_layers)
+    # K+V bytes per token over all layers, as deft_tpu counts them
+    # (generate.py:98-103): 2 bytes an element whatever the dtype, or for
+    # int8 pools 1 byte plus the fp32 (token, head) scale spread over D
+    kv_elem = 2.0
+    if model.kv_quantized:
+        kv_elem = 1.0 + 4.0 / model.cfg.head_dim
+    kv_bytes_per_tok = int(model.cfg.num_kv_heads * model.cfg.head_dim * 2
+                           * kv_elem) * model.cfg.num_layers
 
     start_time = time.perf_counter()
     logits = model.forward_prefill(prompt_ids)

@@ -2,16 +2,17 @@
 prefill and tree-decode steps.
 
 Port of the per-step path of deft_tpu/runtime/runner.py: LogitsView (:66),
-the constructor (:194), pool sizing (:382, here from
-``torch.cuda.mem_get_info``), forward_prefill (:1125), build_plan
-(:1205-1273, with want_paged=True), _use_paged (:1275) and
-forward_tree_decode (:2004).  PyTorch runs eagerly, so there are no jitted
-steps, shape-bucket floors, plan patches or replay slabs: each step uploads
-its plan arrays in one host-to-device copy and runs the forward.
+the constructor (:194, int8 KV pools :273-279), pool sizing (:382, here from
+``torch.cuda.mem_get_info``), the kernel choice (_attn_fn :418-477),
+forward_prefill (:1125), build_plan (:1205-1273, with want_paged=True and
+the int8 segment rules), _use_paged (:1275) and forward_tree_decode
+(:2004).  PyTorch runs eagerly, so there are no jitted steps, shape-bucket
+floors, plan patches or replay slabs: each step uploads its plan arrays in
+one host-to-device copy and runs the forward.
 
-Only paged plans run: a plan that fell back to the gather layout raises
-NotImplementedError (its kernels, queue B6/B7 in ROADMAP.md, are not ported
-yet) instead of silently taking another path.
+Every plan runs through a kernel: segment-aligned (paged) plans through the
+paged kernels, the others through the gather kernels, over bf16/fp32 or
+int8 pools (ops/attn_impls.py's table).
 """
 
 from __future__ import annotations
@@ -109,15 +110,23 @@ class ModelRunner:
             self.cfg.head_dim, max_pos, self.cfg.rope_theta,
             self.cfg.rope_scaling)).to(self.device)
 
+        self.kv_quantized = engine_config.kv_dtype == "int8"
         slots = engine_config.kv_pool_slots or self._profile_slots()
         logger.info("KV pool: %d slots (%.1f MB per side)", slots,
-                    slots * self.cfg.num_layers * self.cfg.num_kv_heads
-                    * self.cfg.head_dim * self.params["embed"].element_size()
-                    / 1e6)
-        shape = (self.cfg.num_layers, slots,
-                 self.cfg.num_kv_heads * self.cfg.head_dim)
-        self.k_pool = KVPool(torch.zeros(shape, dtype=self.dtype, device=self.device))
-        self.v_pool = KVPool(torch.zeros(shape, dtype=self.dtype, device=self.device))
+                    slots * self._kv_cell_bytes() / 2 / 1e6)
+        L, Hkv, D = self.cfg.num_layers, self.cfg.num_kv_heads, self.cfg.head_dim
+        shape = (L, slots, Hkv * D)
+        if self.kv_quantized:
+            # scales start at ones, so a slot never written dequantises to 0
+            self.k_pool, self.v_pool = (
+                KVPool(torch.zeros(shape, dtype=torch.int8, device=self.device),
+                       torch.ones((L, Hkv, slots), dtype=torch.float32,
+                                  device=self.device))
+                for _ in range(2))
+        else:
+            self.k_pool, self.v_pool = (
+                KVPool(torch.zeros(shape, dtype=self.dtype, device=self.device))
+                for _ in range(2))
 
         self.token_to_kv_pool = TokenKVPool(slots)
         self.req_to_token_pool = ReqToTokenPool(
@@ -125,12 +134,20 @@ class ModelRunner:
         self.tree = TreeCache(self.token_to_kv_pool, self.req_to_token_pool)
 
     # -- sizing ------------------------------------------------------------------
+    def _kv_cell_bytes(self) -> int:
+        """K and V bytes of one slot over all layers (deft_tpu runner.py
+        :384-394): int8 pools count 1 + 4 / D bytes an element (the fp32
+        scale of each (token, head) spread over its D codes)."""
+        elem = torch.tensor([], dtype=self.dtype).element_size()
+        if self.kv_quantized:
+            elem = 1 + 4.0 / self.cfg.head_dim
+        return int(self.cfg.num_layers * self.cfg.num_kv_heads
+                   * self.cfg.head_dim * 2 * elem)
+
     def _profile_slots(self) -> int:
         """KV slots from free device memory (deft_tpu runner.py:382); an
         assumed 2 GiB on the CPU, as deft_tpu assumes without memory stats."""
-        elem = torch.tensor([], dtype=self.dtype).element_size()
-        cell = (self.cfg.num_layers * self.cfg.num_kv_heads * self.cfg.head_dim
-                * 2 * elem)
+        cell = self._kv_cell_bytes()
         if self.device.type == "cuda":
             free, _ = torch.cuda.mem_get_info(self.device)
         else:
@@ -141,12 +158,20 @@ class ModelRunner:
         return max(4096, min(slots, 1 << 21))
 
     # -- helpers -----------------------------------------------------------------
-    def _attn_fn(self, mode: ForwardMode):
+    def _attn_fn(self, mode: ForwardMode, paged: bool):
+        """The step's attention entry, from the plan's layout and the pools'
+        dtype (deft_tpu runner.py:455-477)."""
         kind = mode.plan_kind
         if kind == "flatten" and mode is not ForwardMode.UNPAGED_MEDUSA:
-            return attn_impls.flatten_attn
+            if not paged:
+                return attn_impls.flatten_gather_attn
+            return (attn_impls.flatten_attn_q if self.kv_quantized
+                    else attn_impls.flatten_attn)
         if kind == "seq":
-            return attn_impls.seq_attn
+            if not paged:
+                return attn_impls.seq_gather_attn
+            return (attn_impls.seq_attn_q if self.kv_quantized
+                    else attn_impls.seq_attn)
         raise NotImplementedError(f"mode {mode.name} is not ported yet")
 
     def _upload(self, parts: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -196,11 +221,19 @@ class ModelRunner:
 
     def build_plan(self, mode: ForwardMode):
         """Host-side attention plan for the current tree (call after alloc);
-        the paged layouts are asked for, with the configured bucket sizes."""
+        the paged layouts are asked for, with the configured bucket sizes.
+        int8 pools take deft_tpu's int8 segment rules (runner.py:1227-1246),
+        made for its TPU kernels' 128-lane scale reads and kept so both
+        packages build the same plans: flatten segments of 512, 256 or 128
+        tokens at waste limits 1.1, 1.2 and 3.0, seq segments of 128 at 32."""
         kw = dict(q_per_kv=self.cfg.q_per_kv,
                   block_len=self.ecfg.attention.block_len,
                   min_token_bucket=self.ecfg.min_token_bucket)
         kind = mode.plan_kind
+        if self.kv_quantized and kind == "flatten":
+            kw.update(seg_len=(512, 256, 128), waste_limit=(1.1, 1.2, 3.0))
+        elif self.kv_quantized and kind == "seq":
+            kw.update(seg_len=(128,), waste_limit=32.0)
         if kind == "flatten":
             return build_flatten_plan(self.tree, **kw)
         if kind == "seq":
@@ -213,26 +246,28 @@ class ModelRunner:
         return isinstance(plan, (FlattenPlan, SeqPlan)) and plan.paged
 
     def _step_batch(self, plan) -> SimpleNamespace:
-        """The step's plan arrays on the device, as the AttnFn batch."""
-        if not self._use_paged(plan):
-            raise NotImplementedError(
-                "this step's plan is not segment-aligned (paged=False); the "
-                "gather kernels it needs (queue B6/B7 in ROADMAP.md) are not "
-                "ported yet")
+        """The step's plan arrays on the device, as the AttnFn batch: the
+        segment tables of a paged plan, else the gather plan's kv_idx (flatten)
+        or paths and seq_lens (seq)."""
         parts = {"q_tokens": plan.q_tokens, "q_pos": plan.q_pos,
                  "out_loc": plan.out_loc}
-        if isinstance(plan, SeqPlan):
+        block_len = None
+        if isinstance(plan, SeqPlan) and plan.paged:
             parts.update(seg_src=plan.seg_src, seg_off=plan.seg_off,
                          seg_live=plan.seg_live, blk_live=plan.blk_live)
-            nb = len(plan.blk_live) // plan.l_pad
-            block_len = plan.c_pad // nb
+            block_len = plan.c_pad // (len(plan.blk_live) // plan.l_pad)
+        elif isinstance(plan, SeqPlan):
+            parts.update(paths=plan.paths, seq_lens=plan.seq_lens)
         else:
             parts.update(tok_lo=plan.tok_lo, tok_hi=plan.tok_hi,
-                         blk_lo=plan.blk_lo, blk_hi=plan.blk_hi,
-                         seg_src=plan.seg_src)
+                         blk_lo=plan.blk_lo, blk_hi=plan.blk_hi)
+            parts.update({"seg_src": plan.seg_src} if plan.paged
+                         else {"kv_idx": plan.kv_idx})
             block_len = plan.block_len
         dev = self._upload(parts)
         dev["out_loc"] = dev["out_loc"].long()
+        if "paths" in dev:
+            dev["paths"] = dev["paths"].view(plan.paths.shape)
         return SimpleNamespace(**dev, block_len=block_len, seg_len=plan.seg_len)
 
     def forward_tree_decode(self, mode: ForwardMode, plan,
@@ -240,7 +275,7 @@ class ModelRunner:
         """Run one tree-decode step.  Returns (LogitsView, forward_seconds);
         the time includes the plan upload and ends after the device is done.
         logits_kind: "topk" (softmax + top-K) or "greedy" (top-1 only)."""
-        attn = self._attn_fn(mode)
+        attn = self._attn_fn(mode, self._use_paged(plan))
         t0 = time.perf_counter()
         batch = self._step_batch(plan)
         logits = decode_forward(self.cfg, self.params, self._rope_tbl,

@@ -108,21 +108,38 @@ def test_cli_runs_on_cpu(tmp_path, capsys):
 
 
 def test_refusals():
-    """No silent fallbacks: CUDA without a GPU, gather plans and unported
-    configs, rope scalings and engine options raise."""
+    """No silent fallbacks: CUDA without a GPU, unported configs, rope
+    scalings and engine options raise; a gather plan (short prompt) runs
+    through its kernel entry and matches the dense oracle.  On the CPU both
+    are B6's / B7's plain version, so this checks the dispatch only;
+    tests/test_torch_gather.py holds them against deft_tpu."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             ModelRunner(PRESETS["tiny"], EngineConfig(**ECFG), device="cuda")
     runner = port_runner()
+    runner.retain_full_logits = True
     runner.forward_prefill(list(range(7, 19)))  # short prompt: no seg alignment
     for c, child in enumerate(runner.tree.branch(runner.tree.root, 2)):
         child.append_token(30 + c)
     runner.tree.alloc()
-    mode = mode_from_cli("flatten")
-    plan = runner.build_plan(mode)
-    assert not plan.paged
-    with pytest.raises(NotImplementedError, match="B6/B7"):
-        runner.forward_tree_decode(mode, plan)
+    from unittest import mock
+
+    from deft_tpu_torch.ops import attn_impls
+
+    for name in ("flatten", "seq"):
+        mode = mode_from_cli(name)
+        plan = runner.build_plan(mode)
+        assert not plan.paged
+        assert runner._attn_fn(mode, False) in (attn_impls.flatten_gather_attn,
+                                                attn_impls.seq_gather_attn)
+        got, _ = runner.forward_tree_decode(mode, plan)
+        oracle = {"flatten": attn_impls.flatten_attn_xla,
+                  "seq": attn_impls.seq_attn_xla}[name]
+        with mock.patch.object(runner, "_attn_fn", lambda *_: oracle):
+            want, _ = runner.forward_tree_decode(mode, plan)
+        n = plan.n_leaves
+        g, w = got.full_logits()[:n], want.full_logits()[:n]
+        assert float((g - w).abs().max() / w.abs().max()) < 1e-5  # fp32 order
     import dataclasses
 
     moe = dataclasses.replace(PRESETS["tiny"], num_experts=4)
@@ -132,8 +149,8 @@ def test_refusals():
                                rope_scaling={"rope_type": "yarn", "factor": 4.0})
     with pytest.raises(NotImplementedError, match="yarn"):
         ModelRunner(yarn, EngineConfig(**ECFG), device="cpu")
-    with pytest.raises(TypeError):  # int8 KV is not ported: no such option
-        EngineConfig(**ECFG, kv_dtype="int8")
+    with pytest.raises(ValueError, match="kv_dtype"):
+        EngineConfig(**ECFG, kv_dtype="fp8")
 
 
 def test_port_imports_neither_jax_nor_deft_tpu():
