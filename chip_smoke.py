@@ -30,23 +30,41 @@ result line):
   6. short:   the same weights and workload over the CLI's default 16-token
               prompt, flatten then seq, bf16 then int8 KV: the steps whose
               plans are not segment-aligned run B6 and B7, which must launch;
-  7. timing:  CUDA-event times of each kernel, its plain version and, for
-              prefill, scaled_dot_product_attention, at its path's shapes,
-              beside the least time the card could take.
+  7. batch:   four requests with distinct prompts of 4000, 3000, 2000 and
+              1000 tokens (the 8B bf16 weights, bf16 KV, 40960 slots), each a
+              width-50 Simple_Tree of 64 tokens a branch: first each alone
+              (B3 prefill and its first decode step), then all four in one
+              ragged prefill (B8) and one multi-tree step on the same branch
+              tokens, whose rows must agree with the alone runs (relative L2
+              below LOGITS_LIMIT); then BatchedEngine.add_requests + run() in
+              flatten and in seq: B8 launches once a layer, B3 never, B1 or
+              B6 (flatten) and B2 or B7 (seq) must launch;
+  8. int8w:   the main path's workload over int8 weights made on the card
+              (weight_dtype "int8-pallas"), flatten then seq: B9 launches 129
+              times a decode step (4 matmuls x 32 layers + lm_head) and never
+              in prefill; the first decode step's logits against the same
+              codes and scales under "int8" (the plain expression, 0 B9
+              launches) below LOGITS_LIMIT;
+  9. timing:  CUDA-event times of each kernel, its plain version and, where
+              one PyTorch call computes the same function, that call, at its
+              path's shapes, beside the least time the card could take.
 Each path's counts are set to 0 just before it and read just after (the
-short path's two runs each, summed).  Then
-one JSON line of kernels, the card's nvidia-smi line, and the last line
-{"ok": true, "device": {...}}.
+short path's two runs each, summed; the batch path's two engine runs each).
+Then one JSON line of kernels, the card's nvidia-smi line, and the last
+line {"ok": true, "device": {...}}.
 
 Tolerances: bf16 kernels round P to bf16 for the PV product and sum in
 another order than the fp32 plain versions, so 2e-2 relative (deft_tpu
 tests/test_kernels.py's bf16 bound); fp32 kernels differ by summation order
 only, 2e-5.  Errors are max |kernel - plain| / max |plain| over live rows.
+The batch path's four paths hold their B8 and multi-tree logits to the
+main path's LOGITS_LIMIT, against the same requests run alone.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import subprocess
 import sys
@@ -65,6 +83,14 @@ SEED = 0
 LOGITS_LIMIT = 5e-2
 WIDTH, PROMPT_LEN, GEN_LEN = 50, 4000, 64
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+# the batch path: four prompts; 40960 KV slots (5.4 GB), because each of the
+# 200 leaves reserves a 128-slot chunk (core/kv_pool.py alloc_for), so the
+# 10000 prompt tokens plus 200 chunks do not fit 32768
+BATCH_LENS = (4000, 3000, 2000, 1000)
+BATCH_SLOTS = 40960
+# Llama-3.1-8B's matmul weights (H, I), as B9 sees them at decode
+INT8_SHAPES = {"wqkv": (4096, 6144), "wo": (4096, 4096), "wgu": (4096, 28672),
+               "wdown": (14336, 4096), "lm_head": (4096, 128256)}
 
 # name -> (TPU kernel it replaces, source, plan kind, KV, plan layout)
 KERNELS = {
@@ -81,6 +107,9 @@ KERNELS = {
                        "flatten", None, "gather"),
     "seq_gather": ("deft_tpu/ops/seq_attn.py:28", "seq_gather.cu", "seq", None,
                    "gather"),
+    "ragged_prefill": ("deft_tpu/ops/prefill.py:205", "prefill.cu", None, None, None),
+    "int8_matmul": ("deft_tpu/ops/int8_matmul.py:44", "int8_matmul.cu", None, None,
+                    None),
 }
 
 
@@ -98,10 +127,15 @@ def rel_err(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-9))
 
 
+def rel_l2(got, want) -> float:
+    return float((got.double() - want.double()).norm() / want.double().norm())
+
+
 def wrappers():
     """name -> (kernel wrapper, its plain version): the wrappers carry the
     launch counters."""
     from deft_tpu_torch.ops import flatten_attn as fa
+    from deft_tpu_torch.ops import int8_matmul as i8
     from deft_tpu_torch.ops import paged_flatten_attn as pf
     from deft_tpu_torch.ops import paged_quant as pq
     from deft_tpu_torch.ops import paged_seq_attn as ps
@@ -117,6 +151,8 @@ def wrappers():
         "paged_seq_q": (ps.paged_seq_attention_q, ps.paged_seq_attention_q_plain),
         "flatten_gather": (fa.flatten_attention, fa.flatten_attention_plain),
         "seq_gather": (sa.seq_attention, sa.seq_attention_plain),
+        "ragged_prefill": (pr.ragged_prefill_attention, pr.ragged_prefill_attention_plain),
+        "int8_matmul": (i8.int8_matmul, i8.int8_matmul_plain),
     }
 
 
@@ -257,13 +293,44 @@ def prefill_case(N, Hq, Hkv, D, dtype, dev, gen):
     return (q, k, v, D ** -0.5)
 
 
+def ragged_case(lens, Hq, Hkv, D, dtype, dev, gen, pad=0):
+    """B8's inputs: prompts of `lens` tokens joined, then `pad` pad tokens
+    (seg -1); returns (args, live-row mask)."""
+    import torch
+
+    N = sum(lens) + pad
+    q, k, v = (torch.randn((N, h, D), generator=gen, device=dev).to(dtype)
+               for h in (Hq, Hkv, Hkv))
+    seg = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    o = 0
+    for i, n in enumerate(lens):
+        seg[o:o + n] = i
+        o += n
+    return (q, k, v, seg, D ** -0.5), seg >= 0
+
+
+def int8mm_case(R, H, I, dtype, dev, gen, w=None, s=None):
+    """B9's inputs: x (R, H) N(0, 1), int8 codes in [-127, 127] and scales in
+    [0.01, 0.1) (deft_tpu tests/test_kernels.py:651-660)."""
+    import torch
+
+    x = torch.randn((R, H), generator=gen, device=dev).to(dtype)
+    if w is None:
+        w = torch.randint(-127, 128, (H, I), generator=gen, device=dev,
+                          dtype=torch.int8)
+        s = torch.rand((I,), generator=gen, device=dev) * 0.09 + 0.01
+    return (x, w, s)
+
+
 def path_shapes(dev):
     """Kernel inputs at each path's shapes, Llama-3.1-8B heads (Hq 32, Hkv 8,
     D 128), bf16 q, block_len 256, width 50: B1/B2 (bf16 pools) and B4/B5
     (int8 pools) on the 4000-token prompt's tree halfway through its 64
     tokens; B6 (bf16 and int8 pools) on the CLI's 16-token prompt's tree
     halfway through, B7 at its fifth step, where their plans come out not
-    segment-aligned; prefill of the 4000-token prompt.
+    segment-aligned; prefill of the 4000-token prompt; B8 over the batch
+    path's four prompts; B9 at R = 64 (one width-50 tree) and 256 (the batch
+    path's 200 leaves) for each of the 8B matmul weights.
     name -> [(label, plan, args)]."""
     import torch
 
@@ -279,6 +346,15 @@ def path_shapes(dev):
         out[name] = [(kv, *kernel_case(name, short, 4, 8, 128, bf16, dev, gen, 256,
                                        kv=kv, as_built=True))
                      for kv in ("inherit", "int8")]
+    out["ragged_prefill"] = [("", None, ragged_case(BATCH_LENS, 32, 8, 128, bf16, dev,
+                                                    gen)[0])]
+    out["int8_matmul"] = []
+    for name, (H, I) in INT8_SHAPES.items():
+        w = s = None
+        for R in (64, 256):
+            args = int8mm_case(R, H, I, bf16, dev, gen, w, s)
+            w, s = args[1], args[2]
+            out["int8_matmul"].append((f"R={R} {name}", None, args))
     return out
 
 
@@ -317,9 +393,11 @@ def phase_kernels(dev, shapes):
 
     fns = wrappers()
 
-    def compare(name, label, plan, args, tol):
+    def live(plan):
+        return slice(0, plan.n_leaves) if plan is not None else slice(None)
+
+    def compare(name, label, args, tol, rows=slice(None)):
         fn, plain = fns[name]
-        rows = slice(0, plan.n_leaves) if plan is not None else slice(None)
         got = fn(*args)
         torch.cuda.synchronize()
         want = plain(*args)
@@ -327,13 +405,15 @@ def phase_kernels(dev, shapes):
         print(f"[kernels] {name} {label}: rel err {e:.3e}, tol {tol:.0e}", flush=True)
         check(e < tol and bool(torch.isfinite(got[rows]).all()),
               f"{name} {label} disagrees with its plain version: {e}")
+        if isinstance(rows, torch.Tensor):  # B8's pad rows give 0
+            check(not bool(got[~rows].any()), f"{name} {label}: pad rows are not 0")
         return float((got[rows].double() - want[rows].double()).abs().max())
 
     errs = {}
     for name, cases in shapes.items():
         for label, plan, args in cases:
-            e = compare(name, f"bf16 path shapes {label}", plan, args,
-                        TOL["bfloat16"])
+            e = compare(name, f"bf16 path shapes {label}", args, TOL["bfloat16"],
+                        live(plan))
             errs[name] = max(errs.get(name, 0.0), e)
 
     # small fp32 trees with every plan feature, both head dims
@@ -361,7 +441,7 @@ def phase_kernels(dev, shapes):
                                   f"{name}: small plan lacks FULL, dead or "
                                   "few-leaf blocks")
                         compare(name, f"fp32 {kv or ''} D={D} block {block_len} "
-                                f"{label}", plan, args, TOL["float32"])
+                                f"{label}", args, TOL["float32"], live(plan))
                 for name in ("paged_seq", "paged_seq_q", "seq_gather"):
                     for kv in (("inherit", "int8") if name == "seq_gather"
                                else (None,)):
@@ -371,26 +451,41 @@ def phase_kernels(dev, shapes):
                             check(bool(plan.seg_off.any()),
                                   f"{name}: plan has no unaligned segment")
                         compare(name, f"fp32 {kv or ''} D={D} block {block_len} "
-                                f"{label}", plan, args, TOL["float32"])
+                                f"{label}", args, TOL["float32"], live(plan))
             # the short prompt's plans as the runner builds them: not paged
             for name in ("flatten_gather", "seq_gather"):
                 for kv in ("inherit", "int8"):
                     plan, args = kernel_case(name, c, 4, 2, D, f32, dev, gen,
                                              block_len, kv=kv, as_built=True)
                     compare(name, f"fp32 {kv} D={D} block {block_len} short-prompt "
-                            "plan", plan, args, TOL["float32"])
+                            "plan", args, TOL["float32"], live(plan))
         for N in (300, 1000):
             args = prefill_case(N, 8, 2, D, f32, dev, gen)
-            compare("prefill", f"fp32 D={D} N={N}", None, args, TOL["float32"])
+            compare("prefill", f"fp32 D={D} N={N}", args, TOL["float32"])
+        # B8: ragged lengths off the 64-token tiles, a padded tail, long
+        # prompts (mask-free interior tiles), GQA and plain multi-head
+        for Hq, Hkv in ((8, 2), (2, 2)):
+            for lens, pad in (((60, 83, 100), 13), ((500, 300, 200), 24)):
+                args, rows = ragged_case(lens, Hq, Hkv, D, f32, dev, gen, pad)
+                compare("ragged_prefill", f"fp32 D={D} qpk {Hq // Hkv} lens {lens} "
+                        f"pad {pad}", args, TOL["float32"], rows)
+    # B9: R = 8, H not a multiple of 512, split and unsplit H, every row tile
+    for R, H, I in ((8, 384, 256), (24, 4096, 4096), (64, 640, 384),
+                    (16, 256, 128 * 264), (256, 512, 1536)):
+        for dt in (f32, torch.bfloat16):
+            compare("int8_matmul", f"{'fp32' if dt == f32 else 'bf16'} R={R} H={H} I={I}",
+                    int8mm_case(R, H, I, dt, dev, gen),
+                    TOL["float32" if dt == f32 else "bfloat16"])
     return errs
 
 
-def make_runner(cfg, params, dev, kv_dtype="inherit", prompt_len=PROMPT_LEN):
+def make_runner(cfg, params, dev, kv_dtype="inherit", prompt_len=PROMPT_LEN,
+                slots=16384, max_requests=2 * WIDTH):
     from deft_tpu_torch.config import AttentionConfig, EngineConfig
     from deft_tpu_torch.runtime import ModelRunner
 
     ecfg = EngineConfig(attention=AttentionConfig(block_len=256),
-                        kv_pool_slots=16384, max_requests=2 * WIDTH,
+                        kv_pool_slots=slots, max_requests=max_requests,
                         max_context_len=prompt_len + GEN_LEN + 64, kv_dtype=kv_dtype)
     return ModelRunner(cfg, ecfg, device=dev, params=params,
                        topk_k=max(64, WIDTH), retain_full_logits=True)
@@ -495,7 +590,7 @@ def phase_main(dev, params, profile: bool = False):
     runner.retain_full_logits = False
 
     reset_counts()
-    generate_both(runner, prompt, "main")
+    runs = generate_both(runner, prompt, "main")
     launches = read_counts()
     print(f"[main] launches during the main path: {launches}", flush=True)
     for name in ("prefill", "paged_flatten", "paged_seq"):
@@ -505,7 +600,7 @@ def phase_main(dev, params, profile: bool = False):
             profile_decode(runner, mode, prompt, WIDTH, steps=8)
     del runner
     torch.cuda.empty_cache()
-    return launches, prompt, ids, lf
+    return launches, prompt, ids, lf, runs
 
 
 def phase_int8(dev, params, prompt, ids, lf_bf16, profile: bool = False):
@@ -610,6 +705,226 @@ def phase_short(dev, params, profile: bool = False):
     return launches
 
 
+def phase_batch(dev, params, profile: bool = False):
+    """Four requests with distinct prompts (BATCH_LENS), each a width-50
+    Simple_Tree: each alone, then all four through one ragged prefill (B8)
+    and one multi-tree step on the same branch tokens, held against the
+    alone runs; then BatchedEngine.add_requests + run() in flatten and in
+    seq.  Returns the launch counts of the two engine runs, summed."""
+    import torch
+    from deft_tpu_torch.control import Branch_Controller, workloads
+    from deft_tpu_torch.core import TreeCache
+    from deft_tpu_torch.models import PRESETS
+    from deft_tpu_torch.obs import PerfMetrics
+    from deft_tpu_torch.runtime import ForwardMode, tree_generate
+    from deft_tpu_torch.runtime.batched import BatchedEngine, Request
+
+    cfg = PRESETS["8b"]
+    rng = np.random.default_rng(SEED + 3)
+    prompts = [[int(t) for t in rng.integers(4, cfg.vocab_size - 4, n)]
+               for n in BATCH_LENS]
+    runner = make_runner(cfg, params, dev, prompt_len=max(BATCH_LENS),
+                         slots=BATCH_SLOTS, max_requests=4 * (WIDTH + 2))
+    flatten = ForwardMode.TREE_DECODE_FLATTEN
+
+    # each request alone: its prefill (B3) and its first decode step
+    alone = []
+    for p in prompts:
+        runner.reset_state()
+        view = runner.forward_prefill(p)
+        _, ids = view.topk(0, WIDTH)
+        tree = runner.tree
+        for c, child in enumerate(tree.branch(tree.root, WIDTH)):
+            child.append_token(int(ids[c]))
+        tree.alloc()
+        v, _ = runner.forward_tree_decode(flatten, runner.build_plan(flatten))
+        alone.append((view.full_logits()[0].float(), ids, v.full_logits()[:WIDTH].float()))
+    runner.reset_state()
+
+    # the four in one ragged prefill, then one multi-tree step whose leaves
+    # carry the alone runs' branch tokens
+    trees = [TreeCache(runner.token_to_kv_pool, runner.req_to_token_pool)
+             for _ in prompts]
+    reset_counts()
+    view = runner.forward_prefill_batch(prompts, trees)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts["ragged_prefill"] == cfg.num_layers and counts["prefill"] == 0,
+          f"one ragged prefill launched {counts}")
+    for t, (_, ids, _) in zip(trees, alone):
+        for c, child in enumerate(t.branch(t.root, WIDTH)):
+            child.append_token(int(ids[c]))
+        t.alloc()
+    eng = BatchedEngine(runner, flatten)
+    plan = eng.build_plan(trees)
+    v, _ = runner.forward_tree_decode(flatten, plan)
+    step_logits = v.full_logits().float()
+    for i, (lp, _, lf) in enumerate(alone):
+        lb = step_logits[plan.leaf_offsets[i]:plan.leaf_offsets[i] + WIDTH]
+        e_pre = rel_l2(view.full_logits()[i].float(), lp)
+        e_dec = rel_l2(lb, lf)
+        top1 = float((lb.argmax(-1) == lf.argmax(-1)).float().mean())
+        print(f"[batch] request {i} (prompt {BATCH_LENS[i]}): relative L2 against "
+              f"alone, ragged prefill (B8) vs prefill (B3) {e_pre:.3e}, first "
+              f"multi-tree step (plan paged={plan.paged}) vs alone {e_dec:.3e} "
+              f"(limit {LOGITS_LIMIT:.0e}); top-1 agreement {top1:.3f}, "
+              f"prefill top-1 {int(view.ids[i, 0]) == int(lp.argmax())}", flush=True)
+        check(e_pre < LOGITS_LIMIT, f"request {i}: ragged prefill logits {e_pre}")
+        check(e_dec < LOGITS_LIMIT, f"request {i}: first batched step logits {e_dec}")
+    for t in trees:
+        t.free()
+    runner.reset_state()
+    runner.retain_full_logits = False
+
+    launches, out = {}, {}
+    for mode_name, mode in (("flatten", flatten), ("seq", ForwardMode.DECODE)):
+        # a fresh pool for each mode: the slots the previous run's requests
+        # freed come back scattered, and prompts laid on them are not
+        # segment-aligned, which sends every step to the gather kernels
+        runner.reset_state()
+        eng = BatchedEngine(runner, mode)
+        plans = []
+
+        def recording_build(trees, build=eng.build_plan):
+            plans.append(build(trees))
+            return plans[-1]
+
+        eng.build_plan = recording_build
+        reqs = [Request(p, Branch_Controller(workloads.simple_tree), len(p) + GEN_LEN,
+                        width=WIDTH, depth=1) for p in prompts]
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.add_requests(reqs)
+        torch.cuda.synchronize()
+        t_adm = time.perf_counter() - t0
+        steps = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        seqs = [[list(s.token_ids) for s in r.finished_seqs] for r in reqs]
+        check(all(len(b) == WIDTH and all(len(x) == GEN_LEN - 1 for x in b) for b in seqs),
+              f"batch {mode_name}: expected {WIDTH} branches of {GEN_LEN - 1} tokens "
+              "per request")
+        tok = sum(len(x) for b in seqs for x in b)
+        paged = sum(p.paged for p in plans)
+        kv = sum(p.n_tokens if mode_name == "flatten" else p.total_kv for p in plans)
+        moved = {k: n for k, n in counts.items() if n}
+        print(f"[batch] {mode_name}: admission (one ragged prefill of "
+              f"{sum(BATCH_LENS)} tokens + root branching) {t_adm * 1e3:.3f} ms, "
+              f"{steps} steps, {tok} generated tokens in {wall * 1e3:.1f} ms, "
+              f"{wall * 1e3 / tok:.4f} ms/token aggregate; plans paged at {paged} "
+              f"of {len(plans)} steps (gather at {len(plans) - paged}); "
+              f"launches {moved}", flush=True)
+        check(counts["ragged_prefill"] == cfg.num_layers,
+              f"batch {mode_name}: B8 launched {counts['ragged_prefill']} times, "
+              f"not once a layer")
+        check(counts["prefill"] == 0, f"batch {mode_name}: B3 ran on the batch path")
+        pair = (("paged_flatten", "flatten_gather") if mode_name == "flatten"
+                else ("paged_seq", "seq_gather"))
+        check(counts[pair[0]] + counts[pair[1]] > 0,
+              f"batch {mode_name}: neither {pair[0]} nor {pair[1]} launched")
+        out[mode_name] = (seqs, kv)
+    print(f"[batch] kv_io_reduction (seq KV tokens read / flatten's, over the "
+          f"run's plans) {out['seq'][1] / out['flatten'][1]:.4f}", flush=True)
+
+    # greedy ids of the flatten engine against each request alone, printed
+    # and not held: the batched step's matmuls run at 256 rows, not 64, so
+    # cuBLAS rounds every layer differently, and bf16 near-ties flip tokens
+    # (PERF.md).  Branches are matched by sorting: a near-tie in the
+    # prefill's top-50 reorders the root's children, so the i-th branch of
+    # one run need not start with the i-th branch's token of the other
+    same, whole = [], 0
+    for p, got in zip(prompts, out["flatten"][0]):
+        runner.reset_state()
+        tree_generate(runner, flatten, None, p, max_seq_len=len(p) + GEN_LEN,
+                      width=WIDTH, depth=1,
+                      branch_controller=Branch_Controller(workloads.simple_tree),
+                      perf_metrics=PerfMetrics())
+        want = [list(s.token_ids) for s in runner.tree.all_finished_seqs]
+        same += [a == b for x, y in zip(sorted(got), sorted(want)) for a, b in zip(x, y)]
+        whole += sum(x in want for x in got)
+    print(f"[batch] flatten engine vs each request alone: greedy ids equal at "
+          f"{np.mean(same):.4f} of positions (branches sorted), {whole} of "
+          f"{len(prompts) * WIDTH} branches identical", flush=True)
+    print(f"[batch] launches during the batch path (both engine runs): {launches}",
+          flush=True)
+    if profile:
+        profile_batch(runner, prompts, WIDTH, steps=8)
+    del runner
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_int8w(dev, prompt, ids, main_runs):
+    """The main path's workload over int8 weights made on the card
+    (weight_dtype "int8-pallas"): B9 launches 129 times a decode step, and
+    the first step agrees with the same codes and scales under "int8"."""
+    import torch
+    from deft_tpu_torch.models import PRESETS
+    from deft_tpu_torch.models.loader import random_params
+    from deft_tpu_torch.runtime import ForwardMode
+
+    cfg = PRESETS["8b"]
+    per_step = 4 * cfg.num_layers + 1
+    t0 = time.perf_counter()
+    params = random_params(cfg, SEED, dev, torch.bfloat16, "int8-pallas")
+    torch.cuda.synchronize()
+    gb = sum(t.numel() * t.element_size() for t in params.values()) / 1e9
+    print(f"[int8w] 8b int8-pallas weights ({gb:.2f} GB, int8 codes + fp32 scales, "
+          f"bf16 embed and norms) made on the card in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    # the same codes and scales, routed to the plain expression
+    expr = {(k[:-3] + "_s" if k.endswith("_sp") else k): t for k, t in params.items()}
+    runner = make_runner(cfg, params, dev)
+    check(runner.params["wqkv"].dtype == torch.int8 and "wqkv_sp" in runner.params,
+          "the int8w runner's weights are not int8-pallas")
+    first_step(runner, prompt, ids)
+    flatten = ForwardMode.TREE_DECODE_FLATTEN
+    plan = runner.build_plan(flatten)
+    logits, n_b9 = {}, {}
+    for name, p in (("int8-pallas", params), ("int8", expr)):
+        runner.params = p
+        reset_counts()
+        v, _ = runner.forward_tree_decode(flatten, plan)
+        n_b9[name] = read_counts()["int8_matmul"]
+        logits[name] = v.full_logits()[:WIDTH].float()
+    runner.params = params
+    err = rel_l2(logits["int8-pallas"], logits["int8"])
+    top1 = float((logits["int8-pallas"].argmax(-1) == logits["int8"].argmax(-1))
+                 .float().mean())
+    print(f"[int8w] first decode step, B9 ({n_b9['int8-pallas']} launches) vs the "
+          f"plain expression ({n_b9['int8']} launches) on the same codes: relative "
+          f"L2 of the logits {err:.3e} (limit {LOGITS_LIMIT:.0e}), top-1 agreement "
+          f"{top1:.3f}", flush=True)
+    check(n_b9["int8-pallas"] == per_step and n_b9["int8"] == 0,
+          f"B9 launches in one decode step: {n_b9}, expected {per_step} and 0")
+    check(err < LOGITS_LIMIT, f"int8-pallas and int8 logits disagree: {err}")
+    check(bool(torch.isfinite(logits["int8-pallas"]).all()), "int8w logits not finite")
+    runner.reset_state()
+    runner.retain_full_logits = False
+
+    reset_counts()
+    runs = generate_both(runner, prompt, "int8w")
+    launches = read_counts()
+    for mode_name, r in runs.items():
+        n, steps = r["launches"].get("int8_matmul", 0), len(r["paged"])
+        check(n == per_step * steps,
+              f"int8w {mode_name}: B9 launched {n} times in {steps} decode steps, "
+              f"not {per_step} a step")
+        m = main_runs[mode_name]["pm"]
+        print(f"[int8w] {mode_name}: {n} B9 launches over {steps} decode steps; TTFT "
+              f"{r['pm'].TTFT:.3f} ms, TPOT {r['pm'].TPOT:.4f} ms against bf16 "
+              f"weights' {m.TTFT:.3f} / {m.TPOT:.4f} ms (main path, this run)",
+              flush=True)
+    print(f"[int8w] launches during the int8-weight path: {launches}", flush=True)
+    del runner, params, expr
+    torch.cuda.empty_cache()
+    return launches
+
+
 def logits_controls(runner, width):
     """The first decode step on the runner's current tree, run in flatten
     mode, in seq mode and under three controls; returns flatten's and seq's
@@ -682,14 +997,78 @@ RANGES = ("build_plan", "forward", "kv_store")
 
 
 def profile_decode(runner, mode, prompt, width, steps):
-    """torch.profiler over `steps` greedy decode steps of a fresh tree:
-    device time by kernel, the device's busy share of the wall time, and the
-    host and device time of each step's plan building, its forward and the
-    model's kv_store calls within it (RANGES, marked with record_function
-    while the profiler runs)."""
+    """torch.profiler over `steps` greedy decode steps of a fresh tree (see
+    profile_steps)."""
+    import torch
+    from torch.profiler import record_function
+
+    runner.reset_state()
+    view = runner.forward_prefill(prompt)
+    tree = runner.tree
+    _, ids = view.topk(0, width)
+    for c, child in enumerate(tree.branch(tree.root, width)):
+        child.append_token(int(ids[c]))
+    torch.cuda.synchronize()
+
+    def step():
+        tree.alloc()
+        with record_function("build_plan"):
+            plan = runner.build_plan(mode)
+        with record_function("forward"):
+            v, _ = runner.forward_tree_decode(mode, plan, logits_kind="greedy")
+        nxt, _ = v.argmax()
+        for leaf in tree.leaves.values():
+            leaf.append_token(int(nxt[tree.leaf_to_q[leaf.id]]))
+
+    kv = "int8" if runner.k_pool.quantized else "bf16"
+    profile_steps(f"{mode.name}, prompt {len(prompt)}, {kv} KV", step, steps)
+    runner.reset_state()
+
+
+def profile_batch(runner, prompts, width, steps):
+    """torch.profiler over `steps` BatchedEngine flatten steps right after
+    the requests' admission (see profile_steps)."""
     from unittest import mock
 
     import torch
+    from deft_tpu_torch.control import Branch_Controller, workloads
+    from deft_tpu_torch.runtime import ForwardMode
+    from deft_tpu_torch.runtime.batched import BatchedEngine, Request
+    from torch.profiler import record_function
+
+    runner.reset_state()
+    eng = BatchedEngine(runner, ForwardMode.TREE_DECODE_FLATTEN)
+    eng.add_requests([Request(p, Branch_Controller(workloads.simple_tree),
+                              len(p) + GEN_LEN, width=width, depth=1) for p in prompts])
+    torch.cuda.synchronize()
+    build, forward = eng.build_plan, runner.forward_tree_decode
+
+    def marked_build(trees):
+        with record_function("build_plan"):
+            return build(trees)
+
+    def marked_forward(*a, **k):
+        with record_function("forward"):
+            return forward(*a, **k)
+
+    with (mock.patch.object(eng, "build_plan", marked_build),
+          mock.patch.object(runner, "forward_tree_decode", marked_forward)):
+        profile_steps(f"batched TREE_DECODE_FLATTEN, {len(prompts)} requests "
+                      f"(prompts {'/'.join(str(len(p)) for p in prompts)}), bf16 KV",
+                      eng.step, steps)
+    for req in eng.active:
+        req.tree.free()
+    runner.reset_state()
+
+
+def profile_steps(label, step, steps):
+    """torch.profiler over `steps` calls of step(): device time by kernel,
+    the device's busy share of the wall time, and the host and device time
+    of each step's plan building, its forward and the model's kv_store calls
+    within it (RANGES, marked with record_function while the profiler
+    runs)."""
+    from unittest import mock
+
     from deft_tpu_torch.models import llama
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -699,27 +1078,12 @@ def profile_decode(runner, mode, prompt, width, steps):
         with record_function("kv_store"):
             store(*a)
 
-    runner.reset_state()
-    view = runner.forward_prefill(prompt)
-    tree = runner.tree
-    _, ids = view.topk(0, width)
-    for c, child in enumerate(tree.branch(tree.root, width)):
-        child.append_token(int(ids[c]))
-    torch.cuda.synchronize()
     with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof,
           mock.patch.object(llama, "kv_store", marked_store)):
         t0 = time.perf_counter()
         for _ in range(steps):
-            tree.alloc()
-            with record_function("build_plan"):
-                plan = runner.build_plan(mode)
-            with record_function("forward"):
-                v, _ = runner.forward_tree_decode(mode, plan, logits_kind="greedy")
-            nxt, _ = v.argmax()
-            for leaf in tree.leaves.values():
-                leaf.append_token(int(nxt[tree.leaf_to_q[leaf.id]]))
+            step()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    runner.reset_state()
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(
@@ -736,8 +1100,7 @@ def profile_decode(runner, mode, prompt, width, steps):
            if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us(e) > 0
            and e.key not in RANGES]
     busy_ms = sum(dev_us(e) for e in evs) / 1e3
-    kv = "int8" if runner.k_pool.quantized else "bf16"
-    print(f"[profile] {mode.name}, prompt {len(prompt)}, {kv} KV: {steps} steps, "
+    print(f"[profile] {label}: {steps} steps, "
           f"wall {wall_ms / steps:.3f} ms/step, "
           f"device busy {busy_ms / steps:.3f} ms/step "
           f"({busy_ms / wall_ms:.1%}; idle {1 - busy_ms / wall_ms:.1%})", flush=True)
@@ -814,9 +1177,19 @@ def profile_kv_store(dev, reps: int = 20):
     torch.cuda.empty_cache()
 
 
-def time_ms(fn, reps: int, flush) -> float:
+# ~1 ms of sleep kernel at the H100's 1.98 GHz boost clock: longer than any
+# timed call's host work apart from the plain versions'
+PRIME_CYCLES = 2_000_000
+
+
+def time_ms(fn, reps: int, flush, primed: bool = True) -> float:
     """Mean CUDA-event time of fn() over reps launches, L2 flushed before
-    each (the decode step's weight streaming leaves the cache cold)."""
+    each (the decode step's weight streaming leaves the cache cold).
+    primed: a sleep kernel ahead of each launch keeps the device busy while
+    the host runs the wrapper (argument checks, allocations, the ctypes
+    call), so the events time the device work alone; unprimed, the device
+    waits for the host between the events, and a call shorter than its
+    wrapper's host time reads as the host time."""
     import torch
 
     for _ in range(2):
@@ -825,6 +1198,8 @@ def time_ms(fn, reps: int, flush) -> float:
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     for i in range(reps):
+        if primed:
+            torch.cuda._sleep(PRIME_CYCLES)
         flush.zero_()
         starts[i].record()
         fn()
@@ -833,10 +1208,129 @@ def time_ms(fn, reps: int, flush) -> float:
     return float(np.mean([a.elapsed_time(b) for a, b in zip(starts, ends)]))
 
 
+# name -> the library call timed beside a kernel, as found on this card
+LIBRARY = {}
+
+
+def ragged_timing_row(fns, shapes, bound):
+    """B8 at the batch path's shapes: kernel, plain and library callables,
+    bound.  Library: torch.nn.attention.varlen's varlen_attn where the
+    installed torch has it and it agrees with the plain version, else
+    scaled_dot_product_attention with the block-diagonal causal mask as a
+    boolean attn_mask."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v, seg, scale = shapes["ragged_prefill"][0][2]
+    N, Hq, D = q.shape
+    qpk = Hq // k.shape[1]
+    want = fns["ragged_prefill"][1](q, k, v, seg, scale)
+    cu = torch.tensor(np.cumsum((0,) + BATCH_LENS), dtype=torch.int32, device=q.device)
+    lib = None
+    try:
+        from torch.nn.attention.varlen import varlen_attn
+
+        params = inspect.signature(varlen_attn).parameters
+        kw = {"scale": scale} if "scale" in params else {}
+        kw.update({"is_causal": True} if "is_causal" in params
+                  else {"window_size": (-1, 0)})
+        kk, vv = k, v
+        if "enable_gqa" in params:
+            kw["enable_gqa"] = True
+        else:
+            kk, vv = (x.repeat_interleave(qpk, dim=1) for x in (k, v))
+        L = max(BATCH_LENS)
+
+        def lib():
+            return varlen_attn(q, kk, vv, cu, cu, L, L, **kw)
+
+        e = rel_err(lib(), want)
+        print(f"[timing] ragged_prefill library: varlen_attn({', '.join(kw)}) vs "
+              f"plain rel err {e:.3e}", flush=True)
+        check(e < TOL["bfloat16"], "varlen_attn disagrees")
+        LIBRARY["ragged_prefill"] = "torch.nn.attention.varlen.varlen_attn"
+    except (ImportError, TypeError, RuntimeError, Failure) as err:
+        print(f"[timing] ragged_prefill library: varlen_attn not usable here "
+              f"({type(err).__name__}: {str(err)[:120]}); SDPA with a boolean "
+              "block-diagonal causal mask instead", flush=True)
+        pos = torch.arange(N, device=q.device)
+        mask = (seg[:, None] == seg[None, :]) & (pos[:, None] >= pos[None, :])
+        qt = q.transpose(0, 1)[None]
+        kt, vt = (x.repeat_interleave(qpk, dim=1).transpose(0, 1)[None] for x in (k, v))
+
+        def lib():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale)
+
+        LIBRARY["ragged_prefill"] = "SDPA, boolean block-diagonal causal attn_mask"
+    pairs = sum(n * (n + 1) // 2 for n in BATCH_LENS)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + 4 * N
+    kern, plain = fns["ragged_prefill"]
+    return (lambda: kern(q, k, v, seg, scale), lambda: plain(q, k, v, seg, scale), lib,
+            *bound(nbytes, 2 * 2 * Hq * D * pairs))
+
+
+def int8mm_timing_row(fns, shapes, bound, flush):
+    """B9 as one decode step's layer sees it: the five 8B matmul weights in
+    turn (wqkv, wo, wgu, wdown, then lm_head) at R = 64, as one timed
+    function.  Library: torch._weight_int8pack_mm where the card's torch has
+    a CUDA kernel for it, else cuBLAS x @ w with the weight dequantised to
+    bf16 ahead of time.  Each shape at R = 64 and 256 is also timed alone
+    (printed), beside cuBLAS on the dequantised bf16 weight, which reads
+    twice B9's weight bytes."""
+    import torch
+
+    kern, plain = fns["int8_matmul"]
+    cases = {label: args for label, _, args in shapes["int8_matmul"]}
+    deq = {}  # R = 64 and 256 share each weight
+    for x, w, s in cases.values():
+        if id(w) not in deq:
+            deq[id(w)] = (w.float() * s).to(x.dtype)
+    if torch._C._dispatch_has_kernel_for_dispatch_key("aten::_weight_int8pack_mm",
+                                                      "CUDA"):
+        prep = {label: (x, w.t().contiguous(), s.to(x.dtype))
+                for label, (x, w, s) in cases.items()}
+
+        def lib_call(x, wt, sb):
+            return torch._weight_int8pack_mm(x, wt, sb)
+
+        LIBRARY["int8_matmul"] = "torch._weight_int8pack_mm"
+    else:
+        prep = {label: (x, deq[id(w)], None) for label, (x, w, s) in cases.items()}
+
+        def lib_call(x, wd, _):
+            return x @ wd
+
+        LIBRARY["int8_matmul"] = "cuBLAS x @ w, w dequantised to bf16 ahead of time"
+
+    def cost(x, w, s):
+        R, H = x.shape
+        I = w.shape[1]
+        return (H * I + 2 * R * H + 4 * I + 2 * R * I), 2 * R * H * I
+
+    for label, args in cases.items():
+        nb, fl = cost(*args)
+        b_ms, b_by = bound(nb, fl)
+        ms = time_ms(lambda a=args: kern(*a), 20, flush)
+        host_ms = time_ms(lambda a=args: kern(*a), 20, flush, primed=False)
+        lib_ms = time_ms(lambda a=prep[label]: lib_call(*a), 20, flush)
+        bf16_ms = time_ms(lambda x=args[0], wd=deq[id(args[1])]: x @ wd, 20, flush)
+        print(f"[timing] int8_matmul {label} (H, I) = {tuple(args[1].shape)}: kernel "
+              f"{ms:.4f} ms ({host_ms:.4f} ms unprimed), library {lib_ms:.4f} ms, "
+              f"cuBLAS on the bf16 weight "
+              f"{bf16_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"{b_ms / ms:.1%} of the bound", flush=True)
+    step = [cases[f"R=64 {n}"] for n in INT8_SHAPES]
+    step_lib = [prep[f"R=64 {n}"] for n in INT8_SHAPES]
+    nb, fl = (sum(c) for c in zip(*(cost(*a) for a in step)))
+    return (lambda: [kern(*a) for a in step], lambda: [plain(*a) for a in step],
+            lambda: [lib_call(*a) for a in step_lib], *bound(nb, fl))
+
+
 def phase_timing(dev, shapes):
-    """Per kernel at its path's shapes (the bf16-pool case of B6 and B7):
-    kernel, plain and (prefill) library times, the least time the card could
-    take and what bounds it."""
+    """Per kernel at its path's shapes (the bf16-pool case of B6 and B7; B9:
+    one layer's four matmuls and lm_head at R = 64): kernel, plain and
+    (prefill, B8, B9) library times, the least time the card could take and
+    what bounds it."""
     import torch
     import torch.nn.functional as F
 
@@ -861,7 +1355,7 @@ def phase_timing(dev, shapes):
 
     rows = {}
     for name, cases in shapes.items():
-        if name == "prefill":
+        if KERNELS[name][2] is None:  # prefill, B8, B9: below
             continue
         _, plan, args = cases[0]
         q = args[0]
@@ -896,23 +1390,30 @@ def phase_timing(dev, shapes):
     kt, vt = (x.repeat_interleave(Hq // x.shape[1], dim=1).transpose(0, 1)
               .contiguous()[None] for x in (k, v))
     fn, plain = fns["prefill"]
+    LIBRARY["prefill"] = "SDPA is_causal, K/V repeated to the query heads"
     rows["prefill"] = (lambda f=fn: f(q, k, v, scale),
                        lambda p=plain: p(q, k, v, scale),
                        lambda: F.scaled_dot_product_attention(
                            qt, kt, vt, is_causal=True, scale=scale),
                        *bound(nbytes, 2 * 2 * Hq * N * N * D / 2))
 
+    rows["ragged_prefill"] = ragged_timing_row(fns, shapes, bound)
+    rows["int8_matmul"] = int8mm_timing_row(fns, shapes, bound, flush)
+
     out = {}
     for name, (kern, plain_fn, lib, bound_ms, bound_by) in rows.items():
         ms = time_ms(kern, 20, flush)
+        host_ms = time_ms(kern, 20, flush, primed=False)
         plain_ms = time_ms(plain_fn, 3, flush)
         lib_ms = time_ms(lib, 20, flush) if lib is not None else None
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=bound_ms, bound_by=bound_by)
-        lib_txt = (f", library {lib_ms:.4f} ms" if lib_ms is not None else
+        lib_txt = (f", library {lib_ms:.4f} ms ({LIBRARY[name]})"
+                   if lib_ms is not None else
                    ", library none (no single PyTorch call computes a tree-masked"
                    " or per-leaf-path attention)")
-        print(f"[timing] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+        print(f"[timing] {name}: kernel {ms:.4f} ms ({host_ms:.4f} ms unprimed: "
+              f"the device waits for the wrapper's host work), plain {plain_ms:.4f} ms"
               f"{lib_txt}, bound {bound_ms:.4f} ms ({bound_by}), "
               f"{bound_ms / ms:.1%} of the bound", flush=True)
     return out
@@ -923,7 +1424,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace 8 decode steps per mode with torch.profiler "
                          "(the 4000-token prompt over bf16 and int8 KV, the "
-                         "16-token prompt over bf16 KV)")
+                         "16-token prompt over bf16 KV) and 8 batched flatten "
+                         "steps of the batch path's four requests")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -957,14 +1459,17 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         print(f"[main] 8b random bf16 weights made on the card in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-        launches, prompt, ids, lf = phase_main(dev, params, args.profile)
+        launches, prompt, ids, lf, main_runs = phase_main(dev, params, args.profile)
         launches.update({k: v for k, v in phase_int8(dev, params, prompt, ids,
                                                      lf, args.profile).items()
                          if k in ("paged_flatten_q", "paged_seq_q")})
         launches.update({k: v for k, v in phase_short(dev, params, args.profile).items()
                          if k in ("flatten_gather", "seq_gather")})
+        launches["ragged_prefill"] = phase_batch(dev, params,
+                                                args.profile)["ragged_prefill"]
         del params, lf
         torch.cuda.empty_cache()
+        launches["int8_matmul"] = phase_int8w(dev, prompt, ids, main_runs)["int8_matmul"]
         if args.profile:
             profile_kv_store(dev)
         timing = phase_timing(dev, shapes)

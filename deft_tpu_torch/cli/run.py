@@ -3,12 +3,16 @@
 Port of deft_tpu/cli/run.py:26 (build_parser) and :200 (main), with the
 flags ported so far: --random-model, --mode flatten|seq, --Branch_controller
 Simple_Tree, --max_width, --max_depth, --max_seq_len, --prompt_len,
---block_len, --dtype, --kv-dtype inherit|int8, --kv_pool_slots, --seed,
---output_file, --print-branches and --device cuda|cpu (default cuda; a
-missing GPU raises).  The other modes and workloads are not ported yet, so
-argparse refuses them.
+--block_len, --dtype, --kv-dtype inherit|int8, --weight-dtype
+inherit|int8|int8-pallas, --kv_pool_slots, --seed, --output_file,
+--print-branches, --batch N (N requests through the continuous-batching
+engine, deft_tpu :270-296) and --device cuda|cpu (default cuda; a missing
+GPU raises).  The other modes and workloads are not ported yet, so argparse
+refuses them.
 
-Usage (the default 16-token prompt; add --kv-dtype int8 for the int8 cache):
+Usage (the default 16-token prompt; add --kv-dtype int8 for the int8 cache,
+--weight-dtype int8-pallas for int8 weights through kernel B9, --batch 3
+for three requests decoded together):
     python -m deft_tpu_torch.cli.run --device cpu --random-model tiny \
         --mode flatten --max_width 3 --max_seq_len 40 --dtype float32 \
         --kv_pool_slots 4096
@@ -19,6 +23,7 @@ from __future__ import annotations
 import argparse
 import random
 import sys
+import time
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -40,10 +45,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kv-dtype", choices=["inherit", "int8"],
                    default="inherit",
                    help="int8: quantized KV cache (per-token-head scales)")
+    p.add_argument("--weight-dtype", choices=["inherit", "int8", "int8-pallas"],
+                   default="inherit",
+                   help="int8: weight-only int8 matmuls (per-output-channel "
+                        "scales, plain torch expression); int8-pallas: the "
+                        "same weights, decode-sized matmuls through the "
+                        "hand-written kernel B9 (ops/int8_matmul.py)")
     p.add_argument("--kv_pool_slots", type=int, default=None)
     p.add_argument("--print-branches", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    p.add_argument("--batch", type=int, default=1,
+                   help="N>1: drive N requests of this workload through the "
+                        "continuous-batching engine (shared pools, one ragged "
+                        "prefill, one multi-tree step per iteration)")
     return p
 
 
@@ -69,11 +84,13 @@ def main(argv=None) -> int:
     cfg = PRESETS[args.random_model]
     ecfg = EngineConfig(attention=AttentionConfig(block_len=args.block_len),
                         kv_pool_slots=args.kv_pool_slots, dtype=args.dtype,
-                        kv_dtype=args.kv_dtype)
+                        kv_dtype=args.kv_dtype, weight_dtype=args.weight_dtype)
     runner = ModelRunner(cfg, ecfg, device=args.device, seed=args.seed,
                          topk_k=max(64, args.max_width))
     prompt_ids = make_prompt(args.prompt_len, args.max_seq_len, cfg.vocab_size,
                              args.seed)
+    if args.batch > 1:
+        return run_batch(args, runner, mode_from_cli(args.mode), prompt_ids)
     pm = tree_generate(
         model=runner,
         mode=mode_from_cli(args.mode),
@@ -87,6 +104,34 @@ def main(argv=None) -> int:
         print_branches=args.print_branches,
     )
     pm.print_latency()
+    return 0
+
+
+def run_batch(args, runner, mode, prompt_ids) -> int:
+    """--batch N: N requests of the same prompt and workload, admitted by one
+    ragged prefill and decoded together (deft_tpu cli/run.py:270-296)."""
+    from deft_tpu_torch.control import Branch_Controller, workloads
+    from deft_tpu_torch.obs.timers import synchronize
+    from deft_tpu_torch.runtime.batched import BatchedEngine, Request
+
+    eng = BatchedEngine(runner, mode=mode)
+    reqs = [Request(prompt_ids, Branch_Controller(workloads.simple_tree),
+                    args.max_seq_len, width=args.max_width, depth=args.max_depth)
+            for _ in range(args.batch)]
+    t0 = time.perf_counter()
+    eng.add_requests(reqs)
+    eng.run()
+    synchronize(runner.device)
+    wall = time.perf_counter() - t0
+    tok = sum(len(s.token_ids) for r in reqs for s in r.finished_seqs)
+    print(f"batched: {args.batch} requests, {tok} generated tokens, "
+          f"{wall * 1000:.1f} ms wall, "
+          f"{wall * 1000 / max(tok, 1):.4f} ms/token aggregate")
+    if args.print_branches:
+        for i, r in enumerate(reqs):
+            for s in r.finished_seqs:
+                print(f"req {i} branch {s.id}: "
+                      f"{' '.join(str(int(t)) for t in s.token_ids)}")
     return 0
 
 

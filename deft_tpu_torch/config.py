@@ -13,6 +13,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+WEIGHT_DTYPES = ("inherit", "int8", "int8-pallas")
+
 
 @dataclasses.dataclass(frozen=True)
 class AttentionConfig:
@@ -32,8 +34,8 @@ class AttentionConfig:
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Top-level engine knobs.  deft_tpu's max_leaves and weight_dtype come
-    with the code that reads them (int8 weights are queued, ROADMAP B9)."""
+    """Top-level engine knobs.  deft_tpu's max_leaves comes with the code
+    that reads it."""
 
     attention: AttentionConfig = dataclasses.field(default_factory=AttentionConfig)
     # KV pool sizing: number of token slots.  None -> from free device memory.
@@ -46,6 +48,13 @@ class EngineConfig:
     # KV cache element type (deft_tpu config.py:54): "inherit" (dtype) or
     # "int8" (per-(token, head) fp32 scales; halves the KV bytes).
     kv_dtype: str = "inherit"
+    # Matmul weight element type (deft_tpu config.py:58): "inherit" (dtype),
+    # "int8" (weight-only int8, per-output-channel fp32 scales; every matmul
+    # runs the plain torch expression) or "int8-pallas" (the same codes and
+    # scales; decode-sized matmuls run the hand-written kernel B9,
+    # ops/int8_matmul.py, in the port — deft_tpu's name for its Pallas
+    # kernel is kept so one command line drives both packages).
+    weight_dtype: str = "inherit"
     # Fraction of free device memory the KV pool may claim when
     # kv_pool_slots is None.
     mem_fraction: float = 0.8
@@ -53,3 +62,6 @@ class EngineConfig:
     def __post_init__(self):
         if self.kv_dtype not in ("inherit", "int8"):
             raise ValueError(f"kv_dtype {self.kv_dtype!r}: 'inherit' or 'int8'")
+        if self.weight_dtype not in WEIGHT_DTYPES:
+            raise ValueError(f"weight_dtype {self.weight_dtype!r}: one of "
+                             f"{', '.join(WEIGHT_DTYPES)}")

@@ -1,15 +1,17 @@
 """Dense Llama forward over stacked layer parameters, in torch.
 
-Port of deft_tpu/models/llama.py: KVPool, kv_store and kv_gather_heads
-(:84-133, int8 KV included), mm (:136), rms_norm (:161), the per-layer body
-(:318-417, a lax.scan there, a Python loop over layers here), decode_forward
-(:420) and prefill_forward (:456).  MoE, Gemma norms, qk-norm, qkv biases
-and int8 weights come in later slices; loader.check_supported refuses such
-configs.
+Port of deft_tpu/models/llama.py: RaggedPrefillBatch (:73), KVPool,
+kv_store and kv_gather_heads (:84-133, int8 KV included), mm (:136, int8
+weights included), rms_norm (:161), the per-layer body (:318-417, a
+lax.scan there, a Python loop over layers here), decode_forward (:420),
+prefill_forward (:456) and ragged_prefill_forward (:488).  MoE, Gemma
+norms, qk-norm and qkv biases come in later slices; loader.check_supported
+refuses such configs.
 
 Attention is a pluggable AttnFn (ops/attn_impls.py), as in deft_tpu:
     (q, k_new, v_new, k_pool, v_pool, layer_idx, batch, scale) -> (R, Hq, D)
-Norm and softmax math runs in fp32; matmuls run in the weight dtype.
+Norm and softmax math runs in fp32; matmuls run in the activation dtype
+(int8 weights: see ``mm``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,19 @@ import torch
 
 from deft_tpu_torch.models.config import LlamaConfig
 from deft_tpu_torch.models.rope import apply_rope
+from deft_tpu_torch.ops import int8_matmul as i8mm
+
+
+@dataclasses.dataclass
+class RaggedPrefillBatch:
+    """B prompts joined on the token axis (deft_tpu llama.py:73), on the
+    device: the per-token arrays are (P,) and ``last_idx`` (B,)."""
+
+    tokens: torch.Tensor     # concatenated prompt tokens
+    positions: torch.Tensor  # position within the token's own prompt
+    out_loc: torch.Tensor    # KV slot of each token
+    seg_ids: torch.Tensor    # prompt index of each token (int32)
+    last_idx: torch.Tensor   # index of each prompt's final token
 
 
 @dataclasses.dataclass
@@ -74,9 +89,25 @@ def kv_gather_heads(pool: KVPool, li: int, idx: torch.Tensor, head_dim: int,
     return (d.float() * s).to(out_dtype)
 
 
-def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w in the weight dtype (deft_tpu llama.py:136, bf16/fp32 path)."""
-    return x @ w
+def mm(x: torch.Tensor, p: Dict[str, torch.Tensor], name: str) -> torch.Tensor:
+    """x @ p[name], routed by the scale key the loader wrote (deft_tpu
+    llama.py:136-158):
+      name + "_s"  — weight-only int8, the plain torch expression: the
+                     product in x's dtype, times the fp32 per-column scale,
+                     cast back (deft_tpu leaves it to XLA);
+      name + "_sp" — the kernel B9 (ops/int8_matmul.py) when deft_tpu's
+                     shape rule makes the product eligible (decode-sized
+                     rows), else the same expression;
+      neither      — x @ w."""
+    w = p[name]
+    s = p.get(name + "_s")
+    if s is None:
+        s = p.get(name + "_sp")
+        if s is None:
+            return x @ w
+        if i8mm.eligible(x, w):
+            return i8mm.int8_matmul(x, w, s)
+    return ((x @ w.to(x.dtype)).float() * s).to(x.dtype)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -86,6 +117,14 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 AttnFn = Callable[..., torch.Tensor]
+
+_LAYER_KEYS = ("ln1", "wqkv", "wo", "ln2", "wgu", "wdown")
+
+
+def layer_params(params: Dict[str, torch.Tensor], li: int) -> Dict[str, torch.Tensor]:
+    """Layer li's slices of the stacked parameters, int8 scales included."""
+    return {k: params[k][li] for base in _LAYER_KEYS
+            for k in (base, base + "_s", base + "_sp") if k in params}
 
 
 def forward_layers(cfg: LlamaConfig, params: Dict[str, torch.Tensor],
@@ -102,8 +141,9 @@ def forward_layers(cfg: LlamaConfig, params: Dict[str, torch.Tensor],
     eps = cfg.rms_norm_eps
     I = cfg.intermediate_size
     for li in range(cfg.num_layers):
-        h = rms_norm(x, params["ln1"][li], eps)
-        qkv = mm(h, params["wqkv"][li])
+        lp = layer_params(params, li)
+        h = rms_norm(x, lp["ln1"], eps)
+        qkv = mm(h, lp, "wqkv")
         q = qkv[:, :nq_d].reshape(n, cfg.num_q_heads, D)
         k = qkv[:, nq_d:nq_d + nkv_d].reshape(n, cfg.num_kv_heads, D)
         v = qkv[:, nq_d + nkv_d:].reshape(n, cfg.num_kv_heads, D)
@@ -112,12 +152,12 @@ def forward_layers(cfg: LlamaConfig, params: Dict[str, torch.Tensor],
         kv_store(k_pool, li, out_loc, k)
         kv_store(v_pool, li, out_loc, v)
         o = attn(q, k, v, k_pool, v_pool, li, batch, scale)
-        x = x + mm(o.reshape(n, -1).to(x.dtype), params["wo"][li])
-        h = rms_norm(x, params["ln2"][li], eps)
-        gu = mm(h, params["wgu"][li])
+        x = x + mm(o.reshape(n, -1).to(x.dtype), lp, "wo")
+        h = rms_norm(x, lp["ln2"], eps)
+        gu = mm(h, lp, "wgu")
         g, u = gu[:, :I], gu[:, I:]
         x = x + mm(torch.nn.functional.silu(g.float()).to(x.dtype) * u,
-                   params["wdown"][li])
+                   lp, "wdown")
     return rms_norm(x, params["ln_f"], eps)
 
 
@@ -127,7 +167,7 @@ def decode_forward(cfg: LlamaConfig, params, rope_tbl, k_pool: KVPool,
     attention plan's arrays); returns (R, V) fp32 logits."""
     x = forward_layers(cfg, params, rope_tbl, k_pool, v_pool, batch.q_tokens,
                        batch.q_pos, batch.out_loc, attn, batch)
-    return mm(x, params["lm_head"]).float()
+    return mm(x, params, "lm_head").float()
 
 
 def prefill_forward(cfg: LlamaConfig, params, rope_tbl, k_pool: KVPool,
@@ -139,4 +179,15 @@ def prefill_forward(cfg: LlamaConfig, params, rope_tbl, k_pool: KVPool,
     positions = torch.arange(tokens.shape[0], device=tokens.device)
     x = forward_layers(cfg, params, rope_tbl, k_pool, v_pool, tokens,
                        positions, out_loc, attn, None)
-    return mm(x[-1:], params["lm_head"])[0].float()
+    return mm(x[-1:], params, "lm_head")[0].float()
+
+
+def ragged_prefill_forward(cfg: LlamaConfig, params, rope_tbl, k_pool: KVPool,
+                           v_pool: KVPool, batch: RaggedPrefillBatch,
+                           attn: AttnFn) -> torch.Tensor:
+    """Prefill B prompts joined on the token axis in one forward; returns
+    each prompt's last-token logits, (B, V) fp32.  ``attn`` masks pairs of
+    tokens from different prompts through batch.seg_ids."""
+    x = forward_layers(cfg, params, rope_tbl, k_pool, v_pool, batch.tokens,
+                       batch.positions, batch.out_loc, attn, batch)
+    return mm(x[batch.last_idx], params, "lm_head").float()

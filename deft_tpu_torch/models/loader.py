@@ -1,10 +1,16 @@
 """Parameters: random init and conversion from numpy.
 
-Port of deft_tpu/models/loader.py:25 (_param_shapes), :83 (_fuse_host) and
-:217 (random_params).  The port keeps the JAX package's parameter layout:
+Port of deft_tpu/models/loader.py:25 (_param_shapes), :76 (QUANT_WEIGHTS),
+:83 (_fuse_host), :189 (_quantize_int8), :197 (_finalize) and :217
+(random_params).  The port keeps the JAX package's parameter layout:
 stacked (num_layers, ...) tensors, projections as (in, out) matrices, and
 q/k/v and gate/up fused along the output axis (wqkv, wgu) as deft_tpu's
 single-chip runner keeps them (runner.py:228-252).
+
+Weight-only int8 (``weight_dtype`` "int8" or "int8-pallas"): every matmul
+weight in QUANT_WEIGHTS becomes int8 codes plus a per-output-channel fp32
+scale under ``name + "_s"`` ("int8") or ``name + "_sp"`` ("int8-pallas"),
+which tells ``llama.mm`` which route to take (deft_tpu loader.py:207-211).
 
 Two random streams:
 - the numpy stream (``random_params(..., device="cpu")``): default_rng(seed)
@@ -22,10 +28,18 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from deft_tpu_torch.config import WEIGHT_DTYPES
 from deft_tpu_torch.models.config import LlamaConfig
 
 # (members, fused name) along the output axis (deft_tpu loader.py:80)
 _FUSE_GROUPS = ((("wq", "wk", "wv"), "wqkv"), (("wg", "wu"), "wgu"))
+
+# Matmul weights that weight-only int8 quantises: all but embed and the norms
+# (deft_tpu loader.py:76).  Scales are per output column, so quantising a
+# fused tensor equals fusing the quantised members.
+QUANT_WEIGHTS = ("wq", "wk", "wv", "wo", "wg", "wu", "wdown", "lm_head",
+                 "wqkv", "wgu")
+SCALE_SUFFIX = {"int8": "_s", "int8-pallas": "_sp"}
 
 
 def _param_shapes(cfg: LlamaConfig) -> Dict[str, Any]:
@@ -86,12 +100,32 @@ def check_supported(cfg: LlamaConfig) -> None:
             f"not ported yet: {', '.join(unsupported)} (dense Llama only)")
 
 
+def _quantize_int8(w: torch.Tensor):
+    """Per-output-channel symmetric int8 of fp32 ``w`` (..., in, out): scale
+    max(max|w| / 127, 1e-8) over the input axis, codes round(w / scale)
+    (half to even, as np.round) clipped to +-127 (deft_tpu loader.py:189).
+    Returns (int8 codes, fp32 scales (..., out))."""
+    s = torch.clamp_min(w.abs().amax(dim=-2, keepdim=True) / 127.0, 1e-8)
+    q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
+    return q, s.squeeze(-2)
+
+
+def _check_weight_dtype(weight_dtype: str) -> None:
+    if weight_dtype not in WEIGHT_DTYPES:
+        raise ValueError(f"weight_dtype {weight_dtype!r}: one of "
+                         f"{', '.join(WEIGHT_DTYPES)}")
+
+
 def params_from_numpy(np_params: Dict[str, np.ndarray], cfg: LlamaConfig,
-                      device, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
-    """The port's parameters from numpy arrays in deft_tpu's layout, fused
-    (wqkv, wgu) or unfused (wq/wk/wv, wg/wu): e.g. ``{k: np.asarray(v)}`` of
-    a deft_tpu runner's params, or the numpy random stream."""
+                      device, dtype: torch.dtype,
+                      weight_dtype: str = "inherit") -> Dict[str, torch.Tensor]:
+    """The port's parameters from float numpy arrays in deft_tpu's layout,
+    fused (wqkv, wgu) or unfused (wq/wk/wv, wg/wu): e.g. ``{k: np.asarray(v)}``
+    of a deft_tpu runner's (unquantised) params, or the numpy random stream.
+    ``weight_dtype`` int8 flavours quantise the fused matmul weights, as
+    deft_tpu's _finalize(fuse=True) does (loader.py:197-214)."""
     check_supported(cfg)
+    _check_weight_dtype(weight_dtype)
     bufs = fuse_host(np_params)
     want = _fused_shapes(cfg)
     if set(bufs) != set(want):
@@ -101,7 +135,13 @@ def params_from_numpy(np_params: Dict[str, np.ndarray], cfg: LlamaConfig,
         arr = np.array(bufs[name], dtype=np.float32)  # a private copy
         if arr.shape != shape:
             raise ValueError(f"{name}: shape {arr.shape} != {shape}")
-        out[name] = torch.from_numpy(arr).to(device=device, dtype=dtype)
+        w = torch.from_numpy(arr)
+        if weight_dtype != "inherit" and name in QUANT_WEIGHTS:
+            q, s = _quantize_int8(w)
+            out[name] = q.to(device)
+            out[name + SCALE_SUFFIX[weight_dtype]] = s.to(device)
+        else:
+            out[name] = w.to(device=device, dtype=dtype)
     return out
 
 
@@ -122,17 +162,23 @@ def numpy_random_params(cfg: LlamaConfig, seed: int = 0) -> Dict[str, np.ndarray
 
 
 def random_params(cfg: LlamaConfig, seed: int = 0, device="cuda",
-                  dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
+                  dtype: torch.dtype = torch.bfloat16,
+                  weight_dtype: str = "inherit") -> Dict[str, torch.Tensor]:
     """Random-init parameters with sane scales.
 
     On the CPU: deft_tpu's numpy stream, so both packages get the same
-    weights.  On a GPU: a torch.Generator seeded with ``seed`` draws the
-    fused tensors directly on ``device``, one layer at a time, so the fp32
-    transient is one layer's tensor."""
+    weights (and, for int8, the same codes and scales).  On a GPU: a
+    torch.Generator seeded with ``seed`` draws the fused tensors directly on
+    ``device``, one layer at a time, and int8 flavours quantise each layer's
+    slice as it is drawn: the fp32 transient is one layer's tensor (lm_head,
+    the largest, is 2.1 GB at 8B) and no full-precision copy of a quantised
+    weight ever exists.  The same seed gives the int8 weights of the same
+    draws as the bf16 ones."""
     device = torch.device(device)
+    _check_weight_dtype(weight_dtype)
     if device.type == "cpu":
         return params_from_numpy(numpy_random_params(cfg, seed), cfg, device,
-                                 dtype)
+                                 dtype, weight_dtype)
     check_supported(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -142,10 +188,23 @@ def random_params(cfg: LlamaConfig, seed: int = 0, device="cuda",
             params[name] = torch.ones(shape, dtype=dtype, device=device)
             continue
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-        out = torch.empty(shape, dtype=dtype, device=device)
-        for part in (out if len(shape) == 3 else [out]):
+        quant = weight_dtype != "inherit" and name in QUANT_WEIGHTS
+        out = torch.empty(shape, dtype=torch.int8 if quant else dtype,
+                          device=device)
+        scale = (torch.empty(shape[:-2] + shape[-1:], dtype=torch.float32,
+                             device=device) if quant else None)
+        stacked = len(shape) == 3
+        for i, part in enumerate(out if stacked else [out]):
             x = torch.randn(part.shape, generator=gen, device=device,
-                            dtype=torch.float32)
-            part.copy_(x.mul_(fan_in ** -0.5))
+                            dtype=torch.float32).mul_(fan_in ** -0.5)
+            if quant:
+                q, s = _quantize_int8(x)
+                part.copy_(q)
+                (scale[i] if stacked else scale).copy_(s)
+            else:
+                part.copy_(x)
+            del x
         params[name] = out
+        if quant:
+            params[name + SCALE_SUFFIX[weight_dtype]] = scale
     return params

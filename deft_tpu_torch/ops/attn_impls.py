@@ -1,7 +1,7 @@
 """Attention entries behind the model's AttnFn interface.
 
-Port of deft_tpu/ops/attn_impls.py:24-61 (flatten_attn_xla, seq_attn_xla,
-prefill_attn_xla) and of the runner's kernel choice (deft_tpu
+Port of deft_tpu/ops/attn_impls.py:24-67 (flatten_attn_xla, seq_attn_xla,
+prefill_attn_xla, ragged_prefill_attn_xla) and of the runner's kernel choice (deft_tpu
 runtime/runner.py:418-488).  Each entry has the signature
 
     (q, k_new, v_new, k_pool, v_pool, layer_idx, batch, scale) -> (R, Hq, D)
@@ -16,9 +16,14 @@ the kernel's plain torch version for CPU tensors:
     seq, paged       seq_attn (B2)            seq_attn_q (B5)
     seq, gather      seq_gather_attn (B7, both pool types)
 
+Prefill attends the in-flight projections: ``prefill_attn`` (B3, one
+prompt) and ``ragged_prefill_attn`` (B8, prompts joined on the token axis,
+batch.seg_ids).
+
 ``flatten_attn_xla`` and ``seq_attn_xla`` are deft_tpu's dense oracles over
 the gather plans' arrays: B6's and B7's plain versions (int8 rows
-dequantised in fp32) behind the AttnFn interface; no runner path takes them.
+dequantised in fp32) behind the AttnFn interface, and
+``ragged_prefill_attn_xla`` is B8's; no runner path takes them.
 """
 
 from __future__ import annotations
@@ -29,7 +34,8 @@ from deft_tpu_torch.ops.paged_flatten_attn import paged_flatten_attention
 from deft_tpu_torch.ops.paged_quant import paged_flatten_attention_q
 from deft_tpu_torch.ops.paged_seq_attn import (paged_seq_attention,
                                                paged_seq_attention_q)
-from deft_tpu_torch.ops.prefill import prefill_attn
+from deft_tpu_torch.ops.prefill import (prefill_attn, ragged_prefill_attn,
+                                        ragged_prefill_attention_plain)
 from deft_tpu_torch.ops.seq_attn import seq_attention, seq_attention_plain
 
 
@@ -100,6 +106,13 @@ def seq_attn_xla(q, k_new, v_new, k_pool, v_pool, li, batch, scale):
                                v_pool.scale)
 
 
+def ragged_prefill_attn_xla(q, k_new, v_new, k_pool, v_pool, li, batch, scale):
+    """deft_tpu attn_impls.py:64: ragged causal prefill, cross-prompt pairs
+    masked by batch.seg_ids; B8's plain version behind the AttnFn
+    interface."""
+    return ragged_prefill_attention_plain(q, k_new, v_new, batch.seg_ids, scale)
+
+
 __all__ = ["flatten_attn", "flatten_attn_q", "flatten_gather_attn", "seq_attn",
-           "seq_attn_q", "seq_gather_attn", "prefill_attn", "flatten_attn_xla",
-           "seq_attn_xla"]
+           "seq_attn_q", "seq_gather_attn", "prefill_attn", "ragged_prefill_attn",
+           "flatten_attn_xla", "seq_attn_xla", "ragged_prefill_attn_xla"]

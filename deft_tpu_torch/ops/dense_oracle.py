@@ -1,8 +1,9 @@
 """Dense masked attention in plain torch: the oracle every kernel is held
 against, and the arithmetic of each kernel's plain version.
 
-Port of deft_tpu/ops/dense_oracle.py:18 (dense_tree_attention) and :48
-(dense_causal_attention), plus the per-leaf path attention of
+Port of deft_tpu/ops/dense_oracle.py:18 (dense_tree_attention), :48
+(dense_causal_attention) and :72 (dense_ragged_causal_attention), plus the
+per-leaf path attention of
 deft_tpu/ops/attn_impls.py:34 (seq_attn_xla).  All in fp32, cast back to the
 query dtype.  A fully masked row yields 0 (masked terms are zeroed after the
 exp, so its normaliser is 0), the convention of the kernels.
@@ -49,6 +50,24 @@ def dense_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     causal = torch.ones(N, N, dtype=torch.bool, device=q.device).tril()
     p = _masked_softmax(s, causal)
     return torch.einsum("hgnt,thd->nhgd", p, v.float()).reshape(N, Hq, D).to(q.dtype)
+
+
+def dense_ragged_causal_attention(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, seg: torch.Tensor,
+                                  scale: float) -> torch.Tensor:
+    """Causal self-attention of prompts joined on the token axis: q (N, Hq,
+    D), k, v (N, Hkv, D), seg (N,) each token's prompt, pads < 0; token i
+    attends token j iff seg[i] == seg[j] >= 0 and i >= j, and pad rows give
+    0.  Computed one prompt at a time (dense_causal_attention over its own
+    tokens), the same function as deft_tpu's one (N, N) mask without its
+    (N, Hq, N) scores."""
+    out = torch.zeros_like(q)
+    for s in torch.unique(seg).tolist():
+        if s < 0:
+            continue
+        idx = (seg == s).nonzero().flatten()
+        out[idx] = dense_causal_attention(q[idx], k[idx], v[idx], scale)
+    return out
 
 
 def dense_path_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

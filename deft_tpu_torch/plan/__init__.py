@@ -5,6 +5,8 @@ from deft_tpu_torch.plan.padding import (
 )
 from deft_tpu_torch.plan.flatten import FlattenPlan, build_flatten_plan
 from deft_tpu_torch.plan.seq import SeqPlan, build_seq_plan
+from deft_tpu_torch.plan.multi import (build_multi_flatten_plan,
+                                       build_multi_seq_plan)
 
 __all__ = [
     "next_pow2",
@@ -14,4 +16,6 @@ __all__ = [
     "build_flatten_plan",
     "SeqPlan",
     "build_seq_plan",
+    "build_multi_flatten_plan",
+    "build_multi_seq_plan",
 ]

@@ -2,13 +2,15 @@
 prefill and tree-decode steps.
 
 Port of the per-step path of deft_tpu/runtime/runner.py: LogitsView (:66),
-the constructor (:194, int8 KV pools :273-279), pool sizing (:382, here from
-``torch.cuda.mem_get_info``), the kernel choice (_attn_fn :418-477),
-forward_prefill (:1125), build_plan (:1205-1273, with want_paged=True and
-the int8 segment rules), _use_paged (:1275) and forward_tree_decode
-(:2004).  PyTorch runs eagerly, so there are no jitted steps, shape-bucket
-floors, plan patches or replay slabs: each step uploads its plan arrays in
-one host-to-device copy and runs the forward.
+the constructor (:194, int8 weights :223-239, int8 KV pools :273-279), pool
+sizing (:382, here from ``torch.cuda.mem_get_info``), the kernel choice
+(_attn_fn :418-477), forward_prefill (:1125), forward_prefill_batch
+(:1154), build_plan (:1205-1273, with want_paged=True and the int8 segment
+rules), _use_paged (:1275) and forward_tree_decode (:2004), which takes
+single-tree and multi-tree plans (plan/multi.py) alike.  PyTorch runs
+eagerly, so there are no jitted steps, shape-bucket floors, plan patches or
+replay slabs: each step uploads its plan arrays in one host-to-device copy
+and runs the forward.
 
 Every plan runs through a kernel: segment-aligned (paged) plans through the
 paged kernels, the others through the gather kernels, over bf16/fp32 or
@@ -27,7 +29,9 @@ import torch
 from deft_tpu_torch.config import EngineConfig
 from deft_tpu_torch.core import ReqToTokenPool, TokenKVPool, TreeCache
 from deft_tpu_torch.models.config import LlamaConfig
-from deft_tpu_torch.models.llama import KVPool, decode_forward, prefill_forward
+from deft_tpu_torch.models.llama import (KVPool, RaggedPrefillBatch,
+                                         decode_forward, prefill_forward,
+                                         ragged_prefill_forward)
 from deft_tpu_torch.models.loader import check_supported, random_params
 from deft_tpu_torch.models.rope import rope_table
 from deft_tpu_torch.obs import create_logger
@@ -101,8 +105,10 @@ class ModelRunner:
         self.dtype = (torch.bfloat16 if engine_config.dtype == "bfloat16"
                       else torch.float32)
         if params is None:
-            logger.info("random-init params (seed=%d)", seed)
-            params = random_params(model_config, seed, self.device, self.dtype)
+            logger.info("random-init params (seed=%d, weights=%s)", seed,
+                        engine_config.weight_dtype)
+            params = random_params(model_config, seed, self.device, self.dtype,
+                                   engine_config.weight_dtype)
         self.params = params
 
         max_pos = min(self.cfg.context_len, engine_config.max_context_len)
@@ -208,16 +214,49 @@ class ModelRunner:
         self.token_to_kv_pool.clear()
         self.req_to_token_pool.clear()
 
-    def forward_prefill(self, prompt_ids) -> LogitsView:
-        """Prefill a prompt into the runner's tree; returns the last token's
-        distribution as a 1-row view."""
-        cache_loc = self.tree.init_prompt(list(map(int, prompt_ids)))
-        dev = self._upload({"tokens": self.tree.root.token_ids,
-                            "out_loc": cache_loc})
+    def forward_prefill(self, prompt_ids, tree: Optional[TreeCache] = None
+                        ) -> LogitsView:
+        """Prefill a prompt into ``tree`` (default: the runner's own tree;
+        the batched engine passes its requests' trees); returns the last
+        token's distribution as a 1-row view."""
+        tree = tree if tree is not None else self.tree
+        cache_loc = tree.init_prompt(list(map(int, prompt_ids)))
+        dev = self._upload({"tokens": tree.root.token_ids, "out_loc": cache_loc})
         logits = prefill_forward(self.cfg, self.params, self._rope_tbl,
                                  self.k_pool, self.v_pool, dev["tokens"],
                                  dev["out_loc"].long(), attn_impls.prefill_attn)
         return self._logits_view(logits[None, :], "topk")
+
+    def forward_prefill_batch(self, prompts, trees) -> LogitsView:
+        """Prefill B prompts, each into its own tree, in ONE forward: the
+        prompts are joined on the token axis and told apart by per-token
+        segment ids (ragged attention, kernel B8).  Row i of the returned
+        view is prompt i's last-token distribution.  The forward runs
+        eagerly at the true token count, so no bucket padding."""
+        if not prompts or len(prompts) != len(trees):
+            raise ValueError(f"{len(prompts)} prompts for {len(trees)} trees")
+        tokens, positions, out_loc, seg, last = [], [], [], [], []
+        o = 0
+        for i, (ids, tree) in enumerate(zip(prompts, trees)):
+            loc = tree.init_prompt(list(map(int, ids)))
+            n = len(loc)
+            tokens.append(tree.root.token_ids)
+            positions.append(np.arange(n))
+            out_loc.append(loc)
+            seg.append(np.full(n, i))
+            o += n
+            last.append(o - 1)
+        dev = self._upload({name: np.concatenate(parts) for name, parts in (
+            ("tokens", tokens), ("positions", positions), ("out_loc", out_loc),
+            ("seg_ids", seg))} | {"last_idx": np.asarray(last)})
+        batch = RaggedPrefillBatch(
+            tokens=dev["tokens"], positions=dev["positions"],
+            out_loc=dev["out_loc"].long(), seg_ids=dev["seg_ids"],
+            last_idx=dev["last_idx"].long())
+        logits = ragged_prefill_forward(self.cfg, self.params, self._rope_tbl,
+                                        self.k_pool, self.v_pool, batch,
+                                        attn_impls.ragged_prefill_attn)
+        return self._logits_view(logits, "topk")
 
     def build_plan(self, mode: ForwardMode):
         """Host-side attention plan for the current tree (call after alloc);
