@@ -9,11 +9,13 @@ result line):
   1. card:    nvidia-smi's name and power limit, torch's device name;
   2. build:   nvcc builds every kernel from csrc/, one process per source;
   3. kernels: each kernel against its plain torch version on the card, on the
-              shapes its path gives it (Llama-3.1-8B heads, bf16, tolerance
-              2e-2) and on small fp32 trees with dead, FULL and few-leaf
-              blocks, unaligned seq segments and a short prompt's plans that
-              are not segment-aligned, over bf16/fp32 pools and int8 pools
-              with random codes and scales (tolerance 2e-5), live rows only;
+              shapes its path gives it (Llama-3.1-8B heads and matmuls, B10
+              at Mixtral-8x7B's prefill; bf16, tolerance 2e-2) and on small
+              fp32 cases (tolerance 2e-5): trees with dead, FULL and
+              few-leaf blocks, unaligned seq segments and a short prompt's
+              plans that are not segment-aligned, over bf16/fp32 pools and
+              int8 pools with random codes and scales, live rows only; B10
+              with an empty expert group and pad tiles past the last group;
   4. main:    the 8B model (random bf16 weights from a CUDA torch.Generator,
               all 32 layers) serves Simple_Tree few-shot, width 50, prompt
               4000, 64 generated tokens, block_len 256, in flatten then seq
@@ -45,7 +47,30 @@ result line):
               in prefill; the first decode step's logits against the same
               codes and scales under "int8" (the plain expression, 0 B9
               launches) below LOGITS_LIMIT;
-  9. timing:  CUDA-event times of each kernel, its plain version and, where
+  9. moe:     Mixtral-8x7B widths at deft_tpu's 6 layers (PRESETS
+              ["mixtral-6l"], bf16 weights from a CUDA torch.Generator), the
+              main path's workload over a prompt of ids below its 32000-token
+              vocabulary: the prefill's MoE runs through B10 (gmm, 18
+              launches a prefill, none in decode), decode through the dense
+              expert route.  The route check holds the prefill's last-token
+              logits through B10 against the port's dense route and against
+              the dense sum in B10's rounding order on the same weights
+              below MOE_LIMIT, between a noise control (one ulp on every
+              layer's MoE output) and a fault control (the tile of the last
+              token's first routed row sent to another expert in every
+              layer), and each layer's MoE output against both on the same
+              input below MOE_LAYER_LIMIT; it counts the (token,
+              layer) pairs whose top-2 experts differ between the routes.
+              The first decode step, seq against flatten, with the main
+              path's attention controls, below MOE_STEP_LIMIT;
+ 10. moe-int8w: Mixtral-8x7B at all 32 layers over int8-pallas weights made
+              on the card (about 47 GB): B10's scaled entry (gmm_scaled) 96
+              launches a prefill, B9 65 a decode step (wqkv and wo x 32 +
+              lm_head); the route check on the same codes and scales, the
+              logits below MOE_INT8_LIMIT, the first
+              step as above, TTFT and TPOT beside the moe path's, and the
+              path's peak device memory;
+ 11. timing:  CUDA-event times of each kernel, its plain version and, where
               one PyTorch call computes the same function, that call, at its
               path's shapes, beside the least time the card could take.
 Each path's counts are set to 0 just before it and read just after (the
@@ -81,6 +106,29 @@ SEED = 0
 # one-ulp-noise control (1.835e-2) and the dropped-block fault (1.854e-1) on
 # an H100, rounded down (logits_controls; PERF.md)
 LOGITS_LIMIT = 5e-2
+# Limits of the MoE paths (moe_route_check, moe_first_step), each set
+# between its controls as measured on an H100 (PERF.md, the MoE findings).
+# The prefill's last-token logits through B10 against the dense expert
+# route and against the dense sum in B10's rounding order: the moe path
+# keeps LOGITS_LIMIT (noise 1.259e-2, fault 8.558e-1; readings 8.795e-3 and
+# 1.067e-2).  At 32 int8 layers top-2 choices flip at 4-6% of (token,
+# layer) pairs against either reference and the readings are 2.480e-1 and
+# 2.267e-1: the limit lies between those and the fault (6.599e-1; noise
+# 1.932e-2).
+MOE_LIMIT = LOGITS_LIMIT
+MOE_INT8_LIMIT = 0.4
+# each layer's MoE output through B10 against either reference on the same
+# input: the geometric mean of the larger noise control (7.635e-3) and the
+# smaller fault (1.480e-1), rounded down; readings 1.208e-5 and 6.039e-3
+# against the dense route (bf16, int8), 1.126e-3 and 7.110e-4 against the
+# sum in B10's order
+MOE_LAYER_LIMIT = 3e-2
+# the first decode step's logits, seq against flatten, MoE models: a router
+# turns one ulp of attention noise into other experts for some leaves, so
+# the noise control lands at 4.706e-2 (6 layers) and 1.667e-1 (32 layers);
+# the geometric mean of the latter and the smaller dropped-block fault
+# (4.018e-1), rounded down
+MOE_STEP_LIMIT = 0.25
 WIDTH, PROMPT_LEN, GEN_LEN = 50, 4000, 64
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # the batch path: four prompts; 40960 KV slots (5.4 GB), because each of the
@@ -110,11 +158,26 @@ KERNELS = {
     "ragged_prefill": ("deft_tpu/ops/prefill.py:205", "prefill.cu", None, None, None),
     "int8_matmul": ("deft_tpu/ops/int8_matmul.py:44", "int8_matmul.cu", None, None,
                     None),
+    "gmm": ("deft_tpu/ops/gmm.py:37", "gmm.cu", None, None, None),
+    "gmm_scaled": ("deft_tpu/ops/gmm.py:58", "gmm.cu", None, None, None),
 }
+# the launch counter of a wrapper that counts two kernels (ops/gmm.py)
+COUNT_ATTR = {"gmm_scaled": "scaled_launches"}
 
 
 class Failure(Exception):
     pass
+
+
+def release() -> None:
+    """Free what a finished path held: the cycle collector first (a runner
+    can sit in a reference cycle), then the allocator's cached blocks."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def check(cond: bool, msg: str) -> None:
@@ -135,6 +198,7 @@ def wrappers():
     """name -> (kernel wrapper, its plain version): the wrappers carry the
     launch counters."""
     from deft_tpu_torch.ops import flatten_attn as fa
+    from deft_tpu_torch.ops import gmm as gm
     from deft_tpu_torch.ops import int8_matmul as i8
     from deft_tpu_torch.ops import paged_flatten_attn as pf
     from deft_tpu_torch.ops import paged_quant as pq
@@ -153,16 +217,19 @@ def wrappers():
         "seq_gather": (sa.seq_attention, sa.seq_attention_plain),
         "ragged_prefill": (pr.ragged_prefill_attention, pr.ragged_prefill_attention_plain),
         "int8_matmul": (i8.int8_matmul, i8.int8_matmul_plain),
+        "gmm": (gm.gmm, gm.gmm_plain),
+        "gmm_scaled": (gm.gmm, gm.gmm_plain),
     }
 
 
 def reset_counts() -> None:
-    for fn, _ in wrappers().values():
-        fn.launches = 0
+    for name, (fn, _) in wrappers().items():
+        setattr(fn, COUNT_ATTR.get(name, "launches"), 0)
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, (fn, _) in wrappers().items()}
+    return {name: getattr(fn, COUNT_ATTR.get(name, "launches"))
+            for name, (fn, _) in wrappers().items()}
 
 
 # -- trees and kernel inputs ---------------------------------------------------------
@@ -322,6 +389,39 @@ def int8mm_case(R, H, I, dtype, dev, gen, w=None, s=None):
     return (x, w, s)
 
 
+def routed_rows(n, ne, dev, gen=None, top_i=None):
+    """B10's grouped layout (models/llama.py moe_dispatch) of n tokens' top-2
+    over ne experts: from the softmax of random router logits, or from given
+    choices `top_i` (n, 2) with equal weights.  Returns (row_src, tok_pos,
+    tile_eid)."""
+    import torch
+    from deft_tpu_torch.models.llama import moe_dispatch
+
+    if top_i is None:
+        probs = torch.softmax(torch.randn((n, ne), generator=gen, device=dev), dim=-1)
+        top_p, top_i = probs.topk(2, dim=-1)
+        top_w = top_p / top_p.sum(dim=-1, keepdim=True)
+    else:
+        top_w = torch.full(top_i.shape, 0.5, device=dev)
+    row_src, tok_pos, _, tile_eid = moe_dispatch(top_i, top_w, ne)
+    return row_src, tok_pos, tile_eid
+
+
+def gmm_case(x, ne, E, F, dtype, scaled, dev, gen, tile_eid):
+    """B10's (x, w, tile_eid, w_scale): w N(0, 1/E) in `dtype`, or int8
+    codes in [-127, 127] with scales in [0.01, 0.1) (deft_tpu
+    tests/test_kernels.py:651-660)."""
+    import torch
+
+    if scaled:
+        w = torch.randint(-127, 128, (ne, E, F), generator=gen, device=dev,
+                          dtype=torch.int8)
+        s = torch.rand((ne, F), generator=gen, device=dev) * 0.09 + 0.01
+        return (x, w, tile_eid, s)
+    w = torch.randn((ne, E, F), generator=gen, device=dev).mul_(E ** -0.5).to(dtype)
+    return (x, w, tile_eid, None)
+
+
 def path_shapes(dev):
     """Kernel inputs at each path's shapes, Llama-3.1-8B heads (Hq 32, Hkv 8,
     D 128), bf16 q, block_len 256, width 50: B1/B2 (bf16 pools) and B4/B5
@@ -330,8 +430,11 @@ def path_shapes(dev):
     halfway through, B7 at its fifth step, where their plans come out not
     segment-aligned; prefill of the 4000-token prompt; B8 over the batch
     path's four prompts; B9 at R = 64 (one width-50 tree) and 256 (the batch
-    path's 200 leaves) for each of the 8B matmul weights.
-    name -> [(label, plan, args)]."""
+    path's 200 leaves) for each of the 8B matmul weights; B10 at Mixtral's
+    prefill of the 4000-token prompt (top-2 of random router logits over 8
+    experts: M_pad = 9088 rows, the last tiles pad tiles), wg (E 4096, F
+    14336) then wdown (E 14336, F 4096), bf16 weights (gmm) and int8 codes
+    with scales (gmm_scaled).  name -> [(label, plan, args)]."""
     import torch
 
     gen = torch.Generator(device=dev)
@@ -355,6 +458,19 @@ def path_shapes(dev):
             args = int8mm_case(R, H, I, bf16, dev, gen, w, s)
             w, s = args[1], args[2]
             out["int8_matmul"].append((f"R={R} {name}", None, args))
+    ne, E, I = 8, 4096, 14336
+    row_src, tok_pos, tile_eid = routed_rows(PROMPT_LEN, ne, dev, gen)
+    M = row_src.shape[0]
+    check(M == 9088 and bool((tok_pos[-128:] == PROMPT_LEN).all()),
+          f"B10's path layout: {M} rows, last tile not a pad tile")
+    GMM_LIVE_TILES[M] = int((tok_pos.view(-1, 128) < PROMPT_LEN).any(dim=1).sum())
+    h = torch.randn((PROMPT_LEN, E), generator=gen, device=dev).to(bf16)
+    xs = {"wg": (h[row_src], E, I),
+          "wdown": (torch.randn((M, I), generator=gen, device=dev).to(bf16), I, E)}
+    for name, scaled in (("gmm", False), ("gmm_scaled", True)):
+        out[name] = [(f"{label} M={M} E={e} F={f}", None,
+                      gmm_case(x, ne, e, f, bf16, scaled, dev, gen, tile_eid))
+                     for label, (x, e, f) in xs.items()]
     return out
 
 
@@ -476,6 +592,20 @@ def phase_kernels(dev, shapes):
             compare("int8_matmul", f"{'fp32' if dt == f32 else 'bf16'} R={R} H={H} I={I}",
                     int8mm_case(R, H, I, dt, dev, gen),
                     TOL["float32" if dt == f32 else "bfloat16"])
+    # B10: NE = 4 with expert 2 empty; 300 tokens x top-2 fill three groups,
+    # and the static M_pad leaves pad tiles past the last group
+    rng = np.random.default_rng(SEED + 1)
+    top_i = torch.from_numpy(np.stack([rng.choice([0, 1, 3], size=2, replace=False)
+                                       for _ in range(300)])).to(dev)
+    _, tok_pos, tile_eid = routed_rows(300, 4, dev, top_i=top_i)
+    eids = tile_eid.tolist()
+    check(2 not in eids and eids[-1] == 3 and bool((tok_pos[-128:] == 300).all()),
+          f"the small B10 case lacks an empty group or pad tiles: {eids}")
+    for E, F in ((128, 256), (384, 640)):
+        x = torch.randn((len(eids) * 128, E), generator=gen, device=dev)
+        for name, scaled in (("gmm", False), ("gmm_scaled", True)):
+            compare(name, f"fp32 NE=4 E={E} F={F} tiles {eids}",
+                    gmm_case(x, 4, E, F, f32, scaled, dev, gen, tile_eid), TOL["float32"])
     return errs
 
 
@@ -518,7 +648,7 @@ def generate_both(runner, prompt, tag, count_plans=False):
                                branch_controller=Branch_Controller(workloads.simple_tree),
                                perf_metrics=PerfMetrics())
         finally:
-            runner.build_plan = build
+            del runner.build_plan  # the class's method again, no cycle
         seqs = [list(s.token_ids) for s in runner.tree.all_finished_seqs]
         check(len(seqs) == WIDTH and all(len(s) == GEN_LEN - 1 for s in seqs),
               f"{tag} {mode_name}: expected {WIDTH} branches of {GEN_LEN - 1} tokens")
@@ -599,7 +729,7 @@ def phase_main(dev, params, profile: bool = False):
         for mode in (ForwardMode.TREE_DECODE_FLATTEN, ForwardMode.DECODE):
             profile_decode(runner, mode, prompt, WIDTH, steps=8)
     del runner
-    torch.cuda.empty_cache()
+    release()
     return launches, prompt, ids, lf, runs
 
 
@@ -640,7 +770,7 @@ def phase_int8(dev, params, prompt, ids, lf_bf16, profile: bool = False):
         for mode in (ForwardMode.TREE_DECODE_FLATTEN, ForwardMode.DECODE):
             profile_decode(runner, mode, prompt, WIDTH, steps=8)
     del runner
-    torch.cuda.empty_cache()
+    release()
     return launches
 
 
@@ -687,7 +817,7 @@ def phase_short(dev, params, profile: bool = False):
         for k, n in read_counts().items():
             launches[k] = launches.get(k, 0) + n
         del runner
-        torch.cuda.empty_cache()
+        release()
     print(f"[short] launches during the short-prompt path (bf16 and int8 runs): "
           f"{launches}", flush=True)
     if profile:  # bf16 KV: the first 8 steps take gather plans
@@ -696,7 +826,7 @@ def phase_short(dev, params, profile: bool = False):
         for mode in (ForwardMode.TREE_DECODE_FLATTEN, ForwardMode.DECODE):
             profile_decode(runner, mode, prompt, WIDTH, steps=8)
         del runner
-        torch.cuda.empty_cache()
+        release()
     for kv in ("inherit", "int8"):
         check(runs[kv]["flatten"]["launches"].get("flatten_gather", 0) > 0,
               f"flatten_gather was never launched in the {kv} short flatten run")
@@ -854,7 +984,7 @@ def phase_batch(dev, params, profile: bool = False):
     if profile:
         profile_batch(runner, prompts, WIDTH, steps=8)
     del runner
-    torch.cuda.empty_cache()
+    release()
     return launches
 
 
@@ -921,7 +1051,318 @@ def phase_int8w(dev, prompt, ids, main_runs):
               flush=True)
     print(f"[int8w] launches during the int8-weight path: {launches}", flush=True)
     del runner, params, expr
-    torch.cuda.empty_cache()
+    release()
+    return launches
+
+
+def dense_sum_scaled(cfg, lp, h):
+    """The MoE block dense over the stacked experts, as models/llama.py's
+    _moe_mlp, but in B10's (and the Pallas kernel's) rounding order: each
+    expert's product summed in fp32 from the exact fp32 widening of h and of
+    the bf16 weight or int8 code, times the fp32 scale, one cast.  _moe_mlp
+    rounds the product to h's dtype before the scale.  The sums are fp32
+    matmuls (no TF32), not the tensor cores' fp32 accumulation of B10 and
+    of cuBLAS on bf16.  One expert at a time, so its fp32 transients stay a
+    few hundred MB at Mixtral's widths."""
+    import torch
+    from deft_tpu_torch.models import llama
+
+    K = cfg.experts_per_tok
+    probs = llama._router_probs(lp, h)
+    top_i = probs.topk(K, dim=-1).indices
+    rw = probs * torch.zeros_like(probs).scatter_(1, top_i, 1.0)
+    rw = rw / rw.sum(dim=-1, keepdim=True)
+
+    def emm(x, name, e):
+        y = x.float() @ lp[name][e].float()
+        s = llama._expert_scale(lp, name)
+        return (y if s is None else y * s[e]).to(h.dtype)
+
+    out = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
+    for e in range(cfg.num_experts):
+        z = torch.nn.functional.silu(emm(h, "wg", e).float()).to(h.dtype) * emm(h, "wu", e)
+        out += emm(z, "wdown", e).float() * rw[:, e:e + 1]
+    return out.to(h.dtype)
+
+
+def moe_route_check(runner, prompt, tag, limit):
+    """The prefill's last-token logits through B10 against two dense expert
+    routes on the same weights: the port's own (_moe_mlp, taken where
+    llama._moe_gmm_ok fails) and dense_sum_scaled, the same sum in B10's
+    rounding order.  Two controls on the B10 route bracket them: one ulp of
+    noise (-1, 0 or +1 at random) on each nonzero element of every layer's
+    MoE output, and a fault: in every layer, the row tile that holds the
+    last token's first routed row is sent to another expert (the tile_eid
+    entry plus one).  Both references are held to `limit`.  In the B10 runs
+    every layer's MoE output is also compared with both references on the
+    same input (no error carried from layer to layer), the largest relative
+    L2 over the layers held to MOE_LAYER_LIMIT.  Returns ({run: logits
+    relative L2 against the B10 run}, {run: {reference: largest layer
+    error}}, {reference: the (token, layer) pairs whose top-2 experts
+    differ between it and B10})."""
+    from unittest import mock
+
+    import torch
+    from deft_tpu_torch.models import llama
+
+    gen = torch.Generator(device=runner.device)
+    gen.manual_seed(SEED + 4)
+    moe, dense = llama._moe_mlp_gmm, llama._moe_mlp
+    dispatch, router = llama.moe_dispatch, llama._router_probs
+    K = runner.cfg.experts_per_tok
+    ordered = "dense, B10's rounding order"
+
+    def ulp_noise(cfg, lp, h):
+        o = moe(cfg, lp, h)
+        step = torch.randint(-1, 2, o.shape, generator=gen, device=o.device,
+                             dtype=torch.int16)
+        return (o.view(torch.int16) + step * (o != 0)).view(o.dtype)
+
+    def wrong_expert(top_i, top_w, ne, *a):
+        row_src, tok_pos, w_pos, tile_eid = dispatch(top_i, top_w, ne, *a)
+        t = int((tok_pos == top_i.shape[0] - 1).nonzero()[0]) // llama._GMM_TILE_M
+        tile_eid = tile_eid.clone()
+        tile_eid[t] = (tile_eid[t] + 1) % ne
+        return row_src, tok_pos, w_pos, tile_eid
+
+    def chosen_experts(lp, h):
+        return router(lp, h).topk(K, dim=-1).indices.sort(dim=-1).values
+
+    runs = (("B10", moe), ("dense", dense), (ordered, dense_sum_scaled),
+            ("B10+ulp noise", ulp_noise), ("B10, a tile to another expert", moe))
+    logits, top, layer = {}, {}, {}
+    for name, fn in runs:
+        chosen, errs = top.setdefault(name, []), layer.setdefault(name, [])
+
+        def compared(cfg, lp, h, fn=fn, chosen=chosen, errs=errs):
+            chosen.append(chosen_experts(lp, h))
+            o = fn(cfg, lp, h)
+            errs.append({"dense": rel_l2(o, dense(cfg, lp, h)),
+                         ordered: rel_l2(o, dense_sum_scaled(cfg, lp, h))})
+            return o
+
+        def recorded(cfg, lp, h, fn=fn, chosen=chosen):
+            chosen.append(chosen_experts(lp, h))
+            return fn(cfg, lp, h)
+
+        if name.startswith("B10"):
+            patches = {"_moe_mlp_gmm": compared}
+            if "another expert" in name:
+                patches["moe_dispatch"] = wrong_expert
+        else:  # every layer takes the dense route
+            patches = {"_moe_gmm_ok": lambda cfg, n: False, "_moe_mlp": recorded}
+        runner.reset_state()
+        with mock.patch.multiple(llama, **patches):
+            view = runner.forward_prefill(prompt)
+        logits[name] = view.full_logits()[0].float()
+        check(bool(torch.isfinite(logits[name]).all()), f"{tag} {name}: logits not finite")
+    runner.reset_state()
+    readings = {k: rel_l2(v, logits["B10"]) for k, v in logits.items() if k != "B10"}
+    refs = ("dense", ordered)
+    worst = {k: {r: max(e[r] for e in v) for r in refs} for k, v in layer.items() if v}
+    flips = {r: sum(int((a != b).any(dim=-1).sum()) for a, b in zip(top["B10"], top[r]))
+             for r in refs}
+    pairs = len(prompt) * runner.cfg.num_layers
+    print(f"[{tag}] route check, prefill last-token logits, relative L2 against "
+          f"B10's: " + ", ".join(f"{k} {v:.3e}" for k, v in readings.items())
+          + f" (limit {limit:g}); each layer's MoE output against each reference on "
+          f"the same input, largest relative L2 over the layers: "
+          + "; ".join(f"{k}: " + ", ".join(f"{r} {v[r]:.3e}" for r in refs)
+                      for k, v in worst.items())
+          + f" (limit {MOE_LAYER_LIMIT:g}); top-2 experts differ from B10's at "
+          + ", ".join(f"{flips[r]} ({r})" for r in refs)
+          + f" of {pairs} (token, layer) pairs; top-1 token equal "
+          + ", ".join(f"{r} {int(logits['B10'].argmax()) == int(logits[r].argmax())}"
+                      for r in refs), flush=True)
+    for r in refs:
+        check(readings[r] < limit, f"{tag}: B10 and {r} disagree: {readings[r]}")
+        check(worst["B10"][r] < MOE_LAYER_LIMIT
+              and worst["B10+ulp noise"][r] < MOE_LAYER_LIMIT,
+              f"{tag}: a layer's MoE output through B10 strays from {r}")
+        check(worst["B10, a tile to another expert"][r] > MOE_LAYER_LIMIT,
+              f"{tag}: the layer check against {r} does not see a tile sent to "
+              "the wrong expert")
+    check(readings["B10+ulp noise"] < limit,
+          f"{tag}: one ulp of MoE noise moves the logits past the limit")
+    check(readings["B10, a tile to another expert"] > limit,
+          f"{tag}: a tile sent to the wrong expert stays under the limit")
+    return readings, worst, flips
+
+
+def moe_first_step(runner, prompt, tag):
+    """The first decode step of a MoE model in flatten and in seq mode, with
+    the attention controls of logits_controls on the same step; counts the
+    (leaf, layer) pairs whose top-2 experts differ between the two modes.
+    Holds seq, the noise control and the dropped block to MOE_STEP_LIMIT.
+    Returns the launch counts of one more flatten step on the same tree."""
+    from unittest import mock
+
+    from deft_tpu_torch.models import llama
+    from deft_tpu_torch.runtime import ForwardMode
+
+    view = runner.forward_prefill(prompt)
+    _, ids = view.topk(0, WIDTH)
+    runner.reset_state()
+    first_step(runner, prompt, ids)
+    router, K, L = llama._router_probs, runner.cfg.experts_per_tok, runner.cfg.num_layers
+    top = []
+
+    def recording_router(lp, h):
+        p = router(lp, h)
+        top.append(p[:WIDTH].topk(K, dim=-1).indices.sort(dim=-1).values)
+        return p
+
+    with mock.patch.object(llama, "_router_probs", recording_router):
+        lf, ls, readings = logits_controls(runner, WIDTH)
+    differ = [(a != b).any(dim=-1) for a, b in zip(top[:L], top[L:2 * L])]
+    flipped = sum(differ).bool()  # leaves with another expert at some layer
+    same = ~flipped
+    kept = rel_l2(ls[same], lf[same]) if bool(same.any()) else float("nan")
+    print(f"[{tag}] first decode step, relative L2 of the logits against "
+          f"flatten's: " + ", ".join(f"{k} {v:.3e}" for k, v in readings.items())
+          + f" (limit {MOE_STEP_LIMIT:g}); top-2 experts differ between flatten "
+          f"and seq at {int(sum(d.sum() for d in differ))} of {WIDTH * L} (leaf, "
+          f"layer) pairs, in {int(flipped.sum())} of {WIDTH} leaves; seq over the "
+          f"other leaves {kept:.3e}; top-1 agreement "
+          f"{float((lf.argmax(-1) == ls.argmax(-1)).float().mean()):.3f}", flush=True)
+    check(readings["seq"] < MOE_STEP_LIMIT,
+          f"{tag}: flatten and seq logits disagree: {readings['seq']}")
+    check(readings["flatten+ulp noise"] < MOE_STEP_LIMIT,
+          f"{tag}: one ulp of attention noise moves the logits past the limit")
+    check(readings["flatten, block dropped"] > MOE_STEP_LIMIT,
+          f"{tag}: a dropped KV block stays under the limit")
+    flatten = ForwardMode.TREE_DECODE_FLATTEN
+    reset_counts()
+    runner.forward_tree_decode(flatten, runner.build_plan(flatten))
+    counts = {k: n for k, n in read_counts().items() if n}
+    runner.reset_state()
+    return counts
+
+
+def generate_counting_prefills(runner, prompt, tag):
+    """generate_both, with each prefill's launches recorded apart: returns
+    (runs, [launches of each prefill], launches of the whole run)."""
+    prefills = []
+    real = runner.forward_prefill
+
+    def counted(*a, **k):
+        before = read_counts()
+        out = real(*a, **k)
+        prefills.append({n: c - before[n] for n, c in read_counts().items()
+                         if c > before[n]})
+        return out
+
+    runner.forward_prefill = counted
+    try:
+        reset_counts()
+        runs = generate_both(runner, prompt, tag)
+        launches = read_counts()
+    finally:
+        del runner.forward_prefill
+    print(f"[{tag}] launches of each prefill {prefills}; of the whole path "
+          f"{ {k: n for k, n in launches.items() if n} }", flush=True)
+    return runs, prefills, launches
+
+
+def phase_moe(dev, profile: bool = False):
+    """Mixtral-8x7B widths at 6 layers, bf16 weights: B10 (gmm) takes every
+    prefill's MoE, 3 launches a layer, and no decode step's."""
+    import torch
+    from deft_tpu_torch.models import PRESETS
+    from deft_tpu_torch.models.loader import random_params
+    from deft_tpu_torch.runtime import ForwardMode
+
+    cfg = PRESETS["mixtral-6l"]
+    t0 = time.perf_counter()
+    params = random_params(cfg, SEED, dev, torch.bfloat16)
+    torch.cuda.synchronize()
+    gb = sum(t.numel() * t.element_size() for t in params.values()) / 1e9
+    print(f"[moe] mixtral-6l bf16 weights ({gb:.2f} GB) made on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    runner = make_runner(cfg, params, dev)
+    prompt = [int(t) for t in np.random.default_rng(SEED).integers(4, cfg.vocab_size - 4,
+                                                                   PROMPT_LEN)]
+    moe_route_check(runner, prompt, "moe", MOE_LIMIT)
+    moe_first_step(runner, prompt, "moe")
+    runner.retain_full_logits = False
+    runs, prefills, launches = generate_counting_prefills(runner, prompt, "moe")
+    per = 3 * cfg.num_layers
+    check(len(prefills) == 2 and all(p.get("gmm") == per and not p.get("gmm_scaled")
+                                     for p in prefills),
+          f"moe: B10 launches a prefill {prefills}, expected gmm {per}")
+    check(launches["gmm"] == 2 * per and launches["gmm_scaled"] == 0,
+          f"moe: B10 launched outside the prefills: {launches}")
+    check(launches["prefill"] > 0
+          and runs["flatten"]["launches"].get("paged_flatten", 0)
+          + runs["flatten"]["launches"].get("flatten_gather", 0) > 0
+          and runs["seq"]["launches"].get("paged_seq", 0)
+          + runs["seq"]["launches"].get("seq_gather", 0) > 0,
+          f"moe: attention kernels did not launch: {launches}")
+    if profile:
+        for mode in (ForwardMode.TREE_DECODE_FLATTEN, ForwardMode.DECODE):
+            profile_decode(runner, mode, prompt, WIDTH, steps=8)
+    del runner, params
+    release()
+    return launches, runs
+
+
+def phase_moe_int8w(dev, moe_runs, profile: bool = False):
+    """Mixtral-8x7B at all 32 layers over int8-pallas weights: B10's scaled
+    entry takes every prefill's MoE (96 launches), B9 wqkv, wo and lm_head
+    at decode (65 a step); route check against the dense expression on the
+    same codes and scales."""
+    import dataclasses
+
+    import torch
+    from deft_tpu_torch.models import PRESETS
+    from deft_tpu_torch.models.loader import random_params
+    from deft_tpu_torch.runtime import ForwardMode
+
+    cfg = dataclasses.replace(PRESETS["mixtral-6l"], num_layers=32)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = random_params(cfg, SEED, dev, torch.bfloat16, "int8-pallas")
+    torch.cuda.synchronize()
+    gb = sum(t.numel() * t.element_size() for t in params.values()) / 1e9
+    print(f"[moe-int8w] Mixtral-8x7B, 32 layers, int8-pallas weights ({gb:.2f} GB, "
+          f"int8 codes + fp32 scales, bf16 embed, router and norms) made on the card "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    runner = make_runner(cfg, params, dev)
+    prompt = [int(t) for t in np.random.default_rng(SEED).integers(4, cfg.vocab_size - 4,
+                                                                   PROMPT_LEN)]
+    moe_route_check(runner, prompt, "moe-int8w", MOE_INT8_LIMIT)
+    per_step = 2 * cfg.num_layers + 1
+    step = moe_first_step(runner, prompt, "moe-int8w")
+    check(step.get("int8_matmul") == per_step and not step.get("gmm")
+          and not step.get("gmm_scaled"),
+          f"moe-int8w: one decode step launched {step}, expected B9 {per_step}, B10 0")
+    runner.retain_full_logits = False
+    runs, prefills, launches = generate_counting_prefills(runner, prompt, "moe-int8w")
+    per = 3 * cfg.num_layers
+    check(len(prefills) == 2 and all(p.get("gmm_scaled") == per and not p.get("gmm")
+                                     for p in prefills),
+          f"moe-int8w: B10 launches a prefill {prefills}, expected gmm_scaled {per}")
+    check(launches["gmm_scaled"] == 2 * per and launches["gmm"] == 0,
+          f"moe-int8w: B10 launched outside the prefills: {launches}")
+    for mode_name, r in runs.items():
+        n, steps = r["launches"].get("int8_matmul", 0), len(r["paged"])
+        check(n == per_step * steps,
+              f"moe-int8w {mode_name}: B9 launched {n} times in {steps} decode steps")
+        m = moe_runs[mode_name]["pm"]
+        print(f"[moe-int8w] {mode_name}: TTFT {r['pm'].TTFT:.3f} ms, TPOT "
+              f"{r['pm'].TPOT:.4f} ms against the 6-layer bf16 moe path's "
+              f"{m.TTFT:.3f} / {m.TPOT:.4f} ms (this run)", flush=True)
+    kv = {name: runs["seq"]["pm"].KV_IO / runs["flatten"]["pm"].KV_IO
+          for name, runs in (("moe", moe_runs), ("moe-int8w", runs))}
+    print(f"[moe-int8w] kv_io_reduction {kv['moe-int8w']:.4f} (moe path "
+          f"{kv['moe']:.4f}); peak device memory of this path "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB "
+          f"(torch.cuda.max_memory_allocated)", flush=True)
+    if profile:
+        for mode in (ForwardMode.TREE_DECODE_FLATTEN, ForwardMode.DECODE):
+            profile_decode(runner, mode, prompt, WIDTH, steps=8)
+    del runner, params
+    release()
     return launches
 
 
@@ -993,7 +1434,7 @@ def logits_controls(runner, width):
     return lf, logits["seq"], readings
 
 
-RANGES = ("build_plan", "forward", "kv_store")
+RANGES = ("build_plan", "forward", "kv_store", "moe")
 
 
 def profile_decode(runner, mode, prompt, width, steps):
@@ -1021,7 +1462,10 @@ def profile_decode(runner, mode, prompt, width, steps):
             leaf.append_token(int(nxt[tree.leaf_to_q[leaf.id]]))
 
     kv = "int8" if runner.k_pool.quantized else "bf16"
-    profile_steps(f"{mode.name}, prompt {len(prompt)}, {kv} KV", step, steps)
+    cfg = runner.cfg
+    model = (f"{'MoE ' if cfg.num_experts else ''}{cfg.num_layers} layers, "
+             f"{str(runner.params['wo'].dtype).split('.')[-1]} wo")
+    profile_steps(f"{mode.name}, prompt {len(prompt)}, {kv} KV, {model}", step, steps)
     runner.reset_state()
 
 
@@ -1065,21 +1509,23 @@ def profile_steps(label, step, steps):
     """torch.profiler over `steps` calls of step(): device time by kernel,
     the device's busy share of the wall time, and the host and device time
     of each step's plan building, its forward and the model's kv_store calls
-    within it (RANGES, marked with record_function while the profiler
-    runs)."""
+    and MoE blocks (either route) within it (RANGES, marked with
+    record_function while the profiler runs)."""
     from unittest import mock
 
     from deft_tpu_torch.models import llama
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    store = llama.kv_store
-
-    def marked_store(*a):
-        with record_function("kv_store"):
-            store(*a)
+    def marked(name, fn):
+        def run(*a):
+            with record_function(name):
+                return fn(*a)
+        return run
 
     with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof,
-          mock.patch.object(llama, "kv_store", marked_store)):
+          mock.patch.object(llama, "kv_store", marked("kv_store", llama.kv_store)),
+          mock.patch.object(llama, "_moe_mlp", marked("moe", llama._moe_mlp)),
+          mock.patch.object(llama, "_moe_mlp_gmm", marked("moe", llama._moe_mlp_gmm))):
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
@@ -1108,7 +1554,8 @@ def profile_steps(label, step, steps):
         st = [e for e in avgs if e.key == key
               and str(getattr(e, "device_type", "")).endswith("CPU")]
         if not st:
-            print(f"[profile]   {key}: no range recorded (not measured)", flush=True)
+            if key != "moe":  # dense models have no MoE block
+                print(f"[profile]   {key}: no range recorded (not measured)", flush=True)
             continue
         host_ms, dev_ms = st[0].cpu_time_total / 1e3, dev_total_us(st[0]) / 1e3
         print(f"[profile]   {key}: {st[0].count // steps}/step, host "
@@ -1174,7 +1621,7 @@ def profile_kv_store(dev, reps: int = 20):
                 print(f"[profile]   {e.self_cpu_time_total / 1e3:8.3f} ms/step "
                       f"{e.count:5d}/step  {e.key[:60]}")
         del pools
-    torch.cuda.empty_cache()
+    release()
 
 
 # ~1 ms of sleep kernel at the H100's 1.98 GHz boost clock: longer than any
@@ -1210,6 +1657,9 @@ def time_ms(fn, reps: int, flush, primed: bool = True) -> float:
 
 # name -> the library call timed beside a kernel, as found on this card
 LIBRARY = {}
+# B10's path cases: M_pad -> the row tiles up to the end of the last group
+# (path_shapes), which bound B10's work in this run
+GMM_LIVE_TILES = {}
 
 
 def ragged_timing_row(fns, shapes, bound):
@@ -1326,6 +1776,138 @@ def int8mm_timing_row(fns, shapes, bound, flush):
             lambda: [lib_call(*a) for a in step_lib], *bound(nb, fl))
 
 
+def attention_library_row(name, plan, args, flush):
+    """The library call beside an attention kernel B1, B2, B4-B7:
+    scaled_dot_product_attention with a boolean mask over KV gathered (and
+    dequantised to q's dtype) ahead of time, K/V repeated to the query
+    heads: the tree's flattened KV with each leaf's visibility (flatten), or
+    each leaf's padded path with its live tokens (seq).  Returns (callable
+    or None, description); the gather's time is printed."""
+    import torch
+    import torch.nn.functional as F
+    from deft_tpu_torch.models.llama import KVPool, kv_gather_heads
+    from deft_tpu_torch.ops.paged_flatten_attn import segment_rows
+    from deft_tpu_torch.ops.paged_seq_attn import segment_paths
+
+    _, _, kind, kv, layout = KERNELS[name]
+    q, kp, vp = args[:3]
+    ks, vs = args[3:5] if kv == "int8" else (None, None)
+    R, Hq, D = q.shape
+    qpk = Hq // (kp.shape[-1] // D)
+    dev = q.device
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.int64)).to(dev)
+
+    if kind == "flatten":
+        rows = segment_rows(t(plan.seg_src), plan.seg_len) if layout == "paged" \
+            else t(plan.kv_idx)
+        blk_lo, blk_hi = t(plan.blk_lo), t(plan.blk_hi)
+        full = (blk_lo < -(1 << 20)).repeat_interleave(plan.block_len)
+        dead = ((blk_lo >= blk_hi).repeat_interleave(plan.block_len)) & ~full
+        lo = torch.where(full, 0, t(plan.tok_lo))
+        hi = torch.where(dead, 0, torch.where(full, R, t(plan.tok_hi)))
+        r = torch.arange(R, device=dev)[:, None]
+        mask = (lo[None, :] <= r) & (r < hi[None, :])  # (R, T)
+    elif layout == "paged":
+        rows, mask = segment_paths(t(plan.seg_src), t(plan.seg_off), t(plan.seg_live),
+                                   t(plan.blk_live), R, plan.seg_len)
+    else:
+        rows = t(plan.paths)
+        mask = torch.arange(rows.shape[1], device=dev)[None, :] < t(plan.seq_lens)[:, None]
+
+    def gather():
+        k, v = (kv_gather_heads(KVPool(p, s), 0, rows, D, q.dtype).repeat_interleave(
+            qpk, dim=-2) for p, s in ((kp, ks), (vp, vs)))
+        if kind == "flatten":  # (1, Hq, T, D), q (1, Hq, R, D), mask (R, T)
+            return (q.transpose(0, 1)[None], k.transpose(0, 1)[None],
+                    v.transpose(0, 1)[None], mask)
+        # one batch row a leaf: (R, Hq, C, D), q (R, Hq, 1, D), mask (R, 1, 1, C)
+        return q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), mask[:, None, None]
+
+    gather_ms = time_ms(gather, 3, flush)
+    qq, kk, vv, mm = gather()
+    scale = D ** -0.5
+
+    def lib():
+        return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mm, scale=scale)
+
+    try:
+        o = lib()
+    except RuntimeError as err:
+        print(f"[timing] {name} library: SDPA raised {str(err)[:160]}", flush=True)
+        return None, "none: SDPA with this mask raised on this card"
+    got = o[0].transpose(0, 1) if kind == "flatten" else o[:, :, 0]
+    live = slice(0, plan.n_leaves)
+    want = wrappers()[name][1](*args)
+    e = rel_err(got[live], want[live])
+    desc = (f"SDPA, boolean {'tree-visibility' if kind == 'flatten' else 'per-leaf path'} "
+            f"mask, KV gathered{' and dequantised' if kv == 'int8' else ''} ahead of time")
+    print(f"[timing] {name} library: {desc}: gather {gather_ms:.4f} ms (not timed), "
+          f"rel err vs plain {e:.3e} on live rows", flush=True)
+    if not e < TOL["bfloat16"]:
+        return None, f"none: SDPA over the gathered KV disagrees ({e:.3e})"
+    return lib, desc
+
+
+def gmm_timing_rows(fns, shapes, bound):
+    """B10 at its wg shape (Mixtral prefill, M_pad 9088, E 4096, F 14336),
+    unscaled and scaled: kernel, plain and library callables and the bound
+    over the row tiles up to the end of the last group, which this run's
+    routing needs (each expert that owns a tile read once, those rows of x
+    and out once); the bound over all M_pad rows, trailing pad tiles
+    included, is printed beside it.  Library:
+    torch._grouped_mm over bf16 weights (int8 codes dequantised ahead of
+    time) with offs at the padded group ends, the pad tiles past the last
+    group counted in the last group, as B10 runs them."""
+    import torch
+
+    rows = {}
+    for name in ("gmm", "gmm_scaled"):
+        x, w, tile_eid, s = shapes[name][0][2]
+        kern, plain = fns[name]
+        M, E = x.shape
+        ne, _, F = w.shape
+        tiles = torch.bincount(tile_eid.long(), minlength=ne)
+        owners = int((tiles > 0).sum())
+
+        def gmm_bound(rows):
+            nbytes = rows * (E + F) * x.element_size() + owners * E * F * w.element_size() \
+                + (owners * F * 4 if s is not None else 0) + tile_eid.numel() * 4
+            return bound(nbytes, 2 * rows * E * F)
+
+        live = GMM_LIVE_TILES[M] * 128
+        (lb, lby), (pb, pby) = gmm_bound(live), gmm_bound(M)
+        print(f"[timing] {name} bound: {lb:.4f} ms ({lby}) over the {live} rows up to "
+              f"the end of the last group; {pb:.4f} ms ({pby}) over all {M} rows",
+              flush=True)
+        wb = w if s is None else (w.float() * s[:, None, :]).to(x.dtype)
+        offs = (torch.cumsum(tiles, 0) * 128).to(torch.int32)
+        want = plain(x, w, tile_eid, s)
+        lib = None
+        for layout, wl in (("row-major", wb), ("column-major", wb.transpose(1, 2)
+                                                .contiguous().transpose(1, 2))):
+            try:
+                e = rel_err(torch._grouped_mm(x, wl, offs=offs), want)
+            except (AttributeError, RuntimeError, TypeError) as err:
+                print(f"[timing] {name} library: torch._grouped_mm, {layout} weights: "
+                      f"{type(err).__name__}: {str(err)[:160]}", flush=True)
+                continue
+            print(f"[timing] {name} library: torch._grouped_mm, {layout} bf16 weights"
+                  f"{' (dequantised ahead of time)' if s is not None else ''}, rel err "
+                  f"vs plain {e:.3e}", flush=True)
+            if e < TOL["bfloat16"]:
+                lib = (lambda a=x, b=wl, o=offs: torch._grouped_mm(a, b, offs=o))
+                LIBRARY[name] = (f"torch._grouped_mm, {layout} bf16 weights"
+                                 + (", dequantised ahead of time" if s is not None else ""))
+                break
+        if lib is None:
+            LIBRARY[name] = "none: torch._grouped_mm is missing or disagrees here"
+        rows[name] = (lambda k=kern, a=(x, w, tile_eid, s): k(*a),
+                      lambda p=plain, a=(x, w, tile_eid, s): p(*a), lib, lb, lby)
+    return rows
+
+
 def phase_timing(dev, shapes):
     """Per kernel at its path's shapes (the bf16-pool case of B6 and B7; B9:
     one layer's four matmuls and lm_head at R = 64): kernel, plain and
@@ -1379,7 +1961,8 @@ def phase_timing(dev, shapes):
             else:
                 nbytes += plan_bytes(args)
         fn, plain = fns[name]
-        rows[name] = (lambda f=fn, a=args: f(*a), lambda p=plain, a=args: p(*a), None,
+        lib, LIBRARY[name] = attention_library_row(name, plan, args, flush)
+        rows[name] = (lambda f=fn, a=args: f(*a), lambda p=plain, a=args: p(*a), lib,
                       *bound(nbytes, pairs * 4 * D))
     # prefill: causal FLOPs 2 * 2 * Hq * N^2 * D / 2
     q, k, v, scale = shapes["prefill"][0][2]
@@ -1399,6 +1982,7 @@ def phase_timing(dev, shapes):
 
     rows["ragged_prefill"] = ragged_timing_row(fns, shapes, bound)
     rows["int8_matmul"] = int8mm_timing_row(fns, shapes, bound, flush)
+    rows.update(gmm_timing_rows(fns, shapes, bound))
 
     out = {}
     for name, (kern, plain_fn, lib, bound_ms, bound_by) in rows.items():
@@ -1409,9 +1993,7 @@ def phase_timing(dev, shapes):
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=bound_ms, bound_by=bound_by)
         lib_txt = (f", library {lib_ms:.4f} ms ({LIBRARY[name]})"
-                   if lib_ms is not None else
-                   ", library none (no single PyTorch call computes a tree-masked"
-                   " or per-leaf-path attention)")
+                   if lib_ms is not None else f", library {LIBRARY[name]}")
         print(f"[timing] {name}: kernel {ms:.4f} ms ({host_ms:.4f} ms unprimed: "
               f"the device waits for the wrapper's host work), plain {plain_ms:.4f} ms"
               f"{lib_txt}, bound {bound_ms:.4f} ms ({bound_by}), "
@@ -1424,8 +2006,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace 8 decode steps per mode with torch.profiler "
                          "(the 4000-token prompt over bf16 and int8 KV, the "
-                         "16-token prompt over bf16 KV) and 8 batched flatten "
-                         "steps of the batch path's four requests")
+                         "16-token prompt over bf16 KV, the two MoE paths) and "
+                         "8 batched flatten steps of the batch path's four "
+                         "requests")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1468,8 +2051,11 @@ def main(argv=None) -> int:
         launches["ragged_prefill"] = phase_batch(dev, params,
                                                 args.profile)["ragged_prefill"]
         del params, lf
-        torch.cuda.empty_cache()
+        release()
         launches["int8_matmul"] = phase_int8w(dev, prompt, ids, main_runs)["int8_matmul"]
+        moe_launches, moe_runs = phase_moe(dev, args.profile)
+        launches["gmm"] = moe_launches["gmm"]
+        launches["gmm_scaled"] = phase_moe_int8w(dev, moe_runs, args.profile)["gmm_scaled"]
         if args.profile:
             profile_kv_store(dev)
         timing = phase_timing(dev, shapes)

@@ -29,7 +29,8 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="deft_tpu_torch tree-decoding run")
     p.add_argument("--random-model", type=str, required=True,
-                   choices=["tiny", "1b", "3b", "7b", "8b", "8b-8l"],
+                   choices=["tiny", "1b", "3b", "7b", "8b", "8b-8l",
+                            "mixtral-6l"],
                    help="random-init preset (no weights needed)")
     p.add_argument("--mode", default="flatten", choices=["seq", "flatten"])
     p.add_argument("--Branch_controller", default="Simple_Tree",

@@ -2,11 +2,12 @@
 
 Port of deft_tpu/models/llama.py: RaggedPrefillBatch (:73), KVPool,
 kv_store and kv_gather_heads (:84-133, int8 KV included), mm (:136, int8
-weights included), rms_norm (:161), the per-layer body (:318-417, a
-lax.scan there, a Python loop over layers here), decode_forward (:420),
-prefill_forward (:456) and ragged_prefill_forward (:488).  MoE, Gemma
-norms, qk-norm and qkv biases come in later slices; loader.check_supported
-refuses such configs.
+weights included), rms_norm (:161), the Mixtral-family sparse MoE block
+(_moe_mlp :188, _moe_gmm_ok :232, _moe_mlp_gmm :245), the per-layer body
+(:318-417, a lax.scan there, a Python loop over layers here),
+decode_forward (:420), prefill_forward (:456) and ragged_prefill_forward
+(:488).  Gemma norms, qk-norm and qkv biases come in later slices;
+loader.check_supported refuses such configs.
 
 Attention is a pluggable AttnFn (ops/attn_impls.py), as in deft_tpu:
     (q, k_new, v_new, k_pool, v_pool, layer_idx, batch, scale) -> (R, Hq, D)
@@ -23,6 +24,7 @@ import torch
 
 from deft_tpu_torch.models.config import LlamaConfig
 from deft_tpu_torch.models.rope import apply_rope
+from deft_tpu_torch.ops import gmm as gmm_op
 from deft_tpu_torch.ops import int8_matmul as i8mm
 
 
@@ -116,9 +118,126 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
+def _router_probs(lp: Dict[str, torch.Tensor], h: torch.Tensor) -> torch.Tensor:
+    """The MoE router's softmax over the experts, fp32 (n, NE)."""
+    return torch.softmax((h @ lp["wrt"].to(h.dtype)).float(), dim=-1)
+
+
+def _expert_scale(lp: Dict[str, torch.Tensor], name: str) -> Optional[torch.Tensor]:
+    """The (NE, F) int8 scales of an expert stack, either flavour: no kernel
+    takes expert-batched int8 at decode, so "_s" and "_sp" route alike."""
+    s = lp.get(name + "_s")
+    return lp.get(name + "_sp") if s is None else s
+
+
+def _moe_mlp(cfg: LlamaConfig, lp: Dict[str, torch.Tensor],
+             h: torch.Tensor) -> torch.Tensor:
+    """Mixtral-family sparse MoE block, DENSE over the stacked experts
+    (deft_tpu llama.py:188): softmax router, top-k experts with renormalised
+    weights, every expert computed and the unselected ones weighted 0.  At
+    decode widths nearly every expert is hit each step, so streaming all of
+    them is the read the step needs anyway.  int8 experts are widened to
+    h's dtype for the product, which is rounded, then scaled in fp32 and cast
+    (``emm``; deft_tpu has no expert-batched int8 kernel)."""
+    K = cfg.experts_per_tok
+    probs = _router_probs(lp, h)
+    top_i = probs.topk(K, dim=-1).indices
+    rw = probs * torch.zeros_like(probs).scatter_(1, top_i, 1.0)
+    rw = rw / rw.sum(dim=-1, keepdim=True)
+
+    def emm(x, name, eq):
+        y = torch.einsum(eq, x, lp[name].to(x.dtype))
+        s = _expert_scale(lp, name)
+        if s is not None:
+            y = (y.float() * s[:, None, :]).to(x.dtype)
+        return y
+
+    g = emm(h, "wg", "re,neo->nro")  # (NE, R, I)
+    u = emm(h, "wu", "re,neo->nro")
+    z = torch.nn.functional.silu(g.float()).to(h.dtype) * u
+    o = emm(z, "wdown", "nri,nie->nre")  # (NE, R, E)
+    return torch.einsum("nre,rn->re", o.float(), rw.float()).to(h.dtype)
+
+
+# Row tile of the grouped-matmul dispatch; the gmm route engages when the
+# padded-group layout wastes at most ~50% of its rows (n * k >= 2 * NE * tile)
+_GMM_TILE_M = gmm_op.TILE_M
+
+
+def _moe_gmm_ok(cfg: LlamaConfig, n: int) -> bool:
+    """deft_tpu's gate (llama.py:232): prefill-scale token counts whose
+    expert widths the grouped matmul tiles."""
+    NE, K = cfg.num_experts, cfg.experts_per_tok
+    if n * K < 2 * NE * _GMM_TILE_M:
+        return False
+    E, I = cfg.hidden_size, cfg.intermediate_size
+    return (gmm_op.gmm_eligible(_GMM_TILE_M, E, I, _GMM_TILE_M)
+            and gmm_op.gmm_eligible(_GMM_TILE_M, I, E, _GMM_TILE_M))
+
+
+def moe_dispatch(top_i: torch.Tensor, top_w: torch.Tensor, num_experts: int,
+                 tm: int = _GMM_TILE_M):
+    """The grouped layout of deft_tpu llama.py:258-287 for top-k choices
+    top_i (n, K) with weights top_w (n, K): routed slots sorted by expert
+    (stable, so token-major within an expert) into groups that start on
+    tm-row tiles, in a static worst case of M_pad = ceil((n K + NE (tm - 1))
+    / tm) tm rows.  Returns (row_src, tok_pos, w_pos, tile_eid): each row's
+    source token (0 on pad rows), its combine target (n on pad rows: a row
+    that is dropped), its combine weight (0 on pad rows) and each tile's
+    expert (tiles past the last group take the last expert; their rows are
+    pad rows).  No host sync: the group sizes come from scatter_add_ (CUDA
+    bincount reads the max on the host) and no shape depends on the data."""
+    n, K = top_i.shape
+    nK, NE, dev = n * K, num_experts, top_i.device
+    M_pad = -(-(nK + NE * (tm - 1)) // tm) * tm
+    flat_e = top_i.reshape(-1)
+    flat_t = torch.arange(n, device=dev).repeat_interleave(K)
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    g = torch.zeros(NE, dtype=torch.long, device=dev).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    gstart = torch.cumsum(g, 0) - g
+    padded = (g + tm - 1) // tm * tm
+    pstart = torch.cumsum(padded, 0) - padded
+    pos = pstart[se] + torch.arange(nK, device=dev) - gstart[se]
+    src = flat_t[order]
+    row_src = torch.zeros(M_pad, dtype=torch.long, device=dev).scatter_(0, pos, src)
+    tok_pos = torch.full((M_pad,), n, dtype=torch.long, device=dev).scatter_(0, pos, src)
+    w_pos = torch.zeros(M_pad, dtype=torch.float32, device=dev).scatter_(
+        0, pos, top_w.reshape(-1).float()[order])
+    tiles = torch.arange(M_pad // tm, device=dev) * tm
+    tile_eid = (torch.searchsorted(pstart, tiles, right=True) - 1).to(torch.int32)
+    return row_src, tok_pos, w_pos, tile_eid
+
+
+def _moe_mlp_gmm(cfg: LlamaConfig, lp: Dict[str, torch.Tensor],
+                 h: torch.Tensor) -> torch.Tensor:
+    """Top-k MoE for prefill-scale token counts (deft_tpu llama.py:245): the
+    routing math of _moe_mlp, the rows of each token's top-k experts in the
+    grouped layout (``moe_dispatch``), three grouped matmuls (kernel B10,
+    ops/gmm.py; int8 experts pass their (NE, F) scales to it), and an fp32
+    weighted ``index_add_`` combine into n + 1 rows, whose last row takes the
+    pad rows and is dropped.  FLOPs and expert-weight reads scale with k, not
+    NE."""
+    n, E = h.shape
+    K = cfg.experts_per_tok
+    probs = _router_probs(lp, h)
+    top_p, top_i = probs.topk(K, dim=-1)
+    top_w = top_p / top_p.sum(dim=-1, keepdim=True)
+    row_src, tok_pos, w_pos, tile_eid = moe_dispatch(top_i, top_w, cfg.num_experts)
+    xs = h[row_src]  # (M_pad, E)
+    gx = gmm_op.gmm(xs, lp["wg"], tile_eid, _expert_scale(lp, "wg"))
+    ux = gmm_op.gmm(xs, lp["wu"], tile_eid, _expert_scale(lp, "wu"))
+    zx = torch.nn.functional.silu(gx.float()).to(h.dtype) * ux
+    yx = gmm_op.gmm(zx, lp["wdown"], tile_eid, _expert_scale(lp, "wdown"))
+    out = torch.zeros((n + 1, E), dtype=torch.float32, device=h.device)
+    out.index_add_(0, tok_pos, yx.float() * w_pos[:, None])
+    return out[:n].to(h.dtype)
+
+
 AttnFn = Callable[..., torch.Tensor]
 
-_LAYER_KEYS = ("ln1", "wqkv", "wo", "ln2", "wgu", "wdown")
+_LAYER_KEYS = ("ln1", "wqkv", "wo", "ln2", "wgu", "wdown", "wrt", "wg", "wu")
 
 
 def layer_params(params: Dict[str, torch.Tensor], li: int) -> Dict[str, torch.Tensor]:
@@ -132,7 +251,10 @@ def forward_layers(cfg: LlamaConfig, params: Dict[str, torch.Tensor],
                    tokens: torch.Tensor, positions: torch.Tensor,
                    out_loc: torch.Tensor, attn: AttnFn, batch) -> torch.Tensor:
     """Embed, run every decoder layer (writing each layer's new K/V into the
-    pools before its attention reads them), final norm; returns (n, E)."""
+    pools before its attention reads them), final norm; returns (n, E).
+    A MoE layer takes the grouped-matmul route when the token count passes
+    _moe_gmm_ok (prefill), else the dense route (decode widths), as
+    deft_tpu llama.py:383-398 with its single-chip runner's dispatch on."""
     x = params["embed"][tokens]
     n = x.shape[0]
     D = cfg.head_dim
@@ -154,6 +276,12 @@ def forward_layers(cfg: LlamaConfig, params: Dict[str, torch.Tensor],
         o = attn(q, k, v, k_pool, v_pool, li, batch, scale)
         x = x + mm(o.reshape(n, -1).to(x.dtype), lp, "wo")
         h = rms_norm(x, lp["ln2"], eps)
+        if cfg.num_experts > 0:
+            if _moe_gmm_ok(cfg, n):
+                x = x + _moe_mlp_gmm(cfg, lp, h)
+            else:
+                x = x + _moe_mlp(cfg, lp, h)
+            continue
         gu = mm(h, lp, "wgu")
         g, u = gu[:, :I], gu[:, I:]
         x = x + mm(torch.nn.functional.silu(g.float()).to(x.dtype) * u,

@@ -1,16 +1,21 @@
 """Parameters: random init and conversion from numpy.
 
 Port of deft_tpu/models/loader.py:25 (_param_shapes), :76 (QUANT_WEIGHTS),
-:83 (_fuse_host), :189 (_quantize_int8), :197 (_finalize) and :217
-(random_params).  The port keeps the JAX package's parameter layout:
-stacked (num_layers, ...) tensors, projections as (in, out) matrices, and
-q/k/v and gate/up fused along the output axis (wqkv, wgu) as deft_tpu's
-single-chip runner keeps them (runner.py:228-252).
+:83 (_fuse_host), :103 (_fused_shapes), :189 (_quantize_int8), :197
+(_finalize) and :217 (random_params).  The port keeps the JAX package's
+parameter layout: stacked (num_layers, ...) tensors, projections as (in,
+out) matrices, and q/k/v and gate/up fused along the output axis (wqkv, wgu)
+as deft_tpu's single-chip runner keeps them (runner.py:228-252).  A
+Mixtral-family MoE config replaces the dense MLP by the router ``wrt`` (L, E,
+NE) and stacked experts ``wg``/``wu`` (L, NE, E, I) and ``wdown`` (L, NE, I,
+E), which stay unfused (deft_tpu loader.py:31-38, :90-95, :120-123).
 
 Weight-only int8 (``weight_dtype`` "int8" or "int8-pallas"): every matmul
 weight in QUANT_WEIGHTS becomes int8 codes plus a per-output-channel fp32
 scale under ``name + "_s"`` ("int8") or ``name + "_sp"`` ("int8-pallas"),
 which tells ``llama.mm`` which route to take (deft_tpu loader.py:207-211).
+Expert stacks are quantised per expert and output column (scales (L, NE,
+F)); the router stays in the model dtype.
 
 Two random streams:
 - the numpy stream (``random_params(..., device="cpu")``): default_rng(seed)
@@ -43,8 +48,13 @@ SCALE_SUFFIX = {"int8": "_s", "int8-pallas": "_sp"}
 
 
 def _param_shapes(cfg: LlamaConfig) -> Dict[str, Any]:
-    """Dense-Llama shapes, in the order the numpy stream draws them."""
+    """Llama shapes (MoE: router and stacked experts in place of the dense
+    MLP), in the order the numpy stream draws them."""
     E, D, L, I = cfg.hidden_size, cfg.head_dim, cfg.num_layers, cfg.intermediate_size
+    NE = cfg.num_experts
+    mlp = ({"wrt": (L, E, NE), "wg": (L, NE, E, I), "wu": (L, NE, E, I),
+            "wdown": (L, NE, I, E)} if NE > 0 else
+           {"wg": (L, E, I), "wu": (L, E, I), "wdown": (L, I, E)})
     return {
         "embed": (cfg.vocab_size, E),
         "ln1": (L, E),
@@ -53,9 +63,7 @@ def _param_shapes(cfg: LlamaConfig) -> Dict[str, Any]:
         "wv": (L, E, cfg.num_kv_heads * D),
         "wo": (L, cfg.num_q_heads * D, E),
         "ln2": (L, E),
-        "wg": (L, E, I),
-        "wu": (L, E, I),
-        "wdown": (L, I, E),
+        **mlp,
         "ln_f": (E,),
         "lm_head": (E, cfg.vocab_size),
     }
@@ -66,6 +74,8 @@ def _fused_shapes(cfg: LlamaConfig) -> Dict[str, Any]:
     out: Dict[str, Any] = {}
     for name, shape in shapes.items():
         for group, fused in _FUSE_GROUPS:
+            if len(shapes[group[0]]) == 4:  # MoE experts stay unfused
+                continue
             if name == group[0]:
                 out[fused] = shape[:-1] + (sum(shapes[g][-1] for g in group),)
                 break
@@ -78,10 +88,10 @@ def _fused_shapes(cfg: LlamaConfig) -> Dict[str, Any]:
 
 def fuse_host(bufs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     """q/k/v -> wqkv and gate/up -> wgu on host numpy; already fused inputs
-    pass through (deft_tpu loader.py:83)."""
+    and 4-D MoE expert stacks pass through (deft_tpu loader.py:83)."""
     p = dict(bufs)
     for group, out in _FUSE_GROUPS:
-        if all(g in p for g in group):
+        if all(g in p for g in group) and np.ndim(p[group[0]]) == 3:
             p[out] = np.concatenate([np.asarray(p[g]) for g in group], axis=-1)
             for g in group:
                 del p[g]
@@ -89,15 +99,16 @@ def fuse_host(bufs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
 
 
 def check_supported(cfg: LlamaConfig) -> None:
-    """This slice runs dense Llama only."""
+    """The port runs Llama and Mixtral-family (sparse MoE) models; the other
+    families come with checkpoint loading."""
     unsupported = [name for name, on in (
-        ("MoE", cfg.num_experts > 0), ("Gemma norm", cfg.gemma_norm),
-        ("qk-norm", cfg.qk_norm), ("qkv bias", cfg.qkv_bias),
+        ("Gemma norm", cfg.gemma_norm), ("qk-norm", cfg.qk_norm),
+        ("qkv bias", cfg.qkv_bias),
         (f"hidden_act={cfg.hidden_act}", cfg.hidden_act != "silu"),
     ) if on]
     if unsupported:
         raise NotImplementedError(
-            f"not ported yet: {', '.join(unsupported)} (dense Llama only)")
+            f"not ported yet: {', '.join(unsupported)} (Llama and Mixtral only)")
 
 
 def _quantize_int8(w: torch.Tensor):
@@ -171,8 +182,9 @@ def random_params(cfg: LlamaConfig, seed: int = 0, device="cuda",
     torch.Generator seeded with ``seed`` draws the fused tensors directly on
     ``device``, one layer at a time, and int8 flavours quantise each layer's
     slice as it is drawn: the fp32 transient is one layer's tensor (lm_head,
-    the largest, is 2.1 GB at 8B) and no full-precision copy of a quantised
-    weight ever exists.  The same seed gives the int8 weights of the same
+    the largest, is 2.1 GB at 8B; one layer's expert stack is 1.9 GB at
+    Mixtral-8x7B) and no full-precision copy of a quantised weight ever
+    exists.  The same seed gives the int8 weights of the same
     draws as the bf16 ones."""
     device = torch.device(device)
     _check_weight_dtype(weight_dtype)
@@ -193,7 +205,7 @@ def random_params(cfg: LlamaConfig, seed: int = 0, device="cuda",
                           device=device)
         scale = (torch.empty(shape[:-2] + shape[-1:], dtype=torch.float32,
                              device=device) if quant else None)
-        stacked = len(shape) == 3
+        stacked = len(shape) >= 3
         for i, part in enumerate(out if stacked else [out]):
             x = torch.randn(part.shape, generator=gen, device=device,
                             dtype=torch.float32).mul_(fan_in ** -0.5)

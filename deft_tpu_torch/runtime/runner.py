@@ -7,10 +7,12 @@ sizing (:382, here from ``torch.cuda.mem_get_info``), the kernel choice
 (_attn_fn :418-477), forward_prefill (:1125), forward_prefill_batch
 (:1154), build_plan (:1205-1273, with want_paged=True and the int8 segment
 rules), _use_paged (:1275) and forward_tree_decode (:2004), which takes
-single-tree and multi-tree plans (plan/multi.py) alike.  PyTorch runs
-eagerly, so there are no jitted steps, shape-bucket floors, plan patches or
-replay slabs: each step uploads its plan arrays in one host-to-device copy
-and runs the forward.
+single-tree and multi-tree plans (plan/multi.py) alike; MoE layers take the
+grouped-matmul route wherever the token count allows it (deft_tpu's
+single-chip dispatch, :302-317; models/llama.py's _moe_gmm_ok).  PyTorch
+runs eagerly, so there are no jitted steps, shape-bucket floors, plan
+patches or replay slabs: each step uploads its plan arrays in one
+host-to-device copy and runs the forward.
 
 Every plan runs through a kernel: segment-aligned (paged) plans through the
 paged kernels, the others through the gather kernels, over bf16/fp32 or

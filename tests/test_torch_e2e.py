@@ -108,7 +108,7 @@ def test_cli_runs_on_cpu(tmp_path, capsys):
 
 
 def test_refusals():
-    """No silent fallbacks: CUDA without a GPU, unported configs, rope
+    """No silent fallbacks: CUDA without a GPU, unported families, rope
     scalings and engine options raise; a gather plan (short prompt) runs
     through its kernel entry and matches the dense oracle.  On the CPU both
     are B6's / B7's plain version, so this checks the dispatch only;
@@ -142,9 +142,11 @@ def test_refusals():
         assert float((g - w).abs().max() / w.abs().max()) < 1e-5  # fp32 order
     import dataclasses
 
-    moe = dataclasses.replace(PRESETS["tiny"], num_experts=4)
-    with pytest.raises(NotImplementedError):
-        ModelRunner(moe, EngineConfig(**ECFG), device="cpu")
+    qk = dataclasses.replace(PRESETS["tiny"], qk_norm=True)  # Qwen3: not ported
+    with pytest.raises(NotImplementedError, match="qk-norm"):
+        ModelRunner(qk, EngineConfig(**ECFG), device="cpu")
+    moe = dataclasses.replace(PRESETS["tiny"], num_experts=4)  # Mixtral: ported
+    assert ModelRunner(moe, EngineConfig(**ECFG), device="cpu").params["wg"].dim() == 4
     yarn = dataclasses.replace(PRESETS["tiny"],
                                rope_scaling={"rope_type": "yarn", "factor": 4.0})
     with pytest.raises(NotImplementedError, match="yarn"):
