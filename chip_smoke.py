@@ -10,12 +10,19 @@ result line):
   2. build:   nvcc builds every kernel from csrc/, one process per source;
   3. kernels: each kernel against its plain torch version on the card, on the
               shapes its path gives it (Llama-3.1-8B heads and matmuls, B10
-              at Mixtral-8x7B's prefill; bf16, tolerance 2e-2) and on small
+              at Mixtral-8x7B's prefill; the partial entries B1p, B4p, B2p
+              and B5p at rank 0's window of grid 1x2x2 on the main tree, B11
+              at rank 0's window of grid 2x1x2 on the 16-token prompt's
+              tree: 4 KV heads; bf16, tolerance 2e-2) and on small
               fp32 cases (tolerance 2e-5): trees with dead, FULL and
               few-leaf blocks, unaligned seq segments and a short prompt's
               plans that are not segment-aligned, over bf16/fp32 pools and
               int8 pools with random codes and scales, live rows only; B10
               with an empty expert group and pad tiles past the last group;
+              the partial entries on every rank's window of a dp 2 x sp 3
+              grid (shifted leaf intervals, pad blocks; acc and l on live
+              rows, m where a row saw a token); the sp merge of B1p's two
+              halves of the main plan against B1 over the whole;
   4. main:    the 8B model (random bf16 weights from a CUDA torch.Generator,
               all 32 layers) serves Simple_Tree few-shot, width 50, prompt
               4000, 64 generated tokens, block_len 256, in flatten then seq
@@ -70,7 +77,25 @@ result line):
               logits below MOE_INT8_LIMIT, the first
               step as above, TTFT and TPOT beside the moe path's, and the
               path's peak device memory;
- 11. timing:  CUDA-event times of each kernel, its plain version and, where
+ 11. sharded: the multi-device engine (parallel/), four ranks started on the
+              one card over gloo (NCCL refuses two ranks on one card; that
+              refusal is checked), grid 1x2x2 (tp 2, sp 2): the 8B model at
+              32 layers from the main path's seed (each rank draws its
+              slices), the main path's workload flatten then seq: B3, B1p
+              and B2p launch on every rank, B1 and B2 on none; the first
+              step's logits against the main path's below LOGITS_LIMIT, and
+              a fault control above it (in every layer sp rank 1's state,
+              the prompt's end and the leaves' tokens, left out of the
+              merge); the live plan tokens of each sp rank, each at least a
+              quarter of them; greedy ids against the main path's,
+              TTFT and TPOT (four processes sharing one card: no statement
+              on several cards' speed); then an int8 KV cache (B4p, B5p; 8
+              decode tokens, its first step against the int8 path's); then
+              grid 2x1x2 over the 16-token prompt (B11 with dp 2);
+ 12. sharded-moe: mixtral-6l on grid 1x2x2 (4 experts a rank): B10 on every
+              rank's prefill, its last-token logits against the moe path's
+              below MOE_LIMIT, then 8 decode tokens;
+ 13. timing:  CUDA-event times of each kernel, its plain version and, where
               one PyTorch call computes the same function, that call, at its
               path's shapes, beside the least time the card could take.
 Each path's counts are set to 0 just before it and read just after (the
@@ -160,7 +185,27 @@ KERNELS = {
                     None),
     "gmm": ("deft_tpu/ops/gmm.py:37", "gmm.cu", None, None, None),
     "gmm_scaled": ("deft_tpu/ops/gmm.py:58", "gmm.cu", None, None, None),
+    # the partial entries of the multi-device engine (sharded paths)
+    "paged_flatten_partial": ("deft_tpu/ops/paged_flatten_attn.py:408", "paged_flatten.cu",
+                              "flatten", "inherit", "paged"),
+    "paged_flatten_q_partial": ("deft_tpu/ops/paged_quant.py:321", "paged_flatten.cu",
+                                "flatten", "int8", "paged"),
+    "paged_seq_partial": ("deft_tpu/ops/paged_seq_attn.py:351", "paged_seq.cu", "seq",
+                          "inherit", "paged"),
+    "paged_seq_q_partial": ("deft_tpu/ops/paged_seq_attn.py:389", "paged_seq.cu", "seq",
+                            "int8", "paged"),
+    "flatten_gather_partial": ("deft_tpu/ops/sharded_flatten.py:37", "flatten_gather.cu",
+                               "flatten", None, "gather"),
 }
+# each partial entry -> the kernel whose plan and arguments it takes
+PARTIAL_OF = {"paged_flatten_partial": "paged_flatten",
+              "paged_flatten_q_partial": "paged_flatten_q",
+              "paged_seq_partial": "paged_seq", "paged_seq_q_partial": "paged_seq_q",
+              "flatten_gather_partial": "flatten_gather"}
+# the sharded paths' grids, (dp, sp, tp): one H100, four ranks over gloo;
+# the 16-token prompt's (B11) has dp 2
+SHARDED_GRID = (1, 2, 2)
+SHORT_GRID = (2, 1, 2)
 # the launch counter of a wrapper that counts two kernels (ops/gmm.py)
 COUNT_ATTR = {"gmm_scaled": "scaled_launches"}
 
@@ -205,6 +250,7 @@ def wrappers():
     from deft_tpu_torch.ops import paged_seq_attn as ps
     from deft_tpu_torch.ops import prefill as pr
     from deft_tpu_torch.ops import seq_attn as sa
+    from deft_tpu_torch.ops import sharded_flatten as sf
 
     return {
         "prefill": (pr.prefill_attention, pr.prefill_attention_plain),
@@ -219,6 +265,16 @@ def wrappers():
         "int8_matmul": (i8.int8_matmul, i8.int8_matmul_plain),
         "gmm": (gm.gmm, gm.gmm_plain),
         "gmm_scaled": (gm.gmm, gm.gmm_plain),
+        "paged_flatten_partial": (pf.paged_flatten_attention_partial,
+                                  pf.paged_flatten_attention_partial_plain),
+        "paged_flatten_q_partial": (pq.paged_flatten_attention_q_partial,
+                                    pq.paged_flatten_attention_q_partial_plain),
+        "paged_seq_partial": (ps.paged_seq_attention_partial,
+                              ps.paged_seq_attention_partial_plain),
+        "paged_seq_q_partial": (ps.paged_seq_attention_q_partial,
+                                ps.paged_seq_attention_q_partial_plain),
+        "flatten_gather_partial": (sf.flatten_attention_partial,
+                                   sf.flatten_attention_partial_plain),
     }
 
 
@@ -351,6 +407,32 @@ def kernel_case(name, tree, qpk, Hkv, D, dtype, dev, gen, block_len, kv=None,
     return plan, (q, *pools, 0, *arrs, *tail)
 
 
+def named_args(name, args) -> dict:
+    """Kernel `name`'s arguments by the names of its wrapper's parameters,
+    so that only the ops modules know their order."""
+    return dict(inspect.signature(wrappers()[name][0]).bind(*args).arguments)
+
+
+def window_case(name, plan, args, grid):
+    """The partial kernel `name`'s arguments on `grid`'s rank window of the
+    plan and arguments kernel_case built for PARTIAL_OF[name]: its dp rows
+    of q and its sp span of blocks, cut by the engine (parallel/engine.py,
+    parallel/seq_engine.py).  Returns (args, live leaves of the window)."""
+    from types import SimpleNamespace
+
+    from deft_tpu_torch.parallel import engine, seq_engine
+
+    kind, _, layout = KERNELS[name][2:]
+    a = named_args(name, args)
+    R = a["q"].shape[0]
+    b = SimpleNamespace(**a)
+    w = (engine.flatten_window(grid, b, R, paged=layout == "paged") if kind == "flatten"
+         else seq_engine.seq_window(grid, b, R))
+    a.update((k, v) for k, v in vars(w).items() if k in a)
+    a["q"] = engine.window_rows(a["q"], w.rows * grid.axis_size("dp"), w.r0, w.rows)
+    return tuple(a.values()), max(0, min(w.rows, plan.n_leaves - w.r0))
+
+
 def prefill_case(N, Hq, Hkv, D, dtype, dev, gen):
     import torch
 
@@ -428,7 +510,9 @@ def path_shapes(dev):
     (int8 pools) on the 4000-token prompt's tree halfway through its 64
     tokens; B6 (bf16 and int8 pools) on the CLI's 16-token prompt's tree
     halfway through, B7 at its fifth step, where their plans come out not
-    segment-aligned; prefill of the 4000-token prompt; B8 over the batch
+    segment-aligned; the partial entries at rank 0's window of their grid
+    (B1p, B2p, B4p, B5p on the main tree, B11 on the short one); prefill of
+    the 4000-token prompt; B8 over the batch
     path's four prompts; B9 at R = 64 (one width-50 tree) and 256 (the batch
     path's 200 leaves) for each of the 8B matmul weights; B10 at Mixtral's
     prefill of the 4000-token prompt (top-2 of random router logits over 8
@@ -444,9 +528,23 @@ def path_shapes(dev):
     out = {"prefill": [("", None, prefill_case(PROMPT_LEN, 32, 8, 128, bf16, dev, gen))]}
     for name in ("paged_flatten", "paged_seq", "paged_flatten_q", "paged_seq_q"):
         out[name] = [("", *kernel_case(name, main, 4, 8, 128, bf16, dev, gen, 256))]
-    for name, steps in (("flatten_gather", GEN_LEN // 2), ("seq_gather", 4)):
-        short = grow_tree(16, WIDTH, steps, 16384, np.random.default_rng(SEED))
-        out[name] = [(kv, *kernel_case(name, short, 4, 8, 128, bf16, dev, gen, 256,
+    # the partial entries at rank 0's window of the grid whose path runs
+    # them, 4 KV heads (8 over tp 2): B1p, B2p, B4p, B5p on the main tree
+    # at SHARDED_GRID (half the plan's blocks), B11 on the short tree at
+    # SHORT_GRID (half the leaves, intervals shifted into the dp window)
+    from deft_tpu_torch.parallel.mesh import Grid
+
+    short = grow_tree(16, WIDTH, GEN_LEN // 2, 16384, np.random.default_rng(SEED))
+    for name, base in PARTIAL_OF.items():
+        gather = KERNELS[name][4] == "gather"
+        shape = SHORT_GRID if gather else SHARDED_GRID
+        plan, args = kernel_case(base, short if gather else main, 4, 4, 128, bf16, dev,
+                                 gen, 256, kv="inherit", as_built=gather)
+        wargs, live = window_case(name, plan, args, Grid(shape, 0, dev))
+        out[name] = [(f"rank 0 of grid {shape}", (plan, live), wargs)]
+    seq_short = grow_tree(16, WIDTH, 4, 16384, np.random.default_rng(SEED))
+    for name, tree in (("flatten_gather", short), ("seq_gather", seq_short)):
+        out[name] = [(kv, *kernel_case(name, tree, 4, 8, 128, bf16, dev, gen, 256,
                                        kv=kv, as_built=True))
                      for kv in ("inherit", "int8")]
     out["ragged_prefill"] = [("", None, ragged_case(BATCH_LENS, 32, 8, 128, bf16, dev,
@@ -525,12 +623,41 @@ def phase_kernels(dev, shapes):
             check(not bool(got[~rows].any()), f"{name} {label}: pad rows are not 0")
         return float((got[rows].double() - want[rows].double()).abs().max())
 
+    def compare_state(name, label, args, tol, leaves):
+        """A partial entry against its plain version: acc and l on the live
+        leaves' rows, m where the row saw a token (dead rows' m is the
+        kernels' finite floor), every output finite."""
+        fn, plain = fns[name]
+        got = fn(*args)
+        torch.cuda.synchronize()
+        want = plain(*args)
+        q, D = args[0], args[0].shape[-1]
+        if KERNELS[name][2] == "flatten":  # folded (Hkv, R*qpk) rows
+            rows = (slice(None), slice(0, leaves * q.shape[1] // (args[1].shape[-1] // D)))
+        else:
+            rows = (slice(0, leaves),)
+        seen = want[2][rows] > 0
+        pairs = [(got[0][rows], want[0][rows]), (got[2][rows], want[2][rows]),
+                 (got[1][rows][seen], want[1][rows][seen])]
+        e = max(rel_err(g, w) for g, w in pairs if w.numel())
+        print(f"[kernels] {name} {label}: rel err (acc, l, m) {e:.3e}, tol {tol:.0e}",
+              flush=True)
+        check(e < tol and all(bool(torch.isfinite(t).all()) for t in got),
+              f"{name} {label} disagrees with its plain version: {e}")
+        return max(float((g.double() - w.double()).abs().max()) for g, w in pairs
+                   if w.numel())
+
     errs = {}
     for name, cases in shapes.items():
         for label, plan, args in cases:
-            e = compare(name, f"bf16 path shapes {label}", args, TOL["bfloat16"],
-                        live(plan))
+            if name in PARTIAL_OF:
+                e = compare_state(name, f"bf16 path shapes {label}", args,
+                                  TOL["bfloat16"], plan[1])
+            else:
+                e = compare(name, f"bf16 path shapes {label}", args, TOL["bfloat16"],
+                            live(plan))
             errs[name] = max(errs.get(name, 0.0), e)
+    phase_merge(dev, shapes)
 
     # small fp32 trees with every plan feature, both head dims
     gen = torch.Generator(device=dev)
@@ -585,6 +712,24 @@ def phase_kernels(dev, shapes):
                 args, rows = ragged_case(lens, Hq, Hkv, D, f32, dev, gen, pad)
                 compare("ragged_prefill", f"fp32 D={D} qpk {Hq // Hkv} lens {lens} "
                         f"pad {pad}", args, TOL["float32"], rows)
+    # the partial entries on every rank's window of a (dp 2, sp 3) grid:
+    # leaf intervals shifted into each dp window, blocks outside it, pad
+    # blocks in the last sp span, FULL and dead blocks, int8 pools
+    from deft_tpu_torch.parallel.mesh import Grid
+
+    windows = [Grid((2, 3, 1), r, dev) for r in range(6)]
+    for D in (64, 128):
+        for block_len in (128, 256):
+            for tree, label in ((a, "FULL/dead/few-leaf tree"), (b, "unaligned tree")):
+                for name, base in PARTIAL_OF.items():
+                    for kv in (("inherit", "int8") if base == "flatten_gather" else (None,)):
+                        plan, args = kernel_case(base, tree, 4, 2, D, f32, dev, gen,
+                                                 block_len, kv=kv)
+                        for grid in windows:
+                            wargs, leaves = window_case(name, plan, args, grid)
+                            compare_state(name, f"fp32 {kv or ''} D={D} block {block_len} "
+                                          f"{label}, rank {grid.coords}", wargs,
+                                          TOL["float32"], leaves)
     # B9: R = 8, H not a multiple of 512, split and unsplit H, every row tile
     for R, H, I in ((8, 384, 256), (24, 4096, 4096), (64, 640, 384),
                     (16, 256, 128 * 264), (256, 512, 1536)):
@@ -609,8 +754,41 @@ def phase_kernels(dev, shapes):
     return errs
 
 
+def stacked_reduce(t, op):
+    """An all-reduce over the leading axis of a stack of ranks' tensors, in
+    one process."""
+    r = t.amax(0, keepdim=True) if op == "max" else t.sum(0, keepdim=True)
+    return t.copy_(r.expand_as(t))
+
+
+def phase_merge(dev, shapes):
+    """The sp merge of B1p's state on the two halves of the main tree's
+    blocks (engine.lse_merge over the stacked states) against B1 over the
+    whole plan, both on the card: live rows, bf16 tolerance."""
+    import torch
+    from deft_tpu_torch.ops.paged_flatten_attn import unfold_rows
+    from deft_tpu_torch.parallel import engine
+    from deft_tpu_torch.parallel.mesh import Grid
+
+    _, plan, args = shapes["paged_flatten"][0]
+    fn = wrappers()["paged_flatten_partial"][0]
+    states = []
+    for r in range(2):
+        wargs, _ = window_case("paged_flatten_partial", plan, args, Grid((1, 2, 1), r, dev))
+        states.append(fn(*wargs))
+    acc, m, l = (torch.stack(x) for x in zip(*states))
+    o = unfold_rows(engine.lse_merge(acc, m, l, stacked_reduce)[0], plan.l_pad)
+    whole = wrappers()["paged_flatten"][0](*args)
+    torch.cuda.synchronize()
+    live = slice(0, plan.n_leaves)
+    e = rel_err(o[live], whole[live])
+    print(f"[kernels] sp merge of B1p over two halves of the main plan vs B1 whole: "
+          f"rel err {e:.3e}, tol {TOL['bfloat16']:.0e}", flush=True)
+    check(e < TOL["bfloat16"], f"the sp merge of B1p's halves disagrees with B1: {e}")
+
+
 def make_runner(cfg, params, dev, kv_dtype="inherit", prompt_len=PROMPT_LEN,
-                slots=16384, max_requests=2 * WIDTH):
+                slots=16384, max_requests=2 * WIDTH, mesh=None):
     from deft_tpu_torch.config import AttentionConfig, EngineConfig
     from deft_tpu_torch.runtime import ModelRunner
 
@@ -618,7 +796,7 @@ def make_runner(cfg, params, dev, kv_dtype="inherit", prompt_len=PROMPT_LEN,
                         kv_pool_slots=slots, max_requests=max_requests,
                         max_context_len=prompt_len + GEN_LEN + 64, kv_dtype=kv_dtype)
     return ModelRunner(cfg, ecfg, device=dev, params=params,
-                       topk_k=max(64, WIDTH), retain_full_logits=True)
+                       topk_k=max(64, WIDTH), retain_full_logits=True, mesh=mesh)
 
 
 def generate_both(runner, prompt, tag, count_plans=False):
@@ -771,7 +949,7 @@ def phase_int8(dev, params, prompt, ids, lf_bf16, profile: bool = False):
             profile_decode(runner, mode, prompt, WIDTH, steps=8)
     del runner
     release()
-    return launches
+    return launches, lq.cpu()
 
 
 def phase_short(dev, params, profile: bool = False):
@@ -1280,9 +1458,11 @@ def phase_moe(dev, profile: bool = False):
     print(f"[moe] mixtral-6l bf16 weights ({gb:.2f} GB) made on the card in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     runner = make_runner(cfg, params, dev)
-    prompt = [int(t) for t in np.random.default_rng(SEED).integers(4, cfg.vocab_size - 4,
-                                                                   PROMPT_LEN)]
+    prompt = moe_prompt(cfg)
     moe_route_check(runner, prompt, "moe", MOE_LIMIT)
+    # the prefill's last-token logits, for the sharded-moe path
+    prefill_logits = runner.forward_prefill(prompt).full_logits()[0].float().cpu()
+    runner.reset_state()
     moe_first_step(runner, prompt, "moe")
     runner.retain_full_logits = False
     runs, prefills, launches = generate_counting_prefills(runner, prompt, "moe")
@@ -1303,7 +1483,13 @@ def phase_moe(dev, profile: bool = False):
             profile_decode(runner, mode, prompt, WIDTH, steps=8)
     del runner, params
     release()
-    return launches, runs
+    return launches, runs, prefill_logits
+
+
+def moe_prompt(cfg):
+    """The MoE paths' prompt: PROMPT_LEN ids below the model's vocabulary."""
+    return [int(t) for t in np.random.default_rng(SEED).integers(4, cfg.vocab_size - 4,
+                                                                 PROMPT_LEN)]
 
 
 def phase_moe_int8w(dev, moe_runs, profile: bool = False):
@@ -1328,8 +1514,7 @@ def phase_moe_int8w(dev, moe_runs, profile: bool = False):
           f"int8 codes + fp32 scales, bf16 embed, router and norms) made on the card "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
     runner = make_runner(cfg, params, dev)
-    prompt = [int(t) for t in np.random.default_rng(SEED).integers(4, cfg.vocab_size - 4,
-                                                                   PROMPT_LEN)]
+    prompt = moe_prompt(cfg)
     moe_route_check(runner, prompt, "moe-int8w", MOE_INT8_LIMIT)
     per_step = 2 * cfg.num_layers + 1
     step = moe_first_step(runner, prompt, "moe-int8w")
@@ -1364,6 +1549,277 @@ def phase_moe_int8w(dev, moe_runs, profile: bool = False):
     del runner, params
     release()
     return launches
+
+
+# -- the sharded paths: four ranks on the one card ------------------------------------
+#
+# The rank functions below run in processes that parallel.launch spawns
+# (they import this script as their main module); each returns what rank 0
+# saw, its launch counts beside every other rank's.
+
+
+def rank_counts(grid) -> list:
+    """Every rank's launch counts, gathered to each rank."""
+    import torch.distributed as dist
+
+    out = [None] * grid.size
+    dist.all_gather_object(out, read_counts())
+    return out
+
+
+def rank_generate(grid, runner, prompt, gen_len, modes):
+    """tree_generate in each mode on a rank's runner, counts set to 0 just
+    before each run and gathered just after; branch tokens, TTFT, TPOT and
+    each step's plan.paged of each run."""
+    from deft_tpu_torch.control import Branch_Controller, workloads
+    from deft_tpu_torch.obs import PerfMetrics
+    from deft_tpu_torch.runtime import mode_from_cli, tree_generate
+
+    build = runner.build_plan
+    out = {}
+    for name in modes:
+        paged = []
+
+        def recording_build(m):
+            plan = build(m)
+            paged.append(plan.paged)
+            return plan
+
+        runner.build_plan = recording_build
+        reset_counts()
+        try:
+            pm = tree_generate(runner, mode_from_cli(name), None, prompt,
+                               max_seq_len=len(prompt) + gen_len, width=WIDTH, depth=1,
+                               branch_controller=Branch_Controller(workloads.simple_tree),
+                               perf_metrics=PerfMetrics())
+        finally:
+            del runner.build_plan
+        out[name] = dict(seqs=[list(s.token_ids) for s in runner.tree.all_finished_seqs],
+                         TTFT=pm.TTFT, TPOT=pm.TPOT, paged=paged, counts=rank_counts(grid))
+    return out
+
+
+def sharded_rank(grid, prompt, ids):
+    """The sharded path on one rank: the 8B model's slices from the main
+    path's seed, the first decode step on the main path's tree (and with
+    sp rank 1's state left out of every layer's merge: the span that holds
+    the prompt's end and the leaves' tokens), flatten then seq over 64
+    tokens; then an int8 KV cache: its first step and 8 decode tokens a
+    mode."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+    from deft_tpu_torch.models import PRESETS
+    from deft_tpu_torch.ops.dense_oracle import M_EMPTY
+    from deft_tpu_torch.parallel import engine
+    from deft_tpu_torch.parallel.mesh import Grid
+    from deft_tpu_torch.runtime import ForwardMode
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, flatten = PRESETS["8b"], ForwardMode.TREE_DECODE_FLATTEN
+    merge = engine.lse_merge
+
+    def drop_sp_rank_1(acc, m, l, reduce):
+        if grid.index("sp") == 1:
+            acc, l, m = torch.zeros_like(acc), torch.zeros_like(l), torch.full_like(m, M_EMPTY)
+        return merge(acc, m, l, reduce)
+
+    out = {}
+    for kv in ("inherit", "int8"):
+        t0 = time.perf_counter()
+        runner = make_runner(cfg, None, grid.device, kv_dtype=kv, mesh=grid)
+        torch.cuda.synchronize()
+        out[f"{kv} setup s"] = time.perf_counter() - t0
+        out[f"{kv} weights GB"] = sum(t.numel() * t.element_size()
+                                      for t in runner.params.values()) / 1e9
+        first_step(runner, prompt, ids)
+        plan = runner.build_plan(flatten)
+        out[f"{kv} first paged"] = plan.paged
+        # live plan tokens in each sp rank's window, cut by the engine
+        batch, tp = runner._step_batch(plan), grid.axis_size("tp")
+        wins = [engine.flatten_window(Grid(grid.shape.values(), s * tp, grid.device),
+                                      batch, plan.l_pad, plan.paged)
+                for s in range(grid.axis_size("sp"))]
+        out[f"{kv} live tokens by sp rank"] = [int((w.tok_hi > w.tok_lo).sum()) for w in wins]
+        out[f"{kv} plan tokens"] = len(plan.tok_lo)
+        for name, fault in (("first", None), ("first, sp rank 1 dropped", drop_sp_rank_1)):
+            if kv == "int8" and fault is not None:
+                continue
+            with (mock.patch.object(engine, "lse_merge", fault) if fault
+                  else contextlib.nullcontext()):
+                v, _ = runner.forward_tree_decode(flatten, plan)
+            out[f"{kv} {name}"] = v.full_logits()[:WIDTH].float().cpu()
+        runner.reset_state()
+        runner.retain_full_logits = False
+        out[f"{kv} runs"] = rank_generate(grid, runner, prompt,
+                                          GEN_LEN if kv == "inherit" else 9,
+                                          ("flatten", "seq"))
+        out[f"{kv} peak GB"] = torch.cuda.max_memory_allocated(grid.device) / 1e9
+        del runner
+        release()
+    return out
+
+
+def sharded_short_rank(grid):
+    """The 16-token prompt on one rank of a grid with dp 2, flatten, bf16:
+    its plans are not segment-aligned at the first steps (B11)."""
+    import torch
+    from deft_tpu_torch.cli.run import make_prompt
+    from deft_tpu_torch.models import PRESETS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = PRESETS["8b"]
+    prompt = make_prompt(None, 16 + GEN_LEN, cfg.vocab_size, SEED)
+    runner = make_runner(cfg, None, grid.device, prompt_len=len(prompt), mesh=grid)
+    runner.retain_full_logits = False
+    return rank_generate(grid, runner, prompt, GEN_LEN, ("flatten",))
+
+
+def sharded_moe_rank(grid):
+    """mixtral-6l on one rank (2 of the 8 experts' tp halves): the moe
+    path's prefill (its last-token logits and each rank's launches), then 8
+    decode tokens in flatten mode."""
+    import torch
+    from deft_tpu_torch.models import PRESETS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = PRESETS["mixtral-6l"]
+    runner = make_runner(cfg, None, grid.device, mesh=grid)
+    prompt = moe_prompt(cfg)
+    reset_counts()
+    logits = runner.forward_prefill(prompt).full_logits()[0].float().cpu()
+    torch.cuda.synchronize()
+    counts = rank_counts(grid)
+    runner.reset_state()
+    runner.retain_full_logits = False
+    return dict(logits=logits, prefill=counts,
+                runs=rank_generate(grid, runner, prompt, 9, ("flatten",)))
+
+
+def run_grid(fn, shape, args=()):
+    """parallel.launch over gloo on the one card; a failure in any rank
+    fails the script."""
+    from deft_tpu_torch.parallel import launch
+
+    try:
+        return launch(fn, shape, "cuda", "gloo", args=args, timeout=900)
+    except RuntimeError as e:
+        raise Failure(f"grid {shape}: {e}") from e
+
+
+def phase_sharded(prompt, ids, lf, lq, main_runs):
+    """Four ranks on the one card over gloo, grid 1x2x2 (tp 2 over heads
+    and Megatron columns, sp 2 over the plan's blocks): the 8B model at 32
+    layers from the main path's seed.  B3 prefill, B1p flatten and B2p seq
+    decode on each rank, B1 and B2 never; the first step's logits against
+    the single-card main path's below LOGITS_LIMIT, the dropped-span fault
+    above it; then the int8 KV cache (B4p, B5p), its first step against the
+    int8 path's; then a 2x1x2 grid over the 16-token prompt (B11, dp 2).
+    Times are those of four processes sharing one card."""
+    from deft_tpu_torch.parallel.multihost import check_backend
+
+    try:
+        check_backend("nccl", 4, "cuda")
+        raise Failure("nccl was not refused for four ranks on one card")
+    except ValueError as e:
+        check("gloo" in str(e), f"the nccl refusal does not name gloo: {e}")
+    t0 = time.perf_counter()
+    out = run_grid(sharded_rank, SHARDED_GRID, (prompt, ids))
+    wall = time.perf_counter() - t0
+    readings = {name: rel_l2(out[f"inherit {name}"], lf)
+                for name in ("first", "first, sp rank 1 dropped")}
+    by_sp = out["inherit live tokens by sp rank"]
+    readings["int8 first"] = rel_l2(out["int8 first"], lq)
+    print(f"[sharded] grid {SHARDED_GRID} on one card over gloo, 8b at 32 layers: "
+          f"{out['inherit weights GB']:.2f} GB of weights a rank, set-up "
+          f"{out['inherit setup s']:.1f} s, peak {out['inherit peak GB']:.2f} GB a rank "
+          f"(rank 0); whole launch {wall:.1f} s", flush=True)
+    print(f"[sharded] first decode step (plan paged={out['inherit first paged']}, "
+          f"{out['inherit plan tokens']} plan tokens, live tokens by sp rank "
+          f"{by_sp}), relative L2 of the logits against "
+          f"the single-card main path's: sharded {readings['first']:.3e}, sp rank 1's "
+          f"span left out of every merge {readings['first, sp rank 1 dropped']:.3e} "
+          f"(limit {LOGITS_LIMIT:.0e}); int8 KV against the int8 path's "
+          f"{readings['int8 first']:.3e}", flush=True)
+    # the check covers every span only if every span holds a real share
+    check(min(by_sp) >= 0.25 * sum(by_sp),
+          f"an sp span holds under a quarter of the live tokens: {by_sp}")
+    check(readings["first"] < LOGITS_LIMIT,
+          f"sharded first-step logits stray from the single card's: {readings['first']}")
+    check(readings["first, sp rank 1 dropped"] > LOGITS_LIMIT,
+          "a dropped sp span stays under the limit: the check cannot see it")
+    check(readings["int8 first"] < LOGITS_LIMIT,
+          f"sharded int8 first-step logits stray: {readings['int8 first']}")
+    launches = {}
+    for kv, gen in (("inherit", GEN_LEN - 1), ("int8", 8)):
+        for mode, r in out[f"{kv} runs"].items():
+            check(len(r["seqs"]) == WIDTH and all(len(x) == gen for x in r["seqs"]),
+                  f"sharded {kv} {mode}: expected {WIDTH} branches of {gen} tokens")
+            rank0 = r["counts"][0]
+            for k, n in rank0.items():
+                launches[k] = launches.get(k, 0) + n
+            same = ""
+            if kv == "inherit":
+                want = main_runs[mode]["seqs"]
+                share = np.mean([a == b for x, y in zip(r["seqs"], want)
+                                 for a, b in zip(x, y)])
+                same = f", greedy ids equal to the main path's at {share:.4f} of positions"
+            print(f"[sharded] {kv} {mode}: TTFT {r['TTFT']:.3f} ms, TPOT {r['TPOT']:.4f} ms "
+                  f"(four ranks sharing one card), plans paged at {sum(r['paged'])} of "
+                  f"{len(r['paged'])} steps{same}; launches by rank "
+                  f"{[{k: n for k, n in c.items() if n} for c in r['counts']]}", flush=True)
+            for c in r["counts"]:
+                check(c["paged_flatten"] == 0 and c["paged_seq"] == 0
+                      and c["paged_flatten_q"] == 0 and c["paged_seq_q"] == 0,
+                      f"sharded {kv} {mode}: a single-device decode kernel launched: {c}")
+                check(c["prefill"] > 0, f"sharded {kv} {mode}: B3 did not launch: {c}")
+                want = {("inherit", "flatten"): "paged_flatten_partial",
+                        ("inherit", "seq"): "paged_seq_partial",
+                        ("int8", "flatten"): "paged_flatten_q_partial",
+                        ("int8", "seq"): "paged_seq_q_partial"}[kv, mode]
+                check(c[want] > 0, f"sharded {kv} {mode}: {want} did not launch: {c}")
+    t0 = time.perf_counter()
+    short = run_grid(sharded_short_rank, SHORT_GRID)["flatten"]
+    c0 = short["counts"][0]
+    print(f"[sharded] 16-token prompt, grid {SHORT_GRID}, flatten:TTFT {short['TTFT']:.3f} ms, "
+          f"TPOT {short['TPOT']:.4f} ms (four ranks sharing one card), plans paged at "
+          f"{sum(short['paged'])} of {len(short['paged'])} steps; launches by rank "
+          f"{[{k: n for k, n in c.items() if n} for c in short['counts']]}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(len(short["seqs"]) == WIDTH, "sharded short: wrong branch count")
+    for c in short["counts"]:
+        check(c["flatten_gather_partial"] > 0 and c["flatten_gather"] == 0,
+              f"sharded short: B11 did not launch on every rank (dp 2): {c}")
+    launches["flatten_gather_partial"] = c0["flatten_gather_partial"]
+    return launches
+
+
+def phase_sharded_moe(moe_logits):
+    """mixtral-6l on grid 1x2x2 over gloo on the one card: 4 experts a rank
+    (sp 2), their inner dims over tp 2; the prefill's B10 launches on every
+    rank, its last-token logits against the moe path's below MOE_LIMIT;
+    then 8 decode tokens."""
+    from deft_tpu_torch.models import PRESETS
+
+    per = 3 * PRESETS["mixtral-6l"].num_layers
+    t0 = time.perf_counter()
+    out = run_grid(sharded_moe_rank, SHARDED_GRID)
+    e = rel_l2(out["logits"], moe_logits)
+    run = out["runs"]["flatten"]
+    print(f"[sharded-moe] grid {SHARDED_GRID}: prefill last-token logits against the "
+          f"moe path's, relative L2 {e:.3e} (limit {MOE_LIMIT:g}), top-1 equal "
+          f"{int(out['logits'].argmax()) == int(moe_logits.argmax())}; prefill launches by "
+          f"rank {[{k: n for k, n in c.items() if n} for c in out['prefill']]}; 8 decode "
+          f"tokens: TTFT {run['TTFT']:.3f} ms, TPOT {run['TPOT']:.4f} ms (four ranks "
+          f"sharing one card); {time.perf_counter() - t0:.1f} s", flush=True)
+    check(e < MOE_LIMIT, f"sharded MoE prefill logits stray from the moe path's: {e}")
+    for c in out["prefill"]:
+        check(c["gmm"] == per and c["gmm_scaled"] == 0,
+              f"sharded-moe: B10 launches of a rank's prefill {c}, expected gmm {per}")
+    check(len(run["seqs"]) == WIDTH and all(len(x) == 8 for x in run["seqs"]),
+          "sharded-moe: expected 50 branches of 8 tokens")
+    return out["prefill"][0]
 
 
 def logits_controls(runner, width):
@@ -1790,8 +2246,8 @@ def attention_library_row(name, plan, args, flush):
     from deft_tpu_torch.ops.paged_seq_attn import segment_paths
 
     _, _, kind, kv, layout = KERNELS[name]
-    q, kp, vp = args[:3]
-    ks, vs = args[3:5] if kv == "int8" else (None, None)
+    a = named_args(name, args)
+    q, kp, vp, ks, vs = (a.get(k) for k in ("q", "k_pool", "v_pool", "k_scale", "v_scale"))
     R, Hq, D = q.shape
     qpk = Hq // (kp.shape[-1] // D)
     dev = q.device
@@ -1848,6 +2304,108 @@ def attention_library_row(name, plan, args, flush):
     if not e < TOL["bfloat16"]:
         return None, f"none: SDPA over the gathered KV disagrees ({e:.3e})"
     return lib, desc
+
+
+def partial_visibility(name, args):
+    """What a partial entry attends at its window: (k, v, mask, live
+    tokens, visible (row, token) pairs per KV head and query head group)
+    with k, v gathered from the pools in q's dtype (int8 dequantised):
+    flatten (T, Hkv, D) and mask (R, T); seq (R, C, Hkv, D) and (R, C)."""
+    import torch
+    from deft_tpu_torch.models.llama import KVPool, kv_gather_heads
+    from deft_tpu_torch.ops import paged_flatten_attn as pf
+    from deft_tpu_torch.ops.paged_seq_attn import segment_paths
+
+    a = named_args(name, args)
+    q = a["q"]
+    R, D = q.shape[0], q.shape[-1]
+    if KERNELS[name][2] == "flatten":
+        if "seg_src" in a:
+            rows, block_len = pf.segment_rows(a["seg_src"], a["seg_len"]), a["block_len"]
+        else:
+            rows = a["kv_idx"]
+            block_len = rows.shape[0] // a["blk_lo"].shape[0]
+        lo, hi = pf.leaf_intervals(a["tok_lo"], a["tok_hi"], a["blk_lo"], a["blk_hi"],
+                                   block_len, R)
+        r = torch.arange(R, device=q.device)[:, None]
+        mask = (lo[None, :] <= r) & (r < hi[None, :])
+        tokens = int(mask.any(dim=0).sum())
+    else:
+        rows, mask = segment_paths(a["seg_src"], a["seg_off"], a["seg_live"],
+                                   a["blk_live"], R, a["seg_len"])
+        tokens = int(mask.sum())
+    k, v = (kv_gather_heads(KVPool(a[f"{x}_pool"], a.get(f"{x}_scale")), a["li"], rows, D,
+                            q.dtype) for x in "kv")
+    return k, v, mask, tokens, int(mask.sum())
+
+
+def partial_timing_row(name, args, bound, flush):
+    """A partial entry at its path window: kernel, plain and library
+    callables and the bound.  Bytes: the window's live KV tokens read once
+    (int8: codes and fp32 scales), q and the plan read, the state (acc, m,
+    l in fp32) written; operations: 4 D per visible (row, token) pair and
+    query head.  Library: torch.ops.aten._scaled_dot_product_efficient_attention
+    with compute_log_sumexp (the same state: o = acc / l, lse = m + log l)
+    and a float mask, over KV gathered (dequantised) and repeated to the
+    query heads ahead of time, untimed."""
+    import torch
+
+    kind, kv = KERNELS[name][2:4]
+    q = args[0]
+    R, Hq, D = q.shape
+    Hkv = args[1].shape[-1] // D
+    qpk = Hq // Hkv
+    t0 = time.perf_counter()
+    k, v, mask, tokens, pairs = partial_visibility(name, args)
+    kv_bytes = Hkv * (2 * D + 8) if kv == "int8" else Hkv * D * 2 * q.element_size()
+    plan_bytes = sum(a.numel() * 4 for a in args
+                     if isinstance(a, torch.Tensor) and a.dtype == torch.int32)
+    nbytes = (tokens * kv_bytes + q.numel() * q.element_size() + plan_bytes
+              + R * Hq * (D + 2) * 4)
+    bnd = bound(nbytes, pairs * Hq * 4 * D)
+    bias = torch.zeros(mask.shape, dtype=q.dtype, device=q.device).masked_fill_(
+        ~mask, float("-inf"))
+    if kind == "flatten":  # one batch: (1, Hq, R, D) over (1, Hq, T, D)
+        qq = q.transpose(0, 1)[None]
+        kk, vv = (x.repeat_interleave(qpk, dim=1).transpose(0, 1)[None].contiguous()
+                  for x in (k, v))
+        bb = bias[None, None].expand(1, Hq, -1, -1).contiguous()
+    else:  # one batch row a leaf: (R, Hq, 1, D) over (R, Hq, C, D)
+        qq = q[:, :, None]
+        kk, vv = (x.repeat_interleave(qpk, dim=2).transpose(1, 2).contiguous()
+                  for x in (k, v))
+        bb = bias[:, None, None].expand(-1, Hq, -1, -1).contiguous()
+    gather_s = time.perf_counter() - t0
+    kern, plain = wrappers()[name]
+
+    def lib():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            qq, kk, vv, bb, True, scale=D ** -0.5)
+
+    desc = ("aten._scaled_dot_product_efficient_attention(compute_log_sumexp=True), "
+            "float mask, KV gathered" + (" and dequantised" if kv == "int8" else "")
+            + " ahead of time")
+    try:
+        o = lib()[0]
+        acc, _, l = plain(*args)
+        if kind == "flatten":  # to (R, Hq, D), the plain state unfolded
+            from deft_tpu_torch.ops.paged_flatten_attn import unfold_rows
+
+            o, acc, l = o[0].transpose(0, 1), unfold_rows(acc, R), unfold_rows(l, R)
+        else:
+            o = o[:, :, 0]
+        seen = l > 0
+        e = rel_err(o[seen].float(), (acc / l.clamp_min(1e-30)[..., None])[seen])
+        print(f"[timing] {name} library: {desc}: gather {gather_s * 1e3:.1f} ms (host "
+              f"clock, not timed), rel err of o vs the plain state's acc / l {e:.3e}",
+              flush=True)
+        if not e < TOL["bfloat16"]:
+            lib, desc = None, f"none: the efficient attention disagrees ({e:.3e})"
+    except RuntimeError as err:
+        print(f"[timing] {name} library: {str(err)[:160]}", flush=True)
+        lib, desc = None, "none: the efficient attention raised on this card"
+    LIBRARY[name] = desc
+    return (lambda: kern(*args), lambda: plain(*args), lib, *bnd)
 
 
 def gmm_timing_rows(fns, shapes, bound):
@@ -1937,6 +2495,9 @@ def phase_timing(dev, shapes):
 
     rows = {}
     for name, cases in shapes.items():
+        if name in PARTIAL_OF:
+            rows[name] = partial_timing_row(name, cases[0][2], bound, flush)
+            continue
         if KERNELS[name][2] is None:  # prefill, B8, B9: below
             continue
         _, plan, args = cases[0]
@@ -2043,19 +2604,24 @@ def main(argv=None) -> int:
         print(f"[main] 8b random bf16 weights made on the card in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         launches, prompt, ids, lf, main_runs = phase_main(dev, params, args.profile)
-        launches.update({k: v for k, v in phase_int8(dev, params, prompt, ids,
-                                                     lf, args.profile).items()
+        int8_launches, lq = phase_int8(dev, params, prompt, ids, lf, args.profile)
+        launches.update({k: v for k, v in int8_launches.items()
                          if k in ("paged_flatten_q", "paged_seq_q")})
+        lf = lf.cpu()
         launches.update({k: v for k, v in phase_short(dev, params, args.profile).items()
                          if k in ("flatten_gather", "seq_gather")})
         launches["ragged_prefill"] = phase_batch(dev, params,
                                                 args.profile)["ragged_prefill"]
-        del params, lf
+        del params
         release()
         launches["int8_matmul"] = phase_int8w(dev, prompt, ids, main_runs)["int8_matmul"]
-        moe_launches, moe_runs = phase_moe(dev, args.profile)
+        moe_launches, moe_runs, moe_logits = phase_moe(dev, args.profile)
         launches["gmm"] = moe_launches["gmm"]
         launches["gmm_scaled"] = phase_moe_int8w(dev, moe_runs, args.profile)["gmm_scaled"]
+        launches.update({k: v for k, v in phase_sharded(prompt, ids, lf, lq,
+                                                        main_runs).items()
+                         if k in PARTIAL_OF})
+        phase_sharded_moe(moe_logits)
         if args.profile:
             profile_kv_store(dev)
         timing = phase_timing(dev, shapes)

@@ -6,13 +6,18 @@ Simple_Tree, --max_width, --max_depth, --max_seq_len, --prompt_len,
 --block_len, --dtype, --kv-dtype inherit|int8, --weight-dtype
 inherit|int8|int8-pallas, --kv_pool_slots, --seed, --output_file,
 --print-branches, --batch N (N requests through the continuous-batching
-engine, deft_tpu :270-296) and --device cuda|cpu (default cuda; a missing
-GPU raises).  The other modes and workloads are not ported yet, so argparse
-refuses them.
+engine, deft_tpu :270-296), --device cuda|cpu (default cuda; a missing
+GPU raises), and the multi-device engine (deft_tpu :84-90, :141-167,
+:213-216): --mesh DPxSPxTP|auto starts dp*sp*tp ranks on this host
+(parallel/launch.py) and runs the generation on the grid, --multihost makes
+this process one rank of a torchrun job (its environment names the group),
+--dist-backend nccl|gloo (default nccl on cuda, gloo on cpu; nccl refuses
+two ranks on one card).  Only rank 0 prints.  The other modes and workloads
+are not ported yet, so argparse refuses them.
 
 Usage (the default 16-token prompt; add --kv-dtype int8 for the int8 cache,
 --weight-dtype int8-pallas for int8 weights through kernel B9, --batch 3
-for three requests decoded together):
+for three requests decoded together, --mesh 1x2x2 for four ranks):
     python -m deft_tpu_torch.cli.run --device cpu --random-model tiny \
         --mode flatten --max_width 3 --max_seq_len 40 --dtype float32 \
         --kv_pool_slots 4096
@@ -60,6 +65,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="N>1: drive N requests of this workload through the "
                         "continuous-batching engine (shared pools, one ragged "
                         "prefill, one multi-tree step per iteration)")
+    p.add_argument("--mesh", type=str, default=None, metavar="DPxSPxTP",
+                   help="run on a (dp, sp, tp) grid of ranks, e.g. 1x2x2; "
+                        "'auto' factors every card of this host (or, with "
+                        "--multihost, every rank of the job)")
+    p.add_argument("--multihost", action="store_true",
+                   help="this process is one rank of a torchrun job (RANK, "
+                        "WORLD_SIZE, MASTER_ADDR, MASTER_PORT)")
+    p.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                   help="torch.distributed backend (default: nccl on cuda, "
+                        "gloo on cpu)")
     return p
 
 
@@ -72,11 +87,64 @@ def make_prompt(prompt_len, max_seq_len: int, vocab_size: int, seed: int) -> lis
     return list(range(7, 7 + min(16, max(2, max_seq_len // 2))))
 
 
+def grid_shape(mesh: str, n_ranks: int, num_kv_heads: int) -> tuple:
+    """(dp, sp, tp) of a --mesh value: DPxSPxTP, or 'auto' (deft_tpu's
+    factoring of n_ranks)."""
+    from deft_tpu_torch.parallel.mesh import _factor
+
+    if mesh == "auto":
+        dp, tp, sp = _factor(n_ranks, num_kv_heads)
+        return dp, sp, tp
+    dims = tuple(int(x) for x in mesh.lower().split("x"))
+    if len(dims) != 3 or min(dims) < 1:
+        raise ValueError(f"--mesh {mesh!r}: DPxSPxTP, e.g. 1x2x2, or auto")
+    return dims
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    print("Generation starts with arguments:",
-          ", ".join(f"{k}={v}" for k, v in vars(args).items()))
+    from deft_tpu_torch.models import PRESETS
 
+    cfg = PRESETS[args.random_model]
+    if args.multihost:
+        import torch.distributed as dist
+
+        from deft_tpu_torch.parallel import init_runtime, make_pod_mesh
+
+        init_runtime(args.dist_backend, device=args.device)
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        shape = (grid_shape(args.mesh, world, cfg.num_kv_heads) if args.mesh
+                 else None)
+        grid = make_pod_mesh(num_kv_heads=cfg.num_kv_heads, shape=shape,
+                             device=args.device)
+        if grid.rank == 0:
+            print_arguments(args)
+        return run(grid, args)
+    print_arguments(args)
+    if args.mesh:
+        from deft_tpu_torch.parallel import launch
+
+        n = 0
+        if args.mesh == "auto":
+            import torch
+
+            if args.device != "cuda" or not torch.cuda.is_available():
+                raise SystemExit("--mesh auto counts this host's GPUs: give "
+                                 "DPxSPxTP on the CPU")
+            n = torch.cuda.device_count()
+        return launch(run, grid_shape(args.mesh, n, cfg.num_kv_heads), args.device,
+                      args.dist_backend, args=(args,))
+    return run(None, args)
+
+
+def print_arguments(args) -> None:
+    print("Generation starts with arguments:",
+          ", ".join(f"{k}={v}" for k, v in vars(args).items()), flush=True)
+
+
+def run(grid, args) -> int:
+    """One generation on this process's rank of ``grid`` (None: one
+    device); only rank 0 prints and writes the output file."""
     from deft_tpu_torch.config import AttentionConfig, EngineConfig
     from deft_tpu_torch.control import Branch_Controller, workloads
     from deft_tpu_torch.models import PRESETS
@@ -87,11 +155,12 @@ def main(argv=None) -> int:
                         kv_pool_slots=args.kv_pool_slots, dtype=args.dtype,
                         kv_dtype=args.kv_dtype, weight_dtype=args.weight_dtype)
     runner = ModelRunner(cfg, ecfg, device=args.device, seed=args.seed,
-                         topk_k=max(64, args.max_width))
+                         topk_k=max(64, args.max_width), mesh=grid)
     prompt_ids = make_prompt(args.prompt_len, args.max_seq_len, cfg.vocab_size,
                              args.seed)
     if args.batch > 1:
         return run_batch(args, runner, mode_from_cli(args.mode), prompt_ids)
+    primary = grid is None or grid.rank == 0
     pm = tree_generate(
         model=runner,
         mode=mode_from_cli(args.mode),
@@ -101,10 +170,11 @@ def main(argv=None) -> int:
         width=args.max_width,
         depth=args.max_depth,
         branch_controller=Branch_Controller(workloads.simple_tree),
-        output_file=args.output_file,
-        print_branches=args.print_branches,
+        output_file=args.output_file if primary else None,
+        print_branches=args.print_branches and primary,
     )
-    pm.print_latency()
+    if primary:
+        pm.print_latency()
     return 0
 
 

@@ -36,6 +36,7 @@ constexpr int kThreads = kWarps * 32;
 constexpr float kNeg = -1e30f;    // masked score
 constexpr float kMClamp = -1e5f;  // floor of the running max
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;  // base-2 max to natural log
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }

@@ -16,6 +16,9 @@
 //             whose tokens no row of the tile sees are skipped too.
 //   kernel 2: merges the spans by the LSE rule of deft_tpu
 //             ops/sharded_flatten.py:158-165 (base 2) and writes 0 where l == 0.
+//             Its partial form (the sharded entries, deft_tpu's partial=True)
+//             writes the merged unnormalised state instead, for a merge
+//             across devices.
 // The number of spans is chosen by the caller so that the partial state is
 // a fraction of the KV read.
 #pragma once
@@ -157,10 +160,17 @@ __global__ void __launch_bounds__(kThreads)
 
 // One warp per folded row: o = sum_s acc_s 2^(m_s - M) / sum_s l_s 2^(m_s - M),
 // M = max_s m_s; 0 where the merged l is 0.  Written in the (R, Hq, D) layout.
+// Partial form (m_o != null): the merged unnormalised state of the spans,
+// acc = sum_s acc_s 2^(m_s - M) to o as fp32 (Hkv, R*qpk, D), m = M ln 2 (the
+// natural-log max of deft_tpu's partial outputs, paged_flatten_attn.py:284)
+// and l = sum_s l_s 2^(m_s - M) to m_o, l_o (Hkv, R*qpk).  A row no span saw
+// keeps M = kNeg (or the -1e5 clamp): finite, so a merge across devices never
+// computes inf - inf.
 template <typename T>
 __global__ void flatten_merge_kernel(const float* __restrict__ acc,
                                      const float* __restrict__ m_in,
-                                     const float* __restrict__ l_in, T* __restrict__ o,
+                                     const float* __restrict__ l_in, void* __restrict__ o,
+                                     float* __restrict__ m_o, float* __restrict__ l_o,
                                      int n_spans, int R, int Hq, int Hkv, int D) {
   const int qpk = Hq / Hkv;
   const int Rq = R * qpk;
@@ -174,8 +184,22 @@ __global__ void flatten_merge_kernel(const float* __restrict__ acc,
   for (int s = 0; s < n_spans; ++s) mg = fmaxf(mg, m_in[s * stride + base]);
   float lg = 0.f;
   for (int s = 0; s < n_spans; ++s) lg += l_in[s * stride + base] * exp2f(m_in[s * stride + base] - mg);
+  if (m_o) {
+    float* arow = static_cast<float*>(o) + base * D;
+    for (int d = lane; d < D; d += 32) {
+      float sum = 0.f;
+      for (int s = 0; s < n_spans; ++s)
+        sum += acc[(s * stride + base) * D + d] * exp2f(m_in[s * stride + base] - mg);
+      arow[d] = sum;
+    }
+    if (lane == 0) {
+      m_o[base] = mg * kLn2;
+      l_o[base] = lg;
+    }
+    return;
+  }
   const float inv = lg == 0.f ? 0.f : 1.f / lg;
-  T* orow = o + ((long long)(r / qpk) * Hq + h * qpk + r % qpk) * D;
+  T* orow = static_cast<T*>(o) + ((long long)(r / qpk) * Hq + h * qpk + r % qpk) * D;
   for (int d = lane; d < D; d += 32) {
     float sum = 0.f;
     for (int s = 0; s < n_spans; ++s)
@@ -184,12 +208,14 @@ __global__ void flatten_merge_kernel(const float* __restrict__ acc,
   }
 }
 
+// m_o, l_o: null for the normalised output o (R, Hq, D) in T; else the partial
+// form of kernel 2, o then fp32 (Hkv, R*qpk, D).
 template <typename T, typename KV, int D, typename Rows>
 cudaError_t launch_flatten(const void* q, Pools<KV> pools, Rows rows, const int* tok_lo,
                            const int* tok_hi, const int* blk_lo, const int* blk_hi,
-                           float* acc, float* m, float* l, void* o, int R, int Hq, int Hkv,
-                           int nb, int block_len, int n_spans, float scale,
-                           cudaStream_t stream) {
+                           float* acc, float* m, float* l, void* o, float* m_o, float* l_o,
+                           int R, int Hq, int Hkv, int nb, int block_len, int n_spans,
+                           float scale, cudaStream_t stream) {
   auto kernel = flatten_partial_kernel<T, KV, D, Rows>;
   const size_t smem = sizeof(Smem<T, D, KV>);
   static const cudaError_t attr = allow_smem(kernel, smem);
@@ -203,48 +229,49 @@ cudaError_t launch_flatten(const void* q, Pools<KV> pools, Rows rows, const int*
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dim3 mgrid((rq + 3) / 4, Hkv);
-  flatten_merge_kernel<T><<<mgrid, 128, 0, stream>>>(acc, m, l, static_cast<T*>(o),
-                                                     n_spans, R, Hq, Hkv, D);
+  flatten_merge_kernel<T><<<mgrid, 128, 0, stream>>>(acc, m, l, o, m_o, l_o, n_spans, R, Hq,
+                                                     Hkv, D);
   return cudaGetLastError();
 }
 
 // Check the sizes, then instantiate launch_flatten for the q type (dtype: 0 =
 // float32, 1 = bfloat16) and head_dim (64 or 128); the pools hold KV32
-// elements under fp32 q and KV16 under bf16 q.
+// elements under fp32 q and KV16 under bf16 q.  m_o, l_o: see launch_flatten.
 template <typename KV32, typename KV16, typename Rows>
 cudaError_t dispatch_flatten(const void* q, const void* k, const void* v, const float* ks,
                              const float* vs, long long layer_off, long long scale_off,
                              int S, Rows rows, const int* tok_lo, const int* tok_hi,
                              const int* blk_lo, const int* blk_hi, float* acc, float* m,
-                             float* l, void* o, int R, int Hq, int Hkv, int D, int nb,
-                             int block_len, int n_spans, int dtype, float scale,
-                             void* stream) {
+                             float* l, void* o, float* m_o, float* l_o, int R, int Hq,
+                             int Hkv, int D, int nb, int block_len, int n_spans, int dtype,
+                             float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (R <= 0 || Hkv <= 0 || Hq % Hkv || n_spans <= 0 || nb <= 0 || block_len % kBN)
+  if (R <= 0 || Hkv <= 0 || Hq % Hkv || n_spans <= 0 || nb <= 0 || block_len % kBN ||
+      !m_o != !l_o)
     return cudaErrorInvalidValue;
   if (dtype == 1) {
     Pools<KV16> p{static_cast<const KV16*>(k), static_cast<const KV16*>(v), ks, vs,
                   layer_off, scale_off, S};
     if (D == 128)
       return launch_flatten<__nv_bfloat16, KV16, 128>(q, p, rows, tok_lo, tok_hi, blk_lo,
-                                                      blk_hi, acc, m, l, o, R, Hq, Hkv,
-                                                      nb, block_len, n_spans, scale, st);
+                                                      blk_hi, acc, m, l, o, m_o, l_o, R, Hq,
+                                                      Hkv, nb, block_len, n_spans, scale, st);
     if (D == 64)
       return launch_flatten<__nv_bfloat16, KV16, 64>(q, p, rows, tok_lo, tok_hi, blk_lo,
-                                                     blk_hi, acc, m, l, o, R, Hq, Hkv,
-                                                     nb, block_len, n_spans, scale, st);
+                                                     blk_hi, acc, m, l, o, m_o, l_o, R, Hq,
+                                                     Hkv, nb, block_len, n_spans, scale, st);
   }
   if (dtype == 0) {
     Pools<KV32> p{static_cast<const KV32*>(k), static_cast<const KV32*>(v), ks, vs,
                   layer_off, scale_off, S};
     if (D == 128)
       return launch_flatten<float, KV32, 128>(q, p, rows, tok_lo, tok_hi, blk_lo, blk_hi,
-                                              acc, m, l, o, R, Hq, Hkv, nb, block_len,
-                                              n_spans, scale, st);
+                                              acc, m, l, o, m_o, l_o, R, Hq, Hkv, nb,
+                                              block_len, n_spans, scale, st);
     if (D == 64)
       return launch_flatten<float, KV32, 64>(q, p, rows, tok_lo, tok_hi, blk_lo, blk_hi,
-                                             acc, m, l, o, R, Hq, Hkv, nb, block_len,
-                                             n_spans, scale, st);
+                                             acc, m, l, o, m_o, l_o, R, Hq, Hkv, nb,
+                                             block_len, n_spans, scale, st);
   }
   return cudaErrorInvalidValue;
 }

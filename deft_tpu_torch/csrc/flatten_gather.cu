@@ -18,6 +18,29 @@
 // mask, as in B1.  int8 pools are widened and scaled as in B4.
 #include "flatten_body.cuh"
 
+namespace {
+
+int gather_entry(const void* q, const void* k_pool, const void* v_pool,
+                 const float* k_scale, const float* v_scale, long long layer_off,
+                 long long scale_off, int S, const int* kv_idx, const int* tok_lo,
+                 const int* tok_hi, const int* blk_lo, const int* blk_hi, float* acc, float* m,
+                 float* l, void* o, float* m_o, float* l_o, int R, int Hq, int Hkv, int D,
+                 int nb, int block_len, int n_spans, int dtype, float scale, void* stream) {
+  if (!k_scale != !v_scale) return cudaErrorInvalidValue;
+  const deft::IdxRows rows{kv_idx};
+  if (k_scale)
+    return deft::dispatch_flatten<int8_t, int8_t>(
+        q, k_pool, v_pool, k_scale, v_scale, layer_off, scale_off, S, rows, tok_lo,
+        tok_hi, blk_lo, blk_hi, acc, m, l, o, m_o, l_o, R, Hq, Hkv, D, nb, block_len,
+        n_spans, dtype, scale, stream);
+  return deft::dispatch_flatten<float, __nv_bfloat16>(
+      q, k_pool, v_pool, nullptr, nullptr, layer_off, 0, 0, rows, tok_lo, tok_hi, blk_lo,
+      blk_hi, acc, m, l, o, m_o, l_o, R, Hq, Hkv, D, nb, block_len, n_spans, dtype, scale,
+      stream);
+}
+
+}  // namespace
+
 // The arguments of every flatten entry (paged_flatten.cu); seg_len is unread.
 // dtype: 0 = float32, 1 = bfloat16 (q and o; the pools too unless int8).
 // k_scale / v_scale: (L, Hkv, S) fp32 scales of int8 pools, null for pools
@@ -34,14 +57,31 @@ extern "C" int deft_flatten_gather(const void* q, const void* k_pool, const void
                                    void* o, int R, int Hq, int Hkv, int D, int nb,
                                    int block_len, int /*seg_len*/, int n_spans, int dtype,
                                    float scale, void* stream) {
-  if (!k_scale != !v_scale) return cudaErrorInvalidValue;
-  const deft::IdxRows rows{kv_idx};
-  if (k_scale)
-    return deft::dispatch_flatten<int8_t, int8_t>(
-        q, k_pool, v_pool, k_scale, v_scale, layer_off, scale_off, S, rows, tok_lo,
-        tok_hi, blk_lo, blk_hi, acc, m, l, o, R, Hq, Hkv, D, nb, block_len, n_spans, dtype,
-        scale, stream);
-  return deft::dispatch_flatten<float, __nv_bfloat16>(
-      q, k_pool, v_pool, nullptr, nullptr, layer_off, 0, 0, rows, tok_lo, tok_hi, blk_lo,
-      blk_hi, acc, m, l, o, R, Hq, Hkv, D, nb, block_len, n_spans, dtype, scale, stream);
+  return gather_entry(q, k_pool, v_pool, k_scale, v_scale, layer_off, scale_off, S, kv_idx,
+                      tok_lo, tok_hi, blk_lo, blk_hi, acc, m, l, o, nullptr, nullptr, R, Hq,
+                      Hkv, D, nb, block_len, n_spans, dtype, scale, stream);
+}
+
+// B11, deft_tpu ops/sharded_flatten.py:37 (_partial_kernel, launched by
+// flatten_attention_partial :93): one rank's unnormalised (acc, m, l) over
+// its span of a gather plan, for a merge across devices.  deft_tpu's
+// multi-device engine gathers the span's KV in XLA first and runs the kernel
+// over the copy (parallel/engine.py:185-196); this entry reads row kv_idx[t]
+// of the pool in the kernel, as deft_flatten_gather does, over bf16/fp32 or
+// int8 pools.  Blocks whose leaf interval, already shifted into the rank's
+// row window, misses its rows are skipped before any read (deft_tpu
+// sharded_flatten.py:55-60): kernel 1 skips a block whose interval misses its
+// 64-row tile.  Arguments of deft_flatten_gather, with acc_o (Hkv, R*qpk, D),
+// m_o and l_o (Hkv, R*qpk), fp32, m in natural-log units, where it takes o.
+// Bound on this card: bytes, as deft_flatten_gather over the span.
+extern "C" int deft_flatten_gather_partial(
+    const void* q, const void* k_pool, const void* v_pool, const float* k_scale,
+    const float* v_scale, long long layer_off, long long scale_off, int S,
+    const int* kv_idx, const int* tok_lo, const int* tok_hi, const int* blk_lo,
+    const int* blk_hi, float* acc, float* m, float* l, float* acc_o, float* m_o,
+    float* l_o, int R, int Hq, int Hkv, int D, int nb, int block_len, int /*seg_len*/,
+    int n_spans, int dtype, float scale, void* stream) {
+  return gather_entry(q, k_pool, v_pool, k_scale, v_scale, layer_off, scale_off, S, kv_idx,
+                      tok_lo, tok_hi, blk_lo, blk_hi, acc, m, l, acc_o, m_o, l_o, R, Hq, Hkv,
+                      D, nb, block_len, n_spans, dtype, scale, stream);
 }

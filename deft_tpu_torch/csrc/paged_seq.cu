@@ -6,7 +6,12 @@
 //   B2 for paged_seq_attention :328, bf16/fp32 pools: entry deft_paged_seq;
 //   B5 for paged_seq_attention_q :369 (quantized=True), int8 pools with
 //      per-(token, head) fp32 scales stored head-major (L, Hkv, S): entry
-//      deft_paged_seq_q.
+//      deft_paged_seq_q;
+//   and their partial=True entries, which the multi-device engine runs on
+//   each rank's span of every leaf's path blocks (deft_tpu
+//   parallel/seq_engine.py): B2p paged_seq_attention_partial :351, entry
+//   deft_paged_seq_partial, and B5p paged_seq_attention_q_partial :389,
+//   entry deft_paged_seq_q_partial (seq_body.cuh's partial epilogue).
 // Leaf r's root-to-leaf path is the live spans of its segments: segment j
 // of leaf r covers pool rows seg_src + seg_off .. + seg_live (plan/seq.py),
 // in path order; blocks with blk_live == 0 hold no live token.
@@ -29,22 +34,44 @@ size_t cum_bytes(int nseg) { return sizeof(int) * (nseg + 1); }
 
 }  // namespace
 
-// Both entries take the same arguments.  dtype: 0 = float32, 1 = bfloat16
-// (q and o; B2's pools too).  q, o: (R, Hq, D); pools (L, S, Hkv*D);
-// layer_off = li * S * Hkv * D; B5's scale pools (L, Hkv, S) fp32 with
-// scale_off = li * Hkv * S (B2: null, 0, and S unread); seg_src/off/live
-// (R * nseg,); blk_live (R * nseg / spb,).  Returns a cudaError_t code.
+namespace {
+
+int paged_seq_entry(bool int8, const void* q, const void* k_pool, const void* v_pool,
+                    const float* k_scale, const float* v_scale, void* o, float* m_o,
+                    float* l_o, long long layer_off, long long scale_off, int S,
+                    const int* seg_src, const int* seg_off, const int* seg_live,
+                    const int* blk_live, int R, int Hq, int Hkv, int D, int nseg, int spb,
+                    int dtype, float scale, void* stream) {
+  if (spb <= 0 || nseg % spb || int8 != (k_scale && v_scale) ||
+      (!int8 && (k_scale || v_scale)))
+    return cudaErrorInvalidValue;
+  const deft_seq::SegPath path{seg_src, seg_off, seg_live, blk_live, nseg, spb};
+  if (int8)
+    return deft_seq::dispatch_seq<int8_t, int8_t>(
+        q, k_pool, v_pool, k_scale, v_scale, o, m_o, l_o, layer_off, scale_off, S, path,
+        cum_bytes(nseg), R, Hq, Hkv, D, dtype, scale, stream);
+  return deft_seq::dispatch_seq<float, __nv_bfloat16>(
+      q, k_pool, v_pool, nullptr, nullptr, o, m_o, l_o, layer_off, 0, 0, path,
+      cum_bytes(nseg), R, Hq, Hkv, D, dtype, scale, stream);
+}
+
+}  // namespace
+
+// Every entry takes the same arguments, the partial ones acc, m, l where the
+// others take o.  dtype: 0 = float32, 1 = bfloat16 (q and o; B2's pools
+// too).  q, o: (R, Hq, D); pools (L, S, Hkv*D); layer_off = li * S * Hkv * D;
+// B5's scale pools (L, Hkv, S) fp32 with scale_off = li * Hkv * S (B2: null,
+// 0, and S unread); seg_src/off/live (R * nseg,); blk_live (R * nseg / spb,).
+// Returns a cudaError_t code.
 extern "C" int deft_paged_seq(const void* q, const void* k_pool, const void* v_pool,
                               const float* k_scale, const float* v_scale, void* o,
                               long long layer_off, long long scale_off, int S,
                               const int* seg_src, const int* seg_off, const int* seg_live,
                               const int* blk_live, int R, int Hq, int Hkv, int D, int nseg,
                               int spb, int dtype, float scale, void* stream) {
-  if (spb <= 0 || nseg % spb || k_scale || v_scale) return cudaErrorInvalidValue;
-  const deft_seq::SegPath path{seg_src, seg_off, seg_live, blk_live, nseg, spb};
-  return deft_seq::dispatch_seq<float, __nv_bfloat16>(
-      q, k_pool, v_pool, nullptr, nullptr, o, layer_off, 0, 0, path, cum_bytes(nseg), R,
-      Hq, Hkv, D, dtype, scale, stream);
+  return paged_seq_entry(false, q, k_pool, v_pool, k_scale, v_scale, o, nullptr, nullptr,
+                         layer_off, scale_off, S, seg_src, seg_off, seg_live, blk_live, R,
+                         Hq, Hkv, D, nseg, spb, dtype, scale, stream);
 }
 
 extern "C" int deft_paged_seq_q(const void* q, const void* k_pool, const void* v_pool,
@@ -54,9 +81,37 @@ extern "C" int deft_paged_seq_q(const void* q, const void* k_pool, const void* v
                                 const int* seg_live, const int* blk_live, int R, int Hq,
                                 int Hkv, int D, int nseg, int spb, int dtype, float scale,
                                 void* stream) {
-  if (spb <= 0 || nseg % spb || !k_scale || !v_scale) return cudaErrorInvalidValue;
-  const deft_seq::SegPath path{seg_src, seg_off, seg_live, blk_live, nseg, spb};
-  return deft_seq::dispatch_seq<int8_t, int8_t>(
-      q, k_pool, v_pool, k_scale, v_scale, o, layer_off, scale_off, S, path,
-      cum_bytes(nseg), R, Hq, Hkv, D, dtype, scale, stream);
+  return paged_seq_entry(true, q, k_pool, v_pool, k_scale, v_scale, o, nullptr, nullptr,
+                         layer_off, scale_off, S, seg_src, seg_off, seg_live, blk_live, R,
+                         Hq, Hkv, D, nseg, spb, dtype, scale, stream);
+}
+
+// B2's and B5's partial=True entries (deft_tpu paged_seq_attn.py:351, :389):
+// the unnormalised state of each leaf over the path blocks in the tables,
+// for a merge across devices.  acc (R, Hq, D), m and l (R, Hq), fp32, m in
+// natural-log units.
+extern "C" int deft_paged_seq_partial(const void* q, const void* k_pool, const void* v_pool,
+                                      const float* k_scale, const float* v_scale,
+                                      float* acc, float* m, float* l, long long layer_off,
+                                      long long scale_off, int S, const int* seg_src,
+                                      const int* seg_off, const int* seg_live,
+                                      const int* blk_live, int R, int Hq, int Hkv, int D,
+                                      int nseg, int spb, int dtype, float scale,
+                                      void* stream) {
+  return paged_seq_entry(false, q, k_pool, v_pool, k_scale, v_scale, acc, m, l, layer_off,
+                         scale_off, S, seg_src, seg_off, seg_live, blk_live, R, Hq, Hkv, D,
+                         nseg, spb, dtype, scale, stream);
+}
+
+extern "C" int deft_paged_seq_q_partial(const void* q, const void* k_pool,
+                                        const void* v_pool, const float* k_scale,
+                                        const float* v_scale, float* acc, float* m,
+                                        float* l, long long layer_off, long long scale_off,
+                                        int S, const int* seg_src, const int* seg_off,
+                                        const int* seg_live, const int* blk_live, int R,
+                                        int Hq, int Hkv, int D, int nseg, int spb,
+                                        int dtype, float scale, void* stream) {
+  return paged_seq_entry(true, q, k_pool, v_pool, k_scale, v_scale, acc, m, l, layer_off,
+                         scale_off, S, seg_src, seg_off, seg_live, blk_live, R, Hq, Hkv, D,
+                         nseg, spb, dtype, scale, stream);
 }

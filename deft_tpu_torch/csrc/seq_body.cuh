@@ -14,6 +14,13 @@
 // rounding, l over the unscaled P (deft_tpu ops/paged_seq_attn.py:197-222).
 // Every leaf re-reads its whole path, shared prefix included: that re-read
 // is the baseline's defining cost and is kept on purpose.
+//
+// Partial form (m_out != null; deft_tpu's partial=True entries, which its
+// multi-device engine runs on each rank's span of every leaf's path blocks):
+// the epilogue writes the unnormalised state, acc (R, Hq, D) fp32, m in
+// natural-log units (the running base-2 max times ln 2) and l, (R, Hq) each,
+// in place of acc / l.  A leaf that sees no token keeps m = kNeg * ln 2,
+// finite, so a merge across devices never computes inf - inf.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -33,6 +40,7 @@ constexpr int kMaxQpk = 8;
 constexpr float kNeg = -1e30f;
 constexpr float kMClamp = -1e5f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // fp32 tile rows are only 4-byte aligned (odd pitch): two scalar loads
 __device__ __forceinline__ float2 to_f2(const float* p) { return make_float2(p[0], p[1]); }
@@ -123,8 +131,9 @@ __device__ __forceinline__ void store_chunk(T* dst, const uint4& c) {
 
 template <typename T, typename KV, int D, typename Path>
 __global__ void __launch_bounds__(kThreads)
-    seq_kernel(const T* __restrict__ q, SeqPools<KV> pools, Path path, T* __restrict__ o,
-               int Hq, int Hkv, float s2) {
+    seq_kernel(const T* __restrict__ q, SeqPools<KV> pools, Path path, void* __restrict__ o,
+               float* __restrict__ m_out, float* __restrict__ l_out, int Hq, int Hkv,
+               float s2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   using S = SeqSmem<T, D, KV>;
   constexpr bool kPaged = std::is_same<Path, SegPath>::value;
@@ -304,6 +313,23 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // tiles and p are rewritten next
   }
 
+  if (m_out) {  // partial form: the unnormalised state
+#pragma unroll
+    for (int k = 0; k < kPairs; ++k) {
+      const int idx = tid + k * kThreads;
+      if (idx < qpk * D / 2) {
+        const int g = idx / (D / 2), d = (idx % (D / 2)) * 2;
+        store2(static_cast<float*>(o) + ((long long)leaf * Hq + h * qpk + g) * D + d,
+               acc[k].x, acc[k].y);
+      }
+    }
+    if (tid < qpk) {
+      const long long r = (long long)leaf * Hq + h * qpk + tid;
+      m_out[r] = sm.m[tid] * kLn2;
+      l_out[r] = sm.l[tid];
+    }
+    return;
+  }
 #pragma unroll
   for (int k = 0; k < kPairs; ++k) {
     const int idx = tid + k * kThreads;
@@ -311,14 +337,18 @@ __global__ void __launch_bounds__(kThreads)
       const int g = idx / (D / 2), d = (idx % (D / 2)) * 2;
       const float l = sm.l[g];
       const float inv = l == 0.f ? 0.f : 1.f / l;
-      store2(o + ((long long)leaf * Hq + h * qpk + g) * D + d, acc[k].x * inv, acc[k].y * inv);
+      store2(static_cast<T*>(o) + ((long long)leaf * Hq + h * qpk + g) * D + d,
+             acc[k].x * inv, acc[k].y * inv);
     }
   }
 }
 
+// m_out, l_out: null for the normalised output o (R, Hq, D) in T; else the
+// partial form, o then fp32.
 template <typename T, typename KV, int D, typename Path>
-cudaError_t launch_seq(const void* q, SeqPools<KV> pools, Path path, void* o, int R,
-                       int Hq, int Hkv, size_t dyn_smem, float scale, cudaStream_t stream) {
+cudaError_t launch_seq(const void* q, SeqPools<KV> pools, Path path, void* o, float* m_out,
+                       float* l_out, int R, int Hq, int Hkv, size_t dyn_smem, float scale,
+                       cudaStream_t stream) {
   auto kernel = seq_kernel<T, KV, D, Path>;
   const size_t smem = sizeof(SeqSmem<T, D, KV>) + dyn_smem;
   if (smem > 48 * 1024) {
@@ -327,39 +357,43 @@ cudaError_t launch_seq(const void* q, SeqPools<KV> pools, Path path, void* o, in
     if (attr != cudaSuccess) return attr;
   }
   dim3 grid(R, Hkv);
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), pools, path,
-                                           static_cast<T*>(o), Hq, Hkv, scale * kLog2e);
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), pools, path, o, m_out,
+                                           l_out, Hq, Hkv, scale * kLog2e);
   return cudaGetLastError();
 }
 
 // Check the sizes, then instantiate launch_seq for the q type (dtype: 0 =
 // float32, 1 = bfloat16) and head_dim (64 or 128); the pools hold KV32
 // elements under fp32 q and KV16 under bf16 q.  dyn_smem: bytes of the
-// path's dynamic shared memory.
+// path's dynamic shared memory.  m_out, l_out: see launch_seq.
 template <typename KV32, typename KV16, typename Path>
 cudaError_t dispatch_seq(const void* q, const void* k, const void* v, const float* ks,
-                         const float* vs, void* o, long long layer_off, long long scale_off,
-                         int S, Path path, size_t dyn_smem, int R, int Hq, int Hkv, int D,
-                         int dtype, float scale, void* stream) {
+                         const float* vs, void* o, float* m_out, float* l_out,
+                         long long layer_off, long long scale_off, int S, Path path,
+                         size_t dyn_smem, int R, int Hq, int Hkv, int D, int dtype,
+                         float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (R <= 0 || Hkv <= 0 || Hq % Hkv || Hq / Hkv > kMaxQpk) return cudaErrorInvalidValue;
+  if (R <= 0 || Hkv <= 0 || Hq % Hkv || Hq / Hkv > kMaxQpk || !m_out != !l_out)
+    return cudaErrorInvalidValue;
   if (dtype == 1) {
     SeqPools<KV16> p{static_cast<const KV16*>(k), static_cast<const KV16*>(v), ks, vs,
                      layer_off, scale_off, S};
     if (D == 128)
-      return launch_seq<__nv_bfloat16, KV16, 128>(q, p, path, o, R, Hq, Hkv, dyn_smem,
-                                                  scale, st);
+      return launch_seq<__nv_bfloat16, KV16, 128>(q, p, path, o, m_out, l_out, R, Hq, Hkv,
+                                                  dyn_smem, scale, st);
     if (D == 64)
-      return launch_seq<__nv_bfloat16, KV16, 64>(q, p, path, o, R, Hq, Hkv, dyn_smem,
-                                                 scale, st);
+      return launch_seq<__nv_bfloat16, KV16, 64>(q, p, path, o, m_out, l_out, R, Hq, Hkv,
+                                                 dyn_smem, scale, st);
   }
   if (dtype == 0) {
     SeqPools<KV32> p{static_cast<const KV32*>(k), static_cast<const KV32*>(v), ks, vs,
                      layer_off, scale_off, S};
     if (D == 128)
-      return launch_seq<float, KV32, 128>(q, p, path, o, R, Hq, Hkv, dyn_smem, scale, st);
+      return launch_seq<float, KV32, 128>(q, p, path, o, m_out, l_out, R, Hq, Hkv, dyn_smem,
+                                          scale, st);
     if (D == 64)
-      return launch_seq<float, KV32, 64>(q, p, path, o, R, Hq, Hkv, dyn_smem, scale, st);
+      return launch_seq<float, KV32, 64>(q, p, path, o, m_out, l_out, R, Hq, Hkv, dyn_smem,
+                                         scale, st);
   }
   return cudaErrorInvalidValue;
 }

@@ -35,9 +35,11 @@ extern "C" int deft_seq_gather(const void* q, const void* k_pool, const void* v_
   const deft_seq::IdxPath path{paths, seq_lens, C};
   if (k_scale)
     return deft_seq::dispatch_seq<int8_t, int8_t>(q, k_pool, v_pool, k_scale, v_scale, o,
-                                                  layer_off, scale_off, S, path, 0, R, Hq,
-                                                  Hkv, D, dtype, scale, stream);
+                                                  nullptr, nullptr, layer_off, scale_off, S,
+                                                  path, 0, R, Hq, Hkv, D, dtype, scale,
+                                                  stream);
   return deft_seq::dispatch_seq<float, __nv_bfloat16>(q, k_pool, v_pool, nullptr, nullptr,
-                                                      o, layer_off, 0, 0, path, 0, R, Hq,
-                                                      Hkv, D, dtype, scale, stream);
+                                                      o, nullptr, nullptr, layer_off, 0, 0,
+                                                      path, 0, R, Hq, Hkv, D, dtype, scale,
+                                                      stream);
 }

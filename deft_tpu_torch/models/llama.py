@@ -7,7 +7,11 @@ weights included), rms_norm (:161), the Mixtral-family sparse MoE block
 (:318-417, a lax.scan there, a Python loop over layers here),
 decode_forward (:420), prefill_forward (:456) and ragged_prefill_forward
 (:488).  Gemma norms, qk-norm and qkv biases come in later slices;
-loader.check_supported refuses such configs.
+loader.check_supported refuses such configs.  The forwards take a
+``shard`` (parallel/engine.py ShardedModel) to run one rank of a (dp, sp,
+tp) grid on its slices of the parameters; the MoE routes' pieces
+(routing_weights, moe_dense_sum, top_k_routes, moe_grouped_sum) serve the
+grid's expert-parallel block (parallel/moe.py) too.
 
 Attention is a pluggable AttnFn (ops/attn_impls.py), as in deft_tpu:
     (q, k_new, v_new, k_pool, v_pool, layer_idx, batch, scale) -> (R, Hq, D)
@@ -130,20 +134,20 @@ def _expert_scale(lp: Dict[str, torch.Tensor], name: str) -> Optional[torch.Tens
     return lp.get(name + "_sp") if s is None else s
 
 
-def _moe_mlp(cfg: LlamaConfig, lp: Dict[str, torch.Tensor],
-             h: torch.Tensor) -> torch.Tensor:
-    """Mixtral-family sparse MoE block, DENSE over the stacked experts
-    (deft_tpu llama.py:188): softmax router, top-k experts with renormalised
-    weights, every expert computed and the unselected ones weighted 0.  At
-    decode widths nearly every expert is hit each step, so streaming all of
-    them is the read the step needs anyway.  int8 experts are widened to
-    h's dtype for the product, which is rounded, then scaled in fp32 and cast
-    (``emm``; deft_tpu has no expert-batched int8 kernel)."""
-    K = cfg.experts_per_tok
+def routing_weights(cfg: LlamaConfig, lp: Dict[str, torch.Tensor],
+                    h: torch.Tensor) -> torch.Tensor:
+    """(n, NE) fp32 weights of the dense route: softmax router, top-k
+    experts renormalised, the others 0."""
     probs = _router_probs(lp, h)
-    top_i = probs.topk(K, dim=-1).indices
+    top_i = probs.topk(cfg.experts_per_tok, dim=-1).indices
     rw = probs * torch.zeros_like(probs).scatter_(1, top_i, 1.0)
-    rw = rw / rw.sum(dim=-1, keepdim=True)
+    return rw / rw.sum(dim=-1, keepdim=True)
+
+
+def moe_dense_sum(lp: Dict[str, torch.Tensor], h: torch.Tensor,
+                  rw: torch.Tensor) -> torch.Tensor:
+    """sum_e rw[:, e] * expert_e(h) over the experts stacked in lp (all of
+    them, or a rank's slice with its columns of rw), fp32 (n, E)."""
 
     def emm(x, name, eq):
         y = torch.einsum(eq, x, lp[name].to(x.dtype))
@@ -156,7 +160,19 @@ def _moe_mlp(cfg: LlamaConfig, lp: Dict[str, torch.Tensor],
     u = emm(h, "wu", "re,neo->nro")
     z = torch.nn.functional.silu(g.float()).to(h.dtype) * u
     o = emm(z, "wdown", "nri,nie->nre")  # (NE, R, E)
-    return torch.einsum("nre,rn->re", o.float(), rw.float()).to(h.dtype)
+    return torch.einsum("nre,rn->re", o.float(), rw.float())
+
+
+def _moe_mlp(cfg: LlamaConfig, lp: Dict[str, torch.Tensor],
+             h: torch.Tensor) -> torch.Tensor:
+    """Mixtral-family sparse MoE block, DENSE over the stacked experts
+    (deft_tpu llama.py:188): softmax router, top-k experts with renormalised
+    weights, every expert computed and the unselected ones weighted 0.  At
+    decode widths nearly every expert is hit each step, so streaming all of
+    them is the read the step needs anyway.  int8 experts are widened to
+    h's dtype for the product, which is rounded, then scaled in fp32 and cast
+    (``emm``; deft_tpu has no expert-batched int8 kernel)."""
+    return moe_dense_sum(lp, h, routing_weights(cfg, lp, h)).to(h.dtype)
 
 
 # Row tile of the grouped-matmul dispatch; the gmm route engages when the
@@ -219,12 +235,23 @@ def _moe_mlp_gmm(cfg: LlamaConfig, lp: Dict[str, torch.Tensor],
     weighted ``index_add_`` combine into n + 1 rows, whose last row takes the
     pad rows and is dropped.  FLOPs and expert-weight reads scale with k, not
     NE."""
+    top_i, top_w = top_k_routes(cfg, lp, h)
+    return moe_grouped_sum(lp, h, *moe_dispatch(top_i, top_w, cfg.num_experts)
+                           ).to(h.dtype)
+
+
+def top_k_routes(cfg: LlamaConfig, lp: Dict[str, torch.Tensor], h: torch.Tensor):
+    """Each token's top-k experts (n, K) and their renormalised weights."""
+    top_p, top_i = _router_probs(lp, h).topk(cfg.experts_per_tok, dim=-1)
+    return top_i, top_p / top_p.sum(dim=-1, keepdim=True)
+
+
+def moe_grouped_sum(lp: Dict[str, torch.Tensor], h: torch.Tensor, row_src,
+                    tok_pos, w_pos, tile_eid) -> torch.Tensor:
+    """The grouped route's three B10 launches over the experts stacked in lp
+    (all of them, or a rank's slice) on a dispatch layout, combined in fp32
+    into (n, E); rows with tok_pos == n are dropped."""
     n, E = h.shape
-    K = cfg.experts_per_tok
-    probs = _router_probs(lp, h)
-    top_p, top_i = probs.topk(K, dim=-1)
-    top_w = top_p / top_p.sum(dim=-1, keepdim=True)
-    row_src, tok_pos, w_pos, tile_eid = moe_dispatch(top_i, top_w, cfg.num_experts)
     xs = h[row_src]  # (M_pad, E)
     gx = gmm_op.gmm(xs, lp["wg"], tile_eid, _expert_scale(lp, "wg"))
     ux = gmm_op.gmm(xs, lp["wu"], tile_eid, _expert_scale(lp, "wu"))
@@ -232,7 +259,7 @@ def _moe_mlp_gmm(cfg: LlamaConfig, lp: Dict[str, torch.Tensor],
     yx = gmm_op.gmm(zx, lp["wdown"], tile_eid, _expert_scale(lp, "wdown"))
     out = torch.zeros((n + 1, E), dtype=torch.float32, device=h.device)
     out.index_add_(0, tok_pos, yx.float() * w_pos[:, None])
-    return out[:n].to(h.dtype)
+    return out[:n]
 
 
 AttnFn = Callable[..., torch.Tensor]
@@ -249,65 +276,85 @@ def layer_params(params: Dict[str, torch.Tensor], li: int) -> Dict[str, torch.Te
 def forward_layers(cfg: LlamaConfig, params: Dict[str, torch.Tensor],
                    rope_tbl: torch.Tensor, k_pool: KVPool, v_pool: KVPool,
                    tokens: torch.Tensor, positions: torch.Tensor,
-                   out_loc: torch.Tensor, attn: AttnFn, batch) -> torch.Tensor:
+                   out_loc: torch.Tensor, attn: AttnFn, batch,
+                   shard=None) -> torch.Tensor:
     """Embed, run every decoder layer (writing each layer's new K/V into the
     pools before its attention reads them), final norm; returns (n, E).
     A MoE layer takes the grouped-matmul route when the token count passes
     _moe_gmm_ok (prefill), else the dense route (decode widths), as
-    deft_tpu llama.py:383-398 with its single-chip runner's dispatch on."""
+    deft_tpu llama.py:383-398 with its single-chip runner's dispatch on.
+
+    ``shard`` (parallel/engine.py ShardedModel) runs one rank of a grid:
+    params hold the rank's slices, so its head and MLP widths are read off
+    ``wo`` and ``wqkv``; the row-parallel ``wo`` and ``wdown`` products are
+    summed over tp (``shard.reduce_tp``) and a MoE layer runs
+    ``shard.moe``."""
     x = params["embed"][tokens]
     n = x.shape[0]
     D = cfg.head_dim
-    nq_d, nkv_d = cfg.num_q_heads * D, cfg.num_kv_heads * D
+    hq = params["wo"].shape[-2] // D  # the rank's heads (all without a grid)
+    hkv = (params["wqkv"].shape[-1] // D - hq) // 2
+    nq_d, nkv_d = hq * D, hkv * D
     scale = D ** -0.5
     eps = cfg.rms_norm_eps
-    I = cfg.intermediate_size
+    reduce = shard.reduce_tp if shard is not None else (lambda y: y)
     for li in range(cfg.num_layers):
         lp = layer_params(params, li)
         h = rms_norm(x, lp["ln1"], eps)
         qkv = mm(h, lp, "wqkv")
-        q = qkv[:, :nq_d].reshape(n, cfg.num_q_heads, D)
-        k = qkv[:, nq_d:nq_d + nkv_d].reshape(n, cfg.num_kv_heads, D)
-        v = qkv[:, nq_d + nkv_d:].reshape(n, cfg.num_kv_heads, D)
+        q = qkv[:, :nq_d].reshape(n, hq, D)
+        k = qkv[:, nq_d:nq_d + nkv_d].reshape(n, hkv, D)
+        v = qkv[:, nq_d + nkv_d:].reshape(n, hkv, D)
         qk = apply_rope(torch.cat([q, k], dim=1), positions, rope_tbl)
-        q, k = qk[:, :cfg.num_q_heads], qk[:, cfg.num_q_heads:]
+        q, k = qk[:, :hq], qk[:, hq:]
         kv_store(k_pool, li, out_loc, k)
         kv_store(v_pool, li, out_loc, v)
         o = attn(q, k, v, k_pool, v_pool, li, batch, scale)
-        x = x + mm(o.reshape(n, -1).to(x.dtype), lp, "wo")
+        x = x + reduce(mm(o.reshape(n, -1).to(x.dtype), lp, "wo"))
         h = rms_norm(x, lp["ln2"], eps)
         if cfg.num_experts > 0:
-            if _moe_gmm_ok(cfg, n):
+            if shard is not None:
+                x = x + shard.moe(cfg, lp, h)
+            elif _moe_gmm_ok(cfg, n):
                 x = x + _moe_mlp_gmm(cfg, lp, h)
             else:
                 x = x + _moe_mlp(cfg, lp, h)
             continue
         gu = mm(h, lp, "wgu")
+        I = gu.shape[-1] // 2
         g, u = gu[:, :I], gu[:, I:]
-        x = x + mm(torch.nn.functional.silu(g.float()).to(x.dtype) * u,
-                   lp, "wdown")
+        x = x + reduce(mm(torch.nn.functional.silu(g.float()).to(x.dtype) * u,
+                          lp, "wdown"))
     return rms_norm(x, params["ln_f"], eps)
 
 
+def lm_head(params, x: torch.Tensor, shard=None) -> torch.Tensor:
+    """(rows, V) fp32 logits; a grid's vocab blocks joined first."""
+    logits = mm(x, params, "lm_head")
+    if shard is not None:
+        logits = shard.join_vocab(logits)
+    return logits.float()
+
+
 def decode_forward(cfg: LlamaConfig, params, rope_tbl, k_pool: KVPool,
-                   v_pool: KVPool, batch, attn: AttnFn) -> torch.Tensor:
+                   v_pool: KVPool, batch, attn: AttnFn, shard=None) -> torch.Tensor:
     """One tree-decode step over ``batch`` (q_tokens, q_pos, out_loc and the
     attention plan's arrays); returns (R, V) fp32 logits."""
     x = forward_layers(cfg, params, rope_tbl, k_pool, v_pool, batch.q_tokens,
-                       batch.q_pos, batch.out_loc, attn, batch)
-    return mm(x, params, "lm_head").float()
+                       batch.q_pos, batch.out_loc, attn, batch, shard)
+    return lm_head(params, x, shard)
 
 
 def prefill_forward(cfg: LlamaConfig, params, rope_tbl, k_pool: KVPool,
                     v_pool: KVPool, tokens: torch.Tensor, out_loc: torch.Tensor,
-                    attn: AttnFn) -> torch.Tensor:
+                    attn: AttnFn, shard=None) -> torch.Tensor:
     """Prefill one prompt (positions 0..n-1); returns the last token's (V,)
     fp32 logits.  ``attn`` is causal attention over the in-flight
     projections (the pool rows are written, not re-read)."""
     positions = torch.arange(tokens.shape[0], device=tokens.device)
     x = forward_layers(cfg, params, rope_tbl, k_pool, v_pool, tokens,
-                       positions, out_loc, attn, None)
-    return mm(x[-1:], params, "lm_head")[0].float()
+                       positions, out_loc, attn, None, shard)
+    return lm_head(params, x[-1:], shard)[0]
 
 
 def ragged_prefill_forward(cfg: LlamaConfig, params, rope_tbl, k_pool: KVPool,

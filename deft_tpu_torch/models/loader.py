@@ -28,7 +28,7 @@ Local checkpoint loading comes in a later slice.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -191,32 +191,56 @@ def random_params(cfg: LlamaConfig, seed: int = 0, device="cuda",
     if device.type == "cpu":
         return params_from_numpy(numpy_random_params(cfg, seed), cfg, device,
                                  dtype, weight_dtype)
+    return generator_params(cfg, seed, device, dtype, weight_dtype)
+
+
+def generator_params(cfg: LlamaConfig, seed: int, device, dtype: torch.dtype,
+                     weight_dtype: str = "inherit",
+                     keep: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
+    """random_params' torch.Generator stream on ``device``: the fused
+    tensors in _fused_shapes order, each stacked tensor one layer at a time,
+    N(0, 1) / sqrt(fan_in) in fp32, then quantised (int8 flavours) or cast.
+    ``keep(name, x, stacked)`` cuts what is stored of each drawn tensor (a
+    layer of a stacked one, or a whole one) and of its int8 scale (the
+    name ends in the scale suffix), after the quantisation: the
+    multi-device loader keeps a rank's slice of the same draws."""
+    device = torch.device(device)
+    _check_weight_dtype(weight_dtype)
     check_supported(cfg)
+    cut = keep or (lambda name, x, stacked: x)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     params: Dict[str, torch.Tensor] = {}
     for name, shape in _fused_shapes(cfg).items():
+        stacked = len(shape) >= 3
         if name.startswith("ln"):
-            params[name] = torch.ones(shape, dtype=dtype, device=device)
+            params[name] = cut(name, torch.ones(shape, dtype=dtype, device=device),
+                               False)
             continue
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         quant = weight_dtype != "inherit" and name in QUANT_WEIGHTS
-        out = torch.empty(shape, dtype=torch.int8 if quant else dtype,
-                          device=device)
-        scale = (torch.empty(shape[:-2] + shape[-1:], dtype=torch.float32,
-                             device=device) if quant else None)
-        stacked = len(shape) >= 3
-        for i, part in enumerate(out if stacked else [out]):
-            x = torch.randn(part.shape, generator=gen, device=device,
-                            dtype=torch.float32).mul_(fan_in ** -0.5)
+        sname = name + SCALE_SUFFIX.get(weight_dtype, "")
+        out = scale = None
+        for i in range(shape[0]) if stacked else [None]:
+            x = torch.randn(shape[1:] if stacked else shape, generator=gen,
+                            device=device, dtype=torch.float32).mul_(fan_in ** -0.5)
             if quant:
                 q, s = _quantize_int8(x)
-                part.copy_(q)
-                (scale[i] if stacked else scale).copy_(s)
+                q, s = cut(name, q, stacked), cut(sname, s, stacked)
             else:
-                part.copy_(x)
+                q, s = cut(name, x.to(dtype), stacked), None
             del x
+            if not stacked:
+                out, scale = q, s
+                break
+            if out is None:  # the kept layer's shape is known once drawn
+                out = torch.empty((shape[0],) + q.shape, dtype=q.dtype, device=device)
+                scale = (torch.empty((shape[0],) + s.shape, dtype=s.dtype,
+                                     device=device) if quant else None)
+            out[i].copy_(q)
+            if quant:
+                scale[i].copy_(s)
         params[name] = out
         if quant:
-            params[name + SCALE_SUFFIX[weight_dtype]] = scale
+            params[sname] = scale
     return params

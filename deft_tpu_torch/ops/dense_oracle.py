@@ -7,11 +7,22 @@ per-leaf path attention of
 deft_tpu/ops/attn_impls.py:34 (seq_attn_xla).  All in fp32, cast back to the
 query dtype.  A fully masked row yields 0 (masked terms are zeroed after the
 exp, so its normaliser is 0), the convention of the kernels.
+
+The ``*_state`` forms return the unnormalised flash state of the same
+attention, fp32 (acc, m, l): m the row's largest visible score (natural
+log), l the sum of exp(s - m), acc the exp-weighted sum of V, as deft_tpu's
+partial=True kernels emit it for a merge across devices.  A row that sees no
+token keeps M_EMPTY, the kernels' -1e30 running max in base 2 times ln 2:
+finite, so that merge never computes inf - inf.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+M_EMPTY = -1e30 * math.log(2.0)
 
 
 def _masked_softmax(s: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -22,6 +33,17 @@ def _masked_softmax(s: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     p = torch.exp(s - m) * mask
     l = p.sum(dim=-1, keepdim=True)
     return p / torch.where(l == 0, torch.ones_like(l), l)
+
+
+def _masked_state(s: torch.Tensor, mask: torch.Tensor):
+    """(p, m, l) of the scores ``s`` restricted to ``mask`` over the last
+    axis: p = exp(s - m) on the mask (0 off it), m the masked max (M_EMPTY
+    on rows with no True entry), l = sum p."""
+    s = s.masked_fill(~mask, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.full_like(m, M_EMPTY))
+    p = torch.exp(s - m)  # exp(-inf) = 0 off the mask
+    return p, m[..., 0], p.sum(dim=-1)
 
 
 def dense_tree_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -38,6 +60,22 @@ def dense_tree_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask = (tok_lo[None, :] <= leaf) & (leaf < tok_hi[None, :])  # (R, T)
     p = _masked_softmax(s, mask[:, None, None, :])
     return torch.einsum("rhgt,thd->rhgd", p, v.float()).reshape(R, Hq, D).to(q.dtype)
+
+
+def dense_tree_attention_state(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               tok_lo: torch.Tensor, tok_hi: torch.Tensor,
+                               scale: float):
+    """dense_tree_attention's unnormalised state: acc (R, Hq, D), m and l
+    (R, Hq), fp32."""
+    R, Hq, D = q.shape
+    Hkv = k.shape[1]
+    qg = q.float().view(R, Hkv, Hq // Hkv, D)
+    s = torch.einsum("rhgd,thd->rhgt", qg, k.float()) * scale
+    leaf = torch.arange(R, device=q.device)[:, None]
+    mask = (tok_lo[None, :] <= leaf) & (leaf < tok_hi[None, :])  # (R, T)
+    p, m, l = _masked_state(s, mask[:, None, None, :])
+    acc = torch.einsum("rhgt,thd->rhgd", p, v.float())
+    return acc.reshape(R, Hq, D), m.reshape(R, Hq), l.reshape(R, Hq)
 
 
 def dense_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -80,3 +118,16 @@ def dense_path_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.einsum("rhgd,rthd->rhgt", qg, k.float()) * scale
     p = _masked_softmax(s, live[:, None, None, :])
     return torch.einsum("rhgt,rthd->rhgd", p, v.float()).reshape(R, Hq, D).to(q.dtype)
+
+
+def dense_path_attention_state(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               live: torch.Tensor, scale: float):
+    """dense_path_attention's unnormalised state: acc (R, Hq, D), m and l
+    (R, Hq), fp32."""
+    R, Hq, D = q.shape
+    Hkv = k.shape[2]
+    qg = q.float().view(R, Hkv, Hq // Hkv, D)
+    s = torch.einsum("rhgd,rthd->rhgt", qg, k.float()) * scale
+    p, m, l = _masked_state(s, live[:, None, None, :])
+    acc = torch.einsum("rhgt,rthd->rhgd", p, v.float())
+    return acc.reshape(R, Hq, D), m.reshape(R, Hq), l.reshape(R, Hq)

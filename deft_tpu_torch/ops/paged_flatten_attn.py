@@ -9,6 +9,13 @@ tensors only.  ``launch_flatten`` and ``tree_attention_plain`` serve the
 other flatten kernels too: B4 (ops/paged_quant.py, int8 pools) and B6
 (ops/flatten_attn.py, plans that are not segment-aligned).
 
+B1p, ``paged_flatten_attention_partial``, is the port of deft_tpu's
+partial=True entry (paged_flatten_attn.py:408), which the multi-device
+engine runs on each rank's span of plan blocks (parallel/engine.py): the
+same kernels, with kernel 2's partial form writing the unnormalised state
+(acc, m, l) of the span, folded rows (Hkv, R*qpk) as deft_tpu lays them out,
+m in natural-log units (``tree_attention_state_plain`` is its arithmetic).
+
 Plan format (deft_tpu plan/flatten.py, unchanged): the tree's KV in DFS
 order, ``block_len`` tokens per block; segment j of block b is the pool span
 [seg_src[b * nseg + j], + seg_len); leaf r sees token t iff
@@ -25,7 +32,8 @@ import torch
 
 from deft_tpu_torch.models.llama import KVPool, kv_gather_heads
 from deft_tpu_torch.ops import _cuda
-from deft_tpu_torch.ops.dense_oracle import dense_tree_attention
+from deft_tpu_torch.ops.dense_oracle import (dense_tree_attention,
+                                              dense_tree_attention_state)
 
 _FULL_THRESHOLD = -(1 << 20)
 
@@ -34,6 +42,8 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # csrc/flatten_gather.cu)
 _FLATTEN_ARGS = [_P, _P, _P, _P, _P, _LL, _LL, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                  _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+# the partial entries: acc_o, m_o, l_o where the others take o
+_FLATTEN_PARTIAL_ARGS = _FLATTEN_ARGS[:17] + [_P, _P] + _FLATTEN_ARGS[17:]
 
 
 def segment_rows(seg_src: torch.Tensor, seg_len: int) -> torch.Tensor:
@@ -43,24 +53,67 @@ def segment_rows(seg_src: torch.Tensor, seg_len: int) -> torch.Tensor:
             + torch.arange(seg_len, device=seg_src.device)).reshape(-1)
 
 
-def tree_attention_plain(q, k_pool, v_pool, li, rows, tok_lo, tok_hi, blk_lo,
-                         blk_hi, scale, block_len, k_scale=None, v_scale=None):
-    """The flatten kernels' function in plain torch: read plan token t from
-    pool row rows[t] (int8 rows dequantised in fp32, as the kernels keep the
-    codes exact and the scales in fp32), then exact masked attention.  FULL
-    blocks are seen by every row (the kernels take no mask there); dead
-    blocks by none."""
-    D = q.shape[-1]
-    k = kv_gather_heads(KVPool(k_pool, k_scale), li, rows, D, torch.float32)
-    v = kv_gather_heads(KVPool(v_pool, v_scale), li, rows, D, torch.float32)
+def leaf_intervals(tok_lo, tok_hi, blk_lo, blk_hi, block_len: int, R: int):
+    """Each plan token's leaf interval [lo, hi) as the flatten kernels read
+    it for R rows: FULL blocks seen by every row (the kernels take no mask
+    there), dead blocks by none."""
     is_full = blk_lo < _FULL_THRESHOLD
     full = is_full.repeat_interleave(block_len)
     dead = ((blk_lo >= blk_hi) & ~is_full).repeat_interleave(block_len)
-    R = q.shape[0]
     lo = torch.where(full, torch.zeros_like(tok_lo), tok_lo)
     hi = torch.where(full, torch.full_like(tok_hi, R), tok_hi)
-    hi = torch.where(dead, torch.zeros_like(hi), hi)
+    return lo, torch.where(dead, torch.zeros_like(hi), hi)
+
+
+def _tree_inputs(q, k_pool, v_pool, li, rows, tok_lo, tok_hi, blk_lo, blk_hi,
+                 block_len, k_scale, v_scale):
+    """(k, v, lo, hi) the flatten kernels attend: plan token t read from
+    pool row rows[t] (int8 rows dequantised in fp32, as the kernels keep the
+    codes exact and the scales in fp32), and its leaf_intervals."""
+    D = q.shape[-1]
+    k = kv_gather_heads(KVPool(k_pool, k_scale), li, rows, D, torch.float32)
+    v = kv_gather_heads(KVPool(v_pool, v_scale), li, rows, D, torch.float32)
+    return (k, v, *leaf_intervals(tok_lo, tok_hi, blk_lo, blk_hi, block_len,
+                                  q.shape[0]))
+
+
+def tree_attention_plain(q, k_pool, v_pool, li, rows, tok_lo, tok_hi, blk_lo,
+                         blk_hi, scale, block_len, k_scale=None, v_scale=None):
+    """The flatten kernels' function in plain torch: the plan tokens read
+    through ``rows`` (``_tree_inputs``), then exact masked attention."""
+    k, v, lo, hi = _tree_inputs(q, k_pool, v_pool, li, rows, tok_lo, tok_hi,
+                                blk_lo, blk_hi, block_len, k_scale, v_scale)
     return dense_tree_attention(q, k, v, lo, hi, scale)
+
+
+def fold_rows(x: torch.Tensor, Hkv: int) -> torch.Tensor:
+    """(R, Hq, ...) -> (Hkv, R*qpk, ...): folded row r*qpk + g is query head
+    h*qpk + g of leaf r (deft_tpu flatten_attn.py:54 fold_q)."""
+    R, Hq = x.shape[:2]
+    qpk = Hq // Hkv
+    return (x.reshape(R, Hkv, qpk, *x.shape[2:]).transpose(0, 1)
+            .reshape(Hkv, R * qpk, *x.shape[2:]))
+
+
+def unfold_rows(x: torch.Tensor, R: int) -> torch.Tensor:
+    """fold_rows' inverse: (Hkv, R*qpk, ...) -> (R, Hq, ...)."""
+    Hkv, Rq = x.shape[:2]
+    qpk = Rq // R
+    return (x.reshape(Hkv, R, qpk, *x.shape[2:]).transpose(0, 1)
+            .reshape(R, Hkv * qpk, *x.shape[2:]))
+
+
+def tree_attention_state_plain(q, k_pool, v_pool, li, rows, tok_lo, tok_hi,
+                               blk_lo, blk_hi, scale, block_len, k_scale=None,
+                               v_scale=None):
+    """The flatten kernels' partial form in plain torch: the unnormalised
+    state of tree_attention_plain's attention, acc (Hkv, R*qpk, D), m and l
+    (Hkv, R*qpk), fp32, m in natural-log units."""
+    k, v, lo, hi = _tree_inputs(q, k_pool, v_pool, li, rows, tok_lo, tok_hi,
+                                blk_lo, blk_hi, block_len, k_scale, v_scale)
+    Hkv = k.shape[1]
+    return tuple(fold_rows(x, Hkv)
+                 for x in dense_tree_attention_state(q, k, v, lo, hi, scale))
 
 
 def paged_flatten_attention_plain(q, k_pool, v_pool, li, seg_src, tok_lo,
@@ -71,6 +124,16 @@ def paged_flatten_attention_plain(q, k_pool, v_pool, li, seg_src, tok_lo,
     return tree_attention_plain(q, k_pool, v_pool, li,
                                 segment_rows(seg_src, seg_len), tok_lo, tok_hi,
                                 blk_lo, blk_hi, scale, block_len)
+
+
+def paged_flatten_attention_partial_plain(q, k_pool, v_pool, li, seg_src,
+                                          tok_lo, tok_hi, blk_lo, blk_hi, scale,
+                                          block_len, seg_len):
+    """B1p's function in plain torch: B1's attention over the plan's
+    blocks, as its unnormalised state."""
+    return tree_attention_state_plain(q, k_pool, v_pool, li,
+                                      segment_rows(seg_src, seg_len), tok_lo,
+                                      tok_hi, blk_lo, blk_hi, scale, block_len)
 
 
 def num_spans(num_blocks: int, kv_bytes: int, state_bytes: int) -> int:
@@ -109,10 +172,12 @@ def check_pools(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
 
 def launch_flatten(source: str, entry: str, q, k_pool, v_pool, k_scale,
                    v_scale, li, rows, tok_lo, tok_hi, blk_lo, blk_hi, scale,
-                   block_len, seg_len) -> torch.Tensor:
+                   block_len, seg_len, partial: bool = False):
     """Launch a flatten kernel of csrc/<source>.cu (split-KV partials, then
     the merge) on q (R, Hq, D); ``rows`` is the segment table (paged plans,
-    seg_len > 0) or one pool index a token (seg_len 0).  Returns (R, Hq, D)."""
+    seg_len > 0) or one pool index a token (seg_len 0).  Returns (R, Hq, D),
+    or for a ``partial`` entry the state (acc (Hkv, R*qpk, D), m, l
+    (Hkv, R*qpk)), fp32."""
     R, Hq, D = q.shape
     L, S, HD = k_pool.shape
     Hkv = check_pools(q, k_pool, v_pool, k_scale, v_scale)
@@ -136,17 +201,22 @@ def launch_flatten(source: str, entry: str, q, k_pool, v_pool, k_scale,
     acc = torch.empty((spans, Hkv, Rq, D), dtype=torch.float32, device=q.device)
     m = torch.empty((spans, Hkv, Rq), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
-    o = torch.empty_like(q)
-    fn = _cuda.bind(source, entry, _FLATTEN_ARGS)
+    if partial:
+        out = (torch.empty((Hkv, Rq, D), dtype=torch.float32, device=q.device),
+               torch.empty((Hkv, Rq), dtype=torch.float32, device=q.device),
+               torch.empty((Hkv, Rq), dtype=torch.float32, device=q.device))
+    else:
+        out = (torch.empty_like(q),)
+    fn = _cuda.bind(source, entry, _FLATTEN_PARTIAL_ARGS if partial else _FLATTEN_ARGS)
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              _cuda.ptr(k_scale), _cuda.ptr(v_scale), int(li) * S * HD,
              int(li) * Hkv * S, S, rows.data_ptr(), tok_lo.data_ptr(),
              tok_hi.data_ptr(), blk_lo.data_ptr(), blk_hi.data_ptr(),
-             acc.data_ptr(), m.data_ptr(), l.data_ptr(), o.data_ptr(),
+             acc.data_ptr(), m.data_ptr(), l.data_ptr(), *(t.data_ptr() for t in out),
              R, Hq, Hkv, D, nb, block_len, seg_len, spans,
              _cuda.dtype_code(q.dtype), float(scale), _cuda.stream_ptr(q.device))
     _cuda.check(err, entry)
-    return o
+    return out if partial else out[0]
 
 
 def paged_flatten_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -171,3 +241,29 @@ def paged_flatten_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 paged_flatten_attention.launches = 0
+
+
+def paged_flatten_attention_partial(q: torch.Tensor, k_pool: torch.Tensor,
+                                    v_pool: torch.Tensor, li: int,
+                                    seg_src: torch.Tensor, tok_lo: torch.Tensor,
+                                    tok_hi: torch.Tensor, blk_lo: torch.Tensor,
+                                    blk_hi: torch.Tensor, scale: float,
+                                    block_len: int, seg_len: int):
+    """B1p: the unnormalised state of q (R, Hq, D) over the plan's blocks
+    read from the (L, S, Hkv*D) pools: acc (Hkv, R*qpk, D), m and l
+    (Hkv, R*qpk), fp32, m in natural-log units.  CUDA tensors launch
+    csrc/paged_flatten.cu's partial entry; CPU tensors run the plain
+    version."""
+    if q.device.type == "cpu":
+        return paged_flatten_attention_partial_plain(
+            q, k_pool, v_pool, li, seg_src, tok_lo, tok_hi, blk_lo, blk_hi,
+            scale, block_len, seg_len)
+    _cuda.require(seg_len > 0, "a paged plan has a segment length")
+    out = launch_flatten("paged_flatten", "deft_paged_flatten_partial", q, k_pool,
+                         v_pool, None, None, li, seg_src, tok_lo, tok_hi, blk_lo,
+                         blk_hi, scale, block_len, seg_len, partial=True)
+    paged_flatten_attention_partial.launches += 1
+    return out
+
+
+paged_flatten_attention_partial.launches = 0

@@ -11,6 +11,14 @@ the same plan arrays, which the wrappers run for CPU tensors only.
 ``launch_seq`` and ``path_attention_plain`` also serve B7
 (ops/seq_attn.py, plans that are not segment-aligned).
 
+B2p and B5p, ``paged_seq_attention_partial`` and
+``paged_seq_attention_q_partial``, port deft_tpu's partial=True entries
+(paged_seq_attn.py:351, :389), which the multi-device engine runs on each
+rank's span of every leaf's path blocks (parallel/seq_engine.py): the same
+kernel with seq_body.cuh's partial epilogue, writing each leaf's
+unnormalised state acc (R, Hq, D), m and l (R, Hq), fp32, m in natural-log
+units (deft_tpu's (R, Hkv, qpk, D) with m and l broadcast over D).
+
 Plan format (deft_tpu plan/seq.py, unchanged): leaf r's path is nb blocks of
 spb = block_len / seg_len segments; segment (r, j) holds the live pool rows
 [seg_src + seg_off, + seg_live); blk_live (R * nb,) is 0 for blocks with no
@@ -26,7 +34,8 @@ import torch
 
 from deft_tpu_torch.models.llama import KVPool, kv_gather_heads
 from deft_tpu_torch.ops import _cuda
-from deft_tpu_torch.ops.dense_oracle import dense_path_attention
+from deft_tpu_torch.ops.dense_oracle import (dense_path_attention,
+                                              dense_path_attention_state)
 from deft_tpu_torch.ops.paged_flatten_attn import check_pools
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -46,13 +55,16 @@ def segment_paths(seg_src, seg_off, seg_live, blk_live, R: int, seg_len: int):
 
 
 def path_attention_plain(q, k_pool, v_pool, li, rows, live, scale,
-                         k_scale=None, v_scale=None):
+                         k_scale=None, v_scale=None, state=False):
     """The seq kernels' function in plain torch: leaf r attends the pool
     rows rows[r, c] where live[r, c] (int8 rows dequantised in fp32, as the
-    kernels keep the codes exact and the scales in fp32)."""
+    kernels keep the codes exact and the scales in fp32).  ``state``: the
+    partial entries' unnormalised (acc, m, l) instead."""
     D = q.shape[-1]
     k = kv_gather_heads(KVPool(k_pool, k_scale), li, rows, D, torch.float32)
     v = kv_gather_heads(KVPool(v_pool, v_scale), li, rows, D, torch.float32)
+    if state:
+        return dense_path_attention_state(q, k, v, live, scale)
     return dense_path_attention(q, k, v, live, scale)
 
 
@@ -76,13 +88,35 @@ def paged_seq_attention_q_plain(q, k_pool, v_pool, k_scale, v_scale, li,
                                 k_scale, v_scale)
 
 
+def paged_seq_attention_partial_plain(q, k_pool, v_pool, li, seg_src, seg_off,
+                                      seg_live, blk_live, scale, seg_len):
+    """B2p's function in plain torch: B2's attention over each leaf's path
+    blocks in the tables, as its unnormalised state."""
+    rows, live = segment_paths(seg_src, seg_off, seg_live, blk_live,
+                               q.shape[0], seg_len)
+    return path_attention_plain(q, k_pool, v_pool, li, rows, live, scale,
+                                state=True)
+
+
+def paged_seq_attention_q_partial_plain(q, k_pool, v_pool, k_scale, v_scale, li,
+                                        seg_src, seg_off, seg_live, blk_live,
+                                        scale, seg_len):
+    """B5p's function in plain torch: B5's attention as its unnormalised
+    state."""
+    rows, live = segment_paths(seg_src, seg_off, seg_live, blk_live,
+                               q.shape[0], seg_len)
+    return path_attention_plain(q, k_pool, v_pool, li, rows, live, scale,
+                                k_scale, v_scale, state=True)
+
+
 def launch_seq(source: str, entry: str, argtypes: list, q, k_pool, v_pool,
-               k_scale, v_scale, li, plan_arrays, lead, tail,
-               scale) -> torch.Tensor:
+               k_scale, v_scale, li, plan_arrays, lead, tail, scale,
+               partial: bool = False):
     """Launch a seq kernel of csrc/<source>.cu on q (R, Hq, D).  Its C
-    arguments: q, k and v pools, k and v scales, o, layer and scale offsets,
-    S, *plan_arrays, R, *lead, Hq, Hkv, D, *tail, dtype, scale, stream.
-    Returns (R, Hq, D)."""
+    arguments: q, k and v pools, k and v scales, o (a partial entry: acc, m,
+    l), layer and scale offsets, S, *plan_arrays, R, *lead, Hq, Hkv, D,
+    *tail, dtype, scale, stream.  Returns (R, Hq, D), or for a ``partial``
+    entry (acc (R, Hq, D), m, l (R, Hq)), fp32."""
     R, Hq, D = q.shape
     L, S, HD = k_pool.shape
     Hkv = check_pools(q, k_pool, v_pool, k_scale, v_scale)
@@ -93,25 +127,32 @@ def launch_seq(source: str, entry: str, argtypes: list, q, k_pool, v_pool,
     scales = [s for s in (k_scale, v_scale) if s is not None]
     _cuda.require_device(q, k_pool, v_pool, *scales, *plan_arrays)
     q = q.contiguous()
-    o = torch.empty_like(q)
+    if partial:
+        out = (torch.empty(q.shape, dtype=torch.float32, device=q.device),
+               torch.empty((R, Hq), dtype=torch.float32, device=q.device),
+               torch.empty((R, Hq), dtype=torch.float32, device=q.device))
+    else:
+        out = (torch.empty_like(q),)
     fn = _cuda.bind(source, entry, argtypes)
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             _cuda.ptr(k_scale), _cuda.ptr(v_scale), o.data_ptr(),
+             _cuda.ptr(k_scale), _cuda.ptr(v_scale), *(t.data_ptr() for t in out),
              int(li) * S * HD, int(li) * Hkv * S, S,
              *(t.data_ptr() for t in plan_arrays), R, *lead, Hq, Hkv, D, *tail,
              _cuda.dtype_code(q.dtype), float(scale), _cuda.stream_ptr(q.device))
     _cuda.check(err, entry)
-    return o
+    return out if partial else out[0]
 
 
 # (q, k, v, ks, vs, o, layer_off, scale_off, S, seg_src, seg_off, seg_live,
 #  blk_live, R, Hq, Hkv, D, nseg, spb, dtype, scale, stream)
 _PAGED_SEQ_ARGS = [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _P, _P, _P, _P,
                    _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+# the partial entries: acc, m, l where the others take o
+_PAGED_SEQ_PARTIAL_ARGS = _PAGED_SEQ_ARGS[:6] + [_P, _P] + _PAGED_SEQ_ARGS[6:]
 
 
 def _launch_paged(entry, q, k_pool, v_pool, k_scale, v_scale, li, seg_src,
-                  seg_off, seg_live, blk_live, scale):
+                  seg_off, seg_live, blk_live, scale, partial=False):
     R = q.shape[0]
     nseg = seg_src.shape[0] // R
     nb = blk_live.shape[0] // R
@@ -119,10 +160,11 @@ def _launch_paged(entry, q, k_pool, v_pool, k_scale, v_scale, li, seg_src,
                   and nb > 0 and nseg % nb == 0
                   and seg_off.shape == seg_live.shape == seg_src.shape,
                   "plan arrays disagree with the leaf count")
-    return launch_seq("paged_seq", entry, _PAGED_SEQ_ARGS, q, k_pool, v_pool,
-                      k_scale, v_scale, li,
+    return launch_seq("paged_seq", entry,
+                      _PAGED_SEQ_PARTIAL_ARGS if partial else _PAGED_SEQ_ARGS, q,
+                      k_pool, v_pool, k_scale, v_scale, li,
                       (seg_src, seg_off, seg_live, blk_live), (),
-                      (nseg, nseg // nb), scale)
+                      (nseg, nseg // nb), scale, partial)
 
 
 def paged_seq_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -168,3 +210,52 @@ def paged_seq_attention_q(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 paged_seq_attention_q.launches = 0
+
+
+def paged_seq_attention_partial(q: torch.Tensor, k_pool: torch.Tensor,
+                                v_pool: torch.Tensor, li: int,
+                                seg_src: torch.Tensor, seg_off: torch.Tensor,
+                                seg_live: torch.Tensor, blk_live: torch.Tensor,
+                                scale: float, seg_len: int):
+    """B2p: each leaf of q (R, Hq, D) over the path blocks in its tables, as
+    the unnormalised state acc (R, Hq, D), m and l (R, Hq), fp32, m in
+    natural-log units.  CUDA tensors launch csrc/paged_seq.cu's partial
+    entry; CPU tensors run the plain version."""
+    if q.device.type == "cpu":
+        return paged_seq_attention_partial_plain(q, k_pool, v_pool, li, seg_src,
+                                                 seg_off, seg_live, blk_live,
+                                                 scale, seg_len)
+    out = _launch_paged("deft_paged_seq_partial", q, k_pool, v_pool, None, None,
+                        li, seg_src, seg_off, seg_live, blk_live, scale,
+                        partial=True)
+    paged_seq_attention_partial.launches += 1
+    return out
+
+
+paged_seq_attention_partial.launches = 0
+
+
+def paged_seq_attention_q_partial(q: torch.Tensor, k_pool: torch.Tensor,
+                                  v_pool: torch.Tensor, k_scale: torch.Tensor,
+                                  v_scale: torch.Tensor, li: int,
+                                  seg_src: torch.Tensor, seg_off: torch.Tensor,
+                                  seg_live: torch.Tensor, blk_live: torch.Tensor,
+                                  scale: float, seg_len: int):
+    """B5p: B2p over int8 pools and their (L, Hkv, S) scales.  CUDA tensors
+    launch csrc/paged_seq.cu's int8 partial entry; CPU tensors run the plain
+    version."""
+    if q.device.type == "cpu":
+        return paged_seq_attention_q_partial_plain(q, k_pool, v_pool, k_scale,
+                                                   v_scale, li, seg_src, seg_off,
+                                                   seg_live, blk_live, scale,
+                                                   seg_len)
+    _cuda.require(k_scale is not None and v_scale is not None,
+                  "the int8 seq kernel takes scale pools")
+    out = _launch_paged("deft_paged_seq_q_partial", q, k_pool, v_pool, k_scale,
+                        v_scale, li, seg_src, seg_off, seg_live, blk_live, scale,
+                        partial=True)
+    paged_seq_attention_q_partial.launches += 1
+    return out
+
+
+paged_seq_attention_q_partial.launches = 0

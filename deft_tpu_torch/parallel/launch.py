@@ -1,0 +1,170 @@
+"""Start a (dp, sp, tp) grid of ranks on this host and run a function in each.
+
+deft_tpu needs no launcher: one JAX process drives every device.  The port
+runs one process per rank: ``launch(fn, grid_shape, device, backend, args)``
+starts dp * sp * tp processes with torch.multiprocessing (start method
+"spawn", a free localhost port), joins them to one process group
+(multihost.init_runtime), builds each rank's Grid (mesh.make_mesh) and runs
+``fn(grid, *args)`` in every rank; it returns rank 0's result.  A failure in
+any rank raises in the caller with that rank's traceback, and the other
+ranks are stopped.
+
+``fn`` must be importable by a spawned child, so worker functions live in
+this package (``run_all``, ``generate_tokens``, ``first_step``), never in a
+test file or a module that imports jax.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import pickle
+import queue
+import socket
+import time
+import traceback
+from typing import Callable, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from deft_tpu_torch.parallel.mesh import Grid, make_mesh
+from deft_tpu_torch.parallel.multihost import check_backend, init_runtime
+
+
+def free_port() -> int:
+    """A TCP port on localhost that is free now."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank: int, shape: Tuple[int, int, int], device: str,
+               backend: Optional[str], port: int, fn: Callable, args: tuple,
+               results) -> None:
+    n = math.prod(shape)
+    try:
+        if device == "cpu":  # ranks share the host's cores
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+        init_runtime(backend, rank=rank, world_size=n,
+                     init_method=f"tcp://127.0.0.1:{port}", device=device)
+        grid = make_mesh(n, shape=shape, device=device)
+        out = fn(grid, *args)
+        # plain pickle: a queue would share tensors through file descriptors
+        # that die with this process
+        results.put((rank, True, pickle.dumps(out) if rank == 0 else None))
+    except BaseException:  # noqa: BLE001 — reported to the parent, which raises
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def launch(fn: Callable, grid_shape: Sequence[int], device: str = "cuda",
+           backend: Optional[str] = None, args: tuple = (),
+           timeout: Optional[float] = None):
+    """Run ``fn(grid, *args)`` on every rank of a ``grid_shape`` (dp, sp,
+    tp) grid started on this host; returns rank 0's result.  One rank runs
+    in this process, with no process group.  ``backend`` defaults to nccl
+    on cuda and gloo on cpu; ``timeout`` (seconds) bounds the whole run."""
+    shape = tuple(int(x) for x in grid_shape)
+    n = math.prod(shape)
+    if n == 1:
+        return fn(make_mesh(1, shape=shape, device=device), *args)
+    backend = backend or ("nccl" if device == "cuda" else "gloo")
+    check_backend(backend, n, device)
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=_rank_main, daemon=True,
+                         args=(r, shape, device, backend, port, fn, args, results))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    done, failure, gone = {}, None, {}
+    deadline = None if timeout is None else time.monotonic() + timeout
+    try:
+        while len(done) < n and failure is None:
+            try:
+                rank, ok, payload = results.get(timeout=1.0)
+            except queue.Empty:
+                now = time.monotonic()
+                for r, p in enumerate(procs):
+                    if p.exitcode is not None and r not in done:
+                        # a result put just before exit may still be in the pipe
+                        gone.setdefault(r, now)
+                        if p.exitcode != 0 or now - gone[r] > 10:
+                            failure = (f"rank {r} exited with code {p.exitcode} "
+                                       "without a result")
+                if deadline is not None and now > deadline:
+                    failure = f"the ranks did not finish within {timeout} s"
+                continue
+            if ok:
+                done[rank] = payload
+            else:
+                failure = f"rank {rank} of grid {shape} failed:\n{payload}"
+    finally:
+        for p in procs:
+            if failure is not None and p.is_alive():
+                p.terminate()
+            p.join()
+        results.close()
+    if failure is not None:
+        raise RuntimeError(failure)
+    return pickle.loads(done[0])
+
+
+def run_all(grid: Grid, calls: Sequence[Tuple[Callable, dict]]) -> list:
+    """Worker: ``[fn(grid, **kwargs) for fn, kwargs in calls]``, so that one
+    launch runs several cases in order on every rank."""
+    return [fn(grid, **kwargs) for fn, kwargs in calls]
+
+
+def _runner(grid: Grid, cfg, ecfg, seed: int):
+    from deft_tpu_torch.runtime import ModelRunner
+
+    return ModelRunner(cfg, ecfg, device=grid.device, seed=seed, mesh=grid)
+
+
+def generate_tokens(grid: Grid, cfg, ecfg, prompt, mode: str = "flatten",
+                    width: int = 3, max_seq_len: int = 32, depth: int = 0,
+                    seed: int = 0):
+    """Worker: one Simple_Tree tree_generate on the grid (random weights
+    from ``seed``); returns the branches' token ids and each decode step's
+    plan.paged."""
+    from deft_tpu_torch.control import Branch_Controller, workloads
+    from deft_tpu_torch.runtime import mode_from_cli, tree_generate
+
+    runner = _runner(grid, cfg, ecfg, seed)
+    paged = []
+    build = runner.build_plan
+
+    def recording_build(m):
+        plan = build(m)
+        paged.append(plan.paged)
+        return plan
+
+    runner.build_plan = recording_build
+    tree_generate(runner, mode_from_cli(mode), None, prompt, max_seq_len=max_seq_len,
+                  width=width, depth=depth,
+                  branch_controller=Branch_Controller(workloads.simple_tree))
+    return [tuple(s.token_ids) for s in runner.tree.all_finished_seqs], paged
+
+
+def first_step(grid: Grid, cfg, ecfg, prompt, mode: str = "flatten",
+               width: int = 5, seed: int = 0, first_token: int = 100):
+    """Worker: prefill ``prompt``, branch the root into ``width`` leaves
+    with tokens first_token + i, run one decode step; returns its
+    plan.paged and the top-K ids and probabilities of the leaves' rows."""
+    from deft_tpu_torch.runtime import mode_from_cli
+
+    runner = _runner(grid, cfg, ecfg, seed)
+    runner.forward_prefill(prompt)
+    tree = runner.tree
+    for i, c in enumerate(tree.branch(tree.root, width)):
+        c.append_token(first_token + i)
+    tree.alloc()
+    plan = runner.build_plan(mode_from_cli(mode))
+    view, _ = runner.forward_tree_decode(mode_from_cli(mode), plan)
+    return plan.paged, view.ids[:width], view.vals[:width]

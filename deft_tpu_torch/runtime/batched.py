@@ -96,6 +96,9 @@ class BatchedEngine:
         if mode.plan_kind not in ("flatten", "seq"):
             raise NotImplementedError(
                 f"batched {mode.name}: only flatten and seq plans are ported")
+        if runner.mesh is not None:
+            raise NotImplementedError("the batched engine on a grid is not ported "
+                                      "yet (ROADMAP A5)")
         self.runner = runner
         self.mode = mode
         self.active: List[Request] = []

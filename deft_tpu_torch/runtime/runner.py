@@ -17,6 +17,14 @@ host-to-device copy and runs the forward.
 Every plan runs through a kernel: segment-aligned (paged) plans through the
 paged kernels, the others through the gather kernels, over bf16/fp32 or
 int8 pools (ops/attn_impls.py's table).
+
+``ModelRunner(mesh=grid)`` (deft_tpu runner.py:206-317, :420-447, :482) runs
+one rank of a (dp, sp, tp) grid (parallel/): the params and pools are the
+rank's slices, made once; decode attention takes the sharded AttnFns of
+parallel/engine.py and parallel/seq_engine.py (B1p, B4p, B11; B2p, B5p; B7
+on the rank's heads for seq plans that are not segment-aligned), prefill B3
+on the rank's heads, and the forwards take the grid's collectives
+(ShardedModel).  A grid of size 1 counts as no mesh.
 """
 
 from __future__ import annotations
@@ -97,16 +105,35 @@ class ModelRunner:
         seed: int = 0,
         topk_k: int = 64,
         retain_full_logits: bool = False,
+        mesh=None,
     ):
         check_supported(model_config)
         self.cfg = model_config
         self.ecfg = engine_config
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.device = resolve_device(device if self.mesh is None else mesh.device)
         self.topk_k = min(topk_k, model_config.vocab_size)
         self.retain_full_logits = retain_full_logits
         self.dtype = (torch.bfloat16 if engine_config.dtype == "bfloat16"
                       else torch.float32)
-        if params is None:
+        self._tp = tp = 1 if self.mesh is None else self.mesh.axis_size("tp")
+        if model_config.num_kv_heads % tp:
+            raise ValueError(f"tp={tp} must divide the {model_config.num_kv_heads} "
+                             "KV heads")
+        self._shard = None
+        if self.mesh is not None:
+            from deft_tpu_torch.parallel.engine import ShardedModel
+            from deft_tpu_torch.parallel.sharding import (random_shard_params,
+                                                          shard_params)
+
+            self._shard = ShardedModel(self.mesh)
+            if params is None:
+                params = random_shard_params(model_config, seed, self.mesh,
+                                             self.device, self.dtype,
+                                             engine_config.weight_dtype)
+            else:
+                params = shard_params(self.mesh, params, model_config)
+        elif params is None:
             logger.info("random-init params (seed=%d, weights=%s)", seed,
                         engine_config.weight_dtype)
             params = random_params(model_config, seed, self.device, self.dtype,
@@ -122,7 +149,10 @@ class ModelRunner:
         slots = engine_config.kv_pool_slots or self._profile_slots()
         logger.info("KV pool: %d slots (%.1f MB per side)", slots,
                     slots * self._kv_cell_bytes() / 2 / 1e6)
-        L, Hkv, D = self.cfg.num_layers, self.cfg.num_kv_heads, self.cfg.head_dim
+        # a rank's pools hold its tp heads, every slot (deft_tpu
+        # P(None, None, "tp"))
+        L, D = self.cfg.num_layers, self.cfg.head_dim
+        Hkv = self.cfg.num_kv_heads // tp
         shape = (L, slots, Hkv * D)
         if self.kv_quantized:
             # scales start at ones, so a slot never written dequantises to 0
@@ -149,7 +179,7 @@ class ModelRunner:
         elem = torch.tensor([], dtype=self.dtype).element_size()
         if self.kv_quantized:
             elem = 1 + 4.0 / self.cfg.head_dim
-        return int(self.cfg.num_layers * self.cfg.num_kv_heads
+        return int(self.cfg.num_layers * self.cfg.num_kv_heads // self._tp
                    * self.cfg.head_dim * 2 * elem)
 
     def _profile_slots(self) -> int:
@@ -170,6 +200,8 @@ class ModelRunner:
         """The step's attention entry, from the plan's layout and the pools'
         dtype (deft_tpu runner.py:455-477)."""
         kind = mode.plan_kind
+        if self.mesh is not None:
+            return self._sharded_attn_fn(kind, paged)
         if kind == "flatten" and mode is not ForwardMode.UNPAGED_MEDUSA:
             if not paged:
                 return attn_impls.flatten_gather_attn
@@ -181,6 +213,21 @@ class ModelRunner:
             return (attn_impls.seq_attn_q if self.kv_quantized
                     else attn_impls.seq_attn)
         raise NotImplementedError(f"mode {mode.name} is not ported yet")
+
+    def _sharded_attn_fn(self, kind: str, paged: bool):
+        """The grid's AttnFn (deft_tpu runner.py:420-447): flatten plans
+        through B1p / B4p (paged) or B11 (gather plans, either pool type);
+        paged seq plans through B2p / B5p; other seq plans through B7 on the
+        rank's heads, every row (deft_tpu runs XLA attention there)."""
+        from deft_tpu_torch.parallel.engine import make_sharded_tree_attn
+        from deft_tpu_torch.parallel.seq_engine import make_sharded_seq_attn
+
+        if kind == "flatten":
+            return make_sharded_tree_attn(self.mesh, paged)
+        if kind == "seq":
+            return (make_sharded_seq_attn(self.mesh) if paged
+                    else attn_impls.seq_gather_attn)
+        raise NotImplementedError(f"{kind} plans are not ported yet")
 
     def _upload(self, parts: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """One host-to-device copy of the concatenated int32 arrays; returns
@@ -224,9 +271,11 @@ class ModelRunner:
         tree = tree if tree is not None else self.tree
         cache_loc = tree.init_prompt(list(map(int, prompt_ids)))
         dev = self._upload({"tokens": tree.root.token_ids, "out_loc": cache_loc})
+        # on a grid too: B3 over the rank's tp heads needs no collective
         logits = prefill_forward(self.cfg, self.params, self._rope_tbl,
                                  self.k_pool, self.v_pool, dev["tokens"],
-                                 dev["out_loc"].long(), attn_impls.prefill_attn)
+                                 dev["out_loc"].long(), attn_impls.prefill_attn,
+                                 self._shard)
         return self._logits_view(logits[None, :], "topk")
 
     def forward_prefill_batch(self, prompts, trees) -> LogitsView:
@@ -235,6 +284,9 @@ class ModelRunner:
         segment ids (ragged attention, kernel B8).  Row i of the returned
         view is prompt i's last-token distribution.  The forward runs
         eagerly at the true token count, so no bucket padding."""
+        if self.mesh is not None:
+            raise NotImplementedError("batched prefill on a grid is not ported "
+                                      "yet (ROADMAP A5)")
         if not prompts or len(prompts) != len(trees):
             raise ValueError(f"{len(prompts)} prompts for {len(trees)} trees")
         tokens, positions, out_loc, seg, last = [], [], [], [], []
@@ -320,7 +372,7 @@ class ModelRunner:
         t0 = time.perf_counter()
         batch = self._step_batch(plan)
         logits = decode_forward(self.cfg, self.params, self._rope_tbl,
-                                self.k_pool, self.v_pool, batch, attn)
+                                self.k_pool, self.v_pool, batch, attn, self._shard)
         view = self._logits_view(logits, logits_kind)
         synchronize(self.device)
         return view, time.perf_counter() - t0
