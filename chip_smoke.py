@@ -206,6 +206,8 @@ PARTIAL_OF = {"paged_flatten_partial": "paged_flatten",
 # the 16-token prompt's (B11) has dp 2
 SHARDED_GRID = (1, 2, 2)
 SHORT_GRID = (2, 1, 2)
+# the wgmma bodies, whose C entries encode TMA tensor maps on the host per call
+TMA_KERNELS = ("prefill", "ragged_prefill", "gmm", "gmm_scaled")
 # the launch counter of a wrapper that counts two kernels (ops/gmm.py)
 COUNT_ATTR = {"gmm_scaled": "scaled_launches"}
 
@@ -587,6 +589,19 @@ def phase_card():
     return smi[0], name
 
 
+def sass_count(name: str, opcode: str) -> int:
+    """How many `opcode` instructions the library of csrc/<name>.cu holds,
+    from cuobjdump's SASS."""
+    from pathlib import Path
+
+    from deft_tpu_torch.ops import _cuda
+
+    tool = Path(_cuda._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "--dump-sass", str(_cuda.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    return sass.count(opcode)
+
+
 def phase_build():
     from deft_tpu_torch.ops import _cuda
 
@@ -598,6 +613,11 @@ def phase_build():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
+    # the bf16 bodies of B3/B8 and B10 run on wgmma: HGMMA in their SASS
+    hgmma = {name: sass_count(name, "HGMMA") for name in _cuda.SOURCES}
+    print(f"[build] HGMMA instructions by library: {hgmma}", flush=True)
+    for name in ("gmm", "prefill"):
+        check(hgmma[name] > 0, f"the {name} library holds no HGMMA instruction")
 
 
 def phase_kernels(dev, shapes):
@@ -751,7 +771,108 @@ def phase_kernels(dev, shapes):
         for name, scaled in (("gmm", False), ("gmm_scaled", True)):
             compare(name, f"fp32 NE=4 E={E} F={F} tiles {eids}",
                     gmm_case(x, 4, E, F, f32, scaled, dev, gen, tile_eid), TOL["float32"])
+    wgmma_edges(dev, gen, compare)
     return errs
+
+
+def dense_masked(q, k, v, scale, mask):
+    """Attention of q (N, Hq, D) over k, v (N, Hkv, D) under a (N, N) mask
+    of visible (row, key) pairs, fp32, cast to q's dtype; rows that see
+    nothing give 0."""
+    import torch
+
+    N, Hq, D = q.shape
+    Hkv = k.shape[1]
+    qg = q.float().view(N, Hkv, Hq // Hkv, D)
+    sc = torch.einsum("nhgd,thd->hgnt", qg, k.float()) * scale
+    sc = sc.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(sc, dim=-1).nan_to_num(0.0)
+    o = torch.einsum("hgnt,thd->nhgd", p, v.float())
+    return o.reshape(N, Hq, D).to(q.dtype)
+
+
+def wgmma_edges(dev, gen, compare):
+    """bf16 cases at the edges of the wgmma bodies, each against its plain
+    version, and the fault controls on the same inputs.  B3 and B8 take
+    128 folded rows (128 / qpk tokens) a block and 128-token KV tiles: N =
+    1017 is a multiple of neither at qpk 1 and 4, D 64 and 128; B8's prompts
+    straddle tiles and end in a pad tail.  B10 takes 128 x 256 output tiles,
+    64-deep stages and a persistent walk: E % 64 == 32, F = 128 and F % 256
+    == 128 (a half tile), an empty expert group, pad tiles past the last
+    group, an invalid tile_eid (its tile must be NaN) and 200 output tiles,
+    more than the card's SMs.  Controls: each row also seeing the token
+    after its own (a causal mask off by one) and one live row tile sent to
+    another expert, both through the plain version; each must read above
+    the tolerance the kernel is held to."""
+    import torch
+
+    bf16, tol = torch.bfloat16, TOL["bfloat16"]
+    fns = wrappers()
+
+    def control(name, label, got, want_fault):
+        e = rel_err(got, want_fault)
+        print(f"[kernels] {name} {label}: the kernel against the faulted plain version "
+              f"{e:.3e}, tol {tol:.0e}", flush=True)
+        check(e > tol, f"{name}: the {label} control reads under the tolerance ({e})")
+
+    for D in (64, 128):
+        for Hq, Hkv in ((8, 2), (2, 2)):
+            qpk = Hq // Hkv
+            args = prefill_case(1017, Hq, Hkv, D, bf16, dev, gen)
+            compare("prefill", f"bf16 D={D} qpk {qpk} N=1017", args, tol)
+            for lens, pad in (((60, 83, 100), 13), ((500, 300, 217), 24)):
+                rargs, rows = ragged_case(lens, Hq, Hkv, D, bf16, dev, gen, pad)
+                compare("ragged_prefill", f"bf16 D={D} qpk {qpk} lens {lens} pad {pad}",
+                        rargs, tol, rows)
+    # the controls, on the last cases' inputs (D 128, qpk 1)
+    q, k, v, scale = args
+    pos = torch.arange(q.shape[0], device=dev)
+    got = fns["prefill"][0](*args)
+    control("prefill", "one-token causal-mask fault (row i sees i + 1)", got,
+            dense_masked(q, k, v, scale, pos[None, :] <= pos[:, None] + 1))
+    q, k, v, seg, scale = rargs
+    pos = torch.arange(q.shape[0], device=dev)
+    got = fns["ragged_prefill"][0](*rargs)
+    same = (seg[:, None] == seg[None, :]) & (seg[:, None] >= 0)
+    control("ragged_prefill", "one-token causal-mask fault (row i sees i + 1)", got[rows],
+            dense_masked(q, k, v, scale, same & (pos[None, :] <= pos[:, None] + 1))[rows])
+
+    rng = np.random.default_rng(SEED + 2)
+    top_i = torch.from_numpy(np.stack([rng.choice([0, 1, 3], size=2, replace=False)
+                                       for _ in range(300)])).to(dev)
+    _, tok_pos, small = routed_rows(300, 4, dev, top_i=top_i)
+    eids = small.tolist()
+    check(2 not in eids and bool((tok_pos[-128:] == 300).all()),
+          f"the B10 edge case lacks an empty group or pad tiles: {eids}")
+    # 40 row tiles over 8 experts, expert 5 empty: 40 x 5 = 200 tiles of 256
+    big = torch.tensor([e for e, n in zip((0, 1, 2, 3, 4, 6, 7), (4, 9, 3, 6, 8, 6, 4))
+                        for _ in range(n)], dtype=torch.int32, device=dev)
+    for name, scaled in (("gmm", False), ("gmm_scaled", True)):
+        fn, plain = fns[name]
+        for ne, E, F, tile_eid in ((4, 96, 128, small), (8, 160, 1152, big)):
+            x = torch.randn((len(tile_eid) * 128, E), generator=gen, device=dev).to(bf16)
+            gargs = gmm_case(x, ne, E, F, bf16, scaled, dev, gen, tile_eid)
+            compare(name, f"bf16 NE={ne} E={E} F={F} tiles {tile_eid.tolist()}", gargs, tol)
+        # an invalid tile_eid: NaN in its tile, the other tiles as before
+        bad = small.clone()
+        bad[1] = 4
+        x = torch.randn((len(bad) * 128, 96), generator=gen, device=dev).to(bf16)
+        x, w, _, ws = gmm_case(x, 4, 96, 128, bf16, scaled, dev, gen, small)
+        got = fn(x, w, bad, ws)
+        torch.cuda.synchronize()
+        want = plain(x, w, small, ws)
+        live = torch.ones(x.shape[0], dtype=torch.bool, device=dev)
+        live[128:256] = False
+        e = rel_err(got[live], want[live])
+        print(f"[kernels] {name} bf16 tile_eid {bad.tolist()}: rel err {e:.3e} on the "
+              f"valid tiles, tol {tol:.0e}; invalid tile all NaN: "
+              f"{bool(torch.isnan(got[~live]).all())}", flush=True)
+        check(e < tol and bool(torch.isnan(got[~live]).all()),
+              f"{name}: an invalid tile_eid is not a NaN tile beside right ones")
+        wrong = small.clone()
+        wrong[0] = (int(wrong[0]) + 1) % 4
+        control(name, f"wrong expert on tile 0 ({int(small[0])} -> {int(wrong[0])})",
+                fn(x, w, small, ws), plain(x, w, wrong, ws))
 
 
 def stacked_reduce(t, op):
@@ -955,7 +1076,8 @@ def phase_int8(dev, params, prompt, ids, lf_bf16, profile: bool = False):
 def phase_short(dev, params, profile: bool = False):
     """The CLI's default 16-token prompt, bf16 then int8 KV, flatten then
     seq: B6 must launch in both flatten runs, B7 in the bf16 seq run."""
-    import torch
+    from unittest import mock
+
     from deft_tpu_torch.cli.run import make_prompt
     from deft_tpu_torch.models import PRESETS
     from deft_tpu_torch.runtime import ForwardMode
@@ -982,12 +1104,25 @@ def phase_short(dev, params, profile: bool = False):
             logits[mode] = v.full_logits()[:WIDTH].float()
         lf, ls = logits.values()
         err = float((ls - lf).norm() / lf.norm())
-        print(f"[short {kv}] first decode step (plans paged: {paged}), seq vs flatten: "
-              f"relative L2 error of the logits {err:.3e} (limit {LOGITS_LIMIT:.0e}), "
-              f"top-1 agreement {float((lf.argmax(-1) == ls.argmax(-1)).float().mean()):.3f}",
+        # control: each leaf's own token hidden from it in flatten mode.  A
+        # leaf sees 17 tokens here, so the fault must clear the limit that
+        # bf16 noise stays under (at the 4000-token step it does not)
+        flatten = ForwardMode.TREE_DECODE_FLATTEN
+        plan = runner.build_plan(flatten)
+        attn = plan_edited(runner._attn_fn(flatten, runner._use_paged(plan)),
+                           hide_own_token(WIDTH))
+        with mock.patch.object(runner, "_attn_fn", lambda m, p: attn):
+            v, _ = runner.forward_tree_decode(flatten, plan)
+        hidden = float((v.full_logits()[:WIDTH].float() - lf).norm() / lf.norm())
+        print(f"[short {kv}] first decode step (plans paged: {paged}), relative L2 error "
+              f"of the logits against flatten's: seq {err:.3e}, flatten with each leaf's "
+              f"own token hidden {hidden:.3e} (limit {LOGITS_LIMIT:.0e}); top-1 "
+              f"agreement seq {float((lf.argmax(-1) == ls.argmax(-1)).float().mean()):.3f}",
               flush=True)
         # the main path's limit: its controls put bf16 noise well below it
         check(err < LOGITS_LIMIT, f"short {kv}: flatten and seq logits disagree: {err}")
+        check(hidden > LOGITS_LIMIT, f"short {kv}: a leaf's own token hidden stays under "
+              f"the limit ({hidden}): the check cannot see a one-token fault")
         runner.reset_state()
         runner.retain_full_logits = False
         reset_counts()
@@ -1835,7 +1970,6 @@ def logits_controls(runner, width):
     rewrites the new tokens' KV before any layer reads it, so the runs do
     not disturb one another."""
     import contextlib
-    from types import SimpleNamespace
     from unittest import mock
 
     import torch
@@ -1852,23 +1986,13 @@ def logits_controls(runner, width):
         return (o.view(torch.int16) + step * (o != 0)).view(o.dtype)
 
     def with_plan(edit):
-        def attn(q, k_new, v_new, k_pool, v_pool, li, batch, scale):
-            b = SimpleNamespace(**vars(batch))
-            edit(b)
-            return attn_impls.flatten_attn(q, k_new, v_new, k_pool, v_pool, li,
-                                           b, scale)
-        return attn
+        return plan_edited(attn_impls.flatten_attn, edit)
 
     def drop_block(b):  # the middle one of the FULL (prompt-only) blocks
         full = (b.blk_lo < -(1 << 20)).nonzero().flatten()
         check(len(full) > 0, "the flatten plan has no FULL block")
         b.blk_lo, b.blk_hi = b.blk_lo.clone(), b.blk_hi.clone()
         b.blk_lo[full[len(full) // 2]] = b.blk_hi[full[len(full) // 2]] = 0
-
-    def hide_own_token(b):  # the tokens exactly one leaf sees: each leaf's own
-        own = b.tok_hi - b.tok_lo == 1
-        check(int(own.sum()) == width, "expected one own token per leaf")
-        b.tok_hi = torch.where(own, b.tok_lo, b.tok_hi)
 
     flatten = ForwardMode.TREE_DECODE_FLATTEN
     plans = {m: runner.build_plan(m) for m in (flatten, ForwardMode.DECODE)}
@@ -1877,7 +2001,7 @@ def logits_controls(runner, width):
             ("flatten again", flatten, None),
             ("flatten+ulp noise", flatten, ulp_noise),
             ("flatten, block dropped", flatten, with_plan(drop_block)),
-            ("flatten, own token hidden", flatten, with_plan(hide_own_token)))
+            ("flatten, own token hidden", flatten, with_plan(hide_own_token(width))))
     logits = {}
     for name, mode, attn in runs:
         with (mock.patch.object(runner, "_attn_fn", lambda m, paged, a=attn: a)
@@ -1888,6 +2012,30 @@ def logits_controls(runner, width):
     readings = {name: float((x - lf).norm() / lf.norm())
                 for name, x in logits.items() if name != "flatten"}
     return lf, logits["seq"], readings
+
+
+def plan_edited(attn, edit):
+    """The AttnFn `attn` run on a copy of its plan batch that `edit` changed
+    (a planted fault)."""
+    from types import SimpleNamespace
+
+    def run(q, k_new, v_new, k_pool, v_pool, li, batch, scale):
+        b = SimpleNamespace(**vars(batch))
+        edit(b)
+        return attn(q, k_new, v_new, k_pool, v_pool, li, b, scale)
+    return run
+
+
+def hide_own_token(width):
+    """A flatten plan edit: each leaf's own newest token, the one token only
+    it sees, hidden from it (a mask off by one)."""
+    import torch
+
+    def edit(b):
+        own = b.tok_hi - b.tok_lo == 1
+        check(int(own.sum()) == width, "expected one own token per leaf")
+        b.tok_hi = torch.where(own, b.tok_lo, b.tok_hi)
+    return edit
 
 
 RANGES = ("build_plan", "forward", "kv_store", "moe")
@@ -2555,8 +2703,10 @@ def phase_timing(dev, shapes):
                          bound_ms=bound_ms, bound_by=bound_by)
         lib_txt = (f", library {lib_ms:.4f} ms ({LIBRARY[name]})"
                    if lib_ms is not None else f", library {LIBRARY[name]}")
+        host = ("the wrapper's host work, the tensor maps' encoding included"
+                if name in TMA_KERNELS else "the wrapper's host work")
         print(f"[timing] {name}: kernel {ms:.4f} ms ({host_ms:.4f} ms unprimed: "
-              f"the device waits for the wrapper's host work), plain {plain_ms:.4f} ms"
+              f"the device waits for {host}), plain {plain_ms:.4f} ms"
               f"{lib_txt}, bound {bound_ms:.4f} ms ({bound_by}), "
               f"{bound_ms / ms:.1%} of the bound", flush=True)
     return out

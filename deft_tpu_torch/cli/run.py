@@ -80,8 +80,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def make_prompt(prompt_len, max_seq_len: int, vocab_size: int, seed: int) -> list:
     """Prompt ids of a random-init run, as deft_tpu cli/run.py:179 makes
-    them without a template: seeded random ids, or 7.. when no length."""
-    if prompt_len:
+    them without a template: seeded random ids, or 7.. when no length (or a
+    length <= 0, which deft_tpu maps to none, cli/run.py:202-203)."""
+    if prompt_len and prompt_len > 0:
         rnd = random.Random(seed)
         return [rnd.randrange(4, max(8, vocab_size - 1)) for _ in range(prompt_len)]
     return list(range(7, 7 + min(16, max(2, max_seq_len // 2))))

@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("prefill", "paged_flatten", "paged_seq", "flatten_gather", "seq_gather",
            "int8_matmul", "gmm")
-HEADERS = ("flash_common.cuh", "flatten_body.cuh", "seq_body.cuh")
+HEADERS = ("flash_common.cuh", "flatten_body.cuh", "seq_body.cuh", "hopper.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -47,7 +47,9 @@ def _nvcc() -> str:
                        "with the CUDA toolkit (set CUDA_HOME)")
 
 
-def _lib_path(name: str) -> Path:
+def library_path(name: str) -> Path:
+    """Where the library of csrc/<name>.cu is (or will be) built: named by
+    a hash of the source, the headers and the flags."""
     h = hashlib.sha256()
     for f in [CSRC / f"{name}.cu"] + [CSRC / x for x in HEADERS]:
         h.update(f.read_bytes())
@@ -57,7 +59,7 @@ def _lib_path(name: str) -> Path:
 
 def _start(name: str) -> Optional[tuple]:
     """Start nvcc for ``name`` unless its library is already built."""
-    out = _lib_path(name)
+    out = library_path(name)
     if out.exists():
         return None
     BUILD.mkdir(parents=True, exist_ok=True)
@@ -99,7 +101,7 @@ def library(name: str) -> ctypes.CDLL:
         with _lock:
             lib = _libs.get(name)
             if lib is None:
-                lib = ctypes.CDLL(str(_lib_path(name)))
+                lib = ctypes.CDLL(str(library_path(name)))
                 _libs[name] = lib
     return lib
 
@@ -139,6 +141,12 @@ def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it at a 16-byte aligned address (a view at an odd
+    offset): TMA and 16-byte cp.async read from such addresses only."""
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def require_device(first: torch.Tensor, *rest: torch.Tensor) -> None:

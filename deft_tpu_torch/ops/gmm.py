@@ -58,8 +58,9 @@ def gmm(x: torch.Tensor, w: torch.Tensor, tile_eid: torch.Tensor,
     """x (M, E) bf16 or fp32 times w[tile_eid[t]] for each tile_m-row tile
     t, w (NE, E, F) of x's dtype, or int8 with ``w_scale`` (NE, F) fp32;
     returns (M, F) in x's dtype.  CUDA tensors launch csrc/gmm.cu (which
-    takes E % 32 == 0 and F % 128 == 0, every width of the presets); CPU
-    tensors run the plain version."""
+    takes E % 32 == 0 and F % 128 == 0, every width of the presets): bf16 x
+    its wgmma body, fp32 x its FMA body; CPU tensors run the plain
+    version."""
     if x.device.type == "cpu":
         return gmm_plain(x, w, tile_eid, w_scale, tile_m)
     scaled = w_scale is not None
@@ -82,9 +83,7 @@ def gmm(x: torch.Tensor, w: torch.Tensor, tile_eid: torch.Tensor,
                       "weights take x's dtype")
     dtype = _cuda.dtype_code(x.dtype)
     _cuda.require_device(x, w, tile_eid, *([w_scale] if scaled else []))
-    x, w = x.contiguous(), w.contiguous()
-    if x.data_ptr() % 16:  # a view at an odd offset: cp.async reads 16 bytes
-        x = x.clone()
+    x, w = _cuda.aligned16(x.contiguous()), w.contiguous()
     _cuda.require(w.data_ptr() % 16 == 0, "w must be 16-byte aligned")
     tile_eid = tile_eid.to(torch.int32).contiguous()
     w_scale = w_scale.contiguous() if scaled else None

@@ -40,8 +40,11 @@ def _check(q, k, v, *rest):
                   and Hq % k.shape[1] == 0, f"bad shapes {q.shape} {k.shape}")
     _cuda.require(q.dtype == k.dtype == v.dtype, "q, k, v dtypes differ")
     _cuda.require(D in (64, 128), f"head_dim {D}: the kernel takes 64 or 128")
+    _cuda.require(Hq // k.shape[1] <= 128, f"{Hq // k.shape[1]} query heads a KV head: "
+                  "the kernel folds at most 128")
     _cuda.require_device(q, k, v, *rest)
-    return q.contiguous(), k.contiguous(), v.contiguous()
+    # bf16 runs the wgmma body, whose TMA reads 16-byte aligned tensors
+    return tuple(_cuda.aligned16(t.contiguous()) for t in (q, k, v))
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

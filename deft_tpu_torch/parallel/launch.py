@@ -10,7 +10,8 @@ any rank raises in the caller with that rank's traceback, and the other
 ranks are stopped.
 
 ``fn`` must be importable by a spawned child, so worker functions live in
-this package (``run_all``, ``generate_tokens``, ``first_step``), never in a
+this package (``run_all``, ``generate_tokens``, ``first_step``,
+``pool_slots``), never in a
 test file or a module that imports jax.
 """
 
@@ -168,3 +169,13 @@ def first_step(grid: Grid, cfg, ecfg, prompt, mode: str = "flatten",
     plan = runner.build_plan(mode_from_cli(mode))
     view, _ = runner.forward_tree_decode(mode_from_cli(mode), plan)
     return plan.paged, view.ids[:width], view.vals[:width]
+
+
+def pool_slots(grid: Grid, cfg, ecfgs, seed: int = 0) -> list:
+    """Worker: a runner on each rank from that rank's EngineConfig
+    ``ecfgs[rank]`` (so ranks may size their pools from different memory);
+    returns every rank's KV slot count, in rank order."""
+    runner = _runner(grid, cfg, ecfgs[grid.rank], seed)
+    out = [None] * grid.size
+    dist.all_gather_object(out, runner.token_to_kv_pool.size)
+    return out

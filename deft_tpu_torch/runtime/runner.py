@@ -7,7 +7,8 @@ sizing (:382, here from ``torch.cuda.mem_get_info``), the kernel choice
 (_attn_fn :418-477), forward_prefill (:1125), forward_prefill_batch
 (:1154), build_plan (:1205-1273, with want_paged=True and the int8 segment
 rules), _use_paged (:1275) and forward_tree_decode (:2004), which takes
-single-tree and multi-tree plans (plan/multi.py) alike; MoE layers take the
+single-tree and multi-tree plans (plan/multi.py) alike, after draining the
+tree's queued merge copies (apply_kv_copies :1727); MoE layers take the
 grouped-matmul route wherever the token count allows it (deft_tpu's
 single-chip dispatch, :302-317; models/llama.py's _moe_gmm_ok).  PyTorch
 runs eagerly, so there are no jitted steps, shape-bucket floors, plan
@@ -65,6 +66,20 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def topk_lowest_index(probs: torch.Tensor, k: int) -> tuple:
+    """Top-k of each row of (R, V) ``probs`` with ties lowest index first,
+    the order of ``jax.lax.top_k`` (and of ``max``), which ``torch.topk``
+    does not keep.  The top-k is widened to every entry that ties with a
+    row's k-th value, then sorted by (value descending, index ascending)."""
+    vals, ids = torch.topk(probs, k, dim=-1)
+    m = int((probs >= vals[:, -1:]).sum(dim=-1).max())
+    if m > k:  # a tie crosses the k-th place: take every tied entry
+        vals, ids = torch.topk(probs, m, dim=-1)
+    ids, perm = ids.sort(dim=-1)
+    vals, perm2 = vals.gather(-1, perm).sort(dim=-1, descending=True, stable=True)
+    return vals[:, :k], ids.gather(-1, perm2)[:, :k]
 
 
 class LogitsView:
@@ -192,8 +207,17 @@ class ModelRunner:
             free = 2 << 30
             logger.warning("sizing the KV pool from an assumed %d MiB on the "
                            "CPU: pass EngineConfig(kv_pool_slots=...)", free >> 20)
-        slots = int(free * self.ecfg.mem_fraction) // cell
-        return max(4096, min(slots, 1 << 21))
+        slots = max(4096, min(int(free * self.ecfg.mem_fraction) // cell, 1 << 21))
+        if self.mesh is not None:
+            # every rank of a grid holds the same slots, so their allocators
+            # (and so their collectives) stay in step: the least over the
+            # world, as deft_tpu sizes one pool for the whole mesh (:382-415)
+            import torch.distributed as dist
+
+            t = torch.tensor([slots], dtype=torch.int64, device=self.device)
+            dist.all_reduce(t, op=dist.ReduceOp.MIN)
+            slots = int(t)
+        return slots
 
     # -- helpers -----------------------------------------------------------------
     def _attn_fn(self, mode: ForwardMode, paged: bool):
@@ -249,7 +273,7 @@ class ModelRunner:
             vals = torch.exp(m - lse) + 1e-6
         else:
             probs = torch.softmax(logits, dim=-1) + 1e-6
-            vals, ids = torch.topk(probs, self.topk_k, dim=-1)
+            vals, ids = topk_lowest_index(probs, self.topk_k)
         full = logits if self.retain_full_logits else None
         return LogitsView(vals.cpu().numpy(), ids.to(torch.int32).cpu().numpy(),
                           full)
@@ -312,6 +336,22 @@ class ModelRunner:
                                         attn_impls.ragged_prefill_attn)
         return self._logits_view(logits, "topk")
 
+    def apply_kv_copies(self, tree: Optional[TreeCache] = None) -> None:
+        """Drain a tree's queued merge compactions (TreeCache.merge_nodes)
+        into the pools, rows and int8 scales (deft_tpu runner.py:1727).
+        Runs before the next forward step; all sources are read before any
+        destination is written, as XLA's gather-then-scatter does."""
+        tree = tree if tree is not None else self.tree
+        pairs = tree.drain_kv_copies()
+        if pairs is None:
+            return
+        src, dst = (torch.from_numpy(np.asarray(a, dtype=np.int64)).to(self.device)
+                    for a in pairs)
+        for pool in (self.k_pool, self.v_pool):
+            pool.data.index_copy_(1, dst, pool.data.index_select(1, src))
+            if pool.scale is not None:
+                pool.scale.index_copy_(2, dst, pool.scale.index_select(2, src))
+
     def build_plan(self, mode: ForwardMode):
         """Host-side attention plan for the current tree (call after alloc);
         the paged layouts are asked for, with the configured bucket sizes.
@@ -369,6 +409,7 @@ class ModelRunner:
         the time includes the plan upload and ends after the device is done.
         logits_kind: "topk" (softmax + top-K) or "greedy" (top-1 only)."""
         attn = self._attn_fn(mode, self._use_paged(plan))
+        self.apply_kv_copies()  # merge compactions land before the step
         t0 = time.perf_counter()
         batch = self._step_batch(plan)
         logits = decode_forward(self.cfg, self.params, self._rope_tbl,
