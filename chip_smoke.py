@@ -114,6 +114,7 @@ main path's LOGITS_LIMIT, against the same requests run alone.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import inspect
 import json
 import subprocess
@@ -613,11 +614,18 @@ def phase_build():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
-    # the bf16 bodies of B3/B8 and B10 run on wgmma: HGMMA in their SASS
+        for line in log.splitlines():  # ptxas serialising wgmma costs speed
+            if "wgmma" in line:
+                print(f"[build] {name}: {line.strip()}")
+    # the bf16 bodies of B3/B8, B10 and B9 run on wgmma (HGMMA in their
+    # SASS), B5's over bf16 q on mma.sync (HMMA)
     hgmma = {name: sass_count(name, "HGMMA") for name in _cuda.SOURCES}
+    hmma = {name: sass_count(name, "HMMA") for name in _cuda.SOURCES}
     print(f"[build] HGMMA instructions by library: {hgmma}", flush=True)
-    for name in ("gmm", "prefill"):
+    print(f"[build] HMMA instructions by library: {hmma}", flush=True)
+    for name in ("gmm", "prefill", "int8_matmul"):
         check(hgmma[name] > 0, f"the {name} library holds no HGMMA instruction")
+    check(hmma["paged_seq"] > 0, "the paged_seq library holds no HMMA instruction")
 
 
 def phase_kernels(dev, shapes):
@@ -772,7 +780,186 @@ def phase_kernels(dev, shapes):
             compare(name, f"fp32 NE=4 E={E} F={F} tiles {eids}",
                     gmm_case(x, 4, E, F, f32, scaled, dev, gen, tile_eid), TOL["float32"])
     wgmma_edges(dev, gen, compare)
+    b9_edges(dev, gen)
+    b5_edges(dev, gen)
     return errs
+
+
+@contextlib.contextmanager
+def forced(module, name, value):
+    """Within the block, ``module.name`` (a wrapper's launch choice, looked
+    up at call time) returns ``value``: the edge cases force each split."""
+    old = getattr(module, name)
+    setattr(module, name, lambda *a, **k: value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def rel_err_control(name, label, got, want_fault, tol):
+    """A fault control: the kernel's output against its plain version on
+    faulted inputs must read above the tolerance the kernel is held to."""
+    e = rel_err(got, want_fault)
+    print(f"[kernels] {name} {label}: the kernel against the faulted plain version "
+          f"{e:.3e}, tol {tol:.0e}", flush=True)
+    check(e > tol, f"{name}: the {label} control reads under the tolerance ({e})")
+
+
+def b9_edges(dev, gen):
+    """B9's bf16 (wgmma, H split over a cluster) and fp32 (FMA) bodies
+    against the plain version: R = 8, 64, 72 and 256 at every 8B matmul
+    weight and Mixtral's lm_head; a ragged last split (H = 1408: 22 chunks
+    of 64 over 8 splits of 3); every cluster size 1 .. 8 at I = 4096.
+    Controls through the plain version on the same inputs: one 64-row
+    H-chunk of one column tile left out (H = 256, so each of the 4 splits
+    owns one chunk), and one column's scale taken from its neighbour."""
+    import torch
+    from deft_tpu_torch.ops import _cuda
+    from deft_tpu_torch.ops import int8_matmul as i8
+
+    kern, plain = wrappers()["int8_matmul"]
+
+    def run(label, args, tol, splits=None):
+        if splits is None:
+            got = kern(*args)
+        else:
+            with forced(i8, "launch_splits", splits):
+                got = kern(*args)
+        torch.cuda.synchronize()
+        e = rel_err(got, plain(*args))
+        print(f"[kernels] int8_matmul {label}: rel err {e:.3e}, tol {tol:.0e}", flush=True)
+        check(e < tol and bool(torch.isfinite(got).all()),
+              f"int8_matmul {label} disagrees with its plain version: {e}")
+        return got
+
+    shapes = dict(INT8_SHAPES, mixtral_lm_head=(4096, 32000))
+    for name, (H, I) in shapes.items():
+        w = s = None
+        for R in (8, 64, 72, 256):
+            for dt in (torch.bfloat16, torch.float32):
+                args = int8mm_case(R, H, I, dt, dev, gen, w, s)
+                w, s = args[1], args[2]
+                sp = i8.launch_splits(dev.index, R, H, I, dt)
+                run(f"{str(dt)[6:]} R={R} {name} (H, I) = ({H}, {I}), {sp} splits", args,
+                    TOL[str(dt)[6:]])
+        del w, s
+        release()
+    bf16, tol = torch.bfloat16, TOL["bfloat16"]
+    args = int8mm_case(64, 1408, 4096, bf16, dev, gen)
+    sp, per = i8.split_plan(64, 1408, 4096, _cuda.sm_count(dev.index))
+    ranges = i8.split_ranges(1408, sp, per)
+    check(ranges[-1][1] - ranges[-1][0] < per, f"H = 1408 gives no ragged split: {ranges}")
+    run(f"bf16 R=64 (H, I) = (1408, 4096), splits {ranges}", args, tol, sp)
+    for R in (64, 256):
+        args = int8mm_case(R, 4096, 4096, bf16, dev, gen)
+        for sp in range(1, 9):
+            run(f"bf16 R={R} (H, I) = (4096, 4096), cluster of {sp}", args, tol, sp)
+    x, w, s = int8mm_case(64, 256, 4096, bf16, dev, gen)
+    check(i8.launch_splits(dev.index, 64, 256, 4096, bf16) == 4,
+          "H = 256 at I = 4096 does not split 4 ways")
+    got = run("bf16 R=64 (H, I) = (256, 4096), 4 splits of one chunk", (x, w, s), tol)
+    wf = w.clone()
+    wf[64:128, 256:512] = 0
+    rel_err_control("int8_matmul", "H-chunk 1 of column tile 1 left out", got,
+                    plain(x, wf, s), tol)
+    want = plain(x, w, s).float()
+    nb = torch.arange(s.numel(), device=dev) ^ 1
+    j = int((want.abs().amax(0) * (s[nb] / s - 1).abs()).argmax())
+    sf = s.clone()
+    sf[j] = s[j ^ 1]
+    rel_err_control("int8_matmul", f"column {j} scaled by column {j ^ 1}'s scale", got,
+                    plain(x, w, sf), tol)
+
+
+def synthetic_seq_plan(rng, R, nb, spb, seg_len, S, one_token_leaf=0):
+    """Per-leaf segment tables (seg_src, seg_off, seg_live, blk_live) as
+    int32 numpy: random live spans (some segments empty, path lengths off
+    the 16-token tile, spans straddling tiles), one dead block a leaf where
+    nb > 1, and leaf ``one_token_leaf`` holding one token."""
+    nseg = nb * spb
+    src = rng.integers(0, S // seg_len, (R, nseg)) * seg_len
+    off = rng.integers(0, seg_len, (R, nseg))
+    live = np.minimum(rng.integers(0, seg_len + 1, (R, nseg)), seg_len - off)
+    live[rng.random((R, nseg)) < 0.2] = 0
+    blk = np.ones((R, nb), np.int32)
+    if nb > 1:
+        blk[np.arange(R), rng.integers(0, nb, R)] = 0
+    live[one_token_leaf] = 0
+    blk[one_token_leaf] = 1
+    live[one_token_leaf, spb - 1] = 1
+    for r in range(R):  # every other leaf sees at least one token
+        if r != one_token_leaf and not (live[r] * np.repeat(blk[r], spb)).any():
+            j = int(np.nonzero(np.repeat(blk[r], spb))[0][0])
+            off[r, j], live[r, j] = 0, 17
+    return [a.astype(np.int32).reshape(-1) for a in (src, off, live, blk)]
+
+
+def b5_edges(dev, gen):
+    """B5 and B5p against their plain versions on synthetic per-leaf tables:
+    dead blocks, segments straddling the 16-token tiles, path lengths off
+    the tile and a leaf of one token; qpk 1, 4 and 8; D 64 and 128; bf16 q
+    (the tensor-core body) with the path split over 1, 3 and 8 blocks of a
+    cluster, fp32 q (the FMA body) unsplit.  Control: a 17-token path
+    against the plain version with its last token hidden."""
+    import torch
+    from deft_tpu_torch.ops import paged_seq_attn as ps
+
+    fns = wrappers()
+    rng = np.random.default_rng(SEED + 3)
+    S, seg_len, nb, spb, Hkv, R = 4096, 128, 3, 2, 2, 6
+
+    def tensors(tables, rows, Hq, D, dt):
+        codes = [torch.randint(-127, 128, (1, S, Hkv * D), generator=gen, device=dev,
+                               dtype=torch.int8) for _ in range(2)]
+        scales = [torch.rand((1, Hkv, S), generator=gen, device=dev) * 0.09 + 0.01
+                  for _ in range(2)]
+        q = torch.randn((rows, Hq, D), generator=gen, device=dev).to(dt)
+        return [q, *codes, *scales, 0, *to_dev(tables, dev)]
+
+    for D in (64, 128):
+        for qpk in (1, 4, 8):
+            tables = synthetic_seq_plan(rng, R, nb, spb, seg_len, S, one_token_leaf=2)
+            lens = (tables[2].reshape(R, -1)
+                    * np.repeat(tables[3].reshape(R, nb), spb, axis=1)).sum(1)
+            for dt in (torch.bfloat16, torch.float32):
+                name = str(dt)[6:]
+                tol = TOL[name]
+                args = tensors(tables, R, qpk * Hkv, D, dt) + [D ** -0.5, seg_len]
+                for sp in ((1, 3, 8) if dt == torch.bfloat16 else (1,)):
+                    label = f"{name} D={D} qpk {qpk} path lengths {lens.tolist()}, splits {sp}"
+                    with forced(ps, "seq_splits", sp):
+                        got = fns["paged_seq_q"][0](*args)
+                        got_p = fns["paged_seq_q_partial"][0](*args)
+                    torch.cuda.synchronize()
+                    e = rel_err(got, fns["paged_seq_q"][1](*args))
+                    print(f"[kernels] paged_seq_q {label}: rel err {e:.3e}, tol {tol:.0e}",
+                          flush=True)
+                    check(e < tol and bool(torch.isfinite(got).all()),
+                          f"paged_seq_q {label} disagrees with its plain version: {e}")
+                    got = got_p
+                    want = fns["paged_seq_q_partial"][1](*args)
+                    e = max(rel_err(got[i], want[i]) for i in range(3))
+                    print(f"[kernels] paged_seq_q_partial {label}: rel err (acc, m, l) "
+                          f"{e:.3e}, tol {tol:.0e}", flush=True)
+                    check(e < tol and all(bool(torch.isfinite(t).all()) for t in got),
+                          f"paged_seq_q_partial {label} disagrees with its plain version: {e}")
+    # the control: two leaves of one block of two segments; leaf 0's path
+    # is 10 + 7 = 17 tokens, its queries small so that each token weighs
+    # about a seventeenth
+    src = np.array([0, 128, 256, 384], np.int32)
+    off = np.array([100, 0, 5, 0], np.int32)
+    live = np.array([10, 7, 20, 0], np.int32)
+    args = tensors([src, off, live, np.ones(2, np.int32)], 2, 4 * Hkv, 128,
+                   torch.bfloat16) + [128 ** -0.5, seg_len]
+    args[0][0] *= 0.05
+    named = named_args("paged_seq_q", args)
+    got = fns["paged_seq_q"][0](*args)
+    hidden = live.copy()
+    hidden[1] -= 1
+    named["seg_live"] = torch.from_numpy(hidden).to(dev)
+    rel_err_control("paged_seq_q", "17-token path with its last token hidden", got[:1],
+                    fns["paged_seq_q"][1](**named)[:1], TOL["bfloat16"])
 
 
 def dense_masked(q, k, v, scale, mask):
@@ -2332,6 +2519,7 @@ def int8mm_timing_row(fns, shapes, bound, flush):
     (printed), beside cuBLAS on the dequantised bf16 weight, which reads
     twice B9's weight bytes."""
     import torch
+    from deft_tpu_torch.ops import int8_matmul as i8
 
     kern, plain = fns["int8_matmul"]
     cases = {label: args for label, _, args in shapes["int8_matmul"]}
@@ -2368,7 +2556,10 @@ def int8mm_timing_row(fns, shapes, bound, flush):
         host_ms = time_ms(lambda a=args: kern(*a), 20, flush, primed=False)
         lib_ms = time_ms(lambda a=prep[label]: lib_call(*a), 20, flush)
         bf16_ms = time_ms(lambda x=args[0], wd=deq[id(args[1])]: x @ wd, 20, flush)
-        print(f"[timing] int8_matmul {label} (H, I) = {tuple(args[1].shape)}: kernel "
+        sp = i8.launch_splits(args[0].device.index, *args[0].shape, args[1].shape[1],
+                              args[0].dtype)
+        print(f"[timing] int8_matmul {label} (H, I) = {tuple(args[1].shape)}, "
+              f"{sp} splits: kernel "
               f"{ms:.4f} ms ({host_ms:.4f} ms unprimed), library {lib_ms:.4f} ms, "
               f"cuBLAS on the bf16 weight "
               f"{bf16_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
@@ -2454,6 +2645,23 @@ def attention_library_row(name, plan, args, flush):
     return lib, desc
 
 
+def unique_path_rows(name, plan, args) -> int:
+    """The distinct pool rows the leaves' live paths hold (a seq kernel's
+    KV input, each row counted once)."""
+    import torch
+    from deft_tpu_torch.ops.paged_seq_attn import segment_paths
+
+    a = named_args(name, args)
+    if KERNELS[name][4] == "gather":
+        paths = torch.from_numpy(np.asarray(plan.paths, np.int64))
+        lens = torch.from_numpy(np.asarray(plan.seq_lens, np.int64))
+        mask = torch.arange(paths.shape[1])[None, :] < lens[:, None]
+        return int(torch.unique(paths[mask]).numel())
+    rows, mask = segment_paths(a["seg_src"], a["seg_off"], a["seg_live"], a["blk_live"],
+                               a["q"].shape[0], a["seg_len"])
+    return int(torch.unique(rows[mask]).numel())
+
+
 def partial_visibility(name, args):
     """What a partial entry attends at its window: (k, v, mask, live
     tokens, visible (row, token) pairs per KV head and query head group)
@@ -2478,10 +2686,10 @@ def partial_visibility(name, args):
         r = torch.arange(R, device=q.device)[:, None]
         mask = (lo[None, :] <= r) & (r < hi[None, :])
         tokens = int(mask.any(dim=0).sum())
-    else:
+    else:  # each live path row once (the guide's rule)
         rows, mask = segment_paths(a["seg_src"], a["seg_off"], a["seg_live"],
                                    a["blk_live"], R, a["seg_len"])
-        tokens = int(mask.sum())
+        tokens = int(torch.unique(rows[mask]).numel())
     k, v = (kv_gather_heads(KVPool(a[f"{x}_pool"], a.get(f"{x}_scale")), a["li"], rows, D,
                             q.dtype) for x in "kv")
     return k, v, mask, tokens, int(mask.sum())
@@ -2511,6 +2719,11 @@ def partial_timing_row(name, args, bound, flush):
     nbytes = (tokens * kv_bytes + q.numel() * q.element_size() + plan_bytes
               + R * Hq * (D + 2) * 4)
     bnd = bound(nbytes, pairs * Hq * 4 * D)
+    if kind == "seq":
+        reread = nbytes + (pairs - tokens) * kv_bytes
+        print(f"[timing] {name} bound by bytes: {tokens} unique live path rows "
+              f"{nbytes / PEAK_BYTES * 1e3:.4f} ms; each leaf re-reading its path "
+              f"({pairs} rows) {reread / PEAK_BYTES * 1e3:.4f} ms", flush=True)
     bias = torch.zeros(mask.shape, dtype=q.dtype, device=q.device).masked_fill_(
         ~mask, float("-inf"))
     if kind == "flatten":  # one batch: (1, Hq, R, D) over (1, Hq, T, D)
@@ -2662,13 +2875,20 @@ def phase_timing(dev, shapes):
             pairs = int((hi[live] - lo[live]).sum()) * qpk * Hkv
             nbytes = plan.n_tokens * kv_token_bytes(args, Hkv, D) + io + plan_bytes(args)
         else:
-            # each leaf's path read once per leaf (the baseline's own work)
+            # the bound counts each live path row once (the guide's rule);
+            # each leaf re-reading its whole path (the baseline's own work)
+            # is printed beside it
             pairs = plan.total_kv * qpk * Hkv
-            nbytes = plan.total_kv * kv_token_bytes(args, Hkv, D) + io
+            unique = unique_path_rows(name, plan, args)
+            nbytes = unique * kv_token_bytes(args, Hkv, D) + io
             if KERNELS[name][4] == "gather":  # the live entries of paths
                 nbytes += 4 * plan.total_kv + 4 * R
             else:
                 nbytes += plan_bytes(args)
+            reread = nbytes + (plan.total_kv - unique) * kv_token_bytes(args, Hkv, D)
+            print(f"[timing] {name} bound by bytes: {unique} unique live path rows "
+                  f"{nbytes / PEAK_BYTES * 1e3:.4f} ms; each leaf re-reading its path "
+                  f"({plan.total_kv} rows) {reread / PEAK_BYTES * 1e3:.4f} ms", flush=True)
         fn, plain = fns[name]
         lib, LIBRARY[name] = attention_library_row(name, plan, args, flush)
         rows[name] = (lambda f=fn, a=args: f(*a), lambda p=plain, a=args: p(*a), lib,
@@ -2689,6 +2909,15 @@ def phase_timing(dev, shapes):
                            qt, kt, vt, is_causal=True, scale=scale),
                        *bound(nbytes, 2 * 2 * Hq * N * N * D / 2))
 
+    from deft_tpu_torch.ops import _cuda
+    from deft_tpu_torch.ops import paged_seq_attn as ps
+
+    for name in ("paged_seq_q", "paged_seq_q_partial"):
+        a = named_args(name, shapes[name][0][2])
+        R, Hkv = a["q"].shape[0], a["k_pool"].shape[-1] // a["q"].shape[-1]
+        print(f"[timing] {name}: {R} rows x {Hkv} KV heads, each path over "
+              f"{ps.seq_splits(R, Hkv, _cuda.sm_count(dev.index))} blocks of a cluster",
+              flush=True)
     rows["ragged_prefill"] = ragged_timing_row(fns, shapes, bound)
     rows["int8_matmul"] = int8mm_timing_row(fns, shapes, bound, flush)
     rows.update(gmm_timing_rows(fns, shapes, bound))

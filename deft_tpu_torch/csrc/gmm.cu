@@ -302,23 +302,6 @@ constexpr size_t smem_bytes() {
   return 1024 + Cfg<W>::kStages * (Cfg<W>::kStage + 2 * sizeof(uint64_t)) + Cfg<W>::kB;
 }
 
-// Four int8 codes (one word) to four bf16 (two words), exactly, two lanes
-// an instruction: the low 7 bits of x under bf16's exponent of 128 read
-// 128 + (x & 127), and taking off 128 (x >= 0) or 256 (x < 0, its sign
-// bit lands on the exponent's lowest bit) leaves x, an exact difference.
-__device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo, uint32_t& hi) {
-  const uint32_t m = w & 0x7F7F7F7Fu, sg = w & 0x80808080u;
-  const uint32_t v[2] = {__byte_perm(m, 0x43u, 0x4140), __byte_perm(m, 0x43u, 0x4342)};
-  const uint32_t t[2] = {__byte_perm(sg, 0x43u, 0x4140), __byte_perm(sg, 0x43u, 0x4342)};
-  __nv_bfloat162 r[2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-    r[j] = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v[j]),
-                   *reinterpret_cast<const __nv_bfloat162*>(&t[j]));
-  lo = *reinterpret_cast<const uint32_t*>(&r[0]);
-  hi = *reinterpret_cast<const uint32_t*>(&r[1]);
-}
-
 // The 256 consumer threads widen a stage's int8 tile (two 128-column tiles
 // of 64 k-rows) into a bf16 B tile (four 64-column 128-byte-swizzled tiles),
 // then make the writes visible to wgmma and wait for each other.  A thread
@@ -339,10 +322,10 @@ __device__ __forceinline__ void widen_stage(uint8_t* b, const int8_t* raw, int t
   for (int j = 0; j < kPieces; ++j) {
     const int i = tid + 256 * j, k = i / (kBN / 16), f0 = i % (kBN / 16) * 16;
     uint4 o0, o1;
-    widen4(v[j].x, o0.x, o0.y);
-    widen4(v[j].y, o0.z, o0.w);
-    widen4(v[j].z, o1.x, o1.y);
-    widen4(v[j].w, o1.z, o1.w);
+    hopper::widen4(v[j].x, o0.x, o0.y);
+    hopper::widen4(v[j].y, o0.z, o0.w);
+    hopper::widen4(v[j].z, o1.x, o1.y);
+    hopper::widen4(v[j].w, o1.z, o1.w);
     uint8_t* row = b + f0 / 64 * kWChunk + k * 128;
     const int u = f0 % 64 / 8;
     uint4* p0 = reinterpret_cast<uint4*>(row + ((u ^ (k & 7)) << 4));

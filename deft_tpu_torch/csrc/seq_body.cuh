@@ -1,7 +1,8 @@
 // The sequential per-leaf decode kernel, shared by paged_seq.cu (B2, B5:
 // each leaf's path read through its segment table) and seq_gather.cu (B7:
 // through its padded row of pool indices), over bf16/fp32 pools or int8
-// pools with fp32 scales.
+// pools with fp32 scales.  (B5 and B5p over bf16 q run paged_seq.cu's own
+// tensor-core body instead; fp32 q keeps this one.)
 //
 // One block per (leaf, KV head) walks the leaf's path in tiles of 64 tokens,
 // each holding only live path tokens.  K and V tiles are staged in shared

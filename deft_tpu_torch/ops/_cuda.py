@@ -12,6 +12,7 @@ builds what it needs, and ``build_all`` builds every kernel at once, one
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -110,6 +111,12 @@ def check(err: int, what: str) -> None:
     """Raise if a C launcher returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (read once)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_ptr(device) -> int:

@@ -7,23 +7,26 @@ product accumulates in fp32, is rounded to x's dtype, then scaled in fp32
 and cast, the order of deft_tpu's int8 expression (models/llama.py:150);
 deft_tpu's TPU kernel scales the fp32 sum unrounded, which in bf16 differs
 by at most one rounding of the product.  The Hopper kernel is
-csrc/int8_matmul.cu; ``int8_matmul_plain`` is the same function in plain
-torch, which the wrapper runs for CPU tensors only.  Callers gate on
-``eligible`` (models/llama.py ``mm``), deft_tpu's rule.
+csrc/int8_matmul.cu, one launch a call; ``int8_matmul_plain`` is the same
+function in plain torch, which the wrapper runs for CPU tensors only.
+Callers gate on ``eligible`` (models/llama.py ``mm``), deft_tpu's rule.
+``split_plan`` picks how many blocks of a cluster share each column tile's
+H; the wrapper caches it, with the card's SM count, by shape.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from deft_tpu_torch.ops import _cuda
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
-_BI = 128  # output columns per CUDA block
-_BK = {torch.bfloat16: 128, torch.float32: 32}  # H rows per pipeline stage
+_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+_BK = 64  # H rows per pipeline stage of the bf16 kernel
+_MAX_CLUSTER = 8  # blocks of a cluster sharing one column tile's H
 
 
 def _pick_block(dim: int, candidates=(512, 256, 128)) -> int:
@@ -51,14 +54,60 @@ def int8_matmul_plain(x: torch.Tensor, w: torch.Tensor,
     return ((x.float() @ w.float()).to(x.dtype).float() * scale).to(x.dtype)
 
 
-def num_splits(H: int, I: int, dtype, sms: int) -> int:
-    """Blocks along H for each 128-column tile: enough for ~2 blocks an SM
-    (I = 4096 gives only 32 column tiles), every split owning at least one
-    H-chunk."""
-    chunks = H // _BK[dtype]
-    want = max(1, min(chunks, -(-2 * sms // (I // _BI))))
-    per = -(-chunks // want)
-    return -(-chunks // per)
+def padded_rows(R: int) -> int:
+    """x rows as the bf16 kernel's wgmma sees them: R padded to a power of
+    two >= 8 (the rows past R are zeros)."""
+    n = 8
+    while n < R:
+        n *= 2
+    return n
+
+
+def column_tile(R: int) -> int:
+    """Output columns a bf16 block owns: 256, or 128 when R > 128 (two
+    warpgroups of two or one m64 tiles; the accumulators of 256 rows leave
+    room for one)."""
+    return 256 if padded_rows(R) <= 128 else 128
+
+
+def split_plan(R: int, H: int, I: int, sms: int, resident=None):
+    """(splits, chunks per split) of the bf16 kernel: the blocks of a
+    cluster that share each column tile's H, enough for one block an SM
+    (I = 4096 gives 16 column tiles), at most 8, each owning at least one
+    64-row chunk of H, all but the last split the same number.
+    ``resident(splits)``, where given, is how many clusters of that size the
+    card keeps resident at once: the split shrinks until every column
+    tile's cluster fits in one wave."""
+    chunks = H // _BK
+    tiles = -(-I // column_tile(R))
+    splits = max(1, min(_MAX_CLUSTER, chunks, sms // tiles))
+    while splits > 1 and resident is not None and resident(splits) < tiles:
+        splits -= 1
+    per = -(-chunks // splits)
+    return -(-chunks // per), per
+
+
+def split_ranges(H: int, splits: int, per: int):
+    """The H-chunks [c0, c1) of each split, as the kernel derives them."""
+    chunks = H // _BK
+    return [(r * per, min(chunks, (r + 1) * per)) for r in range(splits)]
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(index: int, R: int, splits: int) -> int:
+    with torch.cuda.device(index):
+        fn = _cuda.bind("int8_matmul", "deft_int8_matmul_max_clusters", [_I, _I])
+        return fn(R, splits)
+
+
+@functools.lru_cache(maxsize=None)
+def launch_splits(index: int, R: int, H: int, I: int, dtype) -> int:
+    """The split a call launches with on CUDA device ``index``, cached by
+    shape: 1 for fp32 (its FMA body takes all of H in one block)."""
+    if dtype != torch.bfloat16:
+        return 1
+    return split_plan(R, H, I, _cuda.sm_count(index),
+                      lambda s: _resident(index, padded_rows(R), s))[0]
 
 
 def int8_matmul(x: torch.Tensor, w: torch.Tensor,
@@ -79,17 +128,13 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor,
     dtype = _cuda.dtype_code(x.dtype)
     _cuda.require_device(x, w, scale)
     x, w, scale = x.contiguous(), w.contiguous(), scale.contiguous()
-    if x.data_ptr() % 16:  # a view at an odd offset: cp.async reads 16 bytes
-        x = x.clone()
+    x = _cuda.aligned16(x)  # a view at an odd offset: TMA reads 16-byte units
     _cuda.require(w.data_ptr() % 16 == 0, "w must be 16-byte aligned")
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits = num_splits(H, I, x.dtype, sms)
+    splits = launch_splits(x.device.index, R, H, I, x.dtype)
     out = torch.empty((R, I), dtype=x.dtype, device=x.device)
-    part = (torch.empty((splits, R, I), dtype=torch.float32, device=x.device)
-            if splits > 1 else None)
     fn = _cuda.bind("int8_matmul", "deft_int8_matmul", _ARGS)
-    err = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
-             _cuda.ptr(part), R, H, I, splits, dtype, _cuda.stream_ptr(x.device))
+    err = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), R, H,
+             I, splits, dtype, _cuda.stream_ptr(x.device))
     _cuda.check(err, "int8 matmul kernel")
     int8_matmul.launches += 1
     return out

@@ -9,7 +9,10 @@ csrc/paged_seq.cu's two entries; ``paged_seq_attention_plain`` and
 ``paged_seq_attention_q_plain`` are the same functions in plain torch over
 the same plan arrays, which the wrappers run for CPU tensors only.
 ``launch_seq`` and ``path_attention_plain`` also serve B7
-(ops/seq_attn.py, plans that are not segment-aligned).
+(ops/seq_attn.py, plans that are not segment-aligned).  Over bf16 q, B5
+and B5p run a tensor-core body that may split each path over the blocks of
+a cluster (``seq_splits``); B2, B2p and fp32 q keep one block a (leaf,
+head).
 
 B2p and B5p, ``paged_seq_attention_partial`` and
 ``paged_seq_attention_q_partial``, port deft_tpu's partial=True entries
@@ -144,9 +147,24 @@ def launch_seq(source: str, entry: str, argtypes: list, q, k_pool, v_pool,
 
 
 # (q, k, v, ks, vs, o, layer_off, scale_off, S, seg_src, seg_off, seg_live,
-#  blk_live, R, Hq, Hkv, D, nseg, spb, dtype, scale, stream)
+#  blk_live, R, Hq, Hkv, D, nseg, spb, splits, dtype, scale, stream)
 _PAGED_SEQ_ARGS = [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _P, _P, _P, _P,
-                   _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+                   _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+# B5's tensor-core body: blocks a cluster may split one (leaf, head)'s path
+# over, and how many of its blocks an SM holds (57 KB of shared memory each)
+_MAX_SPLITS = 8
+_BLOCKS_PER_SM = 3
+
+
+def seq_splits(R: int, Hkv: int, sms: int) -> int:
+    """Blocks of a cluster that share each (leaf, KV head)'s path in B5's
+    tensor-core body: enough that the R * Hkv pairs fill the SMs' resident
+    blocks, at most 8; 1 where the pairs alone fill them (the 8B main tree,
+    64 x 8 pairs).  Each block takes a contiguous share of the path's
+    16-token tiles, computed on the device from the segment table."""
+    return max(1, min(_MAX_SPLITS, -(-_BLOCKS_PER_SM * sms // max(1, R * Hkv))))
+
+
 # the partial entries: acc, m, l where the others take o
 _PAGED_SEQ_PARTIAL_ARGS = _PAGED_SEQ_ARGS[:6] + [_P, _P] + _PAGED_SEQ_ARGS[6:]
 
@@ -154,6 +172,10 @@ _PAGED_SEQ_PARTIAL_ARGS = _PAGED_SEQ_ARGS[:6] + [_P, _P] + _PAGED_SEQ_ARGS[6:]
 def _launch_paged(entry, q, k_pool, v_pool, k_scale, v_scale, li, seg_src,
                   seg_off, seg_live, blk_live, scale, partial=False):
     R = q.shape[0]
+    splits = 1  # only B5's body over bf16 q splits paths
+    if k_scale is not None and q.dtype == torch.bfloat16:
+        splits = seq_splits(R, k_pool.shape[-1] // q.shape[-1],
+                            _cuda.sm_count(q.device.index))
     nseg = seg_src.shape[0] // R
     nb = blk_live.shape[0] // R
     _cuda.require(nseg * R == seg_src.shape[0] and nb * R == blk_live.shape[0]
@@ -164,7 +186,7 @@ def _launch_paged(entry, q, k_pool, v_pool, k_scale, v_scale, li, seg_src,
                       _PAGED_SEQ_PARTIAL_ARGS if partial else _PAGED_SEQ_ARGS, q,
                       k_pool, v_pool, k_scale, v_scale, li,
                       (seg_src, seg_off, seg_live, blk_live), (),
-                      (nseg, nseg // nb), scale, partial)
+                      (nseg, nseg // nb, splits), scale, partial)
 
 
 def paged_seq_attention(q: torch.Tensor, k_pool: torch.Tensor,
