@@ -8,6 +8,8 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
 result line):
   1. card:    nvidia-smi's name and power limit, torch's device name;
   2. build:   nvcc builds every kernel from csrc/, one process per source;
+              the wgmma bodies must hold HGMMA, the mma.sync bodies of B2,
+              B4 and B5 HMMA (cuobjdump's SASS);
   3. kernels: each kernel against its plain torch version on the card, on the
               shapes its path gives it (Llama-3.1-8B heads and matmuls, B10
               at Mixtral-8x7B's prefill; the partial entries B1p, B4p, B2p
@@ -22,7 +24,10 @@ result line):
               the partial entries on every rank's window of a dp 2 x sp 3
               grid (shifted leaf intervals, pad blocks; acc and l on live
               rows, m where a row saw a token); the sp merge of B1p's two
-              halves of the main plan against B1 over the whole;
+              halves of the main plan against B1 over the whole; the edges
+              of the tensor-core bodies (b9_edges, seq_edges for B2 and B5,
+              b4_edges, wgmma_edges), each with a fault control through the
+              plain version that must read above the tolerance;
   4. main:    the 8B model (random bf16 weights from a CUDA torch.Generator,
               all 32 layers) serves Simple_Tree few-shot, width 50, prompt
               4000, 64 generated tokens, block_len 256, in flatten then seq
@@ -590,9 +595,10 @@ def phase_card():
     return smi[0], name
 
 
-def sass_count(name: str, opcode: str) -> int:
+def sass_count(name: str, opcode: str, function: str = "") -> int:
     """How many `opcode` instructions the library of csrc/<name>.cu holds,
-    from cuobjdump's SASS."""
+    from cuobjdump's SASS; with `function`, only in the kernels whose
+    mangled names contain it."""
     from pathlib import Path
 
     from deft_tpu_torch.ops import _cuda
@@ -600,7 +606,16 @@ def sass_count(name: str, opcode: str) -> int:
     tool = Path(_cuda._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "--dump-sass", str(_cuda.library_path(name))],
                           capture_output=True, text=True, check=True).stdout
-    return sass.count(opcode)
+    bodies = sass.split("Function : ")
+    return sum(b.count(opcode) for b in bodies[1:] if function in b.split("\n", 1)[0]) \
+        if function else sass.count(opcode)
+
+
+# the tensor-core bodies over bf16 q of the decode kernels on mma.sync:
+# label -> (library, the mangled-name fragment of its kernels)
+MMA_BODIES = {"B2/B2p (deft_seq_q, bf16 KV)": ("paged_seq", "seq_q_mmaI13__nv_bfloat16"),
+              "B5/B5p (deft_seq_q, int8 KV)": ("paged_seq", "seq_q_mmaIa"),
+              "B4/B4p (deft_flat_q)": ("paged_flatten", "flatten_q_mma")}
 
 
 def phase_build():
@@ -618,7 +633,7 @@ def phase_build():
             if "wgmma" in line:
                 print(f"[build] {name}: {line.strip()}")
     # the bf16 bodies of B3/B8, B10 and B9 run on wgmma (HGMMA in their
-    # SASS), B5's over bf16 q on mma.sync (HMMA)
+    # SASS), B2's, B4's and B5's over bf16 q on mma.sync (HMMA)
     hgmma = {name: sass_count(name, "HGMMA") for name in _cuda.SOURCES}
     hmma = {name: sass_count(name, "HMMA") for name in _cuda.SOURCES}
     print(f"[build] HGMMA instructions by library: {hgmma}", flush=True)
@@ -626,6 +641,10 @@ def phase_build():
     for name in ("gmm", "prefill", "int8_matmul"):
         check(hgmma[name] > 0, f"the {name} library holds no HGMMA instruction")
     check(hmma["paged_seq"] > 0, "the paged_seq library holds no HMMA instruction")
+    bodies = {label: sass_count(lib, "HMMA", fn) for label, (lib, fn) in MMA_BODIES.items()}
+    print(f"[build] HMMA instructions by body: {bodies}", flush=True)
+    for label, n in bodies.items():
+        check(n > 0, f"the body of {label} holds no HMMA instruction")
 
 
 def phase_kernels(dev, shapes):
@@ -781,7 +800,9 @@ def phase_kernels(dev, shapes):
                     gmm_case(x, 4, E, F, f32, scaled, dev, gen, tile_eid), TOL["float32"])
     wgmma_edges(dev, gen, compare)
     b9_edges(dev, gen)
-    b5_edges(dev, gen)
+    seq_edges(dev, gen, int8=True)  # B5, B5p
+    seq_edges(dev, gen, int8=False)  # B2, B2p
+    b4_edges(dev, gen)
     return errs
 
 
@@ -895,27 +916,33 @@ def synthetic_seq_plan(rng, R, nb, spb, seg_len, S, one_token_leaf=0):
     return [a.astype(np.int32).reshape(-1) for a in (src, off, live, blk)]
 
 
-def b5_edges(dev, gen):
-    """B5 and B5p against their plain versions on synthetic per-leaf tables:
-    dead blocks, segments straddling the 16-token tiles, path lengths off
-    the tile and a leaf of one token; qpk 1, 4 and 8; D 64 and 128; bf16 q
-    (the tensor-core body) with the path split over 1, 3 and 8 blocks of a
+def seq_edges(dev, gen, int8):
+    """B5 and B5p (int8 pools), or B2 and B2p (bf16 / fp32 pools), against
+    their plain versions on synthetic per-leaf tables: dead blocks,
+    segments straddling the 16-token tiles, path lengths off the tile and a
+    leaf of one token; qpk 1, 4 and 8; D 64 and 128; bf16 q (the
+    tensor-core body) with the path split over 1, 3 and 8 blocks of a
     cluster, fp32 q (the FMA body) unsplit.  Control: a 17-token path
     against the plain version with its last token hidden."""
     import torch
     from deft_tpu_torch.ops import paged_seq_attn as ps
 
     fns = wrappers()
-    rng = np.random.default_rng(SEED + 3)
+    name = "paged_seq_q" if int8 else "paged_seq"
+    rng = np.random.default_rng(SEED + (3 if int8 else 5))
     S, seg_len, nb, spb, Hkv, R = 4096, 128, 3, 2, 2, 6
 
     def tensors(tables, rows, Hq, D, dt):
-        codes = [torch.randint(-127, 128, (1, S, Hkv * D), generator=gen, device=dev,
-                               dtype=torch.int8) for _ in range(2)]
-        scales = [torch.rand((1, Hkv, S), generator=gen, device=dev) * 0.09 + 0.01
-                  for _ in range(2)]
+        if int8:
+            pools = [torch.randint(-127, 128, (1, S, Hkv * D), generator=gen, device=dev,
+                                   dtype=torch.int8) for _ in range(2)]
+            pools += [torch.rand((1, Hkv, S), generator=gen, device=dev) * 0.09 + 0.01
+                      for _ in range(2)]
+        else:
+            pools = [torch.randn((1, S, Hkv * D), generator=gen, device=dev).to(dt)
+                     for _ in range(2)]
         q = torch.randn((rows, Hq, D), generator=gen, device=dev).to(dt)
-        return [q, *codes, *scales, 0, *to_dev(tables, dev)]
+        return [q, *pools, 0, *to_dev(tables, dev)]
 
     for D in (64, 128):
         for qpk in (1, 4, 8):
@@ -923,27 +950,27 @@ def b5_edges(dev, gen):
             lens = (tables[2].reshape(R, -1)
                     * np.repeat(tables[3].reshape(R, nb), spb, axis=1)).sum(1)
             for dt in (torch.bfloat16, torch.float32):
-                name = str(dt)[6:]
-                tol = TOL[name]
+                dname = str(dt)[6:]
+                tol = TOL[dname]
                 args = tensors(tables, R, qpk * Hkv, D, dt) + [D ** -0.5, seg_len]
                 for sp in ((1, 3, 8) if dt == torch.bfloat16 else (1,)):
-                    label = f"{name} D={D} qpk {qpk} path lengths {lens.tolist()}, splits {sp}"
+                    label = f"{dname} D={D} qpk {qpk} path lengths {lens.tolist()}, splits {sp}"
                     with forced(ps, "seq_splits", sp):
-                        got = fns["paged_seq_q"][0](*args)
-                        got_p = fns["paged_seq_q_partial"][0](*args)
+                        got = fns[name][0](*args)
+                        got_p = fns[f"{name}_partial"][0](*args)
                     torch.cuda.synchronize()
-                    e = rel_err(got, fns["paged_seq_q"][1](*args))
-                    print(f"[kernels] paged_seq_q {label}: rel err {e:.3e}, tol {tol:.0e}",
+                    e = rel_err(got, fns[name][1](*args))
+                    print(f"[kernels] {name} {label}: rel err {e:.3e}, tol {tol:.0e}",
                           flush=True)
                     check(e < tol and bool(torch.isfinite(got).all()),
-                          f"paged_seq_q {label} disagrees with its plain version: {e}")
+                          f"{name} {label} disagrees with its plain version: {e}")
                     got = got_p
-                    want = fns["paged_seq_q_partial"][1](*args)
+                    want = fns[f"{name}_partial"][1](*args)
                     e = max(rel_err(got[i], want[i]) for i in range(3))
-                    print(f"[kernels] paged_seq_q_partial {label}: rel err (acc, m, l) "
+                    print(f"[kernels] {name}_partial {label}: rel err (acc, m, l) "
                           f"{e:.3e}, tol {tol:.0e}", flush=True)
                     check(e < tol and all(bool(torch.isfinite(t).all()) for t in got),
-                          f"paged_seq_q_partial {label} disagrees with its plain version: {e}")
+                          f"{name}_partial {label} disagrees with its plain version: {e}")
     # the control: two leaves of one block of two segments; leaf 0's path
     # is 10 + 7 = 17 tokens, its queries small so that each token weighs
     # about a seventeenth
@@ -953,13 +980,125 @@ def b5_edges(dev, gen):
     args = tensors([src, off, live, np.ones(2, np.int32)], 2, 4 * Hkv, 128,
                    torch.bfloat16) + [128 ** -0.5, seg_len]
     args[0][0] *= 0.05
-    named = named_args("paged_seq_q", args)
-    got = fns["paged_seq_q"][0](*args)
+    named = named_args(name, args)
+    got = fns[name][0](*args)
     hidden = live.copy()
     hidden[1] -= 1
     named["seg_live"] = torch.from_numpy(hidden).to(dev)
-    rel_err_control("paged_seq_q", "17-token path with its last token hidden", got[:1],
-                    fns["paged_seq_q"][1](**named)[:1], TOL["bfloat16"])
+    rel_err_control(name, "17-token path with its last token hidden", got[:1],
+                    fns[name][1](**named)[:1], TOL["bfloat16"])
+
+
+def b4_span_tokens(plan_args, R, qpk, spans, span):
+    """The plan tokens of one span of deft_flat_q's first row tile: the
+    span's share of the 64-token tiles of the blocks that tile sees."""
+    from deft_tpu_torch.ops import paged_flatten_attn as pf
+
+    blk_lo, blk_hi, block_len = (plan_args[k] for k in ("blk_lo", "blk_hi", "block_len"))
+    lo, hi = blk_lo.cpu().numpy(), blk_hi.cpu().numpy()
+    Rq = R * qpk
+    leaf_b = (min(Rq, pf.q_block_rows(Rq)) - 1) // qpk
+    full = lo < -(1 << 20)
+    listed = [b for b in range(len(lo))
+              if hi[b] > 0 and (full[b] or (lo[b] < hi[b] and lo[b] <= leaf_b))]
+    tpb = block_len // 64
+    total = len(listed) * tpb
+    return np.concatenate([listed[li // tpb] * block_len + (li % tpb) * 64 + np.arange(64)
+                           for li in range(total * span // spans,
+                                           total * (span + 1) // spans)])
+
+
+def b4_edges(dev, gen):
+    """B4 and B4p (bf16 q: deft_flat_q; fp32 q: the staged body) against
+    their plain versions on a width-40 tree over a 4000-token prompt: FULL
+    prefix blocks, few-leaf suffix blocks, a dead bucket tail, and at qpk 4
+    and 8 more than 128 folded rows, so row tiles differ in the blocks they
+    see; seg_len 32, 128, 256 and 512; qpk 1 (64 rows: 4-warp blocks), 4
+    and 8; D 64 and 128; B4p also on windows of the plan's first 21 and 32
+    blocks.  Control: B4's output against the plain version with the tokens
+    of one span of the first row tile hidden."""
+    import torch
+    from deft_tpu_torch.ops import _cuda
+    from deft_tpu_torch.ops import paged_flatten_attn as pf
+    from deft_tpu_torch.plan import build_flatten_plan
+
+    fns = wrappers()
+    tree = grow_tree(PROMPT_LEN, 40, 12, 16384, np.random.default_rng(SEED + 4))
+    Hkv, S = 2, tree.token_to_kv_pool.size
+
+    def run(name, label, args, tol, leaves, qpk):
+        got = fns[name][0](*args)
+        torch.cuda.synchronize()
+        want = fns[name][1](*args)
+        if name.endswith("_partial"):  # folded rows; m where a row saw a token
+            rows = (slice(None), slice(0, leaves * qpk))
+            seen = want[2][rows] > 0
+            pairs = [(got[0][rows], want[0][rows]), (got[2][rows], want[2][rows]),
+                     (got[1][rows][seen], want[1][rows][seen])]
+            e = max(rel_err(g, w) for g, w in pairs)
+            ok = all(bool(torch.isfinite(t).all()) for t in got)
+        else:
+            e = rel_err(got[:leaves], want[:leaves])
+            ok = bool(torch.isfinite(got[:leaves]).all())
+        print(f"[kernels] {name} {label}: rel err {e:.3e}, tol {tol:.0e}", flush=True)
+        check(e < tol and ok, f"{name} {label} disagrees with its plain version: {e}")
+        return got
+
+    for seg_len in (32, 128, 256, 512):
+        block_len = max(128, seg_len)
+        for qpk in (1, 4, 8):
+            plan = build_flatten_plan(tree, q_per_kv=qpk, block_len=block_len,
+                                      min_token_bucket=1024, seg_len=(seg_len,),
+                                      waste_limit=64.0)
+            full = plan.blk_lo < -(1 << 20)
+            check(plan.paged and plan.seg_len == seg_len and full.any()
+                  and (~full & (plan.blk_lo >= plan.blk_hi)).any(),
+                  f"b4 edge plan at seg_len {seg_len} lacks FULL or dead blocks")
+            nb, nseg = len(plan.blk_lo), block_len // seg_len
+            for D in (64, 128):
+                pools = [torch.randint(-127, 128, (1, S, Hkv * D), generator=gen,
+                                       device=dev, dtype=torch.int8) for _ in range(2)]
+                pools += [torch.rand((1, Hkv, S), generator=gen, device=dev) * 0.09 + 0.01
+                          for _ in range(2)]
+                arrs = [plan.seg_src, plan.tok_lo, plan.tok_hi, plan.blk_lo, plan.blk_hi]
+                for dt in (torch.bfloat16, torch.float32):
+                    q = torch.randn((plan.l_pad, qpk * Hkv, D), generator=gen,
+                                    device=dev).to(dt)
+                    tol = TOL[str(dt)[6:]]
+                    base = f"{str(dt)[6:]} seg_len {seg_len} qpk {qpk} D={D}"
+                    args = (q, *pools, 0, *to_dev(arrs, dev), D ** -0.5, block_len, seg_len)
+                    spans = pf.q_spans(plan.l_pad * qpk, Hkv, nb, block_len,
+                                       _cuda.sm_count(dev.index))
+                    run("paged_flatten_q", f"{base}, {nb} blocks, {spans} spans", args, tol,
+                        plan.n_leaves, qpk)
+                    for nblk in (nb, 21, 32):
+                        if nblk > nb:
+                            continue
+                        warr = [plan.seg_src[:nblk * nseg], plan.tok_lo[:nblk * block_len],
+                                plan.tok_hi[:nblk * block_len], plan.blk_lo[:nblk],
+                                plan.blk_hi[:nblk]]
+                        wargs = (q, *pools, 0, *to_dev(warr, dev), D ** -0.5, block_len,
+                                 seg_len)
+                        run("paged_flatten_q_partial", f"{base}, window of {nblk} blocks",
+                            wargs, tol, plan.n_leaves, qpk)
+                    if seg_len == 128 and qpk == 4 and D == 128 and dt == torch.bfloat16:
+                        control = (args, plan, spans)
+    # the control: span 0 of row tile 0 hidden from the plain version (its
+    # tokens' intervals emptied, FULL blocks spelled out as intervals)
+    args, plan, spans = control
+    named = named_args("paged_flatten_q", args)
+    got = fns["paged_flatten_q"][0](*args)
+    hidden = torch.from_numpy(b4_span_tokens(named, plan.l_pad, 4, spans, 0)).to(dev)
+    lo, hi = pf.leaf_intervals(named["tok_lo"], named["tok_hi"], named["blk_lo"],
+                               named["blk_hi"], named["block_len"], plan.l_pad)
+    lo, hi = lo.clone(), hi.clone()
+    lo[hidden] = 0
+    hi[hidden] = 0
+    named.update(tok_lo=lo, tok_hi=hi, blk_lo=torch.zeros_like(named["blk_lo"]),
+                 blk_hi=torch.full_like(named["blk_hi"], plan.l_pad))
+    rel_err_control("paged_flatten_q", f"span 0 of {spans} ({hidden.numel()} tokens) "
+                    "hidden", got[:plan.n_leaves],
+                    fns["paged_flatten_q"][1](**named)[:plan.n_leaves], TOL["bfloat16"])
 
 
 def dense_masked(q, k, v, scale, mask):
@@ -2912,12 +3051,31 @@ def phase_timing(dev, shapes):
     from deft_tpu_torch.ops import _cuda
     from deft_tpu_torch.ops import paged_seq_attn as ps
 
-    for name in ("paged_seq_q", "paged_seq_q_partial"):
+    from deft_tpu_torch.ops import paged_flatten_attn as pf
+
+    sms = _cuda.sm_count(dev.index)
+    for name in ("paged_seq", "paged_seq_partial", "paged_seq_q", "paged_seq_q_partial"):
         a = named_args(name, shapes[name][0][2])
         R, Hkv = a["q"].shape[0], a["k_pool"].shape[-1] // a["q"].shape[-1]
-        print(f"[timing] {name}: {R} rows x {Hkv} KV heads, each path over "
-              f"{ps.seq_splits(R, Hkv, _cuda.sm_count(dev.index))} blocks of a cluster",
+        print(f"[timing] {name} grid: {R} rows x {Hkv} KV heads, each path over "
+              f"{ps.seq_splits(R, Hkv, sms, 'k_scale' in a)} blocks of a cluster",
               flush=True)
+    for name in ("paged_flatten_q", "paged_flatten_q_partial"):
+        a = named_args(name, shapes[name][0][2])
+        Hkv = a["k_pool"].shape[-1] // a["q"].shape[-1]
+        rq = a["q"].shape[0] * a["q"].shape[1] // Hkv
+        nb = a["blk_lo"].shape[0]
+        rb = pf.q_block_rows(rq)
+        spans = pf.q_spans(rq, Hkv, nb, a["block_len"], sms)
+        T = nb * a["block_len"]  # the staged body's spans (fp32 q), launch_flatten's rule
+        staged = pf.num_spans(nb, T * Hkv * (2 * a["q"].shape[-1] + 8),
+                              Hkv * rq * (a["q"].shape[-1] + 2) * 4)
+        print(f"[timing] {name} grid: {-(-rq // rb)} row tiles of {rb} folded rows x {Hkv} "
+              f"KV heads x {spans} spans = {-(-rq // rb) * Hkv * spans} blocks of "
+              f"{rb // 16} warps over {nb} plan blocks of {a['block_len']} tokens "
+              f"({sms} SMs); the staged body's rule would take {-(-rq // 64)} row tiles "
+              f"of 64 x {Hkv} x {staged} spans = {-(-rq // 64) * Hkv * staged} blocks of "
+              f"4 warps", flush=True)
     rows["ragged_prefill"] = ragged_timing_row(fns, shapes, bound)
     rows["int8_matmul"] = int8mm_timing_row(fns, shapes, bound, flush)
     rows.update(gmm_timing_rows(fns, shapes, bound))

@@ -21,53 +21,59 @@
 // layer (plus for int8 the scales, sum_r len_r * Hkv * 4 * 2); the shared
 // prefix's re-reads mostly hit L2, so the guide's rule (each input byte
 // once: the unique live rows) gives the lower bound, and L2 bandwidth sets
-// the pace between the two.  B2, and B5 over fp32 q, run the kernel of
-// seq_body.cuh, one block per (leaf, KV head): warp 0 prefix-sums the
-// segments' live counts once, so tile i of 64 path tokens maps to pool rows
-// by a binary search and every tile holds only live tokens (the segments'
-// dead lead-ins and tails are never read, where the TPU kernel DMAs whole
-// segments and masks them).  B5 and B5p over bf16 q run the tensor-core
-// body below (deft_seq_q), which keeps the int8 bytes in shared memory and
-// widens them in registers.
+// the pace between the two.  Over fp32 q (the exactness checks) B2 and B5
+// run the kernel of seq_body.cuh, one block per (leaf, KV head): warp 0
+// prefix-sums the segments' live counts once, so tile i of 64 path tokens
+// maps to pool rows by a binary search and every tile holds only live tokens
+// (the segments' dead lead-ins and tails are never read, where the TPU
+// kernel DMAs whole segments and masks them).  Over bf16 q all four entries
+// run the tensor-core body below (deft_seq_q), on the same prefix sums.
 #include <cooperative_groups.h>
 
 #include "hopper.cuh"
 #include "seq_body.cuh"
 
-// -- B5 / B5p over bf16 q: tensor cores, per-warp spans, a cp.async ring ---------------
+// -- B2, B2p, B5, B5p over bf16 q: tensor cores, per-warp spans, a cp.async ring -------
 //
-// The int8 pools' body for bf16 q (fp32 q keeps seq_body.cuh's FMA body
-// for the exactness checks).  One block of 4 warps per (leaf, KV head, span
-// of the path): the leaf's live path, mapped to pool rows by the segment
-// table's prefix sums as in seq_body.cuh, is cut into 16-token tiles; the
-// blocks of a cluster (gridDim.z, 1 .. 8, chosen by the wrapper where the
-// (leaf, head) pairs alone would leave SMs idle) take consecutive spans of
-// them, and each warp a span of its block's.  A warp runs alone through its
-// span: a 3-stage ring of int8 K and V rows and their scales, filled by
-// cp.async (rows are gathered through the segment table, so TMA's tiled
-// mode does not apply), and its own online softmax (m, l, acc); no block
-// barrier is taken per tile.
+// The body of bf16 q over bf16 pools (B2, B2p) and int8 pools (B5, B5p); fp32
+// q keeps seq_body.cuh's FMA body for the exactness checks.  One block of 4
+// warps per (leaf, KV head, span of the path): the leaf's live path, mapped
+// to pool rows by the segment table's prefix sums as in seq_body.cuh, is cut
+// into 16-token tiles; the blocks of a cluster (gridDim.z, 1 .. 8, chosen by
+// the wrapper where the (leaf, head) pairs alone would leave SMs idle) take
+// consecutive spans of them, and each warp a span of its block's.  A warp
+// runs alone through its span: a 3-stage ring of K and V rows (and for int8
+// their scales), filled by cp.async (rows are gathered through the segment
+// table, so TMA's tiled mode does not apply), and its own online softmax
+// (m, l, acc); no block barrier is taken per tile.
 // Both products are mma.sync m16n8k16 with the query rows on M (qpk <= 8 of
-// 16 rows live):
-// - S = Q K^T, K^T the B operand: a thread's B fragment is 4 bytes of one
-//   token's row per k16 step.  The D axis is permuted, identically in Q's
-//   A fragments (registers, loaded once), so that those 4 bytes are
-//   neighbours: thread tig's step ks reads d = (D / 4) tig + 4 ks .. + 3.
-//   The int8 codes are widened in registers (deft::hopper::widen4); each score is
-//   then times the softmax scale and the token's K scale.
-// - O = P V with P from the S accumulators (the FlashAttention-2 register
-//   reuse): P times the token's V scale, rounded to bf16, l summed over the
-//   unscaled, unrounded P (deft_tpu ops/paged_seq_attn.py:197-222).  V's
-//   B fragment pairs two tokens at one d: two rows' words are interleaved
-//   with `prmt` before widening; output column n of n-tile nt is d =
-//   (D / 8) n + nt, so one 16-byte (D 64: 8-byte) load a token row feeds
-//   every n-tile.
-// Shared memory holds int8 bytes only, rows padded by 16 bytes so the
-// fragment loads are free of bank conflicts at D = 128.  At the end each
-// warp leaves (m, l, acc) in shared memory; after a cluster barrier block r
-// merges its share of the (row, d) outputs over every warp of every block
-// of the cluster with the LSE rule of flatten_body.cuh's kernel 2, in a
-// fixed order, and writes o = acc / l, or the partial state.
+// 16 rows live), P from the S accumulators (the FlashAttention-2 register
+// reuse), P rounded to bf16 for P V.
+// - bf16 pools (B2): nothing is widened.  K's rows are S = Q K^T's B
+//   operand as they lie in shared memory (ldmatrix, four 8x8 tiles a load:
+//   8 tokens x 32 head dims), and V's rows P V's through ldmatrix.trans
+//   (16 tokens x 16 head dims a load); output column n of n-tile nt is d =
+//   8 nt + n.  Rows padded by 16 bytes keep the 8-row ldmatrix reads free of
+//   bank conflicts.  What this answers in seq_body.cuh's body: fp32 FMA
+//   loops at ~2 qpk FLOPs a byte with the tensor cores idle, 64-token tiles
+//   staged behind block barriers with no copy in flight during the products,
+//   and one block a (leaf, head) that never splits a path.
+// - int8 pools (B5): the D axis is permuted, identically in Q's A fragments
+//   (registers, loaded once), so that a thread's B fragment of S is 4 bytes
+//   of one token's row a k16 step: thread tig's step ks reads d = (D / 4) tig
+//   + 4 ks .. + 3, widened in registers (deft::hopper::widen4); each score is
+//   then times the token's K scale.  P times the token's V scale, rounded to
+//   bf16, l summed over the unscaled, unrounded P (deft_tpu
+//   ops/paged_seq_attn.py:197-222).  V's B fragment pairs two tokens at one
+//   d: two rows' words are interleaved with `prmt` before widening; output
+//   column n of n-tile nt is d = (D / 8) n + nt, so one 16-byte (D 64:
+//   8-byte) load a token row feeds every n-tile.
+// Bound on this card: bytes, each leaf re-reading its path (the shared
+// prefix's re-reads hit L2 at the main tree, whose KV of a layer fits it).
+// At the end each warp leaves (m, l, acc) in shared memory; after a cluster
+// barrier block r merges its share of the (row, d) outputs over every warp
+// of every block of the cluster with the LSE rule of flatten_body.cuh's
+// kernel 2, in a fixed order, and writes o = acc / l, or the partial state.
 namespace deft_seq_q {
 
 constexpr int kWarps = 4;
@@ -77,11 +83,12 @@ constexpr int kStages = 3;
 constexpr int kMaxCluster = 8;
 constexpr float kNeg = deft_seq::kNeg;
 
-template <int D>
+template <typename KV, int D>
 struct Layout {
-  static constexpr int P = D + 16;  // int8 row pitch
+  static constexpr bool kQ = std::is_same<KV, int8_t>::value;
+  static constexpr int P = D * static_cast<int>(sizeof(KV)) + 16;  // row pitch, bytes
   static constexpr int kRows = kTile * P;
-  static constexpr int kStage = 2 * kRows + 2 * kTile * 4;  // K, V rows, K, V scales
+  static constexpr int kStage = 2 * kRows + (kQ ? 2 * kTile * 4 : 0);  // K, V rows (scales)
   static constexpr int kRing = kWarps * kStages * kStage;
   static constexpr int kState = kWarps * 8 * (2 + D) * 4;  // m, l, acc of 8 rows a warp
   static constexpr int kBytes = kRing > kState ? kRing : kState;
@@ -102,14 +109,29 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Four 8x8 b16 tiles from shared memory, lane l addressing row l % 8 of tile
+// l / 8; .trans: each tile transposed (the B fragment of a row-major B).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
 // Start copying tile t (path tokens 16 t .. + 15, those >= total zero-
-// filled) of head h into stage st: K and V rows, then K and V scales.
-template <int D>
+// filled) of head h into stage st: K and V rows, then for int8 K and V scales.
+template <typename KV, int D>
 __device__ __forceinline__ void issue_tile(uint8_t* st, int t, int total, const int* cum,
                                            const deft_seq::SegPath& path,
-                                           const deft_seq::SeqPools<int8_t>& pools,
+                                           const deft_seq::SeqPools<KV>& pools,
                                            long long seg_base, int h, int Hkv, int lane) {
-  using L = Layout<D>;
+  using L = Layout<KV, D>;
   long long roff = -1, soff = -1;
   const int i = t * kTile + lane;
   if (lane < kTile && i < total) {
@@ -122,100 +144,36 @@ __device__ __forceinline__ void issue_tile(uint8_t* st, int t, int total, const 
     roff = pools.layer_off + ((long long)row * Hkv + h) * D;
     soff = pools.scale_off + (long long)h * pools.S + row;
   }
-  constexpr int CPR = D / 16;  // 16-byte chunks a row
+  constexpr int EPC = 16 / sizeof(KV);  // elements a 16-byte chunk
+  constexpr int CPR = D / EPC;          // chunks a row
 #pragma unroll
   for (int u = lane; u < kTile * CPR; u += 32) {
     const int tok = u / CPR, c = u % CPR;
     const long long ro = __shfl_sync(0xffffffffu, roff, tok);
-    const long long src = ro >= 0 ? ro + c * 16 : 0;
+    const long long src = ro >= 0 ? ro + c * EPC : 0;
     deft::cp_async16(st + tok * L::P + c * 16, pools.k + src, ro >= 0);
     deft::cp_async16(st + L::kRows + tok * L::P + c * 16, pools.v + src, ro >= 0);
   }
-  const long long so = __shfl_sync(0xffffffffu, soff, lane % kTile);
-  float* sc = reinterpret_cast<float*>(st + 2 * L::kRows);
-  if (lane < kTile) cp_async4(sc + lane, pools.ks + (so >= 0 ? so : 0), so >= 0);
-  else cp_async4(sc + lane, pools.vs + (so >= 0 ? so : 0), so >= 0);
+  if constexpr (L::kQ) {
+    const long long so = __shfl_sync(0xffffffffu, soff, lane % kTile);
+    float* sc = reinterpret_cast<float*>(st + 2 * L::kRows);
+    if (lane < kTile) cp_async4(sc + lane, pools.ks + (so >= 0 ? so : 0), so >= 0);
+    else cp_async4(sc + lane, pools.vs + (so >= 0 ? so : 0), so >= 0);
+  }
   cp_async_commit();
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    seq_q_mma(const __nv_bfloat16* __restrict__ q, deft_seq::SeqPools<int8_t> pools,
-              deft_seq::SegPath path, void* __restrict__ o, float* __restrict__ m_out,
-              float* __restrict__ l_out, int Hq, int Hkv, float s2) {
-  using L = Layout<D>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  int* cum = reinterpret_cast<int*>(smem_raw + L::kBytes);
-  const int leaf = blockIdx.x, h = blockIdx.y, split = blockIdx.z, splits = gridDim.z;
-  const int qpk = Hq / Hkv;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+// S = Q K^T of one tile, s[nt8] over its 8-token n-tiles.
+template <typename KV, int D>
+__device__ __forceinline__ void tile_scores(float (&s)[2][4], const uint32_t (&qa)[D / 16][2],
+                                            const uint8_t* st, int lane) {
+  using L = Layout<KV, D>;
   const int g = lane / 4, tig = lane % 4;
-  const long long seg_base = (long long)leaf * path.nseg;
-  if (warp == 0) {  // cum[j] = live tokens before segment j
-    const int* live = path.seg_live + seg_base;
-    const int* blive = path.blk_live + (long long)leaf * (path.nseg / path.spb);
-    int carry = 0;
-    if (lane == 0) cum[0] = 0;
-    for (int j0 = 0; j0 < path.nseg; j0 += 32) {
-      const int j = j0 + lane;
-      int x = (j < path.nseg && blive[j / path.spb] > 0) ? live[j] : 0;
 #pragma unroll
-      for (int d = 1; d < 32; d *= 2) {
-        const int y = __shfl_up_sync(0xffffffffu, x, d);
-        if (lane >= d) x += y;
-      }
-      if (j < path.nseg) cum[j + 1] = carry + x;
-      carry += __shfl_sync(0xffffffffu, x, 31);
-    }
-  }
-  // Q's A fragments (rows g < qpk; rows g + 8 are zero): step ks, d =
-  // (D / 4) tig + 4 ks + 0, 1 (a0) and + 2, 3 (a2)
-  uint32_t qa[D / 16][2];
-  const __nv_bfloat16* qr = q + ((long long)leaf * Hq + h * qpk + g) * D + (D / 4) * tig;
+  for (int nt8 = 0; nt8 < 2; ++nt8) {
 #pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    qa[ks][0] = g < qpk ? *reinterpret_cast<const uint32_t*>(qr + 4 * ks) : 0u;
-    qa[ks][1] = g < qpk ? *reinterpret_cast<const uint32_t*>(qr + 4 * ks + 2) : 0u;
-  }
-  __syncthreads();
-  const int total = cum[path.nseg];
-  const int tiles = (total + kTile - 1) / kTile;
-  const int b0 = tiles * split / splits, b1 = tiles * (split + 1) / splits;
-  const int w0 = b0 + (b1 - b0) * warp / kWarps, w1 = b0 + (b1 - b0) * (warp + 1) / kWarps;
-  const int n = w1 - w0;
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
-  float m = kNeg, l = 0.f;  // row g's running max (base 2) and sum
-  uint8_t* ring = smem_raw + warp * kStages * L::kStage;
-#pragma unroll
-  for (int p = 0; p < kStages - 1; ++p) {
-    if (p < n) issue_tile<D>(ring + p * L::kStage, w0 + p, total, cum, path, pools, seg_base, h,
-                             Hkv, lane);
-    else cp_async_commit();
-  }
-  for (int it = 0; it < n; ++it) {
-    __syncwarp();  // every lane is done with the stage refilled next
-    const int nx = it + kStages - 1;
-    if (nx < n) issue_tile<D>(ring + nx % kStages * L::kStage, w0 + nx, total, cum, path, pools,
-                              seg_base, h, Hkv, lane);
-    else cp_async_commit();
-    cp_async_wait<kStages - 1>();
-    __syncwarp();  // every lane's copies of tile it have landed
-    const uint8_t* st = ring + it % kStages * L::kStage;
-    const float* ksc = reinterpret_cast<const float*>(st + 2 * L::kRows);
-    const float* vsc = ksc + kTile;
-    const int i0 = (w0 + it) * kTile;
-
-    // S = Q K^T over the tile's two 8-token n-tiles
-    float s[2][4];
-#pragma unroll
-    for (int nt8 = 0; nt8 < 2; ++nt8) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[nt8][i] = 0.f;
+    for (int i = 0; i < 4; ++i) s[nt8][i] = 0.f;
+    if constexpr (L::kQ) {
       const uint8_t* kr = st + (nt8 * 8 + g) * L::P + (D / 4) * tig;
       uint32_t kw[D / 16];
 #pragma unroll
@@ -233,43 +191,30 @@ __global__ void __launch_bounds__(kThreads)
         const uint32_t a[4] = {qa[ks][0], 0u, qa[ks][1], 0u};
         deft::mma_bf16(s[nt8], a, b0w, b1w);
       }
-    }
-    // online softmax of row g over tokens nt8 * 8 + 2 tig + e
-    float mx = kNeg;
+    } else {
+      // lane l: token nt8 * 8 + l % 8, head dims 8 (l / 8) .. + 7 of each 32
+      const uint8_t* kr = st + (nt8 * 8 + lane % 8) * L::P + (lane / 8) * 16;
 #pragma unroll
-    for (int nt8 = 0; nt8 < 2; ++nt8)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int tok = nt8 * 8 + 2 * tig + e;
-        const float v = i0 + tok < total ? s[nt8][e] * s2 * ksc[tok] : kNeg;
-        s[nt8][e] = v;
-        mx = fmaxf(mx, v);
+      for (int kp = 0; kp < D / 32; ++kp) {
+        uint32_t b[4];
+        ldsm_x4(b, kr + 64 * kp);
+        const uint32_t a0[4] = {qa[2 * kp][0], 0u, qa[2 * kp][1], 0u};
+        const uint32_t a1[4] = {qa[2 * kp + 1][0], 0u, qa[2 * kp + 1][1], 0u};
+        deft::mma_bf16(s[nt8], a0, b[0], b[1]);
+        deft::mma_bf16(s[nt8], a1, b[2], b[3]);
       }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(fmaxf(m, mx), deft_seq::kMClamp);
-    const float alpha = exp2f(m - m_new);
-    float sum = 0.f, pv[2][2];
-#pragma unroll
-    for (int nt8 = 0; nt8 < 2; ++nt8)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float p = exp2f(s[nt8][e] - m_new);
-        sum += p;
-        pv[nt8][e] = p * vsc[nt8 * 8 + 2 * tig + e];
-      }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    l = l * alpha + sum;
-    m = m_new;
-    const uint32_t pa[4] = {deft::pack_bf16(pv[0][0], pv[0][1]), 0u,
-                            deft::pack_bf16(pv[1][0], pv[1][1]), 0u};
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-      acc[nt][0] *= alpha;
-      acc[nt][1] *= alpha;
     }
-    // O += P V: tokens 2 tig, 2 tig + 1 (b0) and + 8, + 9 (b1), d = (D / 8) g + nt
+  }
+}
+
+// O += P V of one tile, pa P's A fragment (rows g < qpk).
+template <typename KV, int D>
+__device__ __forceinline__ void tile_pv(float (&acc)[D / 8][4], const uint32_t (&pa)[4],
+                                        const uint8_t* st, int lane) {
+  using L = Layout<KV, D>;
+  const int g = lane / 4, tig = lane % 4;
+  if constexpr (L::kQ) {
+    // tokens 2 tig, 2 tig + 1 (b0) and + 8, + 9 (b1), d = (D / 8) g + nt
     const uint8_t* vr = st + L::kRows + (D / 8) * g;
     uint32_t vw[4][D / 32];
 #pragma unroll
@@ -297,6 +242,135 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < 4; ++j) deft::mma_bf16(acc[4 * u + j], pa, b0w[j], b1w[j]);
     }
+  } else {
+    // lane l: token l % 8 + 8 ((l / 8) & 1), head dims 8 (l / 16) .. + 7 of each 16
+    const uint8_t* vr =
+        st + L::kRows + (lane % 8 + 8 * ((lane / 8) & 1)) * L::P + (lane / 16) * 16;
+#pragma unroll
+    for (int np = 0; np < D / 16; ++np) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, vr + 32 * np);
+      deft::mma_bf16(acc[2 * np], pa, b[0], b[1]);
+      deft::mma_bf16(acc[2 * np + 1], pa, b[2], b[3]);
+    }
+  }
+}
+
+template <typename KV, int D>
+__global__ void __launch_bounds__(kThreads)
+    seq_q_mma(const __nv_bfloat16* __restrict__ q, deft_seq::SeqPools<KV> pools,
+              deft_seq::SegPath path, void* __restrict__ o, float* __restrict__ m_out,
+              float* __restrict__ l_out, int Hq, int Hkv, float s2) {
+  using L = Layout<KV, D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int* cum = reinterpret_cast<int*>(smem_raw + L::kBytes);
+  const int leaf = blockIdx.x, h = blockIdx.y, split = blockIdx.z, splits = gridDim.z;
+  const int qpk = Hq / Hkv;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, tig = lane % 4;
+  const long long seg_base = (long long)leaf * path.nseg;
+  if (warp == 0) {  // cum[j] = live tokens before segment j
+    const int* live = path.seg_live + seg_base;
+    const int* blive = path.blk_live + (long long)leaf * (path.nseg / path.spb);
+    int carry = 0;
+    if (lane == 0) cum[0] = 0;
+    for (int j0 = 0; j0 < path.nseg; j0 += 32) {
+      const int j = j0 + lane;
+      int x = (j < path.nseg && blive[j / path.spb] > 0) ? live[j] : 0;
+#pragma unroll
+      for (int d = 1; d < 32; d *= 2) {
+        const int y = __shfl_up_sync(0xffffffffu, x, d);
+        if (lane >= d) x += y;
+      }
+      if (j < path.nseg) cum[j + 1] = carry + x;
+      carry += __shfl_sync(0xffffffffu, x, 31);
+    }
+  }
+  // Q's A fragments (rows g < qpk; rows g + 8 are zero), step ks: int8,
+  // d = (D / 4) tig + 4 ks + 0, 1 (a0) and + 2, 3 (a2); bf16, d = 16 ks +
+  // 2 tig + 0, 1 (a0) and + 8, 9 (a2)
+  uint32_t qa[D / 16][2];
+  const __nv_bfloat16* qr = q + ((long long)leaf * Hq + h * qpk + g) * D +
+                            (L::kQ ? (D / 4) * tig : 2 * tig);
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const int o0 = L::kQ ? 4 * ks : 16 * ks, o1 = L::kQ ? 4 * ks + 2 : 16 * ks + 8;
+    qa[ks][0] = g < qpk ? *reinterpret_cast<const uint32_t*>(qr + o0) : 0u;
+    qa[ks][1] = g < qpk ? *reinterpret_cast<const uint32_t*>(qr + o1) : 0u;
+  }
+  __syncthreads();
+  const int total = cum[path.nseg];
+  const int tiles = (total + kTile - 1) / kTile;
+  const int b0 = tiles * split / splits, b1 = tiles * (split + 1) / splits;
+  const int w0 = b0 + (b1 - b0) * warp / kWarps, w1 = b0 + (b1 - b0) * (warp + 1) / kWarps;
+  const int n = w1 - w0;
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+  float m = kNeg, l = 0.f;  // row g's running max (base 2) and sum
+  uint8_t* ring = smem_raw + warp * kStages * L::kStage;
+#pragma unroll
+  for (int p = 0; p < kStages - 1; ++p) {
+    if (p < n) issue_tile<KV, D>(ring + p * L::kStage, w0 + p, total, cum, path, pools,
+                                 seg_base, h, Hkv, lane);
+    else cp_async_commit();
+  }
+  for (int it = 0; it < n; ++it) {
+    __syncwarp();  // every lane is done with the stage refilled next
+    const int nx = it + kStages - 1;
+    if (nx < n) issue_tile<KV, D>(ring + nx % kStages * L::kStage, w0 + nx, total, cum, path,
+                                  pools, seg_base, h, Hkv, lane);
+    else cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncwarp();  // every lane's copies of tile it have landed
+    const uint8_t* st = ring + it % kStages * L::kStage;
+    const float* ksc = reinterpret_cast<const float*>(st + 2 * L::kRows);
+    const float* vsc = ksc + kTile;
+    const int i0 = (w0 + it) * kTile;
+
+    float s[2][4];
+    tile_scores<KV, D>(s, qa, st, lane);
+    // online softmax of row g over tokens nt8 * 8 + 2 tig + e
+    float mx = kNeg;
+#pragma unroll
+    for (int nt8 = 0; nt8 < 2; ++nt8)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int tok = nt8 * 8 + 2 * tig + e;
+        float v = s[nt8][e] * s2;
+        if constexpr (L::kQ) v *= ksc[tok];
+        v = i0 + tok < total ? v : kNeg;
+        s[nt8][e] = v;
+        mx = fmaxf(mx, v);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(fmaxf(m, mx), deft_seq::kMClamp);
+    const float alpha = exp2f(m - m_new);
+    float sum = 0.f, pv[2][2];
+#pragma unroll
+    for (int nt8 = 0; nt8 < 2; ++nt8)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = exp2f(s[nt8][e] - m_new);
+        sum += p;
+        pv[nt8][e] = L::kQ ? p * vsc[nt8 * 8 + 2 * tig + e] : p;
+      }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    l = l * alpha + sum;
+    m = m_new;
+    const uint32_t pa[4] = {deft::pack_bf16(pv[0][0], pv[0][1]), 0u,
+                            deft::pack_bf16(pv[1][0], pv[1][1]), 0u};
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      acc[nt][0] *= alpha;
+      acc[nt][1] *= alpha;
+    }
+    tile_pv<KV, D>(acc, pa, st, lane);
   }
   cp_async_wait<0>();
 
@@ -312,8 +386,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int nt = 0; nt < D / 8; ++nt)
 #pragma unroll
-    for (int e = 0; e < 2; ++e)
-      sm_acc[(warp * 8 + g) * D + (D / 8) * (2 * tig + e) + nt] = acc[nt][e];
+    for (int e = 0; e < 2; ++e) {
+      const int d = L::kQ ? (D / 8) * (2 * tig + e) + nt : 8 * nt + 2 * tig + e;
+      sm_acc[(warp * 8 + g) * D + d] = acc[nt][e];
+    }
 
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
@@ -355,12 +431,12 @@ __global__ void __launch_bounds__(kThreads)
   cluster.sync();  // no block leaves while another reads its shared memory
 }
 
-template <int D>
-cudaError_t launch(const void* q, deft_seq::SeqPools<int8_t> pools, deft_seq::SegPath path,
+template <typename KV, int D>
+cudaError_t launch(const void* q, deft_seq::SeqPools<KV> pools, deft_seq::SegPath path,
                    void* o, float* m_out, float* l_out, int R, int Hq, int Hkv, int splits,
                    float scale, cudaStream_t stream) {
-  auto kernel = seq_q_mma<D>;
-  const size_t smem = Layout<D>::kBytes + sizeof(int) * (path.nseg + 1);
+  auto kernel = seq_q_mma<KV, D>;
+  const size_t smem = Layout<KV, D>::kBytes + sizeof(int) * (path.nseg + 1);
   if (smem > 48 * 1024) {
     const cudaError_t attr = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -384,6 +460,21 @@ cudaError_t launch(const void* q, deft_seq::SeqPools<int8_t> pools, deft_seq::Se
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// Instantiate launch for head_dim (64 or 128).
+template <typename KV>
+cudaError_t dispatch(const void* q, deft_seq::SeqPools<KV> pools, deft_seq::SegPath path,
+                     void* o, float* m_out, float* l_out, int R, int Hq, int Hkv, int D,
+                     int splits, float scale, void* stream) {
+  if (R <= 0 || Hkv <= 0 || Hq % Hkv || Hq / Hkv > 8 || !m_out != !l_out)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 128)
+    return launch<KV, 128>(q, pools, path, o, m_out, l_out, R, Hq, Hkv, splits, scale, st);
+  if (D == 64)
+    return launch<KV, 64>(q, pools, path, o, m_out, l_out, R, Hq, Hkv, splits, scale, st);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace deft_seq_q
 
 namespace {
@@ -402,22 +493,20 @@ int paged_seq_entry(bool int8, const void* q, const void* k_pool, const void* v_
                     int splits, int dtype, float scale, void* stream) {
   if (spb <= 0 || nseg % spb || int8 != (k_scale && v_scale) ||
       (!int8 && (k_scale || v_scale)) || splits < 1 ||
-      splits > (int8 && dtype == 1 ? deft_seq_q::kMaxCluster : 1))
+      splits > (dtype == 1 ? deft_seq_q::kMaxCluster : 1))
     return cudaErrorInvalidValue;
   const deft_seq::SegPath path{seg_src, seg_off, seg_live, blk_live, nseg, spb};
-  if (int8 && dtype == 1) {
-    if (R <= 0 || Hkv <= 0 || Hq % Hkv || Hq / Hkv > 8 || !m_o != !l_o)
-      return cudaErrorInvalidValue;
-    const deft_seq::SeqPools<int8_t> p{static_cast<const int8_t*>(k_pool),
-                                       static_cast<const int8_t*>(v_pool), k_scale, v_scale,
-                                       layer_off, scale_off, S};
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (D == 128)
-      return deft_seq_q::launch<128>(q, p, path, o, m_o, l_o, R, Hq, Hkv, splits, scale, st);
-    if (D == 64)
-      return deft_seq_q::launch<64>(q, p, path, o, m_o, l_o, R, Hq, Hkv, splits, scale, st);
-    return cudaErrorInvalidValue;
-  }
+  if (dtype == 1 && int8)
+    return deft_seq_q::dispatch<int8_t>(
+        q, {static_cast<const int8_t*>(k_pool), static_cast<const int8_t*>(v_pool), k_scale,
+            v_scale, layer_off, scale_off, S},
+        path, o, m_o, l_o, R, Hq, Hkv, D, splits, scale, stream);
+  if (dtype == 1)
+    return deft_seq_q::dispatch<__nv_bfloat16>(
+        q,
+        {static_cast<const __nv_bfloat16*>(k_pool), static_cast<const __nv_bfloat16*>(v_pool),
+         nullptr, nullptr, layer_off, 0, 0},
+        path, o, m_o, l_o, R, Hq, Hkv, D, splits, scale, stream);
   if (int8)
     return deft_seq::dispatch_seq<int8_t, int8_t>(
         q, k_pool, v_pool, k_scale, v_scale, o, m_o, l_o, layer_off, scale_off, S, path,
@@ -435,7 +524,7 @@ int paged_seq_entry(bool int8, const void* q, const void* k_pool, const void* v_
 // B5's scale pools (L, Hkv, S) fp32 with scale_off = li * Hkv * S (B2: null,
 // 0, and S unread); seg_src/off/live (R * nseg,); blk_live (R * nseg / spb,).
 // splits: the blocks of a cluster that share each (leaf, head)'s path, 1 ..
-// 8 for B5's body over bf16 q, else 1.  Returns a cudaError_t code.
+// 8 over bf16 q (the tensor-core body), else 1.  Returns a cudaError_t code.
 extern "C" int deft_paged_seq(const void* q, const void* k_pool, const void* v_pool,
                               const float* k_scale, const float* v_scale, void* o,
                               long long layer_off, long long scale_off, int S,

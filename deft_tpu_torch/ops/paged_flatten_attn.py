@@ -142,6 +142,21 @@ def num_spans(num_blocks: int, kv_bytes: int, state_bytes: int) -> int:
     return max(1, min(num_blocks, kv_bytes // max(4 * state_bytes, 1)))
 
 
+def q_block_rows(rq: int) -> int:
+    """Folded rows a block of B4's body over bf16 q takes (csrc/
+    paged_flatten.cu, deft_flat_q::dispatch): 128 (8 warps) where a KV head
+    has more than 64 rows, else 64."""
+    return 128 if rq > 64 else 64
+
+
+def q_spans(rq: int, Hkv: int, nb: int, block_len: int, sms: int) -> int:
+    """Split-KV span count of B4's body over bf16 q: as many spans as fill
+    the SMs with one block each next to the (row tile, KV head) pairs, and
+    no more than the plan's 64-token tiles, so no span is empty."""
+    pairs = -(-rq // q_block_rows(rq)) * Hkv
+    return max(1, min(nb * (block_len // 64), sms // pairs))
+
+
 def check_pools(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                 k_scale: Optional[torch.Tensor],
                 v_scale: Optional[torch.Tensor]) -> int:
@@ -175,7 +190,9 @@ def launch_flatten(source: str, entry: str, q, k_pool, v_pool, k_scale,
                    block_len, seg_len, partial: bool = False):
     """Launch a flatten kernel of csrc/<source>.cu (split-KV partials, then
     the merge) on q (R, Hq, D); ``rows`` is the segment table (paged plans,
-    seg_len > 0) or one pool index a token (seg_len 0).  Returns (R, Hq, D),
+    seg_len > 0) or one pool index a token (seg_len 0).  Spans: B4's body
+    over bf16 q (int8 pools, paged) takes ``q_spans``, the others
+    ``num_spans``.  Returns (R, Hq, D),
     or for a ``partial`` entry the state (acc (Hkv, R*qpk, D), m, l
     (Hkv, R*qpk)), fp32."""
     R, Hq, D = q.shape
@@ -196,8 +213,12 @@ def launch_flatten(source: str, entry: str, q, k_pool, v_pool, k_scale,
                          blk_lo, blk_hi)
     q = q.contiguous()
     Rq = R * (Hq // Hkv)
-    kv_bytes = T * HD * 2 * k_pool.element_size() + (T * Hkv * 8 if scales else 0)
-    spans = num_spans(nb, kv_bytes, Hkv * Rq * (D + 2) * 4)
+    if scales and q.dtype == torch.bfloat16 and seg_len:  # B4's body (deft_flat_q)
+        spans = q_spans(Rq, Hkv, nb, block_len, _cuda.sm_count(q.device.index))
+        tok_lo, tok_hi = _cuda.aligned16(tok_lo), _cuda.aligned16(tok_hi)
+    else:
+        kv_bytes = T * HD * 2 * k_pool.element_size() + (T * Hkv * 8 if scales else 0)
+        spans = num_spans(nb, kv_bytes, Hkv * Rq * (D + 2) * 4)
     acc = torch.empty((spans, Hkv, Rq, D), dtype=torch.float32, device=q.device)
     m = torch.empty((spans, Hkv, Rq), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)

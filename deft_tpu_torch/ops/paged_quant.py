@@ -4,9 +4,12 @@ Port of deft_tpu/ops/paged_quant.py:305 (paged_flatten_attention_q, the
 Pallas kernel _paged_q_kernel :32) and :338 (paged_flatten_attn_q_pallas).
 The pools hold int8 codes, (L, S, Hkv*D), with per-(token, head) fp32 scales
 stored head-major, (L, Hkv, S); a row dequantises to codes * scale.  The
-Hopper kernel is B1's over an int8 KV type (csrc/paged_flatten.cu, entry
-deft_paged_flatten_q): scores are scaled by the K scales after the product,
-P by the V scales before PV (deft_tpu paged_quant.py:150-177).
+Hopper kernel is csrc/paged_flatten.cu's entry deft_paged_flatten_q: over
+bf16 q its own body (deft_flat_q: the int8 codes widened in registers into
+mma.sync fragments, 128 folded rows a block, a cp.async ring, spans from the
+SM count, ``q_spans``), over fp32 q B1's over an int8 KV type; scores are
+scaled by the K scales after the product, P by the V scales before PV
+(deft_tpu paged_quant.py:150-177).
 ``paged_flatten_attention_q_plain`` is the same function in plain torch,
 which the wrapper runs for CPU tensors only.  The plan is B1's.
 

@@ -9,9 +9,9 @@ csrc/paged_seq.cu's two entries; ``paged_seq_attention_plain`` and
 ``paged_seq_attention_q_plain`` are the same functions in plain torch over
 the same plan arrays, which the wrappers run for CPU tensors only.
 ``launch_seq`` and ``path_attention_plain`` also serve B7
-(ops/seq_attn.py, plans that are not segment-aligned).  Over bf16 q, B5
-and B5p run a tensor-core body that may split each path over the blocks of
-a cluster (``seq_splits``); B2, B2p and fp32 q keep one block a (leaf,
+(ops/seq_attn.py, plans that are not segment-aligned).  Over bf16 q, B2,
+B2p, B5 and B5p run a tensor-core body that may split each path over the
+blocks of a cluster (``seq_splits``); fp32 q keeps one block a (leaf,
 head).
 
 B2p and B5p, ``paged_seq_attention_partial`` and
@@ -150,19 +150,22 @@ def launch_seq(source: str, entry: str, argtypes: list, q, k_pool, v_pool,
 #  blk_live, R, Hq, Hkv, D, nseg, spb, splits, dtype, scale, stream)
 _PAGED_SEQ_ARGS = [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _P, _P, _P, _P,
                    _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
-# B5's tensor-core body: blocks a cluster may split one (leaf, head)'s path
-# over, and how many of its blocks an SM holds (57 KB of shared memory each)
+# the tensor-core body over bf16 q: blocks a cluster may split one (leaf,
+# head)'s path over, and how many of its blocks an SM holds, by pool type:
+# int8 (B5) 57 KB of shared memory a block, bf16 (B2) 104 KB at D = 128
 _MAX_SPLITS = 8
-_BLOCKS_PER_SM = 3
+_BLOCKS_PER_SM = {"int8": 3, "bfloat16": 2}
 
 
-def seq_splits(R: int, Hkv: int, sms: int) -> int:
-    """Blocks of a cluster that share each (leaf, KV head)'s path in B5's
-    tensor-core body: enough that the R * Hkv pairs fill the SMs' resident
-    blocks, at most 8; 1 where the pairs alone fill them (the 8B main tree,
-    64 x 8 pairs).  Each block takes a contiguous share of the path's
-    16-token tiles, computed on the device from the segment table."""
-    return max(1, min(_MAX_SPLITS, -(-_BLOCKS_PER_SM * sms // max(1, R * Hkv))))
+def seq_splits(R: int, Hkv: int, sms: int, int8: bool = True) -> int:
+    """Blocks of a cluster that share each (leaf, KV head)'s path in the
+    tensor-core body (bf16 q; int8 pools, else bf16): enough that the R *
+    Hkv pairs fill the SMs' resident blocks, at most 8; 1 where the pairs
+    alone fill them (the 8B main tree, 64 x 8 pairs).  Each block takes a
+    contiguous share of the path's 16-token tiles, computed on the device
+    from the segment table."""
+    per_sm = _BLOCKS_PER_SM["int8" if int8 else "bfloat16"]
+    return max(1, min(_MAX_SPLITS, -(-per_sm * sms // max(1, R * Hkv))))
 
 
 # the partial entries: acc, m, l where the others take o
@@ -172,10 +175,10 @@ _PAGED_SEQ_PARTIAL_ARGS = _PAGED_SEQ_ARGS[:6] + [_P, _P] + _PAGED_SEQ_ARGS[6:]
 def _launch_paged(entry, q, k_pool, v_pool, k_scale, v_scale, li, seg_src,
                   seg_off, seg_live, blk_live, scale, partial=False):
     R = q.shape[0]
-    splits = 1  # only B5's body over bf16 q splits paths
-    if k_scale is not None and q.dtype == torch.bfloat16:
+    splits = 1  # only the tensor-core body (bf16 q) splits paths
+    if q.dtype == torch.bfloat16:
         splits = seq_splits(R, k_pool.shape[-1] // q.shape[-1],
-                            _cuda.sm_count(q.device.index))
+                            _cuda.sm_count(q.device.index), k_scale is not None)
     nseg = seg_src.shape[0] // R
     nb = blk_live.shape[0] // R
     _cuda.require(nseg * R == seg_src.shape[0] and nb * R == blk_live.shape[0]
