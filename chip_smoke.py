@@ -8,8 +8,9 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
 result line):
   1. card:    nvidia-smi's name and power limit, torch's device name;
   2. build:   nvcc builds every kernel from csrc/, one process per source;
-              the wgmma bodies must hold HGMMA, the mma.sync bodies of B2,
-              B4 and B5 HMMA (cuobjdump's SASS);
+              the wgmma bodies (B1's among them) must hold HGMMA, the
+              mma.sync bodies of B2, B4 and B5 HMMA (cuobjdump's SASS);
+              ptxas's register and spill lines of B1's body;
   3. kernels: each kernel against its plain torch version on the card, on the
               shapes its path gives it (Llama-3.1-8B heads and matmuls, B10
               at Mixtral-8x7B's prefill; the partial entries B1p, B4p, B2p
@@ -26,8 +27,10 @@ result line):
               rows, m where a row saw a token); the sp merge of B1p's two
               halves of the main plan against B1 over the whole; the edges
               of the tensor-core bodies (b9_edges, seq_edges for B2 and B5,
-              b4_edges, wgmma_edges), each with a fault control through the
-              plain version that must read above the tolerance;
+              b4_edges, b1_edges, wgmma_edges), each with a fault control
+              through the plain version that must read above the tolerance;
+              b1_edges also prints the grid B1 and B1p take at their path
+              shapes;
   4. main:    the 8B model (random bf16 weights from a CUDA torch.Generator,
               all 32 layers) serves Simple_Tree few-shot, width 50, prompt
               4000, 64 generated tokens, block_len 256, in flatten then seq
@@ -102,7 +105,9 @@ result line):
               below MOE_LIMIT, then 8 decode tokens;
  13. timing:  CUDA-event times of each kernel, its plain version and, where
               one PyTorch call computes the same function, that call, at its
-              path's shapes, beside the least time the card could take.
+              path's shapes, beside the least time the card could take;
+              B1, B1p, B4 and B4p also with one span and with a warm L2
+              (flat_q_tile_cost).
 Each path's counts are set to 0 just before it and read just after (the
 short path's two runs each, summed; the batch path's two engine runs each).
 Then one JSON line of kernels, the card's nvidia-smi line, and the last
@@ -611,11 +616,30 @@ def sass_count(name: str, opcode: str, function: str = "") -> int:
         if function else sass.count(opcode)
 
 
-# the tensor-core bodies over bf16 q of the decode kernels on mma.sync:
-# label -> (library, the mangled-name fragment of its kernels)
-MMA_BODIES = {"B2/B2p (deft_seq_q, bf16 KV)": ("paged_seq", "seq_q_mmaI13__nv_bfloat16"),
-              "B5/B5p (deft_seq_q, int8 KV)": ("paged_seq", "seq_q_mmaIa"),
-              "B4/B4p (deft_flat_q)": ("paged_flatten", "flatten_q_mma")}
+# the tensor-core bodies over bf16 q of the decode kernels: label -> (library,
+# the mangled-name fragment of its kernels, the SASS opcode it must hold:
+# HMMA for mma.sync, HGMMA for wgmma)
+MMA_BODIES = {"B2/B2p (deft_seq_q, bf16 KV)": ("paged_seq", "seq_q_mmaI13__nv_bfloat16",
+                                                "HMMA"),
+              "B5/B5p (deft_seq_q, int8 KV)": ("paged_seq", "seq_q_mmaIa", "HMMA"),
+              "B1/B1p (deft_flat_q, bf16 KV)": ("paged_flatten",
+                                                "flatten_q_mmaI13__nv_bfloat16", "HGMMA"),
+              "B4/B4p (deft_flat_q, int8 KV)": ("paged_flatten", "flatten_q_mmaIa", "HMMA")}
+
+
+def ptxas_lines(name: str, function: str) -> list:
+    """ptxas -v's register and spill lines of the kernels of csrc/<name>.cu
+    whose mangled names contain ``function``, each behind its kernel's
+    name."""
+    from deft_tpu_torch.ops import _cuda
+
+    out, current = [], None
+    for line in _cuda.build_log.get(name, "").splitlines():
+        if "Compiling entry function" in line:
+            current = line.split("'")[1] if "'" in line else line
+        elif current and function in current and ("registers" in line or "spill" in line):
+            out.append(f"{current}: {line.strip()}")
+    return out
 
 
 def phase_build():
@@ -632,19 +656,22 @@ def phase_build():
         for line in log.splitlines():  # ptxas serialising wgmma costs speed
             if "wgmma" in line:
                 print(f"[build] {name}: {line.strip()}")
-    # the bf16 bodies of B3/B8, B10 and B9 run on wgmma (HGMMA in their
+    # the bf16 bodies of B3/B8, B10, B9 and B1 run on wgmma (HGMMA in their
     # SASS), B2's, B4's and B5's over bf16 q on mma.sync (HMMA)
     hgmma = {name: sass_count(name, "HGMMA") for name in _cuda.SOURCES}
     hmma = {name: sass_count(name, "HMMA") for name in _cuda.SOURCES}
     print(f"[build] HGMMA instructions by library: {hgmma}", flush=True)
     print(f"[build] HMMA instructions by library: {hmma}", flush=True)
-    for name in ("gmm", "prefill", "int8_matmul"):
+    for name in ("gmm", "prefill", "int8_matmul", "paged_flatten"):
         check(hgmma[name] > 0, f"the {name} library holds no HGMMA instruction")
     check(hmma["paged_seq"] > 0, "the paged_seq library holds no HMMA instruction")
-    bodies = {label: sass_count(lib, "HMMA", fn) for label, (lib, fn) in MMA_BODIES.items()}
-    print(f"[build] HMMA instructions by body: {bodies}", flush=True)
-    for label, n in bodies.items():
-        check(n > 0, f"the body of {label} holds no HMMA instruction")
+    bodies = {label: (op, sass_count(lib, op, fn))
+              for label, (lib, fn, op) in MMA_BODIES.items()}
+    print(f"[build] tensor-core instructions by body: {bodies}", flush=True)
+    for label, (op, n) in bodies.items():
+        check(n > 0, f"the body of {label} holds no {op} instruction")
+    for line in ptxas_lines(*MMA_BODIES["B1/B1p (deft_flat_q, bf16 KV)"][:2]):
+        print(f"[build] B1/B1p body: {line}", flush=True)
 
 
 def phase_kernels(dev, shapes):
@@ -803,6 +830,7 @@ def phase_kernels(dev, shapes):
     seq_edges(dev, gen, int8=True)  # B5, B5p
     seq_edges(dev, gen, int8=False)  # B2, B2p
     b4_edges(dev, gen)
+    b1_edges(dev, gen, shapes)
     return errs
 
 
@@ -1083,22 +1111,185 @@ def b4_edges(dev, gen):
                             wargs, tol, plan.n_leaves, qpk)
                     if seg_len == 128 and qpk == 4 and D == 128 and dt == torch.bfloat16:
                         control = (args, plan, spans)
-    # the control: span 0 of row tile 0 hidden from the plain version (its
-    # tokens' intervals emptied, FULL blocks spelled out as intervals)
+    # the control: span 0 of row tile 0 hidden from the plain version
     args, plan, spans = control
     named = named_args("paged_flatten_q", args)
     got = fns["paged_flatten_q"][0](*args)
     hidden = torch.from_numpy(b4_span_tokens(named, plan.l_pad, 4, spans, 0)).to(dev)
-    lo, hi = pf.leaf_intervals(named["tok_lo"], named["tok_hi"], named["blk_lo"],
-                               named["blk_hi"], named["block_len"], plan.l_pad)
-    lo, hi = lo.clone(), hi.clone()
-    lo[hidden] = 0
-    hi[hidden] = 0
-    named.update(tok_lo=lo, tok_hi=hi, blk_lo=torch.zeros_like(named["blk_lo"]),
-                 blk_hi=torch.full_like(named["blk_hi"], plan.l_pad))
     rel_err_control("paged_flatten_q", f"span 0 of {spans} ({hidden.numel()} tokens) "
                     "hidden", got[:plan.n_leaves],
-                    fns["paged_flatten_q"][1](**named)[:plan.n_leaves], TOL["bfloat16"])
+                    fns["paged_flatten_q"][1](**hidden_plan(named, hidden, plan.l_pad))
+                    [:plan.n_leaves], TOL["bfloat16"])
+
+
+def hidden_plan(named, tokens, R):
+    """The plan arguments ``named`` with ``tokens`` (plan token positions)
+    hidden from every row: their intervals emptied, FULL blocks spelled out
+    as intervals."""
+    import torch
+    from deft_tpu_torch.ops import paged_flatten_attn as pf
+
+    lo, hi = pf.leaf_intervals(named["tok_lo"], named["tok_hi"], named["blk_lo"],
+                               named["blk_hi"], named["block_len"], R)
+    lo, hi = lo.clone(), hi.clone()
+    lo[tokens] = 0
+    hi[tokens] = 0
+    return dict(named, tok_lo=lo, tok_hi=hi, blk_lo=torch.zeros_like(named["blk_lo"]),
+                blk_hi=torch.full_like(named["blk_hi"], R))
+
+
+def partial_out(state):
+    """acc / l of a partial state (0 where l = 0), to hold two states'
+    outputs to each other."""
+    acc, _, l = state
+    return acc / l.clamp_min(1e-30)[..., None] * (l > 0)[..., None]
+
+
+def b1_grids(dev, shapes):
+    """The grid B1 and B1p take at their path shapes; returns {name: spans}."""
+    from deft_tpu_torch.ops import _cuda
+    from deft_tpu_torch.ops import paged_flatten_attn as pf
+
+    sms, out = _cuda.sm_count(dev.index), {}
+    for name in ("paged_flatten", "paged_flatten_partial"):
+        a = named_args(name, shapes[name][0][2])
+        R, Hq, D = a["q"].shape
+        Hkv = a["k_pool"].shape[-1] // D
+        rq, nb = R * Hq // Hkv, a["blk_lo"].shape[0]
+        rb = pf.q_block_rows(rq)
+        spans = out[name] = pf.q_spans(rq, Hkv, nb, a["block_len"], sms)
+        print(f"[b1] {name} grid: {-(-rq // rb)} row tiles of {rb} folded rows x {Hkv} KV "
+              f"heads x {spans} spans = {-(-rq // rb) * Hkv * spans} blocks of {rb // 16} "
+              f"warps ({sms} SMs) over {nb} plan blocks of {a['block_len']} tokens, "
+              f"seg_len {a['seg_len']}, then the merge kernel", flush=True)
+    return out
+
+
+def b1_edges(dev, gen, shapes):
+    """B1 and B1p over bf16 q and bf16 pools (deft_flat_q's bf16 instance)
+    against their plain versions, bf16, tolerance 2e-2: the width-40 tree
+    over the 4000-token prompt (FULL prefix blocks, few-leaf suffix blocks,
+    a dead bucket tail; at qpk 4 and 8 two or more row tiles) at seg_len 32,
+    64 and 256, qpk 1, 4 and 8, D 64 and 128, B1p also on windows of the
+    plan's first 15 and 21 blocks; 1 span and twice the rule's spans,
+    forced, at seg_len 64, qpk 4, D 128.  Controls through the plain
+    version: span 0 of the first row tile hidden; a 17-token path (a
+    16-token prompt and the leaf's token) with its last token hidden; the
+    last span's tokens left out of B1p's merged state at the sharded path
+    shape."""
+    import torch
+    from deft_tpu_torch.ops import _cuda
+    from deft_tpu_torch.ops import paged_flatten_attn as pf
+    from deft_tpu_torch.plan import build_flatten_plan
+
+    fns = wrappers()
+    tol = TOL["bfloat16"]
+    grids = b1_grids(dev, shapes)
+    tree = grow_tree(PROMPT_LEN, 40, 12, 16384, np.random.default_rng(SEED + 5))
+    Hkv, S = 8, tree.token_to_kv_pool.size
+
+    def run(name, label, args, leaves, qpk):
+        got = fns[name][0](*args)
+        torch.cuda.synchronize()
+        want = fns[name][1](*args)
+        if name.endswith("_partial"):  # folded rows; m where a row saw a token
+            rows = (slice(None), slice(0, leaves * qpk))
+            seen = want[2][rows] > 0
+            pairs = [(got[0][rows], want[0][rows]), (got[2][rows], want[2][rows]),
+                     (got[1][rows][seen], want[1][rows][seen])]
+            e = max(rel_err(g, w) for g, w in pairs)
+            ok = all(bool(torch.isfinite(t).all()) for t in got)
+        else:
+            e = rel_err(got[:leaves], want[:leaves])
+            ok = bool(torch.isfinite(got[:leaves]).all())
+        print(f"[b1] {name} {label}: rel err {e:.3e}, tol {tol:.0e}", flush=True)
+        check(e < tol and ok, f"{name} {label} disagrees with its plain version: {e}")
+        return got
+
+    control = None
+    for seg_len in (32, 64, 256):
+        block_len = max(128, seg_len)
+        for qpk in (1, 4, 8):
+            plan = build_flatten_plan(tree, q_per_kv=qpk, block_len=block_len,
+                                      min_token_bucket=1024, seg_len=(seg_len,),
+                                      waste_limit=64.0)
+            full = plan.blk_lo < -(1 << 20)
+            check(plan.paged and plan.seg_len == seg_len and full.any()
+                  and (~full & (plan.blk_lo >= plan.blk_hi)).any(),
+                  f"b1 edge plan at seg_len {seg_len} lacks FULL or dead blocks")
+            nb, nseg = len(plan.blk_lo), block_len // seg_len
+            for D in (64, 128):
+                pools = [torch.randn((1, S, Hkv * D), generator=gen, device=dev)
+                         .to(torch.bfloat16) for _ in range(2)]
+                q = torch.randn((plan.l_pad, qpk * Hkv, D), generator=gen,
+                                device=dev).to(torch.bfloat16)
+                arrs = [plan.seg_src, plan.tok_lo, plan.tok_hi, plan.blk_lo, plan.blk_hi]
+                args = (q, *pools, 0, *to_dev(arrs, dev), D ** -0.5, block_len, seg_len)
+                spans = pf.q_spans(plan.l_pad * qpk, Hkv, nb, block_len,
+                                   _cuda.sm_count(dev.index))
+                base = f"seg_len {seg_len} qpk {qpk} D={D}"
+                run("paged_flatten", f"{base}, {nb} blocks, {spans} spans", args,
+                    plan.n_leaves, qpk)
+                for nblk in (nb, 15, 21):
+                    if nblk > nb:
+                        continue
+                    warr = [plan.seg_src[:nblk * nseg], plan.tok_lo[:nblk * block_len],
+                            plan.tok_hi[:nblk * block_len], plan.blk_lo[:nblk],
+                            plan.blk_hi[:nblk]]
+                    wargs = (q, *pools, 0, *to_dev(warr, dev), D ** -0.5, block_len, seg_len)
+                    run("paged_flatten_partial", f"{base}, window of {nblk} blocks", wargs,
+                        plan.n_leaves, qpk)
+                if seg_len == 64 and qpk == 4 and D == 128:
+                    control = (args, plan, spans)
+                    for s in (1, 2 * spans):
+                        with forced(pf, "q_spans", s):
+                            run("paged_flatten", f"{base}, {s} spans forced", args,
+                                plan.n_leaves, qpk)
+                            run("paged_flatten_partial", f"{base}, {s} spans forced", args,
+                                plan.n_leaves, qpk)
+
+    # control 1: span 0 of row tile 0 hidden from the plain version
+    args, plan, spans = control
+    named = named_args("paged_flatten", args)
+    got = fns["paged_flatten"][0](*args)
+    hidden = torch.from_numpy(b4_span_tokens(named, plan.l_pad, 4, spans, 0)).to(dev)
+    rel_err_control("paged_flatten", f"span 0 of {spans} ({hidden.numel()} tokens) hidden",
+                    got[:plan.n_leaves],
+                    fns["paged_flatten"][1](**hidden_plan(named, hidden, plan.l_pad))
+                    [:plan.n_leaves], tol)
+    # control 2: a 17-token path, its last token (the leaf's own) hidden
+    short = grow_tree(16, 8, 0, 4096, np.random.default_rng(SEED + 6))
+    plan = build_flatten_plan(short, q_per_kv=4, block_len=128, min_token_bucket=128,
+                              seg_len=(32,), waste_limit=64.0)
+    check(plan.paged, "the 17-token-path plan is not paged")
+    D = 128
+    pools = [torch.randn((1, short.token_to_kv_pool.size, Hkv * D), generator=gen,
+                         device=dev).to(torch.bfloat16) for _ in range(2)]
+    q = torch.randn((plan.l_pad, 4 * Hkv, D), generator=gen, device=dev).to(torch.bfloat16)
+    args = (q, *pools, 0, *to_dev([plan.seg_src, plan.tok_lo, plan.tok_hi, plan.blk_lo,
+                                   plan.blk_hi], dev), D ** -0.5, 128, 32)
+    named = named_args("paged_flatten", args)
+    lo, hi = (named[k].cpu().numpy() for k in ("tok_lo", "tok_hi"))
+    own = np.nonzero((lo == 0) & (hi == 1))[0]
+    seen = pf.leaf_intervals(*(named[k] for k in ("tok_lo", "tok_hi", "blk_lo", "blk_hi")),
+                             128, plan.l_pad)
+    path = int(((seen[0] <= 0) & (0 < seen[1])).sum())
+    check(len(own) == 1 and path == 17, f"leaf 0's path: {path} tokens, {len(own)} its own")
+    got = run("paged_flatten", "17-token paths", args, plan.n_leaves, 4)
+    rel_err_control("paged_flatten", "17-token path with its last token hidden", got[:1],
+                    fns["paged_flatten"][1](**hidden_plan(named, torch.from_numpy(own)
+                                                          .to(dev), plan.l_pad))[:1], tol)
+    # control 3: the last span's tokens left out of B1p's merge
+    label, (plan, leaves), args = shapes["paged_flatten_partial"][0]
+    spans = grids["paged_flatten_partial"]
+    named = named_args("paged_flatten_partial", args)
+    R, Hq, D = named["q"].shape
+    rows = slice(0, min(leaves * 4, pf.q_block_rows(R * 4)))  # row tile 0's live rows
+    got = partial_out(fns["paged_flatten_partial"][0](*args))
+    hidden = torch.from_numpy(b4_span_tokens(named, R, 4, spans, spans - 1)).to(dev)
+    want = partial_out(fns["paged_flatten_partial"][1](**hidden_plan(named, hidden, R)))
+    rel_err_control("paged_flatten_partial", f"{label}: span {spans - 1} of {spans} "
+                    f"({hidden.numel()} tokens) left out", got[:, rows], want[:, rows], tol)
 
 
 def dense_masked(q, k, v, scale, mask):
@@ -2966,6 +3157,33 @@ def gmm_timing_rows(fns, shapes, bound):
     return rows
 
 
+def flat_q_tile_cost(dev, shapes, flush):
+    """B1, B1p, B4 and B4p at their path shapes with one span forced (a
+    block walks every listed 64-token tile of its row tile, so time over
+    tiles is what a tile costs a block), and on the rule's grid with a
+    warm L2 (what the cold reads cost)."""
+    from deft_tpu_torch.ops import paged_flatten_attn as pf
+
+    fns = wrappers()
+    for name in ("paged_flatten", "paged_flatten_partial", "paged_flatten_q",
+                 "paged_flatten_q_partial"):
+        args = shapes[name][0][2]
+        a = named_args(name, args)
+        rq = a["q"].shape[0] * a["q"].shape[1] // (a["k_pool"].shape[-1] // a["q"].shape[-1])
+        lo, hi = a["blk_lo"].cpu().numpy(), a["blk_hi"].cpu().numpy()
+        full, rb, qpk = lo < -(1 << 20), pf.q_block_rows(rq), rq // a["q"].shape[0]
+        tiles = [int(((hi > r0 // qpk) & (full | ((lo < hi) & (lo <= (min(rq, r0 + rb) - 1)
+                                                               // qpk)))).sum())
+                 * (a["block_len"] // 64) for r0 in range(0, rq, rb)]
+        fn = fns[name][0]
+        with forced(pf, "q_spans", 1):
+            one = time_ms(lambda: fn(*args), 20, flush)
+        warm = time_ms(lambda: fn(*args), 20, flush[:16])
+        print(f"[timing] {name}: one span {one:.4f} ms over {max(tiles)} tiles a row tile "
+              f"({one / max(tiles) * 1e3:.2f} us a tile); the rule's grid with a warm L2 "
+              f"{warm:.4f} ms", flush=True)
+
+
 def phase_timing(dev, shapes):
     """Per kernel at its path's shapes (the bf16-pool case of B6 and B7; B9:
     one layer's four matmuls and lm_head at R = 64): kernel, plain and
@@ -3060,22 +3278,24 @@ def phase_timing(dev, shapes):
         print(f"[timing] {name} grid: {R} rows x {Hkv} KV heads, each path over "
               f"{ps.seq_splits(R, Hkv, sms, 'k_scale' in a)} blocks of a cluster",
               flush=True)
-    for name in ("paged_flatten_q", "paged_flatten_q_partial"):
+    for name in ("paged_flatten", "paged_flatten_partial", "paged_flatten_q",
+                 "paged_flatten_q_partial"):
         a = named_args(name, shapes[name][0][2])
-        Hkv = a["k_pool"].shape[-1] // a["q"].shape[-1]
-        rq = a["q"].shape[0] * a["q"].shape[1] // Hkv
-        nb = a["blk_lo"].shape[0]
+        R, Hq, D = a["q"].shape
+        Hkv = a["k_pool"].shape[-1] // D
+        rq, nb = R * Hq // Hkv, a["blk_lo"].shape[0]
         rb = pf.q_block_rows(rq)
         spans = pf.q_spans(rq, Hkv, nb, a["block_len"], sms)
         T = nb * a["block_len"]  # the staged body's spans (fp32 q), launch_flatten's rule
-        staged = pf.num_spans(nb, T * Hkv * (2 * a["q"].shape[-1] + 8),
-                              Hkv * rq * (a["q"].shape[-1] + 2) * 4)
+        staged = pf.num_spans(nb, T * Hkv * (4 * D if "k_scale" not in a else 2 * D + 8),
+                              Hkv * rq * (D + 2) * 4)
         print(f"[timing] {name} grid: {-(-rq // rb)} row tiles of {rb} folded rows x {Hkv} "
               f"KV heads x {spans} spans = {-(-rq // rb) * Hkv * spans} blocks of "
               f"{rb // 16} warps over {nb} plan blocks of {a['block_len']} tokens "
-              f"({sms} SMs); the staged body's rule would take {-(-rq // 64)} row tiles "
+              f"({sms} SMs), then the merge kernel; the staged body's rule would take {-(-rq // 64)} row tiles "
               f"of 64 x {Hkv} x {staged} spans = {-(-rq // 64) * Hkv * staged} blocks of "
               f"4 warps", flush=True)
+    flat_q_tile_cost(dev, shapes, flush)
     rows["ragged_prefill"] = ragged_timing_row(fns, shapes, bound)
     rows["int8_matmul"] = int8mm_timing_row(fns, shapes, bound, flush)
     rows.update(gmm_timing_rows(fns, shapes, bound))

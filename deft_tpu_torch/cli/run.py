@@ -120,7 +120,19 @@ def main(argv=None) -> int:
                              device=args.device)
         if grid.rank == 0:
             print_arguments(args)
-        return run(grid, args)
+        try:
+            rc = run(grid, args)
+            # every rank leaves its last collective before any rank closes
+            # its connections; a rank that raised skips this, so it fails
+            # rather than waiting for its peers
+            if dist.is_initialized():
+                dist.barrier()
+            return rc
+        finally:
+            # the group is torn down before the interpreter exits, as
+            # parallel/launch.py does for its ranks
+            if dist.is_initialized():
+                dist.destroy_process_group()
     print_arguments(args)
     if args.mesh:
         from deft_tpu_torch.parallel import launch

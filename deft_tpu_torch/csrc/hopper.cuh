@@ -1,10 +1,10 @@
 // Hopper building blocks shared by the tensor-core kernels (gmm.cu,
-// prefill.cu, int8_matmul.cu, paged_seq.cu): shared-memory descriptors of
-// 128-byte-swizzled tiles, the wgmma fence / commit / wait and the bf16
-// m64nNk16 products the kernels issue (operands from shared memory, SS, or
-// A from registers, RS), int8 codes widened to bf16 in registers, mbarriers,
-// TMA tile loads and stores (cp.async.bulk.tensor), setmaxnreg, and the
-// host's encoding of tensor maps.
+// prefill.cu, int8_matmul.cu, paged_seq.cu, paged_flatten.cu): shared-memory
+// descriptors of 128-byte-swizzled tiles, the wgmma fence / commit / wait and
+// the bf16 m64nNk16 products the kernels issue (operands from shared memory,
+// SS, or A from registers, RS), int8 codes widened to bf16 in registers,
+// cp.async groups, mbarriers, TMA tile loads and stores
+// (cp.async.bulk.tensor), setmaxnreg, and the host's encoding of tensor maps.
 //
 // Tiles are laid out as TMA writes them under CU_TENSOR_MAP_SWIZZLE_128B:
 // rows of 128 bytes (64 bf16), the 16-byte chunk c of row r stored at chunk
@@ -330,6 +330,18 @@ __device__ __forceinline__ uint32_t pair_lo(uint32_t x, uint32_t y) {
 }
 __device__ __forceinline__ uint32_t pair_hi(uint32_t x, uint32_t y) {
   return __byte_perm(x, y, 0x7362);
+}
+
+// -- cp.async groups ----------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed cp.async groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // -- mbarriers --------------------------------------------------------------------

@@ -100,14 +100,8 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool val
                "r"(valid ? 4 : 0));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using deft::hopper::cp_async_commit;
+using deft::hopper::cp_async_wait;
 
 // Four 8x8 b16 tiles from shared memory, lane l addressing row l % 8 of tile
 // l / 8; .trans: each tile transposed (the B fragment of a row-major B).

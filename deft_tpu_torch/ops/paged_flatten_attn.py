@@ -2,19 +2,22 @@
 
 Port of deft_tpu/ops/paged_flatten_attn.py:381 (paged_flatten_attention, the
 Pallas kernel _paged_kernel :63) and :458 (paged_flatten_attn_pallas).  The
-Hopper kernel is csrc/paged_flatten.cu (split-KV: per-span partial states,
-then an LSE merge); ``paged_flatten_attention_plain`` is the same function in
-plain torch over the same plan arrays, which the wrapper runs for CPU
-tensors only.  ``launch_flatten`` and ``tree_attention_plain`` serve the
-other flatten kernels too: B4 (ops/paged_quant.py, int8 pools) and B6
-(ops/flatten_attn.py, plans that are not segment-aligned).
+Hopper kernel is csrc/paged_flatten.cu: over bf16 q its tensor-core body
+(spans of the live 64-token tiles from the SM count, ``q_spans``), over fp32
+q the staged split-KV body, each followed by the LSE merge kernel of the
+spans' states; ``paged_flatten_attention_plain`` is the same
+function in plain torch over the same plan arrays, which the wrapper runs
+for CPU tensors only.  ``launch_flatten`` and ``tree_attention_plain``
+serve the other flatten kernels too: B4 (ops/paged_quant.py, int8 pools)
+and B6 (ops/flatten_attn.py, plans that are not segment-aligned).
 
 B1p, ``paged_flatten_attention_partial``, is the port of deft_tpu's
 partial=True entry (paged_flatten_attn.py:408), which the multi-device
 engine runs on each rank's span of plan blocks (parallel/engine.py): the
-same kernels, with kernel 2's partial form writing the unnormalised state
-(acc, m, l) of the span, folded rows (Hkv, R*qpk) as deft_tpu lays them out,
-m in natural-log units (``tree_attention_state_plain`` is its arithmetic).
+same kernels, writing the merged unnormalised state (acc, m, l) of the
+plan's blocks instead of o, folded rows (Hkv, R*qpk) as deft_tpu lays them
+out, m in natural-log units (``tree_attention_state_plain`` is its
+arithmetic).
 
 Plan format (deft_tpu plan/flatten.py, unchanged): the tree's KV in DFS
 order, ``block_len`` tokens per block; segment j of block b is the pool span
@@ -143,14 +146,14 @@ def num_spans(num_blocks: int, kv_bytes: int, state_bytes: int) -> int:
 
 
 def q_block_rows(rq: int) -> int:
-    """Folded rows a block of B4's body over bf16 q takes (csrc/
-    paged_flatten.cu, deft_flat_q::dispatch): 128 (8 warps) where a KV head
-    has more than 64 rows, else 64."""
+    """Folded rows a block of the body over bf16 q takes (csrc/
+    paged_flatten.cu, deft_flat_q): 128 (8 warps) where a KV head has more
+    than 64 rows, else 64."""
     return 128 if rq > 64 else 64
 
 
 def q_spans(rq: int, Hkv: int, nb: int, block_len: int, sms: int) -> int:
-    """Split-KV span count of B4's body over bf16 q: as many spans as fill
+    """Split-KV span count of the body over bf16 q: as many spans as fill
     the SMs with one block each next to the (row tile, KV head) pairs, and
     no more than the plan's 64-token tiles, so no span is empty."""
     pairs = -(-rq // q_block_rows(rq)) * Hkv
@@ -188,11 +191,12 @@ def check_pools(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
 def launch_flatten(source: str, entry: str, q, k_pool, v_pool, k_scale,
                    v_scale, li, rows, tok_lo, tok_hi, blk_lo, blk_hi, scale,
                    block_len, seg_len, partial: bool = False):
-    """Launch a flatten kernel of csrc/<source>.cu (split-KV partials, then
-    the merge) on q (R, Hq, D); ``rows`` is the segment table (paged plans,
-    seg_len > 0) or one pool index a token (seg_len 0).  Spans: B4's body
-    over bf16 q (int8 pools, paged) takes ``q_spans``, the others
-    ``num_spans``.  Returns (R, Hq, D),
+    """Launch a flatten kernel of csrc/<source>.cu on q (R, Hq, D);
+    ``rows`` is the segment table (paged plans, seg_len > 0) or one pool
+    index a token (seg_len 0).  Paged plans over bf16 q run the tensor-core
+    body (B1, B4 and their partial entries) on ``q_spans`` spans, the others
+    (fp32 q, gather plans) the staged body on ``num_spans`` spans; the merge
+    kernel follows either.  Returns (R, Hq, D),
     or for a ``partial`` entry the state (acc (Hkv, R*qpk, D), m, l
     (Hkv, R*qpk)), fp32."""
     R, Hq, D = q.shape
@@ -213,7 +217,7 @@ def launch_flatten(source: str, entry: str, q, k_pool, v_pool, k_scale,
                          blk_lo, blk_hi)
     q = q.contiguous()
     Rq = R * (Hq // Hkv)
-    if scales and q.dtype == torch.bfloat16 and seg_len:  # B4's body (deft_flat_q)
+    if q.dtype == torch.bfloat16 and seg_len:  # the tensor-core body (deft_flat_q)
         spans = q_spans(Rq, Hkv, nb, block_len, _cuda.sm_count(q.device.index))
         tok_lo, tok_hi = _cuda.aligned16(tok_lo), _cuda.aligned16(tok_hi)
     else:

@@ -196,7 +196,9 @@ def test_cli_mesh_prints_the_single_process_tokens():
     def tokens(extra):
         out = subprocess.run(base + extra, cwd=ROOT, capture_output=True, text=True,
                              timeout=300)
-        assert out.returncode == 0, out.stderr[-2000:]
+        assert out.returncode == 0, (
+            f"rc {out.returncode}\nstderr head:\n{out.stderr[:2000]}\n"
+            f"stderr tail:\n{out.stderr[-2000:]}")
         lines = [x for x in out.stdout.splitlines() if "Tokens in this path" in x]
         assert out.stdout.count("Generation starts with arguments") == 1
         return lines
