@@ -3,6 +3,11 @@
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --profile  # also torch.profiler decode breakdowns
+    python3 chip_smoke.py --flatten-only [--profile] [--root DIR]
+        # the card, the build and the flatten kernels' checks and times only
+        # (B1, B1p, B4, B4p, B6, B11; with --profile the batch path's
+        # profiled flatten steps), over this checkout's package or DIR's:
+        # a parent commit timed in turns with this one on one card
 
 Phases, each fatal on failure (the script then exits non-zero and prints no
 result line):
@@ -27,10 +32,13 @@ result line):
               rows, m where a row saw a token); the sp merge of B1p's two
               halves of the main plan against B1 over the whole; the edges
               of the tensor-core bodies (b9_edges, seq_edges for B2 and B5,
-              b4_edges, b1_edges, wgmma_edges), each with a fault control
-              through the plain version that must read above the tolerance;
-              b1_edges also prints the grid B1 and B1p take at their path
-              shapes;
+              b4_edges, b1_edges, b6_edges, wgmma_edges), each with a fault
+              control through the plain version that must read above the
+              tolerance; b1_edges and b6_edges also print the grids B1, B1p,
+              B6 and B11 take at their path shapes.  B6 runs at the short
+              tree and at the batch path's four trees halfway (their
+              multi-tree gather plan), bf16 and int8 pools, with the row
+              tiles the runner counts on the host;
   4. main:    the 8B model (random bf16 weights from a CUDA torch.Generator,
               all 32 layers) serves Simple_Tree few-shot, width 50, prompt
               4000, 64 generated tokens, block_len 256, in flatten then seq
@@ -55,7 +63,9 @@ result line):
               tokens, whose rows must agree with the alone runs (relative L2
               below LOGITS_LIMIT); then BatchedEngine.add_requests + run() in
               flatten and in seq: B8 launches once a layer, B3 never, B1 or
-              B6 (flatten) and B2 or B7 (seq) must launch;
+              B6 (flatten) and B2 or B7 (seq) must launch; B6's launches at
+              the flatten run's gather steps join the short path's in the
+              kernels line;
   8. int8w:   the main path's workload over int8 weights made on the card
               (weight_dtype "int8-pallas"), flatten then seq: B9 launches 129
               times a decode step (4 matmuls x 32 layers + lm_head) and never
@@ -105,9 +115,10 @@ result line):
               below MOE_LIMIT, then 8 decode tokens;
  13. timing:  CUDA-event times of each kernel, its plain version and, where
               one PyTorch call computes the same function, that call, at its
-              path's shapes, beside the least time the card could take;
-              B1, B1p, B4 and B4p also with one span and with a warm L2
-              (flat_q_tile_cost).
+              path's shapes, beside the least time the card could take
+              (B6 at both its plans, bf16 and int8 pools, the short plan's
+              bf16 case in the kernels line); B1, B1p, B4, B4p, B6 and B11
+              also with one span and with a warm L2 (flat_q_tile_cost).
 Each path's counts are set to 0 just before it and read just after (the
 short path's two runs each, summed; the batch path's two engine runs each).
 Then one JSON line of kernels, the card's nvidia-smi line, and the last
@@ -388,17 +399,7 @@ def kernel_case(name, tree, qpk, Hkv, D, dtype, dev, gen, block_len, kv=None,
                               min_token_bucket=1024, **kw)
     check(plan.paged == (layout == "paged"),
           f"{name}: expected a {layout} plan, got paged={plan.paged}")
-    S = tree.token_to_kv_pool.size
-    shape = (1, S, Hkv * D)
-    if kv == "int8":
-        pools = [torch.randint(-127, 128, shape, generator=gen, device=dev,
-                               dtype=torch.int8) for _ in range(2)]
-        scales = [torch.rand((1, Hkv, S), generator=gen, device=dev) * 0.09 + 0.01
-                  for _ in range(2)]
-    else:
-        pools = [torch.randn(shape, generator=gen, device=dev).to(dtype)
-                 for _ in range(2)]
-        scales = [None, None]
+    pools, scales = random_pools(kv, tree.token_to_kv_pool.size, Hkv, D, dtype, dev, gen)
     q = torch.randn((plan.l_pad, qpk * Hkv, D), generator=gen, device=dev).to(dtype)
     scale = D ** -0.5
     if kind == "flatten" and layout == "paged":
@@ -406,9 +407,7 @@ def kernel_case(name, tree, qpk, Hkv, D, dtype, dev, gen, block_len, kv=None,
                        plan.blk_hi], dev)
         tail = (scale, plan.block_len, plan.seg_len)
     elif kind == "flatten":
-        arrs = to_dev([plan.kv_idx, plan.tok_lo, plan.tok_hi, plan.blk_lo,
-                       plan.blk_hi], dev)
-        return plan, (q, *pools, 0, *arrs, scale, *scales)
+        return plan, gather_args(plan, q, pools, scales, dev)
     elif layout == "paged":
         arrs = to_dev([plan.seg_src, plan.seg_off, plan.seg_live, plan.blk_live], dev)
         tail = (scale, plan.seg_len)
@@ -418,6 +417,86 @@ def kernel_case(name, tree, qpk, Hkv, D, dtype, dev, gen, block_len, kv=None,
     if kv == "int8":
         return plan, (q, *pools, *scales, 0, *arrs, *tail)
     return plan, (q, *pools, 0, *arrs, *tail)
+
+
+def random_pools(kv, S, Hkv, D, dtype, dev, gen):
+    """(pools, scales): K and V pools (1, S, Hkv * D) of `dtype` N(0, 1), or
+    int8 codes in [-127, 127] with (1, Hkv, S) scales in [0.01, 0.1)."""
+    import torch
+
+    shape = (1, S, Hkv * D)
+    if kv == "int8":
+        return ([torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+                 for _ in range(2)],
+                [torch.rand((1, Hkv, S), generator=gen, device=dev) * 0.09 + 0.01
+                 for _ in range(2)])
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(2)], \
+        [None, None]
+
+
+def gather_row_tiles(plan, qpk):
+    """The row tiles' listed 64-token tiles that the runner hands B6 from
+    the numpy plan (runtime/runner.py _step_batch), or None where the
+    package has no such span input (a parent commit timed in turns with
+    --flatten-only --root)."""
+    from deft_tpu_torch.ops import paged_flatten_attn as pf
+
+    count = getattr(pf, "row_tile_tiles", None)
+    return None if count is None else count(plan.blk_lo, plan.blk_hi, plan.l_pad * qpk,
+                                            qpk, plan.block_len)
+
+
+def gather_args(plan, q, pools, scales, dev):
+    """B6's arguments on a gather plan: q, the pools, layer 0, the plan
+    arrays, the scale, the int8 scales, and the row tiles the runner
+    counts (when the package takes them)."""
+    qpk = q.shape[1] // (pools[0].shape[-1] // q.shape[-1])
+    arrs = to_dev([plan.kv_idx, plan.tok_lo, plan.tok_hi, plan.blk_lo, plan.blk_hi], dev)
+    tiles = gather_row_tiles(plan, qpk)
+    return (q, *pools, 0, *arrs, q.shape[-1] ** -0.5, *scales) + (
+        () if tiles is None else (tiles,))
+
+
+def batch_trees(steps: int, rng, lens=None):
+    """The batch path's four trees in one pool: prompts of `lens` tokens
+    (default BATCH_LENS), WIDTH leaves each, `steps` tokens appended, every
+    tree allocated before the next tokens as BatchedEngine.step does."""
+    from deft_tpu_torch.core import ReqToTokenPool, TokenKVPool, TreeCache
+
+    lens = lens or BATCH_LENS
+    pool = TokenKVPool(BATCH_SLOTS)
+    rtp = ReqToTokenPool(len(lens) * (WIDTH + 2), max(lens) + GEN_LEN + 64)
+    trees = []
+    for n in lens:
+        t = TreeCache(pool, rtp)
+        t.init_prompt(list(rng.integers(4, 1000, n)))
+        for i, c in enumerate(t.branch(t.root, WIDTH)):
+            c.append_token(50 + i)
+        trees.append(t)
+    for _ in range(steps):
+        for t in trees:
+            t.alloc()
+            for leaf in list(t.leaves.values()):
+                leaf.append_token(int(rng.integers(1, 400)))
+    for t in trees:
+        t.alloc()
+    return trees
+
+
+def batch_case(trees, kv, dev, gen, qpk=4, Hkv=8, D=128):
+    """(plan, args) of B6 on the trees' multi-tree plan with the batch
+    engine's rules for bf16 pools (runtime/batched.py build_plan: block_len
+    256, min_token_bucket 1024), which must come out a gather plan; pools
+    of bf16 or int8 (`kv`), bf16 q."""
+    import torch
+    from deft_tpu_torch.plan.multi import build_multi_flatten_plan
+
+    plan = build_multi_flatten_plan(trees, q_per_kv=qpk, block_len=256, min_token_bucket=1024)
+    check(not plan.paged, "the batch plan is paged: B6 would not run there")
+    pools, scales = random_pools(kv, trees[0].token_to_kv_pool.size, Hkv, D, torch.bfloat16,
+                                 dev, gen)
+    q = torch.randn((plan.l_pad, qpk * Hkv, D), generator=gen, device=dev).to(torch.bfloat16)
+    return plan, gather_args(plan, q, pools, scales, dev)
 
 
 def named_args(name, args) -> dict:
@@ -436,7 +515,8 @@ def window_case(name, plan, args, grid):
     from deft_tpu_torch.parallel import engine, seq_engine
 
     kind, _, layout = KERNELS[name][2:]
-    a = named_args(name, args)
+    params = inspect.signature(wrappers()[name][0]).parameters
+    a = {k: v for k, v in named_args(PARTIAL_OF[name], args).items() if k in params}
     R = a["q"].shape[0]
     b = SimpleNamespace(**a)
     w = (engine.flatten_window(grid, b, R, paged=layout == "paged") if kind == "flatten"
@@ -524,8 +604,9 @@ def path_shapes(dev):
     tokens; B6 (bf16 and int8 pools) on the CLI's 16-token prompt's tree
     halfway through, B7 at its fifth step, where their plans come out not
     segment-aligned; the partial entries at rank 0's window of their grid
-    (B1p, B2p, B4p, B5p on the main tree, B11 on the short one); prefill of
-    the 4000-token prompt; B8 over the batch
+    (B1p, B2p, B4p, B5p on the main tree, B11 on the short one); B6 also
+    on the batch path's four trees halfway (their multi-tree gather plan,
+    ``batch_case``); prefill of the 4000-token prompt; B8 over the batch
     path's four prompts; B9 at R = 64 (one width-50 tree) and 256 (the batch
     path's 200 leaves) for each of the 8B matmul weights; B10 at Mixtral's
     prefill of the 4000-token prompt (top-2 of random router logits over 8
@@ -560,6 +641,10 @@ def path_shapes(dev):
         out[name] = [(kv, *kernel_case(name, tree, 4, 8, 128, bf16, dev, gen, 256,
                                        kv=kv, as_built=True))
                      for kv in ("inherit", "int8")]
+    # B6 also at the batch path's multi-tree plan halfway (a gather plan)
+    batch = batch_trees(GEN_LEN // 2, np.random.default_rng(SEED + 3))
+    out["flatten_gather"] += [(f"batch {kv}", *batch_case(batch, kv, dev, gen))
+                              for kv in ("inherit", "int8")]
     out["ragged_prefill"] = [("", None, ragged_case(BATCH_LENS, 32, 8, 128, bf16, dev,
                                                     gen)[0])]
     out["int8_matmul"] = []
@@ -624,7 +709,10 @@ MMA_BODIES = {"B2/B2p (deft_seq_q, bf16 KV)": ("paged_seq", "seq_q_mmaI13__nv_bf
               "B5/B5p (deft_seq_q, int8 KV)": ("paged_seq", "seq_q_mmaIa", "HMMA"),
               "B1/B1p (deft_flat_q, bf16 KV)": ("paged_flatten",
                                                 "flatten_q_mmaI13__nv_bfloat16", "HGMMA"),
-              "B4/B4p (deft_flat_q, int8 KV)": ("paged_flatten", "flatten_q_mmaIa", "HMMA")}
+              "B4/B4p (deft_flat_q, int8 KV)": ("paged_flatten", "flatten_q_mmaIa", "HMMA"),
+              "B6/B11 (deft_flat_q, bf16 KV)": ("flatten_gather",
+                                                "flatten_q_mmaI13__nv_bfloat16", "HGMMA"),
+              "B6/B11 (deft_flat_q, int8 KV)": ("flatten_gather", "flatten_q_mmaIa", "HMMA")}
 
 
 def ptxas_lines(name: str, function: str) -> list:
@@ -642,7 +730,10 @@ def ptxas_lines(name: str, function: str) -> list:
     return out
 
 
-def phase_build():
+def phase_build(bodies: bool = True):
+    """Build every kernel and count their tensor-core instructions; with
+    `bodies`, fail unless each tensor-core body holds its opcode (off for a
+    parent commit's package, --root, whose bodies differ)."""
     from deft_tpu_torch.ops import _cuda
 
     t0 = time.perf_counter()
@@ -656,13 +747,15 @@ def phase_build():
         for line in log.splitlines():  # ptxas serialising wgmma costs speed
             if "wgmma" in line:
                 print(f"[build] {name}: {line.strip()}")
-    # the bf16 bodies of B3/B8, B10, B9 and B1 run on wgmma (HGMMA in their
-    # SASS), B2's, B4's and B5's over bf16 q on mma.sync (HMMA)
+    # the bf16 bodies of B3/B8, B10, B9, B1 and B6 run on wgmma (HGMMA in
+    # their SASS), B2's, B4's and B5's over bf16 q on mma.sync (HMMA)
     hgmma = {name: sass_count(name, "HGMMA") for name in _cuda.SOURCES}
     hmma = {name: sass_count(name, "HMMA") for name in _cuda.SOURCES}
     print(f"[build] HGMMA instructions by library: {hgmma}", flush=True)
     print(f"[build] HMMA instructions by library: {hmma}", flush=True)
-    for name in ("gmm", "prefill", "int8_matmul", "paged_flatten"):
+    if not bodies:
+        return
+    for name in ("gmm", "prefill", "int8_matmul", "paged_flatten", "flatten_gather"):
         check(hgmma[name] > 0, f"the {name} library holds no HGMMA instruction")
     check(hmma["paged_seq"] > 0, "the paged_seq library holds no HMMA instruction")
     bodies = {label: (op, sass_count(lib, op, fn))
@@ -670,8 +763,9 @@ def phase_build():
     print(f"[build] tensor-core instructions by body: {bodies}", flush=True)
     for label, (op, n) in bodies.items():
         check(n > 0, f"the body of {label} holds no {op} instruction")
-    for line in ptxas_lines(*MMA_BODIES["B1/B1p (deft_flat_q, bf16 KV)"][:2]):
-        print(f"[build] B1/B1p body: {line}", flush=True)
+    for label in ("B1/B1p (deft_flat_q, bf16 KV)", "B6/B11 (deft_flat_q, bf16 KV)"):
+        for line in ptxas_lines(*MMA_BODIES[label][:2]):
+            print(f"[build] {label.split()[0]} body: {line}", flush=True)
 
 
 def phase_kernels(dev, shapes):
@@ -831,6 +925,7 @@ def phase_kernels(dev, shapes):
     seq_edges(dev, gen, int8=False)  # B2, B2p
     b4_edges(dev, gen)
     b1_edges(dev, gen, shapes)
+    b6_edges(dev, gen, shapes)
     return errs
 
 
@@ -844,6 +939,34 @@ def forced(module, name, value):
         yield
     finally:
         setattr(module, name, old)
+
+
+@contextlib.contextmanager
+def forced_spans(value):
+    """Within the block, the bf16 flatten bodies take `value` spans under
+    either span rule (q_spans; balanced_spans where B6 is given its row
+    tiles)."""
+    from deft_tpu_torch.ops import paged_flatten_attn as pf
+
+    with forced(pf, "q_spans", value), forced(pf, "balanced_spans", value):
+        yield
+
+
+def flat_q_grid(name, args, sms):
+    """The grid deft_flat_q takes for flatten kernel `name` on `args` over
+    bf16 q: (the listed 64-token tiles of each row tile, the rows of a row
+    tile, Hkv, spans by the wrapper's rule, q_spans' count)."""
+    from deft_tpu_torch.ops import paged_flatten_attn as pf
+
+    a = named_args(name, args)
+    R, Hq, D = a["q"].shape
+    Hkv = a["k_pool"].shape[-1] // D
+    rq, nb, block_len = R * Hq // Hkv, a["blk_lo"].shape[0], plan_block_len(a)
+    tiles = pf.row_tile_tiles(a["blk_lo"].cpu().numpy(), a["blk_hi"].cpu().numpy(), rq,
+                              Hq // Hkv, block_len)
+    qs = pf.q_spans(rq, Hkv, nb, block_len, sms)
+    spans = qs if a.get("row_tiles") is None else pf.balanced_spans(a["row_tiles"], Hkv, sms)
+    return tiles, pf.q_block_rows(rq), Hkv, spans, qs
 
 
 def rel_err_control(name, label, got, want_fault, tol):
@@ -1017,12 +1140,45 @@ def seq_edges(dev, gen, int8):
                     fns[name][1](**named)[:1], TOL["bfloat16"])
 
 
+def check_edge(tag, name, label, args, leaves, qpk, tol):
+    """A flatten kernel's edge case against its plain version: the first
+    `leaves` leaves' rows (partial entries: acc and l on their folded rows,
+    m where a row saw a token), every output finite, pad rows included.
+    Returns the kernel's output."""
+    import torch
+
+    fn, plain = wrappers()[name]
+    got = fn(*args)
+    torch.cuda.synchronize()
+    want = plain(*args)
+    if name.endswith("_partial"):
+        rows = (slice(None), slice(0, leaves * qpk))
+        seen = want[2][rows] > 0
+        pairs = [(got[0][rows], want[0][rows]), (got[2][rows], want[2][rows]),
+                 (got[1][rows][seen], want[1][rows][seen])]
+        e = max(rel_err(g, w) for g, w in pairs if w.numel())
+        ok = all(bool(torch.isfinite(t).all()) for t in got)
+    else:
+        e = rel_err(got[:leaves], want[:leaves])
+        ok = bool(torch.isfinite(got).all())
+    print(f"[{tag}] {name} {label}: rel err {e:.3e}, tol {tol:.0e}", flush=True)
+    check(e < tol and ok, f"{name} {label} disagrees with its plain version: {e}")
+    return got
+
+
+def plan_block_len(plan_args) -> int:
+    """block_len of a flatten kernel's named arguments: given (paged
+    entries) or T / nb (gather entries)."""
+    return plan_args.get("block_len") or plan_args["tok_lo"].shape[0] // plan_args["blk_lo"].shape[0]
+
+
 def b4_span_tokens(plan_args, R, qpk, spans, span):
     """The plan tokens of one span of deft_flat_q's first row tile: the
-    span's share of the 64-token tiles of the blocks that tile sees."""
+    span's share of the 64-token tiles of the blocks that tile sees (none
+    where the span holds no tile)."""
     from deft_tpu_torch.ops import paged_flatten_attn as pf
 
-    blk_lo, blk_hi, block_len = (plan_args[k] for k in ("blk_lo", "blk_hi", "block_len"))
+    blk_lo, blk_hi, block_len = plan_args["blk_lo"], plan_args["blk_hi"], plan_block_len(plan_args)
     lo, hi = blk_lo.cpu().numpy(), blk_hi.cpu().numpy()
     Rq = R * qpk
     leaf_b = (min(Rq, pf.q_block_rows(Rq)) - 1) // qpk
@@ -1031,9 +1187,9 @@ def b4_span_tokens(plan_args, R, qpk, spans, span):
               if hi[b] > 0 and (full[b] or (lo[b] < hi[b] and lo[b] <= leaf_b))]
     tpb = block_len // 64
     total = len(listed) * tpb
-    return np.concatenate([listed[li // tpb] * block_len + (li % tpb) * 64 + np.arange(64)
-                           for li in range(total * span // spans,
-                                           total * (span + 1) // spans)])
+    return np.concatenate([np.zeros(0, int)] + [
+        listed[li // tpb] * block_len + (li % tpb) * 64 + np.arange(64)
+        for li in range(total * span // spans, total * (span + 1) // spans)])
 
 
 def b4_edges(dev, gen):
@@ -1055,22 +1211,7 @@ def b4_edges(dev, gen):
     Hkv, S = 2, tree.token_to_kv_pool.size
 
     def run(name, label, args, tol, leaves, qpk):
-        got = fns[name][0](*args)
-        torch.cuda.synchronize()
-        want = fns[name][1](*args)
-        if name.endswith("_partial"):  # folded rows; m where a row saw a token
-            rows = (slice(None), slice(0, leaves * qpk))
-            seen = want[2][rows] > 0
-            pairs = [(got[0][rows], want[0][rows]), (got[2][rows], want[2][rows]),
-                     (got[1][rows][seen], want[1][rows][seen])]
-            e = max(rel_err(g, w) for g, w in pairs)
-            ok = all(bool(torch.isfinite(t).all()) for t in got)
-        else:
-            e = rel_err(got[:leaves], want[:leaves])
-            ok = bool(torch.isfinite(got[:leaves]).all())
-        print(f"[kernels] {name} {label}: rel err {e:.3e}, tol {tol:.0e}", flush=True)
-        check(e < tol and ok, f"{name} {label} disagrees with its plain version: {e}")
-        return got
+        return check_edge("kernels", name, label, args, leaves, qpk, tol)
 
     for seg_len in (32, 128, 256, 512):
         block_len = max(128, seg_len)
@@ -1130,7 +1271,7 @@ def hidden_plan(named, tokens, R):
     from deft_tpu_torch.ops import paged_flatten_attn as pf
 
     lo, hi = pf.leaf_intervals(named["tok_lo"], named["tok_hi"], named["blk_lo"],
-                               named["blk_hi"], named["block_len"], R)
+                               named["blk_hi"], plan_block_len(named), R)
     lo, hi = lo.clone(), hi.clone()
     lo[tokens] = 0
     hi[tokens] = 0
@@ -1148,20 +1289,18 @@ def partial_out(state):
 def b1_grids(dev, shapes):
     """The grid B1 and B1p take at their path shapes; returns {name: spans}."""
     from deft_tpu_torch.ops import _cuda
-    from deft_tpu_torch.ops import paged_flatten_attn as pf
 
     sms, out = _cuda.sm_count(dev.index), {}
     for name in ("paged_flatten", "paged_flatten_partial"):
-        a = named_args(name, shapes[name][0][2])
-        R, Hq, D = a["q"].shape
-        Hkv = a["k_pool"].shape[-1] // D
-        rq, nb = R * Hq // Hkv, a["blk_lo"].shape[0]
-        rb = pf.q_block_rows(rq)
-        spans = out[name] = pf.q_spans(rq, Hkv, nb, a["block_len"], sms)
-        print(f"[b1] {name} grid: {-(-rq // rb)} row tiles of {rb} folded rows x {Hkv} KV "
-              f"heads x {spans} spans = {-(-rq // rb) * Hkv * spans} blocks of {rb // 16} "
-              f"warps ({sms} SMs) over {nb} plan blocks of {a['block_len']} tokens, "
-              f"seg_len {a['seg_len']}, then the merge kernel", flush=True)
+        args = shapes[name][0][2]
+        a = named_args(name, args)
+        tiles, rb, Hkv, spans, _ = flat_q_grid(name, args, sms)
+        out[name] = spans
+        print(f"[b1] {name} grid: {len(tiles)} row tiles of {rb} folded rows x {Hkv} KV "
+              f"heads x {spans} spans = {len(tiles) * Hkv * spans} blocks of {rb // 16} "
+              f"warps ({sms} SMs) over {a['blk_lo'].shape[0]} plan blocks of "
+              f"{a['block_len']} tokens, seg_len {a['seg_len']}, then the merge kernel",
+              flush=True)
     return out
 
 
@@ -1189,22 +1328,7 @@ def b1_edges(dev, gen, shapes):
     Hkv, S = 8, tree.token_to_kv_pool.size
 
     def run(name, label, args, leaves, qpk):
-        got = fns[name][0](*args)
-        torch.cuda.synchronize()
-        want = fns[name][1](*args)
-        if name.endswith("_partial"):  # folded rows; m where a row saw a token
-            rows = (slice(None), slice(0, leaves * qpk))
-            seen = want[2][rows] > 0
-            pairs = [(got[0][rows], want[0][rows]), (got[2][rows], want[2][rows]),
-                     (got[1][rows][seen], want[1][rows][seen])]
-            e = max(rel_err(g, w) for g, w in pairs)
-            ok = all(bool(torch.isfinite(t).all()) for t in got)
-        else:
-            e = rel_err(got[:leaves], want[:leaves])
-            ok = bool(torch.isfinite(got[:leaves]).all())
-        print(f"[b1] {name} {label}: rel err {e:.3e}, tol {tol:.0e}", flush=True)
-        check(e < tol and ok, f"{name} {label} disagrees with its plain version: {e}")
-        return got
+        return check_edge("b1", name, label, args, leaves, qpk, tol)
 
     control = None
     for seg_len in (32, 64, 256):
@@ -1290,6 +1414,123 @@ def b1_edges(dev, gen, shapes):
     want = partial_out(fns["paged_flatten_partial"][1](**hidden_plan(named, hidden, R)))
     rel_err_control("paged_flatten_partial", f"{label}: span {spans - 1} of {spans} "
                     f"({hidden.numel()} tokens) left out", got[:, rows], want[:, rows], tol)
+
+
+def b6_edges(dev, gen, shapes):
+    """B6 and B11 over bf16 q (deft_flat_q with one pool index a token)
+    against their plain versions beyond the path shapes, bf16, tolerance
+    2e-2: B6 at the batch plan halfway with 1 span, q_spans' count and
+    twice the rule's spans forced; B11 on the four windows of a dp 2 x sp 2
+    grid over the batch plan and on both dp windows of the short tree,
+    bf16 and int8 pools; a plan of at most 64 folded rows (4-warp blocks),
+    B6 and B11 at D 64 and 128; qpk 8 at D 64 on the short tree.  Prints
+    the grid each path shape takes.  Controls through the plain version: a
+    leaf's own token's kv_idx swapped with another leaf's; a 17-token
+    path's last token hidden; span 0 of the batch plan's first row tile
+    hidden; the last of B11's spans left out of its merge at its path
+    shape."""
+    import torch
+    from deft_tpu_torch.ops import _cuda
+    from deft_tpu_torch.ops import paged_flatten_attn as pf
+    from deft_tpu_torch.parallel.mesh import Grid
+    from deft_tpu_torch.plan import build_flatten_plan
+
+    fns = wrappers()
+    tol = TOL["bfloat16"]
+    sms = _cuda.sm_count(dev.index)
+    bf16 = torch.bfloat16
+    cases = {label: (plan, args) for label, plan, args in shapes["flatten_gather"]}
+    for name, label, args in ([("flatten_gather", label, args) for label, (_, args)
+                               in cases.items()]
+                              + [("flatten_gather_partial", *shapes["flatten_gather_partial"][0]
+                                  [::2])]):
+        tiles, rb, Hkv, spans, qs = flat_q_grid(name, args, sms)
+        rule = ("balanced_spans" if named_args(name, args).get("row_tiles") is not None
+                else "q_spans")
+        print(f"[b6] {name} {label} grid: {len(tiles)} row tiles of {rb} folded rows x {Hkv} "
+              f"KV heads x {spans} spans ({rule}) = {len(tiles) * Hkv * spans} blocks ({sms} "
+              f"SMs); listed 64-token tiles a row tile {list(tiles)}; q_spans {qs}", flush=True)
+
+    plan, args = cases["batch inherit"]
+    _, _, _, spans, qs = flat_q_grid("flatten_gather", args, sms)
+    for s in sorted({1, qs, 2 * spans}):
+        with forced_spans(s):
+            check_edge("b6", "flatten_gather", f"batch plan, {s} spans forced", args,
+                       plan.n_leaves, 4, tol)
+    for label in ("batch inherit", "batch int8", "inherit", "int8"):
+        plan, args = cases[label]
+        grids = ([Grid((2, 2, 1), r, dev) for r in range(4)] if label.startswith("batch")
+                 else [Grid((2, 1, 1), r, dev) for r in range(2)])
+        for grid in grids:
+            wargs, leaves = window_case("flatten_gather_partial", plan, args, grid)
+            check_edge("b6", "flatten_gather_partial", f"{label} plan, rank {grid.coords} of "
+                       f"{grid.shape}", wargs, leaves, 4, tol)
+    # at most 64 folded rows (4-warp blocks); qpk 8 on the short tree
+    small = grow_tree(16, 12, 6, 4096, np.random.default_rng(SEED + 7))
+    short = grow_tree(16, WIDTH, GEN_LEN // 2, 16384, np.random.default_rng(SEED))
+    for tree, qpk, Hkv, D in ((small, 4, 2, 64), (small, 4, 2, 128), (short, 8, 4, 64)):
+        for kv in ("inherit", "int8"):
+            plan, args = kernel_case("flatten_gather", tree, qpk, Hkv, D, bf16, dev, gen, 128,
+                                     kv=kv)
+            check(tree is not small or plan.l_pad * qpk <= 64,
+                  f"the small plan has {plan.l_pad * qpk} folded rows")
+            label = f"{plan.l_pad * qpk} folded rows, qpk {qpk}, D={D}, {kv}"
+            check_edge("b6", "flatten_gather", label, args, plan.n_leaves, qpk, tol)
+            for r in range(2):
+                grid = Grid((1, 2, 1), r, dev)
+                wargs, leaves = window_case("flatten_gather_partial", plan, args, grid)
+                check_edge("b6", "flatten_gather_partial", f"{label}, rank {grid.coords}",
+                           wargs, leaves, qpk, tol)
+
+    # controls 1 and 2: 17-token paths (a 16-token prompt and the leaf's own
+    # token); leaf 0's own token swapped with leaf 1's, then hidden
+    tree = grow_tree(16, 8, 0, 4096, np.random.default_rng(SEED + 6))
+    plan = build_flatten_plan(tree, q_per_kv=4, block_len=128, min_token_bucket=128,
+                              seg_len=None)
+    check(not plan.paged, "the 17-token-path plan is paged")
+    pools, scales = random_pools("inherit", tree.token_to_kv_pool.size, 8, 128, bf16, dev, gen)
+    q = torch.randn((plan.l_pad, 32, 128), generator=gen, device=dev).to(bf16)
+    args = gather_args(plan, q, pools, scales, dev)
+    named = named_args("flatten_gather", args)
+    own = [int(np.nonzero((plan.tok_lo == i) & (plan.tok_hi == i + 1))[0][0]) for i in (0, 1)]
+    got = check_edge("b6", "flatten_gather", "17-token paths", args, plan.n_leaves, 4, tol)
+    swapped = named["kv_idx"].clone()
+    swapped[own[0]], swapped[own[1]] = named["kv_idx"][own[1]], named["kv_idx"][own[0]]
+    rel_err_control("flatten_gather", "17-token paths, leaf 0's and leaf 1's own tokens' "
+                    "kv_idx swapped", got[:2], fns["flatten_gather"][1](
+                        **dict(named, kv_idx=swapped))[:2], tol)
+    hidden = torch.tensor(own[:1], device=dev)
+    rel_err_control("flatten_gather", "17-token path with its last token hidden", got[:1],
+                    fns["flatten_gather"][1](**hidden_plan(named, hidden, plan.l_pad))[:1],
+                    tol)
+    # control 3: span 0 of the batch plan's first row tile hidden
+    plan, args = cases["batch inherit"]
+    named = named_args("flatten_gather", args)
+    got = fns["flatten_gather"][0](*args)
+    hidden = torch.from_numpy(b4_span_tokens(named, plan.l_pad, 4, spans, 0)).to(dev)
+    rel_err_control("flatten_gather", f"batch plan: span 0 of {spans} ({hidden.numel()} "
+                    "tokens) hidden", got[:plan.n_leaves],
+                    fns["flatten_gather"][1](**hidden_plan(named, hidden, plan.l_pad))
+                    [:plan.n_leaves], tol)
+    # control 4: the last of B11's spans that holds a token row tile 0's
+    # live rows see (a span of pad tokens alone changes nothing) left out
+    label, (plan, leaves), args = shapes["flatten_gather_partial"][0]
+    spans = flat_q_grid("flatten_gather_partial", args, sms)[3]
+    named = named_args("flatten_gather_partial", args)
+    R = named["q"].shape[0]
+    live = min(leaves, pf.q_block_rows(R * 4) // 4)  # row tile 0's live leaves
+    lo, hi = (t.cpu().numpy() for t in pf.leaf_intervals(
+        *(named[k] for k in ("tok_lo", "tok_hi", "blk_lo", "blk_hi")), plan_block_len(named), R))
+    span, hidden = next((sp, t) for sp in reversed(range(spans))
+                        for t in [b4_span_tokens(named, R, 4, spans, sp)]
+                        if ((lo[t] < live) & (hi[t] > lo[t])).any())
+    rows = slice(0, live * 4)
+    got = partial_out(fns["flatten_gather_partial"][0](*args))
+    hidden = torch.from_numpy(hidden).to(dev)
+    want = partial_out(fns["flatten_gather_partial"][1](**hidden_plan(named, hidden, R)))
+    rel_err_control("flatten_gather_partial", f"{label}: span {span} of {spans} "
+                    f"({hidden.numel()} tokens; the last one a live row sees) left out",
+                    got[:, rows], want[:, rows], tol)
 
 
 def dense_masked(q, k, v, scale, mask):
@@ -2917,6 +3158,7 @@ def attention_library_row(name, plan, args, flush):
     _, _, kind, kv, layout = KERNELS[name]
     a = named_args(name, args)
     q, kp, vp, ks, vs = (a.get(k) for k in ("q", "k_pool", "v_pool", "k_scale", "v_scale"))
+    kv = "int8" if kp.dtype == torch.int8 else kv  # B6, B7 take either pool type
     R, Hq, D = q.shape
     qpk = Hq // (kp.shape[-1] // D)
     dev = q.device
@@ -3158,37 +3400,37 @@ def gmm_timing_rows(fns, shapes, bound):
 
 
 def flat_q_tile_cost(dev, shapes, flush):
-    """B1, B1p, B4 and B4p at their path shapes with one span forced (a
-    block walks every listed 64-token tile of its row tile, so time over
-    tiles is what a tile costs a block), and on the rule's grid with a
-    warm L2 (what the cold reads cost)."""
-    from deft_tpu_torch.ops import paged_flatten_attn as pf
+    """B1, B1p, B4, B4p, B6 (short and batch plans, bf16 pools) and B11 at
+    their path shapes with one span forced (a block walks every listed
+    64-token tile of its row tile, so time over tiles is what a tile costs
+    a block), and on the rule's grid with a warm L2 (what the cold reads
+    cost)."""
+    from deft_tpu_torch.ops import _cuda
 
     fns = wrappers()
-    for name in ("paged_flatten", "paged_flatten_partial", "paged_flatten_q",
-                 "paged_flatten_q_partial"):
-        args = shapes[name][0][2]
-        a = named_args(name, args)
-        rq = a["q"].shape[0] * a["q"].shape[1] // (a["k_pool"].shape[-1] // a["q"].shape[-1])
-        lo, hi = a["blk_lo"].cpu().numpy(), a["blk_hi"].cpu().numpy()
-        full, rb, qpk = lo < -(1 << 20), pf.q_block_rows(rq), rq // a["q"].shape[0]
-        tiles = [int(((hi > r0 // qpk) & (full | ((lo < hi) & (lo <= (min(rq, r0 + rb) - 1)
-                                                               // qpk)))).sum())
-                 * (a["block_len"] // 64) for r0 in range(0, rq, rb)]
+    sms = _cuda.sm_count(dev.index)
+    cases = [(name, "", shapes[name][0][2]) for name in (
+        "paged_flatten", "paged_flatten_partial", "paged_flatten_q", "paged_flatten_q_partial",
+        "flatten_gather_partial")]
+    cases += [("flatten_gather", label, args) for label, _, args in shapes["flatten_gather"]
+              if label in ("inherit", "batch inherit")]
+    for name, label, args in cases:
+        tiles, _, _, spans, _ = flat_q_grid(name, args, sms)
         fn = fns[name][0]
-        with forced(pf, "q_spans", 1):
+        with forced_spans(1):
             one = time_ms(lambda: fn(*args), 20, flush)
         warm = time_ms(lambda: fn(*args), 20, flush[:16])
-        print(f"[timing] {name}: one span {one:.4f} ms over {max(tiles)} tiles a row tile "
-              f"({one / max(tiles) * 1e3:.2f} us a tile); the rule's grid with a warm L2 "
-              f"{warm:.4f} ms", flush=True)
+        print(f"[timing] {name}{' ' + label if label else ''}: one span {one:.4f} ms over "
+              f"{max(tiles)} tiles a row tile ({one / max(tiles) * 1e3:.2f} us a tile); the "
+              f"rule's grid ({spans} spans) with a warm L2 {warm:.4f} ms", flush=True)
 
 
 def phase_timing(dev, shapes):
-    """Per kernel at its path's shapes (the bf16-pool case of B6 and B7; B9:
-    one layer's four matmuls and lm_head at R = 64): kernel, plain and
-    (prefill, B8, B9) library times, the least time the card could take and
-    what bounds it."""
+    """Per kernel at its path's shapes (B7's bf16-pool case; B6 at the short
+    and the batch plan over bf16 and int8 pools, the short plan's bf16 case
+    in the kernels line; B9: one layer's four matmuls and lm_head at R =
+    64): kernel, plain and library times, the least time the card could
+    take and what bounds it."""
     import torch
     import torch.nn.functional as F
 
@@ -3211,14 +3453,7 @@ def phase_timing(dev, shapes):
             return Hkv * (2 * D + 8)
         return Hkv * D * 2 * pool.element_size()
 
-    rows = {}
-    for name, cases in shapes.items():
-        if name in PARTIAL_OF:
-            rows[name] = partial_timing_row(name, cases[0][2], bound, flush)
-            continue
-        if KERNELS[name][2] is None:  # prefill, B8, B9: below
-            continue
-        _, plan, args = cases[0]
+    def attention_row(name, key, plan, args):
         q = args[0]
         R, Hq, D = q.shape
         Hkv = args[1].shape[-1] // D
@@ -3247,9 +3482,19 @@ def phase_timing(dev, shapes):
                   f"{nbytes / PEAK_BYTES * 1e3:.4f} ms; each leaf re-reading its path "
                   f"({plan.total_kv} rows) {reread / PEAK_BYTES * 1e3:.4f} ms", flush=True)
         fn, plain = fns[name]
-        lib, LIBRARY[name] = attention_library_row(name, plan, args, flush)
-        rows[name] = (lambda f=fn, a=args: f(*a), lambda p=plain, a=args: p(*a), lib,
-                      *bound(nbytes, pairs * 4 * D))
+        lib, LIBRARY[key] = attention_library_row(name, plan, args, flush)
+        rows[key] = (lambda f=fn, a=args: f(*a), lambda p=plain, a=args: p(*a), lib,
+                     *bound(nbytes, pairs * 4 * D))
+
+    rows = {}
+    for name, cases in shapes.items():
+        if name in PARTIAL_OF:
+            rows[name] = partial_timing_row(name, cases[0][2], bound, flush)
+        elif KERNELS[name][2] is not None:  # prefill, B8, B9: below
+            attention_row(name, name, *cases[0][1:])
+    # B6 also over int8 pools and at the batch plan (its other path shape)
+    for label, plan, args in shapes["flatten_gather"][1:]:
+        attention_row("flatten_gather", f"flatten_gather ({label})", plan, args)
     # prefill: causal FLOPs 2 * 2 * Hq * N^2 * D / 2
     q, k, v, scale = shapes["prefill"][0][2]
     N, Hq, D = q.shape
@@ -3281,20 +3526,18 @@ def phase_timing(dev, shapes):
     for name in ("paged_flatten", "paged_flatten_partial", "paged_flatten_q",
                  "paged_flatten_q_partial"):
         a = named_args(name, shapes[name][0][2])
+        tiles, rb, Hkv, spans, _ = flat_q_grid(name, shapes[name][0][2], sms)
         R, Hq, D = a["q"].shape
-        Hkv = a["k_pool"].shape[-1] // D
         rq, nb = R * Hq // Hkv, a["blk_lo"].shape[0]
-        rb = pf.q_block_rows(rq)
-        spans = pf.q_spans(rq, Hkv, nb, a["block_len"], sms)
         T = nb * a["block_len"]  # the staged body's spans (fp32 q), launch_flatten's rule
         staged = pf.num_spans(nb, T * Hkv * (4 * D if "k_scale" not in a else 2 * D + 8),
                               Hkv * rq * (D + 2) * 4)
-        print(f"[timing] {name} grid: {-(-rq // rb)} row tiles of {rb} folded rows x {Hkv} "
-              f"KV heads x {spans} spans = {-(-rq // rb) * Hkv * spans} blocks of "
+        print(f"[timing] {name} grid: {len(tiles)} row tiles of {rb} folded rows x {Hkv} "
+              f"KV heads x {spans} spans = {len(tiles) * Hkv * spans} blocks of "
               f"{rb // 16} warps over {nb} plan blocks of {a['block_len']} tokens "
-              f"({sms} SMs), then the merge kernel; the staged body's rule would take {-(-rq // 64)} row tiles "
-              f"of 64 x {Hkv} x {staged} spans = {-(-rq // 64) * Hkv * staged} blocks of "
-              f"4 warps", flush=True)
+              f"({sms} SMs), then the merge kernel; the staged body's rule would take "
+              f"{-(-rq // 64)} row tiles of 64 x {Hkv} x {staged} spans = "
+              f"{-(-rq // 64) * Hkv * staged} blocks of 4 warps", flush=True)
     flat_q_tile_cost(dev, shapes, flush)
     rows["ragged_prefill"] = ragged_timing_row(fns, shapes, bound)
     rows["int8_matmul"] = int8mm_timing_row(fns, shapes, bound, flush)
@@ -3319,6 +3562,80 @@ def phase_timing(dev, shapes):
     return out
 
 
+def phase_flatten_only(dev, shapes, profile: bool):
+    """--flatten-only: the flatten kernels (B1, B1p, B4, B4p, B6 at the
+    short and batch plans over bf16 and int8 pools, B11) at their path
+    shapes against their plain versions, then their CUDA-event times; where
+    the package has B6's balanced span rule, also b6_edges, the B6/B11 tile
+    cost and sweeps of forced span counts (B6 at the batch plan, its
+    requests also admitted shortest prompt first, and at the short plan;
+    B11); with `profile`, the batch path's profiled flatten steps (8B,
+    bf16).  Runs
+    on the package of --root too, so a parent commit is timed in turns
+    with this one on one card."""
+    import torch
+    from deft_tpu_torch.ops import _cuda
+    from deft_tpu_torch.ops import paged_flatten_attn as pf
+
+    fns = wrappers()
+    names = ("paged_flatten", "paged_flatten_partial", "paged_flatten_q",
+             "paged_flatten_q_partial", "flatten_gather", "flatten_gather_partial")
+    for name in names:
+        for label, plan, args in shapes[name]:
+            leaves = plan[1] if name in PARTIAL_OF else plan.n_leaves
+            check_edge("flatten", name, f"bf16 path shapes {label}", args, leaves, 4,
+                       TOL["bfloat16"])
+    rule = hasattr(pf, "balanced_spans")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 8)
+    if rule:
+        b6_edges(dev, gen, shapes)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    for name in names:
+        for label, _, args in shapes[name]:
+            ms = time_ms(lambda: fns[name][0](*args), 20, flush)
+            print(f"[flatten] {name} {label}: kernel {ms:.4f} ms", flush=True)
+    if rule:
+        flat_q_tile_cost(dev, shapes, flush)
+        sms = _cuda.sm_count(dev.index)
+        gather = {label: a for label, _, a in shapes["flatten_gather"]}
+        # the batch path's requests also admitted shortest prompt first
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 9)
+        rev = batch_trees(GEN_LEN // 2, np.random.default_rng(SEED + 3), BATCH_LENS[::-1])
+        sweeps = [("flatten_gather", "batch inherit", gather["batch inherit"],
+                   (1, 2, 3, 4, 5, 6, 8, 10, 12, 16)),
+                  ("flatten_gather", f"batch inherit, prompts "
+                   f"{'/'.join(map(str, BATCH_LENS[::-1]))}",
+                   batch_case(rev, "inherit", dev, gen)[1], (2, 3, 4, 5, 6, 8)),
+                  ("flatten_gather", "inherit", gather["inherit"], (2, 4, 6, 8, 9, 10, 12, 16)),
+                  ("flatten_gather_partial", shapes["flatten_gather_partial"][0][0],
+                   shapes["flatten_gather_partial"][0][2], (4, 8, 12, 16, 20, 24, 28, 33))]
+        for name, label, args, counts in sweeps:
+            tiles, _, _, spans, _ = flat_q_grid(name, args, sms)
+            for s in counts:
+                with forced_spans(s):
+                    ms = time_ms(lambda: fns[name][0](*args), 20, flush)
+                print(f"[flatten] {name} {label} (listed tiles {list(tiles)}), {s} spans "
+                      f"forced{' (the rule)' if s == spans else ''}: kernel {ms:.4f} ms",
+                      flush=True)
+    if profile:
+        from deft_tpu_torch.models import PRESETS
+        from deft_tpu_torch.models.loader import random_params
+
+        cfg = PRESETS["8b"]
+        params = random_params(cfg, SEED, dev, torch.bfloat16)
+        runner = make_runner(cfg, params, dev, prompt_len=max(BATCH_LENS), slots=BATCH_SLOTS,
+                             max_requests=4 * (WIDTH + 2))
+        runner.retain_full_logits = False
+        rng = np.random.default_rng(SEED + 3)
+        prompts = [[int(t) for t in rng.integers(4, cfg.vocab_size - 4, n)]
+                   for n in BATCH_LENS]
+        profile_batch(runner, prompts, WIDTH, steps=8)
+        del runner, params
+        release()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3327,7 +3644,17 @@ def main(argv=None) -> int:
                          "16-token prompt over bf16 KV, the two MoE paths) and "
                          "8 batched flatten steps of the batch path's four "
                          "requests")
+    ap.add_argument("--flatten-only", action="store_true",
+                    help="only the card, the build and the flatten kernels' checks and "
+                         "times (phase_flatten_only); prints no result line")
+    ap.add_argument("--root", default=None,
+                    help="with --flatten-only: import deft_tpu_torch from this checkout "
+                         "(a parent commit timed in turns with this one)")
     args = ap.parse_args(argv)
+    if args.root is not None:
+        if not args.flatten_only:
+            ap.error("--root goes with --flatten-only")
+        sys.path.insert(0, args.root)
     try:
         import torch
     except ImportError:
@@ -3352,8 +3679,12 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     try:
         smi, name = phase_card()
-        phase_build()
+        phase_build(bodies=args.root is None)
         shapes = path_shapes(dev)
+        if args.flatten_only:
+            phase_flatten_only(dev, shapes, args.profile)
+            print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}", flush=True)
+            return 0
         errs = phase_kernels(dev, shapes)
         t0 = time.perf_counter()
         params = random_params(PRESETS["8b"], SEED, dev, torch.bfloat16)
@@ -3367,8 +3698,9 @@ def main(argv=None) -> int:
         lf = lf.cpu()
         launches.update({k: v for k, v in phase_short(dev, params, args.profile).items()
                          if k in ("flatten_gather", "seq_gather")})
-        launches["ragged_prefill"] = phase_batch(dev, params,
-                                                args.profile)["ragged_prefill"]
+        batch = phase_batch(dev, params, args.profile)
+        launches["ragged_prefill"] = batch["ragged_prefill"]
+        launches["flatten_gather"] += batch["flatten_gather"]  # its multi-tree gather steps
         del params
         release()
         launches["int8_matmul"] = phase_int8w(dev, prompt, ids, main_runs)["int8_matmul"]

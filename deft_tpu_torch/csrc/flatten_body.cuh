@@ -1,7 +1,9 @@
-// The split-KV flatten tree-decode kernels, shared by paged_flatten.cu (B1,
-// B4: tokens read through the plan's segment table) and flatten_gather.cu
-// (B6: tokens read through one pool index each), over bf16/fp32 pools or int8
-// pools with fp32 scales.
+// The split-KV flatten tree-decode kernels over fp32 q (the exactness
+// checks), shared by paged_flatten.cu (B1, B4: tokens read through the plan's
+// segment table) and flatten_gather.cu (B6, B11: tokens read through one pool
+// index each), over fp32 pools or int8 pools with fp32 scales.  Over bf16 q
+// every flatten entry runs flat_q_body.cuh's tensor-core body, which shares
+// the row sources, the pool view and the merge kernel below.
 //
 // Folded row r (leaf r / qpk, query head h * qpk + r % qpk) sees plan token t
 // iff tok_lo[t] <= r / qpk < tok_hi[t].  Blocks with blk_lo >= blk_hi are
@@ -234,10 +236,10 @@ cudaError_t launch_flatten(const void* q, Pools<KV> pools, Rows rows, const int*
   return cudaGetLastError();
 }
 
-// Check the sizes, then instantiate launch_flatten for the q type (dtype: 0 =
-// float32, 1 = bfloat16) and head_dim (64 or 128); the pools hold KV32
-// elements under fp32 q and KV16 under bf16 q.  m_o, l_o: see launch_flatten.
-template <typename KV32, typename KV16, typename Rows>
+// Check the sizes, then instantiate launch_flatten for fp32 q (dtype 0; bf16
+// q runs flat_q_body.cuh) and head_dim (64 or 128) over pools of KV: float,
+// or int8 with scales.  m_o, l_o: see launch_flatten.
+template <typename KV, typename Rows>
 cudaError_t dispatch_flatten(const void* q, const void* k, const void* v, const float* ks,
                              const float* vs, long long layer_off, long long scale_off,
                              int S, Rows rows, const int* tok_lo, const int* tok_hi,
@@ -247,32 +249,18 @@ cudaError_t dispatch_flatten(const void* q, const void* k, const void* v, const 
                              float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (R <= 0 || Hkv <= 0 || Hq % Hkv || n_spans <= 0 || nb <= 0 || block_len % kBN ||
-      !m_o != !l_o)
+      !m_o != !l_o || dtype != 0)
     return cudaErrorInvalidValue;
-  if (dtype == 1) {
-    Pools<KV16> p{static_cast<const KV16*>(k), static_cast<const KV16*>(v), ks, vs,
-                  layer_off, scale_off, S};
-    if (D == 128)
-      return launch_flatten<__nv_bfloat16, KV16, 128>(q, p, rows, tok_lo, tok_hi, blk_lo,
-                                                      blk_hi, acc, m, l, o, m_o, l_o, R, Hq,
-                                                      Hkv, nb, block_len, n_spans, scale, st);
-    if (D == 64)
-      return launch_flatten<__nv_bfloat16, KV16, 64>(q, p, rows, tok_lo, tok_hi, blk_lo,
-                                                     blk_hi, acc, m, l, o, m_o, l_o, R, Hq,
-                                                     Hkv, nb, block_len, n_spans, scale, st);
-  }
-  if (dtype == 0) {
-    Pools<KV32> p{static_cast<const KV32*>(k), static_cast<const KV32*>(v), ks, vs,
-                  layer_off, scale_off, S};
-    if (D == 128)
-      return launch_flatten<float, KV32, 128>(q, p, rows, tok_lo, tok_hi, blk_lo, blk_hi,
-                                              acc, m, l, o, m_o, l_o, R, Hq, Hkv, nb,
-                                              block_len, n_spans, scale, st);
-    if (D == 64)
-      return launch_flatten<float, KV32, 64>(q, p, rows, tok_lo, tok_hi, blk_lo, blk_hi,
-                                             acc, m, l, o, m_o, l_o, R, Hq, Hkv, nb,
-                                             block_len, n_spans, scale, st);
-  }
+  Pools<KV> p{static_cast<const KV*>(k), static_cast<const KV*>(v), ks, vs, layer_off,
+              scale_off, S};
+  if (D == 128)
+    return launch_flatten<float, KV, 128>(q, p, rows, tok_lo, tok_hi, blk_lo, blk_hi, acc, m,
+                                          l, o, m_o, l_o, R, Hq, Hkv, nb, block_len, n_spans,
+                                          scale, st);
+  if (D == 64)
+    return launch_flatten<float, KV, 64>(q, p, rows, tok_lo, tok_hi, blk_lo, blk_hi, acc, m,
+                                         l, o, m_o, l_o, R, Hq, Hkv, nb, block_len, n_spans,
+                                         scale, st);
   return cudaErrorInvalidValue;
 }
 

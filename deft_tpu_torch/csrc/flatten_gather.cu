@@ -7,16 +7,22 @@
 // into a contiguous (Hkv, T, D) copy (dequantised for int8 pools), then runs
 // the kernel over it.  This kernel reads row kv_idx[t] of the pool inside
 // the kernel instead: the same function, one copy of the tree's KV less per
-// layer.  The plan's tail pads point at DUMP_SLOT with empty leaf intervals
-// (tok_lo = 2^30), so they are masked, never read as live.
+// layer.  The plan's pads (a tree's bucket tail, a multi-tree plan's tail)
+// point at DUMP_SLOT, pool row 0, with empty leaf intervals (tok_lo = 2^30,
+// tok_hi = 0): their rows are read and masked, never attended.
 //
 // Bound on this card: bytes.  T * Hkv * D * 2 * itemsize per layer (plus the
 // int8 scales, T * Hkv * 4 * 2) and 4 bytes of kv_idx a token, against
-// 3.35 TB/s.  Design: the split-KV kernels of flatten_body.cuh (B1's), with
-// each 64-token tile's rows taken from kv_idx instead of the segment table;
-// dead blocks and tiles no row sees are skipped and FULL blocks take no
-// mask, as in B1.  int8 pools are widened and scaled as in B4.
-#include "flatten_body.cuh"
+// 3.35 TB/s.  Design: over bf16 q, the tensor-core body of flat_q_body.cuh
+// (B1's and B4's, deft_flat_q) with deft::IdxRows as its row source: 128
+// folded rows a block, warp 0 lists the plan blocks its row tile sees, the
+// spans split their 64-token tiles, and a 4-stage cp.async ring puts each
+// tile's 64 pool rows, read from kv_idx a tile ahead, into the boxes RS
+// wgmma reads (bf16 pools) or into rows the int8 codes are widened from in
+// registers for mma.sync (int8 pools); then the merge kernel.  The wrapper
+// picks the spans (ops/paged_flatten_attn.py).  Over fp32 q, the staged
+// split-KV kernels of flatten_body.cuh with the same row source.
+#include "flat_q_body.cuh"
 
 namespace {
 
@@ -26,14 +32,27 @@ int gather_entry(const void* q, const void* k_pool, const void* v_pool,
                  const int* tok_hi, const int* blk_lo, const int* blk_hi, float* acc, float* m,
                  float* l, void* o, float* m_o, float* l_o, int R, int Hq, int Hkv, int D,
                  int nb, int block_len, int n_spans, int dtype, float scale, void* stream) {
-  if (!k_scale != !v_scale) return cudaErrorInvalidValue;
+  if (!k_scale != !v_scale || !acc || !m || !l) return cudaErrorInvalidValue;
   const deft::IdxRows rows{kv_idx};
+  if (dtype == 1 && k_scale)
+    return deft_flat_q::dispatch<int8_t>(
+        q, {static_cast<const int8_t*>(k_pool), static_cast<const int8_t*>(v_pool), k_scale,
+            v_scale, layer_off, scale_off, S},
+        rows, tok_lo, tok_hi, blk_lo, blk_hi, acc, m, l, o, m_o, l_o, R, Hq, Hkv, D, nb,
+        block_len, n_spans, scale, stream);
+  if (dtype == 1)
+    return deft_flat_q::dispatch<__nv_bfloat16>(
+        q,
+        {static_cast<const __nv_bfloat16*>(k_pool), static_cast<const __nv_bfloat16*>(v_pool),
+         nullptr, nullptr, layer_off, 0, 0},
+        rows, tok_lo, tok_hi, blk_lo, blk_hi, acc, m, l, o, m_o, l_o, R, Hq, Hkv, D, nb,
+        block_len, n_spans, scale, stream);
   if (k_scale)
-    return deft::dispatch_flatten<int8_t, int8_t>(
+    return deft::dispatch_flatten<int8_t>(
         q, k_pool, v_pool, k_scale, v_scale, layer_off, scale_off, S, rows, tok_lo,
         tok_hi, blk_lo, blk_hi, acc, m, l, o, m_o, l_o, R, Hq, Hkv, D, nb, block_len,
         n_spans, dtype, scale, stream);
-  return deft::dispatch_flatten<float, __nv_bfloat16>(
+  return deft::dispatch_flatten<float>(
       q, k_pool, v_pool, nullptr, nullptr, layer_off, 0, 0, rows, tok_lo, tok_hi, blk_lo,
       blk_hi, acc, m, l, o, m_o, l_o, R, Hq, Hkv, D, nb, block_len, n_spans, dtype, scale,
       stream);
@@ -68,11 +87,11 @@ extern "C" int deft_flatten_gather(const void* q, const void* k_pool, const void
 // multi-device engine gathers the span's KV in XLA first and runs the kernel
 // over the copy (parallel/engine.py:185-196); this entry reads row kv_idx[t]
 // of the pool in the kernel, as deft_flatten_gather does, over bf16/fp32 or
-// int8 pools.  Blocks whose leaf interval, already shifted into the rank's
-// row window, misses its rows are skipped before any read (deft_tpu
-// sharded_flatten.py:55-60): kernel 1 skips a block whose interval misses its
-// 64-row tile.  Arguments of deft_flatten_gather, with acc_o (Hkv, R*qpk, D),
-// m_o and l_o (Hkv, R*qpk), fp32, m in natural-log units, where it takes o.
+// int8 pools, on the same bodies.  Blocks whose leaf interval, already
+// shifted into the rank's row window, misses its rows are skipped before any
+// read (deft_tpu sharded_flatten.py:55-60): no row tile lists such a block.
+// Arguments of deft_flatten_gather, with acc_o (Hkv, R*qpk, D), m_o and l_o
+// (Hkv, R*qpk), fp32, m in natural-log units, where it takes o.
 // Bound on this card: bytes, as deft_flatten_gather over the span.
 extern "C" int deft_flatten_gather_partial(
     const void* q, const void* k_pool, const void* v_pool, const float* k_scale,

@@ -57,11 +57,12 @@ def flatten_attn_q(q, k_new, v_new, k_pool, v_pool, li, batch, scale):
 
 def flatten_gather_attn(q, k_new, v_new, k_pool, v_pool, li, batch, scale):
     """Tree attention over a FlattenPlan that is not segment-aligned
-    (deft_tpu flatten_attn_pallas)."""
+    (deft_tpu flatten_attn_pallas); the runner's batch carries the plan's
+    row_tiles, counted on the host, for the kernel's span rule."""
     return flatten_attention(
         q, k_pool.data, v_pool.data, li, batch.kv_idx, batch.tok_lo,
         batch.tok_hi, batch.blk_lo, batch.blk_hi, scale, k_pool.scale,
-        v_pool.scale)
+        v_pool.scale, row_tiles=getattr(batch, "row_tiles", None))
 
 
 def seq_attn(q, k_new, v_new, k_pool, v_pool, li, batch, scale):

@@ -2,14 +2,15 @@
 
 Port of deft_tpu/ops/paged_flatten_attn.py:381 (paged_flatten_attention, the
 Pallas kernel _paged_kernel :63) and :458 (paged_flatten_attn_pallas).  The
-Hopper kernel is csrc/paged_flatten.cu: over bf16 q its tensor-core body
-(spans of the live 64-token tiles from the SM count, ``q_spans``), over fp32
-q the staged split-KV body, each followed by the LSE merge kernel of the
-spans' states; ``paged_flatten_attention_plain`` is the same
-function in plain torch over the same plan arrays, which the wrapper runs
-for CPU tensors only.  ``launch_flatten`` and ``tree_attention_plain``
-serve the other flatten kernels too: B4 (ops/paged_quant.py, int8 pools)
-and B6 (ops/flatten_attn.py, plans that are not segment-aligned).
+Hopper kernel is csrc/paged_flatten.cu: over bf16 q the tensor-core body of
+csrc/flat_q_body.cuh (spans of the live 64-token tiles from the SM count,
+``q_spans``), over fp32 q the staged split-KV body, each followed by the LSE
+merge kernel of the spans' states; ``paged_flatten_attention_plain`` is the
+same function in plain torch over the same plan arrays, which the wrapper
+runs for CPU tensors only.  ``launch_flatten`` and ``tree_attention_plain``
+serve the other flatten kernels too: B4 (ops/paged_quant.py, int8 pools),
+B6 (ops/flatten_attn.py) and B11 (ops/sharded_flatten.py), plans that are
+not segment-aligned, on the same bodies.
 
 B1p, ``paged_flatten_attention_partial``, is the port of deft_tpu's
 partial=True entry (paged_flatten_attn.py:408), which the multi-device
@@ -29,8 +30,9 @@ blk_lo < -(1 << 20) (FULL_BLOCK_LO) marks a block every leaf sees in full.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from deft_tpu_torch.models.llama import KVPool, kv_gather_heads
@@ -160,6 +162,38 @@ def q_spans(rq: int, Hkv: int, nb: int, block_len: int, sms: int) -> int:
     return max(1, min(nb * (block_len // 64), sms // pairs))
 
 
+def row_tile_tiles(blk_lo, blk_hi, rq: int, qpk: int, block_len: int) -> tuple:
+    """Per row tile of ``q_block_rows(rq)`` folded rows, the 64-token tiles
+    of the plan blocks it sees, as warp 0 of csrc/flat_q_body.cuh lists
+    them: a FULL block, or a live block whose leaf interval meets the
+    tile's leaves.  Host numpy over the plan's (nb,) blk_lo / blk_hi, read
+    before upload."""
+    blk_lo, blk_hi = np.asarray(blk_lo), np.asarray(blk_hi)
+    rb, full = q_block_rows(rq), blk_lo < _FULL_THRESHOLD
+    return tuple(int(((blk_hi > r0 // qpk)
+                      & (full | ((blk_lo < blk_hi)
+                                 & (blk_lo <= (min(rq, r0 + rb) - 1) // qpk)))).sum())
+                 * (block_len // 64) for r0 in range(0, rq, rb))
+
+
+def balanced_spans(row_tiles, Hkv: int, sms: int) -> int:
+    """Span count of the body over bf16 q from the row tiles' work (a
+    multi-tree plan's are very unequal): one wave of blocks, as q_spans
+    takes, unless the busiest row tile's tiles against the card's share
+    (all listed tiles of every KV head over the SMs, rounded) ask for half
+    again as many spans or more; then that many, so the busiest block holds
+    about one SM's share and the lighter blocks fill the SMs it leaves.  A
+    smaller excess costs a partial second wave more than the shorter blocks
+    save (on an H100, PERF.md §6).  Never more spans than the
+    busiest row tile's tiles."""
+    busiest, total = max(row_tiles), sum(row_tiles)
+    if busiest == 0:
+        return 1
+    one_wave = max(1, sms // (len(row_tiles) * Hkv))
+    even = (2 * busiest * sms + total * Hkv) // (2 * total * Hkv)
+    return max(1, min(busiest, even if 2 * even >= 3 * one_wave else one_wave))
+
+
 def check_pools(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                 k_scale: Optional[torch.Tensor],
                 v_scale: Optional[torch.Tensor]) -> int:
@@ -190,15 +224,17 @@ def check_pools(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
 
 def launch_flatten(source: str, entry: str, q, k_pool, v_pool, k_scale,
                    v_scale, li, rows, tok_lo, tok_hi, blk_lo, blk_hi, scale,
-                   block_len, seg_len, partial: bool = False):
+                   block_len, seg_len, partial: bool = False,
+                   row_tiles: Optional[Sequence[int]] = None):
     """Launch a flatten kernel of csrc/<source>.cu on q (R, Hq, D);
     ``rows`` is the segment table (paged plans, seg_len > 0) or one pool
-    index a token (seg_len 0).  Paged plans over bf16 q run the tensor-core
-    body (B1, B4 and their partial entries) on ``q_spans`` spans, the others
-    (fp32 q, gather plans) the staged body on ``num_spans`` spans; the merge
-    kernel follows either.  Returns (R, Hq, D),
-    or for a ``partial`` entry the state (acc (Hkv, R*qpk, D), m, l
-    (Hkv, R*qpk)), fp32."""
+    index a token (seg_len 0).  bf16 q runs the tensor-core body (B1, B4,
+    B6 and their partial entries) on ``q_spans`` spans, or on
+    ``balanced_spans`` where the caller gives the plan's ``row_tiles``
+    (``row_tile_tiles``, counted on the host); fp32 q runs the staged body
+    on ``num_spans`` spans; the merge kernel follows either.  Returns
+    (R, Hq, D), or for a ``partial`` entry the state (acc (Hkv, R*qpk, D),
+    m, l (Hkv, R*qpk)), fp32."""
     R, Hq, D = q.shape
     L, S, HD = k_pool.shape
     Hkv = check_pools(q, k_pool, v_pool, k_scale, v_scale)
@@ -217,8 +253,15 @@ def launch_flatten(source: str, entry: str, q, k_pool, v_pool, k_scale,
                          blk_lo, blk_hi)
     q = q.contiguous()
     Rq = R * (Hq // Hkv)
-    if q.dtype == torch.bfloat16 and seg_len:  # the tensor-core body (deft_flat_q)
-        spans = q_spans(Rq, Hkv, nb, block_len, _cuda.sm_count(q.device.index))
+    if q.dtype == torch.bfloat16:  # the tensor-core body (deft_flat_q)
+        sms = _cuda.sm_count(q.device.index)
+        if row_tiles is None:
+            spans = q_spans(Rq, Hkv, nb, block_len, sms)
+        else:
+            _cuda.require(len(row_tiles) == -(-Rq // q_block_rows(Rq)),
+                          "row_tiles disagree with q's rows")
+            spans = balanced_spans(row_tiles, Hkv, sms)
+        # the ring copies the leaf intervals in 16-byte chunks
         tok_lo, tok_hi = _cuda.aligned16(tok_lo), _cuda.aligned16(tok_hi)
     else:
         kv_bytes = T * HD * 2 * k_pool.element_size() + (T * Hkv * 8 if scales else 0)

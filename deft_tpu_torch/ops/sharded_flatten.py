@@ -7,11 +7,13 @@ segment-aligned (parallel/engine.py:178-215).  deft_tpu gathers the span's
 KV through ``kv_idx`` in XLA first (dequantised to q's dtype for int8
 pools) and runs the kernel over the contiguous copy; the Hopper kernel,
 csrc/flatten_gather.cu's entry deft_flatten_gather_partial (B11), reads
-pool row kv_idx[t] in the kernel, as B6 does, over bf16/fp32 pools or int8
-pools with their (L, Hkv, S) fp32 scales, and writes the unnormalised
-state (acc, m, l) through kernel 2's partial form.  Blocks whose leaf
-interval, shifted into the rank's row window, misses its rows are skipped
-before any read (sharded_flatten.py:55-60).  ``flatten_attention_partial_plain``
+pool row kv_idx[t] in the kernel, as B6 does and on B6's bodies (bf16 q:
+csrc/flat_q_body.cuh's tensor cores, spans from the SM count, ``q_spans``;
+fp32 q: the staged split-KV body), over bf16/fp32 pools or int8 pools with
+their (L, Hkv, S) fp32 scales, and writes the unnormalised state (acc, m,
+l) through the merge kernel's partial form.  Blocks whose leaf interval,
+shifted into the rank's row window, misses its rows are skipped before any
+read (sharded_flatten.py:55-60).  ``flatten_attention_partial_plain``
 is the same function in plain torch, which the wrapper runs for CPU tensors
 only.
 

@@ -48,6 +48,7 @@ from deft_tpu_torch.models.rope import rope_table
 from deft_tpu_torch.obs import create_logger
 from deft_tpu_torch.obs.timers import synchronize
 from deft_tpu_torch.ops import attn_impls
+from deft_tpu_torch.ops.paged_flatten_attn import row_tile_tiles
 from deft_tpu_torch.plan import build_flatten_plan, build_seq_plan
 from deft_tpu_torch.plan.flatten import FlattenPlan
 from deft_tpu_torch.plan.seq import SeqPlan
@@ -401,6 +402,12 @@ class ModelRunner:
         dev["out_loc"] = dev["out_loc"].long()
         if "paths" in dev:
             dev["paths"] = dev["paths"].view(plan.paths.shape)
+        if isinstance(plan, FlattenPlan) and not plan.paged:
+            # B6's span rule reads the row tiles' work from the numpy plan,
+            # so the wrapper reads nothing back from the device
+            qpk = self.cfg.q_per_kv
+            dev["row_tiles"] = row_tile_tiles(plan.blk_lo, plan.blk_hi,
+                                              plan.l_pad * qpk, qpk, plan.block_len)
         return SimpleNamespace(**dev, block_len=block_len, seg_len=plan.seg_len)
 
     def forward_tree_decode(self, mode: ForwardMode, plan,
