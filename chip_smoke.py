@@ -8,13 +8,15 @@
         # (B1, B1p, B4, B4p, B6, B11; with --profile the batch path's
         # profiled flatten steps), over this checkout's package or DIR's:
         # a parent commit timed in turns with this one on one card
+    python3 chip_smoke.py --seq-only [--root DIR]
+        # the same for the seq kernels (B2, B2p, B5, B5p, B7)
 
 Phases, each fatal on failure (the script then exits non-zero and prints no
 result line):
   1. card:    nvidia-smi's name and power limit, torch's device name;
   2. build:   nvcc builds every kernel from csrc/, one process per source;
               the wgmma bodies (B1's among them) must hold HGMMA, the
-              mma.sync bodies of B2, B4 and B5 HMMA (cuobjdump's SASS);
+              mma.sync bodies of B2, B4, B5 and B7 HMMA (cuobjdump's SASS);
               ptxas's register and spill lines of B1's body;
   3. kernels: each kernel against its plain torch version on the card, on the
               shapes its path gives it (Llama-3.1-8B heads and matmuls, B10
@@ -24,7 +26,8 @@ result line):
               tree: 4 KV heads; bf16, tolerance 2e-2) and on small
               fp32 cases (tolerance 2e-5): trees with dead, FULL and
               few-leaf blocks, unaligned seq segments and a short prompt's
-              plans that are not segment-aligned, over bf16/fp32 pools and
+              plans that are not segment-aligned (B7 also on the main tree
+              halfway, built as a gather seq plan), over bf16/fp32 pools and
               int8 pools with random codes and scales, live rows only; B10
               with an empty expert group and pad tiles past the last group;
               the partial entries on every rank's window of a dp 2 x sp 3
@@ -32,7 +35,7 @@ result line):
               rows, m where a row saw a token); the sp merge of B1p's two
               halves of the main plan against B1 over the whole; the edges
               of the tensor-core bodies (b9_edges, seq_edges for B2 and B5,
-              b4_edges, b1_edges, b6_edges, wgmma_edges), each with a fault
+              b7_edges, b4_edges, b1_edges, b6_edges, wgmma_edges), each with a fault
               control through the plain version that must read above the
               tolerance; b1_edges and b6_edges also print the grids B1, B1p,
               B6 and B11 take at their path shapes.  B6 runs at the short
@@ -116,8 +119,9 @@ result line):
  13. timing:  CUDA-event times of each kernel, its plain version and, where
               one PyTorch call computes the same function, that call, at its
               path's shapes, beside the least time the card could take
-              (B6 at both its plans, bf16 and int8 pools, the short plan's
-              bf16 case in the kernels line); B1, B1p, B4, B4p, B6 and B11
+              (B6 at both its plans, B7 at the short tree and the main
+              tree's gather plan, bf16 and int8 pools, the short plans'
+              bf16 cases in the kernels line); B1, B1p, B4, B4p, B6 and B11
               also with one span and with a warm L2 (flat_q_tile_cost).
 Each path's counts are set to 0 just before it and read just after (the
 short path's two runs each, summed; the batch path's two engine runs each).
@@ -519,9 +523,17 @@ def window_case(name, plan, args, grid):
     a = {k: v for k, v in named_args(PARTIAL_OF[name], args).items() if k in params}
     R = a["q"].shape[0]
     b = SimpleNamespace(**a)
-    w = (engine.flatten_window(grid, b, R, paged=layout == "paged") if kind == "flatten"
-         else seq_engine.seq_window(grid, b, R))
-    a.update((k, v) for k, v in vars(w).items() if k in a)
+    if kind == "flatten":
+        # the window's row tiles, counted on the host as the engine counts
+        # them for B11 (a parent commit's engine may not take qpk)
+        qpk = {"qpk": a["q"].shape[1] // (a["k_pool"].shape[-1] // a["q"].shape[-1])}
+        if "qpk" not in inspect.signature(engine.flatten_window).parameters:
+            qpk = {}
+        w = engine.flatten_window(grid, b, R, paged=layout == "paged", **qpk)
+    else:
+        w = seq_engine.seq_window(grid, b, R)
+    a.update((k, v) for k, v in vars(w).items()
+             if k in a or (k == "row_tiles" and k in params and v is not None))
     a["q"] = engine.window_rows(a["q"], w.rows * grid.axis_size("dp"), w.r0, w.rows)
     return tuple(a.values()), max(0, min(w.rows, plan.n_leaves - w.r0))
 
@@ -603,7 +615,9 @@ def path_shapes(dev):
     (int8 pools) on the 4000-token prompt's tree halfway through its 64
     tokens; B6 (bf16 and int8 pools) on the CLI's 16-token prompt's tree
     halfway through, B7 at its fifth step, where their plans come out not
-    segment-aligned; the partial entries at rank 0's window of their grid
+    segment-aligned, and B7 (bf16 and int8 pools) on the main tree halfway
+    built as a gather seq plan (deft_tpu builds such plans on any tree
+    under --kernels xla); the partial entries at rank 0's window of their grid
     (B1p, B2p, B4p, B5p on the main tree, B11 on the short one); B6 also
     on the batch path's four trees halfway (their multi-tree gather plan,
     ``batch_case``); prefill of the 4000-token prompt; B8 over the batch
@@ -641,6 +655,11 @@ def path_shapes(dev):
         out[name] = [(kv, *kernel_case(name, tree, 4, 8, 128, bf16, dev, gen, 256,
                                        kv=kv, as_built=True))
                      for kv in ("inherit", "int8")]
+    # B7 also on the main tree halfway, its seq plan in the gather layout:
+    # each leaf's 4000-token path read through its row of paths
+    out["seq_gather"] += [(f"main {kv}", *kernel_case("seq_gather", main, 4, 8, 128, bf16,
+                                                      dev, gen, 256, kv=kv))
+                          for kv in ("inherit", "int8")]
     # B6 also at the batch path's multi-tree plan halfway (a gather plan)
     batch = batch_trees(GEN_LEN // 2, np.random.default_rng(SEED + 3))
     out["flatten_gather"] += [(f"batch {kv}", *batch_case(batch, kv, dev, gen))
@@ -712,7 +731,9 @@ MMA_BODIES = {"B2/B2p (deft_seq_q, bf16 KV)": ("paged_seq", "seq_q_mmaI13__nv_bf
               "B4/B4p (deft_flat_q, int8 KV)": ("paged_flatten", "flatten_q_mmaIa", "HMMA"),
               "B6/B11 (deft_flat_q, bf16 KV)": ("flatten_gather",
                                                 "flatten_q_mmaI13__nv_bfloat16", "HGMMA"),
-              "B6/B11 (deft_flat_q, int8 KV)": ("flatten_gather", "flatten_q_mmaIa", "HMMA")}
+              "B6/B11 (deft_flat_q, int8 KV)": ("flatten_gather", "flatten_q_mmaIa", "HMMA"),
+              "B7 (deft_seq_q, bf16 KV)": ("seq_gather", "seq_q_mmaI13__nv_bfloat16", "HMMA"),
+              "B7 (deft_seq_q, int8 KV)": ("seq_gather", "seq_q_mmaIa", "HMMA")}
 
 
 def ptxas_lines(name: str, function: str) -> list:
@@ -748,7 +769,7 @@ def phase_build(bodies: bool = True):
             if "wgmma" in line:
                 print(f"[build] {name}: {line.strip()}")
     # the bf16 bodies of B3/B8, B10, B9, B1 and B6 run on wgmma (HGMMA in
-    # their SASS), B2's, B4's and B5's over bf16 q on mma.sync (HMMA)
+    # their SASS), B2's, B4's, B5's and B7's over bf16 q on mma.sync (HMMA)
     hgmma = {name: sass_count(name, "HGMMA") for name in _cuda.SOURCES}
     hmma = {name: sass_count(name, "HMMA") for name in _cuda.SOURCES}
     print(f"[build] HGMMA instructions by library: {hgmma}", flush=True)
@@ -757,7 +778,8 @@ def phase_build(bodies: bool = True):
         return
     for name in ("gmm", "prefill", "int8_matmul", "paged_flatten", "flatten_gather"):
         check(hgmma[name] > 0, f"the {name} library holds no HGMMA instruction")
-    check(hmma["paged_seq"] > 0, "the paged_seq library holds no HMMA instruction")
+    for name in ("paged_seq", "seq_gather"):
+        check(hmma[name] > 0, f"the {name} library holds no HMMA instruction")
     bodies = {label: (op, sass_count(lib, op, fn))
               for label, (lib, fn, op) in MMA_BODIES.items()}
     print(f"[build] tensor-core instructions by body: {bodies}", flush=True)
@@ -923,6 +945,7 @@ def phase_kernels(dev, shapes):
     b9_edges(dev, gen)
     seq_edges(dev, gen, int8=True)  # B5, B5p
     seq_edges(dev, gen, int8=False)  # B2, B2p
+    b7_edges(dev, gen)
     b4_edges(dev, gen)
     b1_edges(dev, gen, shapes)
     b6_edges(dev, gen, shapes)
@@ -1140,11 +1163,112 @@ def seq_edges(dev, gen, int8):
                     fns[name][1](**named)[:1], TOL["bfloat16"])
 
 
+def synthetic_gather_paths(rng, lens, C, S):
+    """A gather seq plan's (paths (R, C), seq_lens (R,)) as int32 numpy:
+    leaf r's path is lens[r] distinct pool rows in [1, S), scattered over
+    the pool; the pads past it at DUMP_SLOT (row 0)."""
+    paths = np.zeros((len(lens), C), np.int32)
+    for r, n in enumerate(lens):
+        paths[r, :n] = rng.choice(np.arange(1, S), n, replace=False)
+    return paths, np.asarray(lens, np.int32)
+
+
+def b7_split_tokens(length, splits, split):
+    """The path tokens block `split` of `splits` takes in deft_seq_q: its
+    share of the path's 16-token tiles."""
+    tiles = -(-length // 16)
+    return np.arange(16 * (tiles * split // splits),
+                     min(16 * (tiles * (split + 1) // splits), length))
+
+
+def b7_edges(dev, gen):
+    """B7 over bf16 q (deft_seq_q with the path table as its path source)
+    against its plain version beyond the path shapes, bf16, tolerance 2e-2,
+    every row (padded leaves give 0 in both) and every output finite:
+    synthetic gather plans with path lengths off the 16-token tile, a
+    one-token leaf, a seq_len 0 leaf between live ones (its rows must be
+    exactly 0) and a path as long as the padded width; qpk 1, 4 and 8; D 64
+    and 128; bf16 and int8 pools; each path split over 1, 3 and 8 blocks of
+    a cluster.  The pool rows at DUMP_SLOT (and for int8 their scales) hold
+    NaN in the kernel's pools, so a pad read would show as a non-finite
+    output; the plain version reads the same pools with row 0 finite.
+    Controls through the plain version: leaf 0's and leaf 1's last path
+    entries swapped between the leaves (17-token paths); leaf 0's last
+    token hidden; the share of a 150-token path that the middle of three
+    blocks takes left out."""
+    import torch
+    from deft_tpu_torch.ops import paged_seq_attn as ps
+
+    kern, plain = wrappers()["seq_gather"]
+    tol = TOL["bfloat16"]
+    rng = np.random.default_rng(SEED + 11)
+    S, C, Hkv = 4096, 192, 2
+    bf16 = torch.bfloat16
+
+    def case(lens, qpk, D, kv):
+        """(kernel args with DUMP_SLOT poisoned, plain args)."""
+        paths, seq_lens = synthetic_gather_paths(rng, lens, C, S)
+        pools, scales = random_pools(kv, S, Hkv, D, bf16, dev, gen)
+        q = torch.randn((len(lens), qpk * Hkv, D), generator=gen, device=dev).to(bf16)
+        arrs = to_dev([paths, seq_lens], dev)
+        clean = (q, *pools, 0, *arrs, D ** -0.5, *scales)
+        if kv == "int8":
+            scales = [x.clone().index_fill_(2, torch.tensor([0], device=dev), float("nan"))
+                      for x in scales]
+        else:
+            pools = [x.clone().index_fill_(1, torch.tensor([0], device=dev), float("nan"))
+                     for x in pools]
+        return (q, *pools, 0, *arrs, D ** -0.5, *scales), clean
+
+    lens = [37, 1, 0, C, 16, 100, 150, 0]
+    for kv in ("inherit", "int8"):
+        for D in (64, 128):
+            for qpk in (1, 4, 8):
+                args, clean = case(lens, qpk, D, kv)
+                want = plain(*clean)
+                for sp in (1, 3, 8):
+                    with forced(ps, "seq_splits", sp):
+                        got = kern(*args)
+                    torch.cuda.synchronize()
+                    e = rel_err(got, want)
+                    label = f"{kv} D={D} qpk {qpk} path lengths {lens}, splits {sp}"
+                    print(f"[b7] seq_gather {label}: rel err {e:.3e}, tol {tol:.0e}",
+                          flush=True)
+                    check(e < tol and bool(torch.isfinite(got).all()),
+                          f"seq_gather {label} disagrees with its plain version (or read a "
+                          f"pad row): {e}")
+                    check(not bool(got[[2, 7]].any()),
+                          f"seq_gather {label}: a seq_len 0 leaf is not 0")
+    # controls: 17-token paths, queries small so each token weighs about a
+    # seventeenth
+    args, clean = case([17, 17, 150], 4, 128, "inherit")
+    args[0][:2] *= 0.05  # q, shared by both
+    named = named_args("seq_gather", clean)
+    got = kern(*args)
+    swapped = named["paths"].clone()
+    swapped[0, 16], swapped[1, 16] = named["paths"][1, 16], named["paths"][0, 16]
+    rel_err_control("seq_gather", "17-token paths, leaf 0's and leaf 1's last entries "
+                    "swapped", got[:2], plain(**dict(named, paths=swapped))[:2], tol)
+    hidden = named["seq_lens"].clone()
+    hidden[0] -= 1
+    rel_err_control("seq_gather", "17-token path with its last token hidden", got[:1],
+                    plain(**dict(named, seq_lens=hidden))[:1], tol)
+    with forced(ps, "seq_splits", 3):
+        got = kern(*args)
+    share = torch.from_numpy(b7_split_tokens(150, 3, 1)).to(dev)
+    live = torch.arange(C, device=dev)[None, :] < named["seq_lens"][:, None]
+    live[2, share] = False
+    want = ps.path_attention_plain(named["q"], named["k_pool"], named["v_pool"], 0,
+                                   named["paths"], live, named["scale"])
+    rel_err_control("seq_gather", f"150-token path over 3 blocks: block 1's share (tokens "
+                    f"{int(share[0])}-{int(share[-1])}) left out", got[2:3], want[2:3], tol)
+
+
 def check_edge(tag, name, label, args, leaves, qpk, tol):
-    """A flatten kernel's edge case against its plain version: the first
-    `leaves` leaves' rows (partial entries: acc and l on their folded rows,
-    m where a row saw a token), every output finite, pad rows included.
-    Returns the kernel's output."""
+    """An attention kernel's edge case against its plain version: the first
+    `leaves` leaves' rows (partial entries: acc and l on their rows, folded
+    for a flatten kernel, m where a row saw a token), every output finite,
+    pad rows included.  Returns the kernel's output."""
     import torch
 
     fn, plain = wrappers()[name]
@@ -1152,7 +1276,8 @@ def check_edge(tag, name, label, args, leaves, qpk, tol):
     torch.cuda.synchronize()
     want = plain(*args)
     if name.endswith("_partial"):
-        rows = (slice(None), slice(0, leaves * qpk))
+        rows = ((slice(None), slice(0, leaves * qpk)) if KERNELS[name][2] == "flatten"
+                else (slice(0, leaves),))
         seen = want[2][rows] > 0
         pairs = [(got[0][rows], want[0][rows]), (got[2][rows], want[2][rows]),
                  (got[1][rows][seen], want[1][rows][seen])]
@@ -3425,12 +3550,31 @@ def flat_q_tile_cost(dev, shapes, flush):
               f"rule's grid ({spans} spans) with a warm L2 {warm:.4f} ms", flush=True)
 
 
+SEQ_NAMES = ("paged_seq", "paged_seq_partial", "paged_seq_q", "paged_seq_q_partial",
+             "seq_gather")
+
+
+def seq_grids(shapes, sms, tag):
+    """Print the grid each seq kernel takes over bf16 q at its path shapes:
+    leaves x KV heads x the blocks of a cluster a path is split over."""
+    from deft_tpu_torch.ops import paged_seq_attn as ps
+
+    for name in SEQ_NAMES:
+        for label, _, args in shapes[name]:
+            a = named_args(name, args)
+            R, Hkv = a["q"].shape[0], a["k_pool"].shape[-1] // a["q"].shape[-1]
+            int8 = a.get("k_scale") is not None
+            print(f"[{tag}] {name}{' ' + label if label else ''} grid: {R} rows x {Hkv} KV "
+                  f"heads, each path over {ps.seq_splits(R, Hkv, sms, int8)} blocks of a "
+                  f"cluster", flush=True)
+
+
 def phase_timing(dev, shapes):
-    """Per kernel at its path's shapes (B7's bf16-pool case; B6 at the short
-    and the batch plan over bf16 and int8 pools, the short plan's bf16 case
-    in the kernels line; B9: one layer's four matmuls and lm_head at R =
-    64): kernel, plain and library times, the least time the card could
-    take and what bounds it."""
+    """Per kernel at its path's shapes (B6 at the short and the batch plan,
+    B7 at the short tree and the main tree's gather plan, each over bf16 and
+    int8 pools, the short plans' bf16 cases in the kernels line; B9: one
+    layer's four matmuls and lm_head at R = 64): kernel, plain and library
+    times, the least time the card could take and what bounds it."""
     import torch
     import torch.nn.functional as F
 
@@ -3492,9 +3636,11 @@ def phase_timing(dev, shapes):
             rows[name] = partial_timing_row(name, cases[0][2], bound, flush)
         elif KERNELS[name][2] is not None:  # prefill, B8, B9: below
             attention_row(name, name, *cases[0][1:])
-    # B6 also over int8 pools and at the batch plan (its other path shape)
-    for label, plan, args in shapes["flatten_gather"][1:]:
-        attention_row("flatten_gather", f"flatten_gather ({label})", plan, args)
+    # B6 also over int8 pools and at the batch plan (its other path shape),
+    # B7 over int8 pools and at the main tree's gather plan
+    for name in ("flatten_gather", "seq_gather"):
+        for label, plan, args in shapes[name][1:]:
+            attention_row(name, f"{name} ({label})", plan, args)
     # prefill: causal FLOPs 2 * 2 * Hq * N^2 * D / 2
     q, k, v, scale = shapes["prefill"][0][2]
     N, Hq, D = q.shape
@@ -3512,17 +3658,10 @@ def phase_timing(dev, shapes):
                        *bound(nbytes, 2 * 2 * Hq * N * N * D / 2))
 
     from deft_tpu_torch.ops import _cuda
-    from deft_tpu_torch.ops import paged_seq_attn as ps
-
     from deft_tpu_torch.ops import paged_flatten_attn as pf
 
     sms = _cuda.sm_count(dev.index)
-    for name in ("paged_seq", "paged_seq_partial", "paged_seq_q", "paged_seq_q_partial"):
-        a = named_args(name, shapes[name][0][2])
-        R, Hkv = a["q"].shape[0], a["k_pool"].shape[-1] // a["q"].shape[-1]
-        print(f"[timing] {name} grid: {R} rows x {Hkv} KV heads, each path over "
-              f"{ps.seq_splits(R, Hkv, sms, 'k_scale' in a)} blocks of a cluster",
-              flush=True)
+    seq_grids(shapes, sms, "timing")
     for name in ("paged_flatten", "paged_flatten_partial", "paged_flatten_q",
                  "paged_flatten_q_partial"):
         a = named_args(name, shapes[name][0][2])
@@ -3613,7 +3752,7 @@ def phase_flatten_only(dev, shapes, profile: bool):
                    shapes["flatten_gather_partial"][0][2], (4, 8, 12, 16, 20, 24, 28, 33))]
         for name, label, args, counts in sweeps:
             tiles, _, _, spans, _ = flat_q_grid(name, args, sms)
-            for s in counts:
+            for s in sorted(set(counts) | {spans}):  # the rule's count among them
                 with forced_spans(s):
                     ms = time_ms(lambda: fns[name][0](*args), 20, flush)
                 print(f"[flatten] {name} {label} (listed tiles {list(tiles)}), {s} spans "
@@ -3636,6 +3775,44 @@ def phase_flatten_only(dev, shapes, profile: bool):
         release()
 
 
+def phase_seq_only(dev, shapes, edges: bool):
+    """--seq-only: the seq kernels (B2, B2p, B5, B5p on the main tree and
+    rank 0's window of grid 1x2x2; B7 at the short tree and the main tree's
+    gather plan, bf16 and int8 pools) at their path shapes against their
+    plain versions, then their CUDA-event times; with `edges` (this
+    checkout's package) also b7_edges and B7 over forced splits.  Runs on
+    the package of --root too, so a parent commit is timed in turns with
+    this one on one card."""
+    import torch
+    from deft_tpu_torch.ops import _cuda
+    from deft_tpu_torch.ops import paged_seq_attn as ps
+
+    fns = wrappers()
+    for name in SEQ_NAMES:
+        for label, plan, args in shapes[name]:
+            leaves = plan[1] if name in PARTIAL_OF else plan.n_leaves
+            check_edge("seq", name, f"bf16 path shapes {label}", args, leaves, 4,
+                       TOL["bfloat16"])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 12)
+    if edges:
+        b7_edges(dev, gen)
+        seq_grids(shapes, _cuda.sm_count(dev.index), "seq")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    for name in SEQ_NAMES:
+        for label, _, args in shapes[name]:
+            ms = time_ms(lambda: fns[name][0](*args), 20, flush)
+            print(f"[seq] {name}{' ' + label if label else ''}: kernel {ms:.4f} ms",
+                  flush=True)
+    if edges:
+        for label, _, args in shapes["seq_gather"]:
+            for sp in (1, 2, 4, 8):
+                with forced(ps, "seq_splits", sp):
+                    ms = time_ms(lambda: fns["seq_gather"][0](*args), 20, flush)
+                print(f"[seq] seq_gather {label}, {sp} splits forced: kernel {ms:.4f} ms",
+                      flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3647,13 +3824,18 @@ def main(argv=None) -> int:
     ap.add_argument("--flatten-only", action="store_true",
                     help="only the card, the build and the flatten kernels' checks and "
                          "times (phase_flatten_only); prints no result line")
+    ap.add_argument("--seq-only", action="store_true",
+                    help="only the card, the build and the seq kernels' checks and "
+                         "times (phase_seq_only); prints no result line")
     ap.add_argument("--root", default=None,
-                    help="with --flatten-only: import deft_tpu_torch from this checkout "
-                         "(a parent commit timed in turns with this one)")
+                    help="with --flatten-only or --seq-only: import deft_tpu_torch from "
+                         "this checkout (a parent commit timed in turns with this one)")
     args = ap.parse_args(argv)
+    if args.flatten_only and args.seq_only:
+        ap.error("--flatten-only and --seq-only are two runs")
     if args.root is not None:
-        if not args.flatten_only:
-            ap.error("--root goes with --flatten-only")
+        if not (args.flatten_only or args.seq_only):
+            ap.error("--root goes with --flatten-only or --seq-only")
         sys.path.insert(0, args.root)
     try:
         import torch
@@ -3681,8 +3863,11 @@ def main(argv=None) -> int:
         smi, name = phase_card()
         phase_build(bodies=args.root is None)
         shapes = path_shapes(dev)
-        if args.flatten_only:
-            phase_flatten_only(dev, shapes, args.profile)
+        if args.flatten_only or args.seq_only:
+            if args.flatten_only:
+                phase_flatten_only(dev, shapes, args.profile)
+            else:
+                phase_seq_only(dev, shapes, edges=args.root is None)
             print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}", flush=True)
             return 0
         errs = phase_kernels(dev, shapes)

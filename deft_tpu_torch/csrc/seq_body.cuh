@@ -1,18 +1,17 @@
-// The sequential per-leaf decode kernel, shared by paged_seq.cu (B2, B5:
-// each leaf's path read through its segment table) and seq_gather.cu (B7:
-// through its padded row of pool indices), over bf16/fp32 pools or int8
-// pools with fp32 scales.  (B5 and B5p over bf16 q run paged_seq.cu's own
-// tensor-core body instead; fp32 q keeps this one.)
+// The sequential per-leaf decode kernel over fp32 q (the exactness checks),
+// shared by paged_seq.cu (B2, B5: each leaf's path read through its segment
+// table) and seq_gather.cu (B7: through its padded row of pool indices),
+// over fp32 pools or int8 pools with fp32 scales.  bf16 q runs the
+// tensor-core body of seq_q_body.cuh instead, on the same path sources.
 //
 // One block per (leaf, KV head) walks the leaf's path in tiles of 64 tokens,
 // each holding only live path tokens.  K and V tiles are staged in shared
-// memory with 16-byte loads (int8 tiles widened to the q type as they are
+// memory with 16-byte loads (int8 tiles widened to fp32 as they are
 // stored); scores and P V are fp32 FMA loops, with ~2 * qpk FLOPs per byte
 // the tensor cores would idle; the softmax is online in the exp2 domain, as
-// in the TPU kernels.  On bf16 inputs P is rounded to bf16 for P V, as the
-// TPU kernels and the flatten kernels round it.  int8 pools: scores times
-// the token's K scale after the product, P times its V scale before the
-// rounding, l over the unscaled P (deft_tpu ops/paged_seq_attn.py:197-222).
+// in the TPU kernels, and P stays fp32 (the q type).  int8 pools: scores
+// times the token's K scale after the product, P times its V scale, l over
+// the unscaled P (deft_tpu ops/paged_seq_attn.py:197-222).
 // Every leaf re-reads its whole path, shared prefix included: that re-read
 // is the baseline's defining cost and is kept on purpose.
 //
@@ -43,23 +42,10 @@ constexpr float kMClamp = -1e5f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// fp32 tile rows are only 4-byte aligned (odd pitch): two scalar loads
+// tile rows are only 4-byte aligned (odd pitch): two scalar loads
 __device__ __forceinline__ float2 to_f2(const float* p) { return make_float2(p[0], p[1]); }
-__device__ __forceinline__ float2 to_f2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-// P as the PV product takes it: in the q type, as the TPU kernel casts p
-// (deft_tpu ops/paged_seq_attn.py:220) and as the flatten kernels do.
-template <typename T>
-__device__ __forceinline__ float round_p(float x) {
-  if constexpr (std::is_same<T, float>::value) return x;
-  else return __bfloat162float(__float2bfloat16(x));
-}
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 // Paged plans: leaf r's path is the live spans of its segments, segment j
@@ -95,12 +81,12 @@ struct SeqPools {
 
 // Shared memory: K/V tiles with an odd number of 32-bit words per row, so a
 // warp reading one word from each of 32 token rows hits 32 banks.
-template <typename T, int D, typename KV>
+template <int D, typename KV>
 struct SeqSmem {
   static constexpr bool kQ = std::is_same<KV, int8_t>::value;
-  static constexpr int KS = D + 4 / sizeof(T);  // bf16: D + 2, fp32: D + 1
-  T k[kBN * KS];
-  T v[kBN * KS];
+  static constexpr int KS = D + 1;
+  float k[kBN * KS];
+  float v[kBN * KS];
   float q[kMaxQpk * D];       // queries times scale * log2(e)
   float p[kMaxQpk * kBN];     // scores, then probabilities
   float alpha[kMaxQpk];
@@ -112,31 +98,26 @@ struct SeqSmem {
   // followed by int cum[nseg + 1] (dynamic, paged plans)
 };
 
-// Store one 16-byte chunk of KV as T values at dst (4-byte aligned).
-template <typename T, typename KV>
-__device__ __forceinline__ void store_chunk(T* dst, const uint4& c) {
+// Store one 16-byte chunk of KV as fp32 values at dst (4-byte aligned).
+template <typename KV>
+__device__ __forceinline__ void store_chunk(float* dst, const uint4& c) {
   uint32_t* d = reinterpret_cast<uint32_t*>(dst);
   if constexpr (!std::is_same<KV, int8_t>::value) {
     d[0] = c.x; d[1] = c.y; d[2] = c.z; d[3] = c.w;
   } else {
     const int8_t* b = reinterpret_cast<const int8_t*>(&c);
-    if constexpr (std::is_same<T, float>::value) {
 #pragma unroll
-      for (int j = 0; j < 16; ++j) d[j] = __float_as_uint(float(b[j]));
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) d[j] = deft::pack_bf16(b[2 * j], b[2 * j + 1]);
-    }
+    for (int j = 0; j < 16; ++j) d[j] = __float_as_uint(float(b[j]));
   }
 }
 
-template <typename T, typename KV, int D, typename Path>
+template <typename KV, int D, typename Path>
 __global__ void __launch_bounds__(kThreads)
-    seq_kernel(const T* __restrict__ q, SeqPools<KV> pools, Path path, void* __restrict__ o,
-               float* __restrict__ m_out, float* __restrict__ l_out, int Hq, int Hkv,
-               float s2) {
+    seq_kernel(const float* __restrict__ q, SeqPools<KV> pools, Path path,
+               void* __restrict__ o, float* __restrict__ m_out, float* __restrict__ l_out,
+               int Hq, int Hkv, float s2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  using S = SeqSmem<T, D, KV>;
+  using S = SeqSmem<D, KV>;
   constexpr bool kPaged = std::is_same<Path, SegPath>::value;
   S& sm = *reinterpret_cast<S*>(smem_raw);
   int* cum = reinterpret_cast<int*>(smem_raw + sizeof(S));
@@ -242,8 +223,8 @@ __global__ void __launch_bounds__(kThreads)
         const int i = tid + (u0 + u) * kThreads;
         const int t = i / CPR, c = i % CPR;
         // rows are 4-byte aligned only (odd word pitch): stored word by word
-        store_chunk<T, KV>(sm.k + t * S::KS + c * EPC, kv[u]);
-        store_chunk<T, KV>(sm.v + t * S::KS + c * EPC, vv[u]);
+        store_chunk<KV>(sm.k + t * S::KS + c * EPC, kv[u]);
+        store_chunk<KV>(sm.v + t * S::KS + c * EPC, vv[u]);
       }
     }
     __syncthreads();
@@ -253,7 +234,7 @@ __global__ void __launch_bounds__(kThreads)
       float s = kNeg;
       if (t < n) {
         const float* qr = sm.q + g * D;
-        const T* kr = sm.k + t * S::KS;
+        const float* kr = sm.k + t * S::KS;
         float a = 0.f;
 #pragma unroll 8
         for (int d = 0; d < D; d += 2) {
@@ -276,11 +257,11 @@ __global__ void __launch_bounds__(kThreads)
       const float m_new = fmaxf(fmaxf(m_old, mx), kMClamp);
       const float p0 = exp2f(pr[lane] - m_new), p1 = exp2f(pr[lane + 32] - m_new);
       if constexpr (S::kQ) {
-        pr[lane] = round_p<T>(p0 * sm.vs[lane]);
-        pr[lane + 32] = round_p<T>(p1 * sm.vs[lane + 32]);
+        pr[lane] = p0 * sm.vs[lane];
+        pr[lane + 32] = p1 * sm.vs[lane + 32];
       } else {
-        pr[lane] = round_p<T>(p0);
-        pr[lane + 32] = round_p<T>(p1);
+        pr[lane] = p0;
+        pr[lane + 32] = p1;
       }
       float sum = p0 + p1;  // l sums the unrounded, unscaled P
 #pragma unroll
@@ -338,64 +319,50 @@ __global__ void __launch_bounds__(kThreads)
       const int g = idx / (D / 2), d = (idx % (D / 2)) * 2;
       const float l = sm.l[g];
       const float inv = l == 0.f ? 0.f : 1.f / l;
-      store2(static_cast<T*>(o) + ((long long)leaf * Hq + h * qpk + g) * D + d,
+      store2(static_cast<float*>(o) + ((long long)leaf * Hq + h * qpk + g) * D + d,
              acc[k].x * inv, acc[k].y * inv);
     }
   }
 }
 
-// m_out, l_out: null for the normalised output o (R, Hq, D) in T; else the
-// partial form, o then fp32.
-template <typename T, typename KV, int D, typename Path>
+// m_out, l_out: null for the normalised output o (R, Hq, D); else the
+// partial form.  Both fp32.
+template <typename KV, int D, typename Path>
 cudaError_t launch_seq(const void* q, SeqPools<KV> pools, Path path, void* o, float* m_out,
                        float* l_out, int R, int Hq, int Hkv, size_t dyn_smem, float scale,
                        cudaStream_t stream) {
-  auto kernel = seq_kernel<T, KV, D, Path>;
-  const size_t smem = sizeof(SeqSmem<T, D, KV>) + dyn_smem;
+  auto kernel = seq_kernel<KV, D, Path>;
+  const size_t smem = sizeof(SeqSmem<D, KV>) + dyn_smem;
   if (smem > 48 * 1024) {
     const cudaError_t attr = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (attr != cudaSuccess) return attr;
   }
   dim3 grid(R, Hkv);
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), pools, path, o, m_out,
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const float*>(q), pools, path, o, m_out,
                                            l_out, Hq, Hkv, scale * kLog2e);
   return cudaGetLastError();
 }
 
-// Check the sizes, then instantiate launch_seq for the q type (dtype: 0 =
-// float32, 1 = bfloat16) and head_dim (64 or 128); the pools hold KV32
-// elements under fp32 q and KV16 under bf16 q.  dyn_smem: bytes of the
-// path's dynamic shared memory.  m_out, l_out: see launch_seq.
-template <typename KV32, typename KV16, typename Path>
+// Check the sizes, then instantiate launch_seq for fp32 q and head_dim (64
+// or 128); the pools hold KV (float, or int8 with scales).  dyn_smem: bytes
+// of the path's dynamic shared memory.  m_out, l_out: see launch_seq.
+template <typename KV, typename Path>
 cudaError_t dispatch_seq(const void* q, const void* k, const void* v, const float* ks,
                          const float* vs, void* o, float* m_out, float* l_out,
                          long long layer_off, long long scale_off, int S, Path path,
-                         size_t dyn_smem, int R, int Hq, int Hkv, int D, int dtype,
-                         float scale, void* stream) {
+                         size_t dyn_smem, int R, int Hq, int Hkv, int D, float scale,
+                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (R <= 0 || Hkv <= 0 || Hq % Hkv || Hq / Hkv > kMaxQpk || !m_out != !l_out)
     return cudaErrorInvalidValue;
-  if (dtype == 1) {
-    SeqPools<KV16> p{static_cast<const KV16*>(k), static_cast<const KV16*>(v), ks, vs,
-                     layer_off, scale_off, S};
-    if (D == 128)
-      return launch_seq<__nv_bfloat16, KV16, 128>(q, p, path, o, m_out, l_out, R, Hq, Hkv,
-                                                  dyn_smem, scale, st);
-    if (D == 64)
-      return launch_seq<__nv_bfloat16, KV16, 64>(q, p, path, o, m_out, l_out, R, Hq, Hkv,
-                                                 dyn_smem, scale, st);
-  }
-  if (dtype == 0) {
-    SeqPools<KV32> p{static_cast<const KV32*>(k), static_cast<const KV32*>(v), ks, vs,
-                     layer_off, scale_off, S};
-    if (D == 128)
-      return launch_seq<float, KV32, 128>(q, p, path, o, m_out, l_out, R, Hq, Hkv, dyn_smem,
-                                          scale, st);
-    if (D == 64)
-      return launch_seq<float, KV32, 64>(q, p, path, o, m_out, l_out, R, Hq, Hkv, dyn_smem,
-                                         scale, st);
-  }
+  SeqPools<KV> p{static_cast<const KV*>(k), static_cast<const KV*>(v), ks, vs, layer_off,
+                 scale_off, S};
+  if (D == 128)
+    return launch_seq<KV, 128>(q, p, path, o, m_out, l_out, R, Hq, Hkv, dyn_smem, scale,
+                               st);
+  if (D == 64)
+    return launch_seq<KV, 64>(q, p, path, o, m_out, l_out, R, Hq, Hkv, dyn_smem, scale, st);
   return cudaErrorInvalidValue;
 }
 

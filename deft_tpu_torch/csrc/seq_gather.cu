@@ -8,38 +8,62 @@
 // it in 128-token blocks masked by seq_lens.  This kernel reads row
 // paths[r, c] of the pool for c < seq_lens[r] inside the kernel: the same
 // function, without the copy and without reading the padding.  The pad
-// entries (DUMP_SLOT, slot 0) are never read.
+// entries (DUMP_SLOT, slot 0) are never read, nor their entries of paths.
 //
 // Bound on this card: bytes.  The per-leaf path bytes summed over leaves,
 // sum_r seq_lens[r] * Hkv * D * 2 * itemsize per layer (plus for int8 the
 // scales, sum_r seq_lens[r] * Hkv * 4 * 2) and 4 bytes of paths a token,
-// against 3.35 TB/s.  Design: the kernel of seq_body.cuh (B2's), one block
-// per (leaf, KV head), with each 64-token tile's rows taken from the leaf's
-// row of paths; its tiles are 64 tokens where the TPU kernel's blocks are
-// 128.  Per-leaf re-reads of the shared prefix are kept: they are the
-// baseline's defining cost.  int8 pools are widened and scaled as in B5.
-#include "seq_body.cuh"
+// against 3.35 TB/s; the shared prefix's re-reads mostly hit L2, so each
+// live row read once is the lower bound.  Design: over bf16 q, the
+// tensor-core body of seq_q_body.cuh (B2's and B5's, deft_seq_q) with
+// deft_seq::IdxPath as its path source: one block of 4 warps per (leaf, KV
+// head, span of the path), the blocks of a cluster sharing a path where the
+// (leaf, head) pairs alone would leave SMs idle (the wrapper's splits, from
+// R, Hkv and the SM count), each warp walking its span of 16-token tiles
+// through a 3-stage cp.async ring, the pool rows of a tile read from paths a
+// tile ahead; mma.sync over bf16 pools (ldmatrix) and over int8 pools (codes
+// widened in registers, scales at the token's pool row); the cluster merges
+// its warps' states in a fixed order.  What this answers in the staged body
+// that B7 ran before (seq_body.cuh, which fp32 q keeps for the exactness
+// checks): fp32 FMA products with the tensor cores idle, 64-token tiles
+// behind block barriers with no copy in flight, and one block a (leaf,
+// head) however few leaves there are.  Per-leaf re-reads of the shared
+// prefix are kept: they are the baseline's defining cost.
+#include "seq_q_body.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16 (q and o; the pools too unless int8).
 // k_scale / v_scale: (L, Hkv, S) fp32 scales of int8 pools, null for pools
 // of the q type.  q, o: (R, Hq, D); pools (L, S, Hkv*D); layer_off = li * S
 // * Hkv * D; scale_off = li * Hkv * S; paths (R, C); seq_lens (R,), each at
-// most C.  Returns a cudaError_t code.
+// most C.  splits: the blocks of a cluster that share each (leaf, head)'s
+// path, 1 .. 8 over bf16 q (the tensor-core body), else 1.  Returns a
+// cudaError_t code.
 extern "C" int deft_seq_gather(const void* q, const void* k_pool, const void* v_pool,
                                const float* k_scale, const float* v_scale, void* o,
                                long long layer_off, long long scale_off, int S,
                                const int* paths, const int* seq_lens, int R, int C,
-                               int Hq, int Hkv, int D, int dtype, float scale,
+                               int Hq, int Hkv, int D, int splits, int dtype, float scale,
                                void* stream) {
-  if (C <= 0 || !k_scale != !v_scale) return cudaErrorInvalidValue;
+  if (C <= 0 || !k_scale != !v_scale || (dtype != 0 && dtype != 1) ||
+      (dtype == 0 && splits != 1))
+    return cudaErrorInvalidValue;
   const deft_seq::IdxPath path{paths, seq_lens, C};
+  if (dtype == 1 && k_scale)
+    return deft_seq_q::dispatch<int8_t>(
+        q, {static_cast<const int8_t*>(k_pool), static_cast<const int8_t*>(v_pool), k_scale,
+            v_scale, layer_off, scale_off, S},
+        path, o, nullptr, nullptr, R, Hq, Hkv, D, splits, scale, stream);
+  if (dtype == 1)
+    return deft_seq_q::dispatch<__nv_bfloat16>(
+        q,
+        {static_cast<const __nv_bfloat16*>(k_pool), static_cast<const __nv_bfloat16*>(v_pool),
+         nullptr, nullptr, layer_off, 0, 0},
+        path, o, nullptr, nullptr, R, Hq, Hkv, D, splits, scale, stream);
   if (k_scale)
-    return deft_seq::dispatch_seq<int8_t, int8_t>(q, k_pool, v_pool, k_scale, v_scale, o,
-                                                  nullptr, nullptr, layer_off, scale_off, S,
-                                                  path, 0, R, Hq, Hkv, D, dtype, scale,
-                                                  stream);
-  return deft_seq::dispatch_seq<float, __nv_bfloat16>(q, k_pool, v_pool, nullptr, nullptr,
-                                                      o, nullptr, nullptr, layer_off, 0, 0,
-                                                      path, 0, R, Hq, Hkv, D, dtype, scale,
-                                                      stream);
+    return deft_seq::dispatch_seq<int8_t>(q, k_pool, v_pool, k_scale, v_scale, o, nullptr,
+                                          nullptr, layer_off, scale_off, S, path, 0, R, Hq,
+                                          Hkv, D, scale, stream);
+  return deft_seq::dispatch_seq<float>(q, k_pool, v_pool, nullptr, nullptr, o, nullptr,
+                                       nullptr, layer_off, 0, 0, path, 0, R, Hq, Hkv, D,
+                                       scale, stream);
 }

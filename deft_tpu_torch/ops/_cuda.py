@@ -28,7 +28,7 @@ BUILD = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("prefill", "paged_flatten", "paged_seq", "flatten_gather", "seq_gather",
            "int8_matmul", "gmm")
 HEADERS = ("flash_common.cuh", "flatten_body.cuh", "flat_q_body.cuh", "seq_body.cuh",
-           "hopper.cuh")
+           "seq_q_body.cuh", "hopper.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -8,11 +8,11 @@ quantized=True) and :429 (paged_seq_attn_q_pallas).  The Hopper kernels are
 csrc/paged_seq.cu's two entries; ``paged_seq_attention_plain`` and
 ``paged_seq_attention_q_plain`` are the same functions in plain torch over
 the same plan arrays, which the wrappers run for CPU tensors only.
-``launch_seq`` and ``path_attention_plain`` also serve B7
+``launch_seq``, ``path_attention_plain`` and ``seq_splits`` also serve B7
 (ops/seq_attn.py, plans that are not segment-aligned).  Over bf16 q, B2,
-B2p, B5 and B5p run a tensor-core body that may split each path over the
-blocks of a cluster (``seq_splits``); fp32 q keeps one block a (leaf,
-head).
+B2p, B5, B5p and B7 run one tensor-core body (csrc/seq_q_body.cuh) that
+may split each path over the blocks of a cluster (``seq_splits``); fp32 q
+keeps one block a (leaf, head).
 
 B2p and B5p, ``paged_seq_attention_partial`` and
 ``paged_seq_attention_q_partial``, port deft_tpu's partial=True entries
@@ -163,7 +163,8 @@ def seq_splits(R: int, Hkv: int, sms: int, int8: bool = True) -> int:
     Hkv pairs fill the SMs' resident blocks, at most 8; 1 where the pairs
     alone fill them (the 8B main tree, 64 x 8 pairs).  Each block takes a
     contiguous share of the path's 16-token tiles, computed on the device
-    from the segment table."""
+    from the segment table (B2, B5) or the path's length (B7): the host
+    needs no path length."""
     per_sm = _BLOCKS_PER_SM["int8" if int8 else "bfloat16"]
     return max(1, min(_MAX_SPLITS, -(-per_sm * sms // max(1, R * Hkv))))
 

@@ -42,12 +42,13 @@ every rank, which is exact (dp splits rows inside attention only).
 from __future__ import annotations
 
 from types import SimpleNamespace
-from typing import Callable
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from deft_tpu_torch.ops.paged_flatten_attn import (paged_flatten_attention_partial,
-                                                   unfold_rows)
+                                                   row_tile_tiles, unfold_rows)
 from deft_tpu_torch.ops.paged_quant import paged_flatten_attention_q_partial
 from deft_tpu_torch.ops.sharded_flatten import flatten_attention_partial
 from deft_tpu_torch.parallel.mesh import Grid
@@ -88,21 +89,54 @@ def last_live(live: torch.Tensor) -> int:
     return int(idx[-1]) + 1 if len(idx) else 1
 
 
-def flatten_window(grid: Grid, batch, R: int, paged: bool) -> SimpleNamespace:
+def host_window(grid: Grid, blk_lo: np.ndarray, blk_hi: np.ndarray, R: int, block_len: int,
+                qpk: Optional[int] = None) -> SimpleNamespace:
+    """The cut of this rank's flatten window, counted on the host from the
+    numpy plan's (nb,) blk_lo / blk_hi: B, the blocks up to the last one a
+    leaf reads (FULL or live); the sp span [b0, b0 + span) of those padded
+    to a multiple of sp; the dp row window (rows, r0); and with ``qpk`` the
+    window's row tiles (paged_flatten_attn.row_tile_tiles over its blocks,
+    shifted as ``shift_window`` shifts them on the device), which B11's span
+    rule takes.  Nothing is read from the device."""
+    sp = grid.axis_size("sp")
+    blk_lo, blk_hi = np.asarray(blk_lo), np.asarray(blk_hi)
+    live = np.flatnonzero((blk_lo < blk_hi) | (blk_lo < -(1 << 20)))
+    B = int(live[-1]) + 1 if len(live) else 1
+    B_pad = -(-B // sp) * sp
+    span = B_pad // sp
+    b0 = grid.index("sp") * span
+    _, rows, r0 = row_window(grid, R)
+    win = SimpleNamespace(B=B, B_pad=B_pad, span=span, b0=b0, rows=rows, r0=r0,
+                          row_tiles=None)
+    if qpk is not None:
+        def cut(x, value):
+            return np.concatenate([x[:B], np.full(B_pad - B, value, x.dtype)])[b0:b0 + span]
+
+        blo, bhi = shift_window(r0, rows, torch.from_numpy(cut(blk_lo, EMPTY_LO)),
+                                torch.from_numpy(cut(blk_hi, 0)))
+        win.row_tiles = row_tile_tiles(blo.numpy(), bhi.numpy(), rows * qpk, qpk, block_len)
+    return win
+
+
+def flatten_window(grid: Grid, batch, R: int, paged: bool,
+                   qpk: Optional[int] = None) -> SimpleNamespace:
     """This rank's part of a flatten plan: its dp row window and its sp
     span of blocks, pads carrying empty intervals (deft_tpu
     engine.py:100-119).  sp splits the blocks up to the last one a leaf
     reads, so the plan's bucket padding at its end falls to no rank and
     every span holds a share of the live KV (deft_tpu splits the padded
-    plan: its last spans may hold nothing live).  Returns rows, r0 and the
-    span's arrays (seg_src or kv_idx, tok_lo, tok_hi, blk_lo, blk_hi)."""
-    sp = grid.axis_size("sp")
+    plan: its last spans may hold nothing live).  The cut is counted on the
+    host (``host_window``) from the numpy plan the runner puts on the batch
+    (``blk_host``; else from the batch's blk_lo / blk_hi copied to the
+    host).  Returns rows, r0, the span's arrays (seg_src or kv_idx, tok_lo,
+    tok_hi, blk_lo, blk_hi) and, for a gather plan with ``qpk``, the
+    window's row tiles (``row_tiles``; else None)."""
     block_len = batch.tok_lo.shape[0] // batch.blk_lo.shape[0]
-    B = last_live((batch.blk_lo < batch.blk_hi) | (batch.blk_lo < -(1 << 20)))
-    B_pad = -(-B // sp) * sp
-    span = B_pad // sp
-    b0 = grid.index("sp") * span
-    _, rows, r0 = row_window(grid, R)
+    host = getattr(batch, "blk_host", None)
+    if host is None:
+        host = (batch.blk_lo.cpu().numpy(), batch.blk_hi.cpu().numpy())
+    h = host_window(grid, *host, R, block_len, None if paged else qpk)
+    B, B_pad, span, b0, rows, r0 = h.B, h.B_pad, h.span, h.b0, h.rows, h.r0
 
     def cut(x, per_block, value=0):
         """The span's part of x, per_block entries a block, past B padded."""
@@ -111,7 +145,7 @@ def flatten_window(grid: Grid, batch, R: int, paged: bool) -> SimpleNamespace:
 
     blo, bhi = shift_window(r0, rows, cut(batch.blk_lo, 1, EMPTY_LO), cut(batch.blk_hi, 1))
     win = SimpleNamespace(
-        rows=rows, r0=r0, block_len=block_len,
+        rows=rows, r0=r0, block_len=block_len, row_tiles=h.row_tiles,
         tok_lo=cut(batch.tok_lo, block_len, EMPTY_LO) - r0,
         tok_hi=cut(batch.tok_hi, block_len) - r0,
         blk_lo=blo, blk_hi=bhi)
@@ -162,13 +196,13 @@ def join_rows(grid: Grid, o: torch.Tensor, R: int, r0: int) -> torch.Tensor:
 
 
 def _cached(fn: Callable) -> Callable:
-    """fn(batch, R) computed once a step: the layers of one step share the
-    batch, and the window of its plan."""
+    """fn(batch, *args) computed once a step: the layers of one step share
+    the batch, and the window of its plan."""
     last = {}
 
-    def get(batch, R):
+    def get(batch, *args):
         if last.get("batch") is not batch:
-            last["batch"], last["win"] = batch, fn(batch, R)
+            last["batch"], last["win"] = batch, fn(batch, *args)
         return last["win"]
     return get
 
@@ -176,13 +210,15 @@ def _cached(fn: Callable) -> Callable:
 def make_sharded_tree_attn(grid: Grid, paged: bool):
     """AttnFn for flatten plans on the grid: the rank's partial kernel over
     its window (B1p / B4p for paged plans, B11 otherwise), the LSE merge
-    over sp, the dp row windows joined.  Matches the single-device flatten
-    AttnFns exactly (tests/test_torch_parallel.py)."""
-    window = _cached(lambda batch, R: flatten_window(grid, batch, R, paged))
+    over sp, the dp row windows joined.  B11 takes its window's row tiles,
+    counted on the host (``host_window``), for its span rule; paged windows
+    keep q_spans.  Matches the single-device flatten AttnFns exactly
+    (tests/test_torch_parallel.py)."""
+    window = _cached(lambda batch, R, qpk: flatten_window(grid, batch, R, paged, qpk))
 
     def attn(q, k_new, v_new, k_pool, v_pool, li, batch, scale):
         R = q.shape[0]
-        w = window(batch, R)
+        w = window(batch, R, q.shape[1] // (k_pool.data.shape[-1] // q.shape[-1]))
         R_pad = w.rows * grid.axis_size("dp")
         ql = window_rows(q, R_pad, w.r0, w.rows)
         if paged and k_pool.quantized:
@@ -197,7 +233,8 @@ def make_sharded_tree_attn(grid: Grid, paged: bool):
         else:
             acc, m, l = flatten_attention_partial(
                 ql, k_pool.data, v_pool.data, li, w.kv_idx, w.tok_lo, w.tok_hi,
-                w.blk_lo, w.blk_hi, scale, k_pool.scale, v_pool.scale)
+                w.blk_lo, w.blk_hi, scale, k_pool.scale, v_pool.scale,
+                row_tiles=w.row_tiles)
         o = unfold_rows(lse_merge(acc, m, l, sp_reduce(grid)), w.rows)
         return join_rows(grid, o.to(q.dtype), R, w.r0)
 

@@ -98,7 +98,8 @@ class BatchedEngine:
                 f"batched {mode.name}: only flatten and seq plans are ported")
         if runner.mesh is not None:
             raise NotImplementedError("the batched engine on a grid is not ported "
-                                      "yet (ROADMAP A5)")
+                                      "yet (ROADMAP A6, batching; A5 in older "
+                                      "roadmaps)")
         self.runner = runner
         self.mode = mode
         self.active: List[Request] = []
@@ -171,7 +172,7 @@ class BatchedEngine:
             raise RuntimeError("step() with no active or waiting request")
         trees = [req.tree for req in self.active]
         for t in trees:
-            if t.pending_kv_copies:  # merge compactions: ROADMAP A3
+            if t.pending_kv_copies:  # merge compactions: ROADMAP A6
                 raise NotImplementedError(
                     "a tree queued KV copies (merge_nodes); applying them "
                     "comes with speculative decoding")

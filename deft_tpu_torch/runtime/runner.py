@@ -311,7 +311,7 @@ class ModelRunner:
         eagerly at the true token count, so no bucket padding."""
         if self.mesh is not None:
             raise NotImplementedError("batched prefill on a grid is not ported "
-                                      "yet (ROADMAP A5)")
+                                      "yet (ROADMAP A6)")
         if not prompts or len(prompts) != len(trees):
             raise ValueError(f"{len(prompts)} prompts for {len(trees)} trees")
         tokens, positions, out_loc, seg, last = [], [], [], [], []
@@ -408,6 +408,11 @@ class ModelRunner:
             qpk = self.cfg.q_per_kv
             dev["row_tiles"] = row_tile_tiles(plan.blk_lo, plan.blk_hi,
                                               plan.l_pad * qpk, qpk, plan.block_len)
+        if isinstance(plan, FlattenPlan):
+            # a grid's rank windows are cut on the host from the numpy plan
+            # (parallel/engine.py host_window): B11's row tiles and the sp
+            # span's blocks, with nothing read back from the device
+            dev["blk_host"] = (plan.blk_lo, plan.blk_hi)
         return SimpleNamespace(**dev, block_len=block_len, seg_len=plan.seg_len)
 
     def forward_tree_decode(self, mode: ForwardMode, plan,
