@@ -10,6 +10,8 @@
         # a parent commit timed in turns with this one on one card
     python3 chip_smoke.py --seq-only [--root DIR]
         # the same for the seq kernels (B2, B2p, B5, B5p, B7)
+    python3 chip_smoke.py --workloads-only [--profile]
+        # the card, the build and the workloads phase (8 below) alone
 
 Phases, each fatal on failure (the script then exits non-zero and prints no
 result line):
@@ -69,13 +71,35 @@ result line):
               B6 (flatten) and B2 or B7 (seq) must launch; B6's launches at
               the flatten run's gather steps join the short path's in the
               kernels line;
-  8. int8w:   the main path's workload over int8 weights made on the card
+  8. workloads: every workload and decode mode on the main path's settings
+              (bf16 weights, prompt 4000, 64 tokens, width 50), each run
+              through tree_generate with its launches, TTFT, TPOT and peak
+              memory printed: W1 Practical_Tree on the CLI's synthetic ToT
+              template, W2 Speculative_Decoding on its synthetic token tree
+              (merge copies read back equal to their sources, the root
+              grown by the accept schedule, no lm_head after the prefill),
+              W3 Beam_Search (50 live beams a step), W4 Random_Tree (the
+              same schedule in both modes), each flatten then seq with
+              each mode's own decode kernels only, and a mid-run step held
+              in the flatten run (the first after the first branch, prune
+              or merge, and the first gather-plan step after it): seq
+              against flatten below LOGITS_LIMIT, a dropped block above;
+              W5 sampled Simple_Tree twice from RandomState(0), equal
+              tokens; W6 the first decode step of node, node_chunk,
+              tree_index, unpaged flatten/node/seq and Medusa against
+              flatten's below LOGITS_LIMIT (the dropped block above), then
+              a Simple_Tree run each (Medusa: no decode kernel), then node
+              over int8 KV (B4 or B6); W7 four Speculative_Decoding
+              requests through BatchedEngine (B8 at admission, each
+              request's merges by its schedule); B6's and B7's launches
+              join the kernels line;
+  9. int8w:   the main path's workload over int8 weights made on the card
               (weight_dtype "int8-pallas"), flatten then seq: B9 launches 129
               times a decode step (4 matmuls x 32 layers + lm_head) and never
               in prefill; the first decode step's logits against the same
               codes and scales under "int8" (the plain expression, 0 B9
               launches) below LOGITS_LIMIT;
-  9. moe:     Mixtral-8x7B widths at deft_tpu's 6 layers (PRESETS
+ 10. moe:     Mixtral-8x7B widths at deft_tpu's 6 layers (PRESETS
               ["mixtral-6l"], bf16 weights from a CUDA torch.Generator), the
               main path's workload over a prompt of ids below its 32000-token
               vocabulary: the prefill's MoE runs through B10 (gmm, 18
@@ -91,14 +115,14 @@ result line):
               layer) pairs whose top-2 experts differ between the routes.
               The first decode step, seq against flatten, with the main
               path's attention controls, below MOE_STEP_LIMIT;
- 10. moe-int8w: Mixtral-8x7B at all 32 layers over int8-pallas weights made
+ 11. moe-int8w: Mixtral-8x7B at all 32 layers over int8-pallas weights made
               on the card (about 47 GB): B10's scaled entry (gmm_scaled) 96
               launches a prefill, B9 65 a decode step (wqkv and wo x 32 +
               lm_head); the route check on the same codes and scales, the
               logits below MOE_INT8_LIMIT, the first
               step as above, TTFT and TPOT beside the moe path's, and the
               path's peak device memory;
- 11. sharded: the multi-device engine (parallel/), four ranks started on the
+ 12. sharded: the multi-device engine (parallel/), four ranks started on the
               one card over gloo (NCCL refuses two ranks on one card; that
               refusal is checked), grid 1x2x2 (tp 2, sp 2): the 8B model at
               32 layers from the main path's seed (each rank draws its
@@ -113,10 +137,10 @@ result line):
               on several cards' speed); then an int8 KV cache (B4p, B5p; 8
               decode tokens, its first step against the int8 path's); then
               grid 2x1x2 over the 16-token prompt (B11 with dp 2);
- 12. sharded-moe: mixtral-6l on grid 1x2x2 (4 experts a rank): B10 on every
+ 13. sharded-moe: mixtral-6l on grid 1x2x2 (4 experts a rank): B10 on every
               rank's prefill, its last-token logits against the moe path's
               below MOE_LIMIT, then 8 decode tokens;
- 13. timing:  CUDA-event times of each kernel, its plain version and, where
+ 14. timing:  CUDA-event times of each kernel, its plain version and, where
               one PyTorch call computes the same function, that call, at its
               path's shapes, beside the least time the card could take
               (B6 at both its plans, B7 at the short tree and the main
@@ -314,6 +338,17 @@ def reset_counts() -> None:
 def read_counts() -> dict:
     return {name: getattr(fn, COUNT_ATTR.get(name, "launches"))
             for name, (fn, _) in wrappers().items()}
+
+
+def restore_counts(counts: dict) -> None:
+    """Set every launch counter back to `counts` (read_counts' dict)."""
+    for name, (fn, _) in wrappers().items():
+        setattr(fn, COUNT_ATTR.get(name, "launches"), counts[name])
+
+
+# lm_head products taken while generate_run counts them (models/llama.py
+# lm_head: the decode step's and the prefill's)
+LM_HEADS = [0]
 
 
 # -- trees and kernel inputs ---------------------------------------------------------
@@ -1792,7 +1827,7 @@ def phase_merge(dev, shapes):
 
 
 def make_runner(cfg, params, dev, kv_dtype="inherit", prompt_len=PROMPT_LEN,
-                slots=16384, max_requests=2 * WIDTH, mesh=None):
+                slots=16384, max_requests=2 * WIDTH, mesh=None, use_tree_index=False):
     from deft_tpu_torch.config import AttentionConfig, EngineConfig
     from deft_tpu_torch.runtime import ModelRunner
 
@@ -1800,43 +1835,64 @@ def make_runner(cfg, params, dev, kv_dtype="inherit", prompt_len=PROMPT_LEN,
                         kv_pool_slots=slots, max_requests=max_requests,
                         max_context_len=prompt_len + GEN_LEN + 64, kv_dtype=kv_dtype)
     return ModelRunner(cfg, ecfg, device=dev, params=params,
-                       topk_k=max(64, WIDTH), retain_full_logits=True, mesh=mesh)
+                       topk_k=max(64, WIDTH), retain_full_logits=True, mesh=mesh,
+                       use_tree_index=use_tree_index)
+
+
+def generate_run(runner, mode, prompt, fn=None, template=None, rng=None):
+    """One generation through tree_generate, of the workload `fn` (default
+    Simple_Tree) at WIDTH; returns {"pm", "seqs", "paged", "leaves",
+    "launches", "lm_head"}: the finished branches' token ids, each step's
+    plan layout and live leaves, and the kernels launched and the lm_head
+    products taken during the run."""
+    from unittest import mock
+
+    from deft_tpu_torch.control import Branch_Controller, workloads
+    from deft_tpu_torch.models import llama
+    from deft_tpu_torch.obs import PerfMetrics
+    from deft_tpu_torch.runtime import tree_generate
+
+    paged, leaves = [], []
+    build, lm_head = runner.build_plan, llama.lm_head
+
+    def recording_build(m):
+        plan = build(m)
+        paged.append(plan.paged)
+        leaves.append(plan.n_leaves)
+        return plan
+
+    def counting_lm_head(*a, **k):
+        LM_HEADS[0] += 1
+        return lm_head(*a, **k)
+
+    before, heads = read_counts(), LM_HEADS[0]
+    with (mock.patch.object(runner, "build_plan", recording_build),
+          mock.patch.object(llama, "lm_head", counting_lm_head)):
+        pm = tree_generate(runner, mode, None, prompt,
+                           max_seq_len=len(prompt) + GEN_LEN, width=WIDTH, depth=1,
+                           branch_controller=Branch_Controller(
+                               fn or workloads.simple_tree),
+                           tree_template=template, perf_metrics=PerfMetrics(),
+                           rng=rng)
+    return {"pm": pm, "seqs": [list(s.token_ids) for s in runner.tree.all_finished_seqs],
+            "paged": paged, "leaves": leaves, "lm_head": LM_HEADS[0] - heads,
+            "launches": {k: v - before[k] for k, v in read_counts().items()
+                         if v > before[k]}}
 
 
 def generate_both(runner, prompt, tag, count_plans=False):
     """Flatten then seq through tree_generate; checks each run finishes its
-    branches and returns {mode: {"pm", "seqs", "paged"}}."""
-    from deft_tpu_torch.control import Branch_Controller, workloads
-    from deft_tpu_torch.obs import PerfMetrics
-    from deft_tpu_torch.runtime import ForwardMode, tree_generate
+    branches and returns {mode: generate_run's dict}."""
+    from deft_tpu_torch.runtime import ForwardMode
 
     out = {}
-    build = runner.build_plan
     for mode_name, mode in (("flatten", ForwardMode.TREE_DECODE_FLATTEN),
                             ("seq", ForwardMode.DECODE)):
-        paged = []
-
-        def recording_build(m):
-            plan = build(m)
-            paged.append(plan.paged)
-            return plan
-
-        runner.build_plan = recording_build
-        before = read_counts()
-        try:
-            pm = tree_generate(runner, mode, None, prompt,
-                               max_seq_len=len(prompt) + GEN_LEN, width=WIDTH,
-                               depth=1,
-                               branch_controller=Branch_Controller(workloads.simple_tree),
-                               perf_metrics=PerfMetrics())
-        finally:
-            del runner.build_plan  # the class's method again, no cycle
-        seqs = [list(s.token_ids) for s in runner.tree.all_finished_seqs]
+        run = out[mode_name] = generate_run(runner, mode, prompt)
+        pm, seqs, paged, moved = run["pm"], run["seqs"], run["paged"], run["launches"]
         check(len(seqs) == WIDTH and all(len(s) == GEN_LEN - 1 for s in seqs),
               f"{tag} {mode_name}: expected {WIDTH} branches of {GEN_LEN - 1} tokens")
         check(np.isfinite(pm.TPOT) and pm.TPOT > 0, f"{tag} {mode_name}: bad TPOT")
-        moved = {k: v - before[k] for k, v in read_counts().items() if v > before[k]}
-        out[mode_name] = {"pm": pm, "seqs": seqs, "paged": paged, "launches": moved}
         steps = (f", plans paged at {sum(paged)} of {len(paged)} steps"
                  if count_plans else "")
         print(f"[{tag}] {mode_name}: TTFT {pm.TTFT:.3f} ms, TPOT {pm.TPOT:.4f} ms, "
@@ -1863,6 +1919,14 @@ def first_step(runner, prompt, ids):
     return tree
 
 
+def main_prompt() -> list:
+    """The main path's PROMPT_LEN random token ids (seed SEED)."""
+    from deft_tpu_torch.models import PRESETS
+
+    rng = np.random.default_rng(SEED)
+    return [int(t) for t in rng.integers(4, PRESETS["8b"].vocab_size - 4, PROMPT_LEN)]
+
+
 def phase_main(dev, params, profile: bool = False):
     """Flatten then seq through the public entry points; returns the launch
     counts during that run and the first decode step's flatten logits and
@@ -1873,8 +1937,7 @@ def phase_main(dev, params, profile: bool = False):
 
     cfg = PRESETS["8b"]
     runner = make_runner(cfg, params, dev)
-    rng = np.random.default_rng(SEED)
-    prompt = [int(t) for t in rng.integers(4, cfg.vocab_size - 4, PROMPT_LEN)]
+    prompt = main_prompt()
 
     # first decode step in both modes on one tree state: logits must agree
     view = runner.forward_prefill(prompt)
@@ -2182,6 +2245,445 @@ def phase_batch(dev, params, profile: bool = False):
     del runner
     release()
     return launches
+
+
+# -- the workloads phase: every workload and decode mode on the card ------------------
+
+# W1-W5's runner: the random tree reaches 200 leaves and about twice as many
+# live nodes, each holding a request row; the tree-index pool takes a row a
+# node too
+WL_REQUESTS = 1024
+# SamplingParams of the sampled Simple_Tree run (W5)
+SAMPLED = dict(temperature=0.8, top_p=0.95, top_k=50)
+
+
+@contextlib.contextmanager
+def midrun_hold(runner, held):
+    """While a flatten-mode generation runs on `runner`: hold the first step
+    after the tree's first structural event (a branch, a prune or a merge
+    since the step before), and the first step after it whose flatten plan
+    is a gather plan if that comes later, with logits_controls(midrun=True):
+    seq against flatten on the same tree and pools, beside the noise and
+    dropped-block controls.  The holds' launches and lm_head products are
+    taken back out of the run's counts.  Appends one dict a hold to
+    `held`."""
+    import functools
+    from unittest import mock
+
+    from deft_tpu_torch.runtime.runner import ModelRunner
+
+    forward = runner.forward_tree_decode
+    last = {"sig": None, "event": False, "step": 0}
+
+    def hooked(mode, plan, **kw):
+        tree = runner.tree
+        # the live leaves and the KV of the inner nodes: appends to leaves
+        # leave both alone, branches, prunes and merges do not
+        sig = (tuple(tree.leaves),
+               sum(n.kv_len for n in tree.nodes.values() if n.children))
+        last["event"] |= last["sig"] is not None and sig != last["sig"]
+        last["sig"] = sig
+        last["step"] += 1
+        gather_held = any(not h["paged"] for h in held)
+        if last["event"] and (not held or (not plan.paged and not gather_held)):
+            saved, heads, retain = read_counts(), LM_HEADS[0], runner.retain_full_logits
+            runner.retain_full_logits = True
+            try:
+                with (mock.patch.object(runner, "build_plan", functools.partial(
+                          ModelRunner.build_plan, runner)),
+                      mock.patch.object(runner, "forward_tree_decode", forward)):
+                    lf, ls, readings = logits_controls(runner, plan.n_leaves,
+                                                       midrun=True)
+            finally:
+                runner.retain_full_logits = retain
+                restore_counts(saved)
+                LM_HEADS[0] = heads
+            top1 = float((lf.argmax(-1) == ls.argmax(-1)).float().mean())
+            held.append({"step": last["step"], "paged": plan.paged,
+                         "leaves": plan.n_leaves, "readings": readings, "top1": top1})
+        return forward(mode, plan, **kw)
+
+    with mock.patch.object(runner, "forward_tree_decode", hooked):
+        yield
+
+
+@contextlib.contextmanager
+def merge_watch(runner, records):
+    """While it is open, each apply_kv_copies that has queued merge copies
+    (speculative decoding's accepts) appends (tree, the root's KV length,
+    copies, rows equal): the copied K and V rows of every layer read back
+    from the pools equal their sources as they were before the copy."""
+    from unittest import mock
+
+    import torch
+
+    apply = runner.apply_kv_copies
+
+    def watched(tree=None):
+        t = tree if tree is not None else runner.tree
+        if not t.pending_kv_copies:
+            return apply(tree)
+        src, dst = (torch.from_numpy(np.concatenate(a).astype(np.int64)).to(runner.device)
+                    for a in zip(*t.pending_kv_copies))
+        want = [p.data.index_select(1, src) for p in (runner.k_pool, runner.v_pool)]
+        apply(tree)
+        same = all(torch.equal(p.data.index_select(1, dst), w)
+                   for p, w in zip((runner.k_pool, runner.v_pool), want))
+        records.append((t, t.root.kv_len, len(src), same))
+
+    with mock.patch.object(runner, "apply_kv_copies", watched):
+        yield
+
+
+def check_accepts(tag, records, accepted, prompt_len):
+    """A speculative run's merge records (merge_watch, one tree) against its
+    accept schedule: iteration k >= 1 merges accepted[k] leaves, so the
+    k-th copy batch moves accepted[k] rows and leaves the root at
+    prompt_len + accepted[1] + ... + accepted[k] tokens."""
+    grown = list(prompt_len + np.cumsum(accepted[1:]))
+    got = [(kv, n) for _, kv, n, _ in records]
+    check(got == list(zip(grown, accepted[1:])),
+          f"{tag}: merges (root KV, copies) {got[:6]}... against the schedule "
+          f"{list(zip(grown, accepted[1:]))[:6]}...")
+    check(all(same for *_, same in records),
+          f"{tag}: a merge copy's rows differ from their source")
+
+
+def workload_line(tag, run, smi):
+    """One [workloads] line: TTFT, TPOT, launches, peak memory, the card."""
+    pm = run["pm"]
+    check(np.isfinite(pm.TPOT) and pm.TPOT > 0, f"{tag}: bad TPOT")
+    paged = run["paged"]
+    print(f"[workloads] {tag}: TTFT {pm.TTFT:.3f} ms, TPOT {pm.TPOT:.4f} ms, "
+          f"{len(paged)} steps (plans paged at {sum(paged)}), generated "
+          f"{pm.generated_len}, {len(run['seqs'])} branches, KV_IO {pm.KV_IO:.4e} B; "
+          f"launches {run['launches']} (B6 {run['launches'].get('flatten_gather', 0)}, "
+          f"B7 {run['launches'].get('seq_gather', 0)}); peak "
+          f"{run['peak_gb']:.2f} GB; {smi}", flush=True)
+
+
+FLATTEN_SIDE = ("paged_flatten", "paged_flatten_q", "flatten_gather")
+SEQ_SIDE = ("paged_seq", "paged_seq_q", "seq_gather")
+
+
+def check_side(tag, launches, side):
+    """The run launched a decode kernel of `side` ("flatten" or "seq") and
+    none of the other side's."""
+    mine, other = ((FLATTEN_SIDE, SEQ_SIDE) if side == "flatten"
+                   else (SEQ_SIDE, FLATTEN_SIDE))
+    check(sum(launches.get(k, 0) for k in mine) > 0,
+          f"{tag}: none of {mine} launched")
+    check(not any(launches.get(k, 0) for k in other),
+          f"{tag}: {other} launched in a {side} run: {launches}")
+
+
+def check_holds(tag, held):
+    """midrun_hold's readings, each against LOGITS_LIMIT."""
+    check(held, f"{tag}: no structural event, so no mid-run step was held")
+    for h in held:
+        r = h["readings"]
+        print(f"[workloads] {tag} mid-run step {h['step']} ({h['leaves']} leaves, "
+              f"flatten plan {'paged' if h['paged'] else 'gather'}): relative L2 "
+              f"error of the logits against flatten's: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in r.items())
+              + f" (limit {LOGITS_LIMIT:.0e}); top-1 agreement seq {h['top1']:.3f}",
+              flush=True)
+        check(r["seq"] < LOGITS_LIMIT, f"{tag}: mid-run seq logits {r['seq']}")
+        check(r["flatten+ulp noise"] < LOGITS_LIMIT,
+              f"{tag}: mid-run ulp noise {r['flatten+ulp noise']} above the limit")
+        check(r["flatten, block dropped"] > LOGITS_LIMIT,
+              f"{tag}: mid-run dropped block {r['flatten, block dropped']} under "
+              "the limit")
+    if all(h["paged"] for h in held):
+        print(f"[workloads] {tag}: every flatten plan after the first structural "
+              "event was segment-aligned (no gather plan to hold)", flush=True)
+
+
+def peak_run(runner, *args, **kw):
+    """generate_run with the run's peak device memory ("peak_gb")."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats(runner.device)
+    run = generate_run(runner, *args, **kw)
+    run["peak_gb"] = torch.cuda.max_memory_allocated(runner.device) / 1e9
+    return run
+
+
+def workload_pair(runner, prompt, tag, fn, template, smi, watch=False):
+    """Workload `fn` in flatten (with midrun_hold) then seq mode; each run
+    launches its own side's decode kernels only.  Returns {mode:
+    generate_run's dict, with "peak_gb", the holds ("held") and, with
+    watch=True, merge_watch's records ("merges")}."""
+    from deft_tpu_torch.runtime import ForwardMode
+
+    out = {}
+    for mode_name, mode in (("flatten", ForwardMode.TREE_DECODE_FLATTEN),
+                            ("seq", ForwardMode.DECODE)):
+        held, merges = [], []
+        with (midrun_hold(runner, held) if mode_name == "flatten"
+              else contextlib.nullcontext()), \
+             (merge_watch(runner, merges) if watch else contextlib.nullcontext()):
+            run = out[mode_name] = peak_run(runner, mode, prompt, fn, template)
+        run["held"], run["merges"] = held, merges
+        workload_line(f"{tag} {mode_name}", run, smi)
+        check_side(f"{tag} {mode_name}", run["launches"], mode_name)
+        if mode_name == "flatten":
+            check_holds(f"{tag} {mode_name}", held)
+    return out
+
+
+def with_chunk(ecfg, chunk):
+    """ecfg with attention.node_chunk_len = chunk (node_chunk mode)."""
+    import dataclasses
+
+    return dataclasses.replace(ecfg, attention=dataclasses.replace(
+        ecfg.attention, node_chunk_len=chunk))
+
+
+def first_step_against_flatten(runner, tag, modes, lf, block_dropped):
+    """The first decode step of the runner's current tree in each of `modes`
+    ({name: (mode, node_chunk_len)}) against flatten's logits lf, below
+    LOGITS_LIMIT; block_dropped, the dropped-block control's reading at the
+    same step, above it."""
+    check(block_dropped > LOGITS_LIMIT,
+          f"{tag}: a dropped block reads {block_dropped}, under the limit")
+    ecfg = runner.ecfg
+    for name, (mode, chunk) in modes.items():
+        runner.ecfg = with_chunk(ecfg, chunk)
+        plan = runner.build_plan(mode)
+        v, _ = runner.forward_tree_decode(mode, plan)
+        runner.ecfg = ecfg
+        lm = v.full_logits()[:WIDTH].float()
+        err = float((lm - lf).norm() / lf.norm())
+        size = (f"paths padded to {plan.c_pad}" if mode.is_sequential
+                else f"{plan.t_pad} plan tokens")
+        print(f"[workloads] {tag} first decode step, {name} (plan paged={plan.paged}, "
+              f"{size}): relative L2 error of the logits against "
+              f"flatten's {err:.3e}, the dropped-block control {block_dropped:.3e} "
+              f"(limit {LOGITS_LIMIT:.0e}); top-1 agreement "
+              f"{float((lm.argmax(-1) == lf.argmax(-1)).float().mean()):.3f}",
+              flush=True)
+        check(err < LOGITS_LIMIT, f"{tag}: {name} first-step logits {err}")
+
+
+def phase_workloads(dev, params, prompt, smi, profile: bool = False):
+    """Every workload and decode mode through tree_generate on the main
+    path's settings (Llama-3.1-8B, prompt 4000, 64 tokens, block_len 256):
+    W1 Practical_Tree on the CLI's synthetic ToT template, W2
+    Speculative_Decoding on its synthetic token tree, W3 Beam_Search, W4
+    Random_Tree, each flatten then seq, with a mid-run step held (seq
+    against flatten, with controls); W5 sampled Simple_Tree twice from one
+    seed; W6 Simple_Tree in node, node_chunk, tree_index and the unpaged
+    modes, Medusa among them, then node over int8 KV; W7 four
+    Speculative_Decoding requests through BatchedEngine.  Returns the
+    launches of every run, summed."""
+    import functools
+
+    from deft_tpu_torch.control import workloads
+    from deft_tpu_torch.data import generate_accepted_len_list
+    from deft_tpu_torch.data.synthetic import synth_spec_tree, synth_tot_tree
+    from deft_tpu_torch.models import PRESETS
+    from deft_tpu_torch.runtime import ForwardMode, mode_from_cli
+    from deft_tpu_torch.runtime.sampling import SamplingParams
+
+    cfg = PRESETS["8b"]
+    flatten = ForwardMode.TREE_DECODE_FLATTEN
+    total = {}
+
+    def add(run):
+        for k, n in run["launches"].items():
+            total[k] = total.get(k, 0) + n
+
+    runner = make_runner(cfg, params, dev, slots=BATCH_SLOTS, max_requests=WL_REQUESTS,
+                         use_tree_index=True)
+    runner.retain_full_logits = False
+
+    # W1: the CLI's synthetic ToT template at --max_width 50
+    tot = synth_tot_tree(seed=SEED, width=4, max_leaves=WIDTH, total_iters=GEN_LEN - 1)
+    runs = workload_pair(runner, prompt, "W1 tot", workloads.practical_tree, tot, smi)
+    for r in runs.values():
+        add(r)
+    lens = {m: sorted(len(x) for x in r["seqs"]) for m, r in runs.items()}
+    check(lens["flatten"] == lens["seq"] and lens["flatten"],
+          f"W1 tot: finished lengths differ between the modes: {lens}")
+
+    # W2: the synthetic token tree and its accept schedule
+    spec = synth_spec_tree(token_tree_size=WIDTH, gen_len=GEN_LEN - 1, seed=SEED)
+    generate_accepted_len_list(GEN_LEN, spec, seed=SEED)
+    acc = spec.accepted_len_list
+    runs = workload_pair(runner, prompt, "W2 spec", workloads.speculative_decoding,
+                         spec, smi, watch=True)
+    for m, r in runs.items():
+        add(r)
+        check_accepts(f"W2 spec {m}", r["merges"], acc, len(prompt))
+        check(len(r["seqs"]) == WIDTH, f"W2 spec {m}: {len(r['seqs'])} branches")
+        print(f"[workloads] W2 spec {m}: {len(r['merges'])} merge batches applied "
+              f"({sum(n for _, _, n, _ in r['merges'])} rows, each read back equal "
+              f"to its source), root KV {len(prompt)} -> {r['merges'][-1][1]} "
+              f"tokens by the schedule {acc}; lm_head products {r['lm_head']} "
+              f"(the prefill's; {len(r['paged'])} decode steps skip it)", flush=True)
+        check(r["lm_head"] == 1, f"W2 spec {m}: {r['lm_head']} lm_head products, "
+              "expected the prefill's alone")
+
+    # W3: beam search, width 50
+    runs = workload_pair(runner, prompt, "W3 beam", workloads.beam_search, None, smi)
+    for m, r in runs.items():
+        add(r)
+        check(all(n == WIDTH for n in r["leaves"]) and len(r["seqs"]) == WIDTH,
+              f"W3 beam {m}: live leaves {sorted(set(r['leaves']))}, "
+              f"{len(r['seqs'])} finished")
+
+    # W4: random tree, seed 0
+    runs = workload_pair(runner, prompt, "W4 random", workloads.random_tree, None, smi)
+    for r in runs.values():
+        add(r)
+    lens = {m: sorted(len(x) for x in r["seqs"]) for m, r in runs.items()}
+    check(lens["flatten"] == lens["seq"]
+          and runs["flatten"]["leaves"] == runs["seq"]["leaves"],
+          "W4 random: the branch/prune schedule differs between the modes")
+    print(f"[workloads] W4 random: live leaves by step {runs['flatten']['leaves']}",
+          flush=True)
+
+    # W5: sampled Simple_Tree, twice from RandomState(0)
+    sampled = functools.partial(workloads.simple_tree,
+                                sampling_params=SamplingParams(**SAMPLED))
+    seqs = []
+    for i in range(2):
+        r = peak_run(runner, flatten, prompt, sampled, rng=np.random.RandomState(SEED))
+        add(r)
+        workload_line(f"W5 sampled run {i + 1}", r, smi)
+        check(len(r["seqs"]) == WIDTH and all(len(x) == GEN_LEN - 1 for x in r["seqs"]),
+              f"W5 sampled: expected {WIDTH} branches of {GEN_LEN - 1} tokens")
+        seqs.append(r["seqs"])
+    parted = [(j, next(i for i, (a, b) in enumerate(zip(x, y)) if a != b))
+              for j, (x, y) in enumerate(zip(*seqs)) if x != y]
+    print(f"[workloads] W5 sampled {SAMPLED}: the two runs' tokens "
+          f"{'equal' if not parted else 'part'}"
+          + (f"; first at token {min(p for _, p in parted)} "
+             f"(branches {[j for j, _ in parted][:8]})" if parted else ""), flush=True)
+    check(not parted, "W5 sampled: two runs from one seed gave other tokens")
+
+    if profile:
+        profile_generate(runner, flatten, prompt, workloads.practical_tree, tot, 48, 8,
+                         "W1 tot, TREE_DECODE_FLATTEN, steps 48-55, prompt 4000, bf16 KV")
+        profile_generate(runner, flatten, prompt, workloads.speculative_decoding, spec,
+                         8, 8, "W2 spec, TREE_DECODE_FLATTEN, steps 8-15, prompt 4000, "
+                         "bf16 KV")
+
+    # W6: the other decode modes, first step against flatten, then a run each
+    modes = {"node": (mode_from_cli("node"), None),
+             "node_chunk": (mode_from_cli("node_chunk"), 256),
+             "tree_index": (mode_from_cli("tree_index"), None),
+             "unpaged flatten": (mode_from_cli("flatten", "unpaged"), None),
+             "unpaged node": (mode_from_cli("node", "unpaged"), None),
+             "unpaged seq": (mode_from_cli("seq", "unpaged"), None),
+             "unpaged tree (Medusa)": (mode_from_cli("tree", "unpaged"), None)}
+    runner.retain_full_logits = True
+    view = runner.forward_prefill(prompt)
+    _, ids = view.topk(0, WIDTH)
+    runner.reset_state()
+    first_step(runner, prompt, ids)
+    lf, _, readings = logits_controls(runner, WIDTH)
+    first_step_against_flatten(runner, "W6", modes, lf,
+                               readings["flatten, block dropped"])
+    runner.reset_state()
+    runner.retain_full_logits = False
+    ecfg = runner.ecfg
+    for name, (mode, chunk) in modes.items():
+        runner.ecfg = with_chunk(ecfg, chunk)
+        r = peak_run(runner, mode, prompt)
+        add(r)
+        workload_line(f"W6 {name}", r, smi)
+        check(len(r["seqs"]) == WIDTH and all(len(x) == GEN_LEN - 1 for x in r["seqs"]),
+              f"W6 {name}: expected {WIDTH} branches of {GEN_LEN - 1} tokens")
+        if mode is ForwardMode.UNPAGED_MEDUSA:
+            check(not any(r["launches"].get(k, 0) for k in FLATTEN_SIDE + SEQ_SIDE),
+                  f"W6 {name}: a decode kernel launched: {r['launches']}")
+        else:
+            check_side(f"W6 {name}", r["launches"],
+                       "seq" if mode.is_sequential else "flatten")
+    del runner
+    release()
+
+    # W6, int8 KV: node against flatten on the first step, then a node run
+    runner = make_runner(cfg, params, dev, kv_dtype="int8")
+    first_step(runner, prompt, ids)
+    lf, _, readings = logits_controls(runner, WIDTH)
+    first_step_against_flatten(runner, "W6 int8", {"node": modes["node"]},
+                               lf, readings["flatten, block dropped"])
+    runner.reset_state()
+    runner.retain_full_logits = False
+    r = peak_run(runner, modes["node"][0], prompt)
+    add(r)
+    workload_line("W6 node, int8 KV", r, smi)
+    check_side("W6 node, int8 KV", r["launches"], "flatten")
+    check(not r["launches"].get("paged_flatten"), "W6 node, int8 KV: B1 launched")
+    del runner
+    release()
+
+    add({"launches": phase_batch_spec(dev, params, spec, smi)})
+    print(f"[workloads] launches during the workloads phase (every run): {total}",
+          flush=True)
+    return total
+
+
+def phase_batch_spec(dev, params, spec, smi):
+    """W7: four Speculative_Decoding requests (the batch path's prompts,
+    the W2 template) admitted by one ragged prefill (B8) and run by
+    BatchedEngine in flatten mode; each request's merges follow its accept
+    schedule.  Returns the run's launches."""
+    import torch
+    from deft_tpu_torch.control import Branch_Controller, workloads
+    from deft_tpu_torch.models import PRESETS
+    from deft_tpu_torch.runtime import ForwardMode
+    from deft_tpu_torch.runtime.batched import BatchedEngine, Request
+
+    cfg = PRESETS["8b"]
+    rng = np.random.default_rng(SEED + 3)
+    prompts = [[int(t) for t in rng.integers(4, cfg.vocab_size - 4, n)]
+               for n in BATCH_LENS]
+    runner = make_runner(cfg, params, dev, prompt_len=max(BATCH_LENS),
+                         slots=BATCH_SLOTS, max_requests=4 * (WIDTH + 2))
+    runner.retain_full_logits = False
+    eng = BatchedEngine(runner, ForwardMode.TREE_DECODE_FLATTEN)
+    reqs = [Request(p, Branch_Controller(workloads.speculative_decoding),
+                    len(p) + GEN_LEN, width=WIDTH, depth=1, template=spec)
+            for p in prompts]
+    merges = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    with merge_watch(runner, merges):
+        t0 = time.perf_counter()
+        eng.add_requests(reqs)
+        torch.cuda.synchronize()
+        t_adm = time.perf_counter() - t0
+        admission = read_counts()
+        steps = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = {k: n for k, n in read_counts().items() if n}
+    for i, req in enumerate(reqs):
+        check_accepts(f"W7 batch-spec request {i}",
+                      [m for m in merges if m[0] is req.tree],
+                      spec.accepted_len_list, len(req.prompt_ids))
+    tok = sum(len(x.token_ids) for r in reqs for x in r.finished_seqs)
+    print(f"[workloads] W7 batch-spec: admission (one ragged prefill of "
+          f"{sum(BATCH_LENS)} tokens + root branching) {t_adm * 1e3:.3f} ms, "
+          f"B8 {admission['ragged_prefill']} launches there; {steps} steps, "
+          f"{len(merges)} merge batches ({sum(n for _, _, n, _ in merges)} rows) "
+          f"applied, each request's root grown by its accept schedule "
+          f"({sum(spec.accepted_len_list[1:])} tokens a request); {tok} "
+          f"branch tokens in {wall * 1e3:.1f} ms; launches {counts}; peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; {smi}", flush=True)
+    check(admission["ragged_prefill"] == cfg.num_layers and counts.get("prefill", 0) == 0,
+          f"W7: B8 launched {admission['ragged_prefill']} times at admission, B3 "
+          f"{counts.get('prefill', 0)}")
+    check(all(len(r.finished_seqs) == WIDTH for r in reqs),
+          "W7: a request did not finish its branches")
+    check_side("W7 batch-spec", counts, "flatten")
+    del runner, eng
+    release()
+    return counts
 
 
 def phase_int8w(dev, prompt, ids, main_runs):
@@ -2840,10 +3342,14 @@ def phase_sharded_moe(moe_logits):
     return out["prefill"][0]
 
 
-def logits_controls(runner, width):
+def logits_controls(runner, width, midrun=False):
     """The first decode step on the runner's current tree, run in flatten
     mode, in seq mode and under three controls; returns flatten's and seq's
     (width, V) logits and each run's relative L2 error against flatten's.
+    midrun=True: a step of a tree that has branched or pruned since, whose
+    plans may be segment-aligned or gather plans (the controls then run on
+    B6's entry); no own-token control there, since a leaf then owns more
+    tokens than its newest.
     Controls: flatten again (the noise of a rerun), flatten with each
     nonzero element of every layer's attention output moved by -1, 0 or +1
     ulp at random (bf16 rounding noise), and two planted faults: one plan
@@ -2856,20 +3362,25 @@ def logits_controls(runner, width):
     from unittest import mock
 
     import torch
-    from deft_tpu_torch.ops import attn_impls
     from deft_tpu_torch.runtime import ForwardMode
 
     gen = torch.Generator(device=runner.device)
     gen.manual_seed(SEED + 2)
 
+    flatten = ForwardMode.TREE_DECODE_FLATTEN
+    plans = {m: runner.build_plan(m) for m in (flatten, ForwardMode.DECODE)}
+    check(midrun or all(p.paged for p in plans.values()),
+          "the first step's plans are not paged")
+    base = runner._attn_fn(flatten, runner._use_paged(plans[flatten], flatten))
+
     def ulp_noise(*args):
-        o = attn_impls.flatten_attn(*args)
+        o = base(*args)
         step = torch.randint(-1, 2, o.shape, generator=gen, device=o.device,
                              dtype=torch.int16)
         return (o.view(torch.int16) + step * (o != 0)).view(o.dtype)
 
     def with_plan(edit):
-        return plan_edited(attn_impls.flatten_attn, edit)
+        return plan_edited(base, edit)
 
     def drop_block(b):  # the middle one of the FULL (prompt-only) blocks
         full = (b.blk_lo < -(1 << 20)).nonzero().flatten()
@@ -2877,14 +3388,13 @@ def logits_controls(runner, width):
         b.blk_lo, b.blk_hi = b.blk_lo.clone(), b.blk_hi.clone()
         b.blk_lo[full[len(full) // 2]] = b.blk_hi[full[len(full) // 2]] = 0
 
-    flatten = ForwardMode.TREE_DECODE_FLATTEN
-    plans = {m: runner.build_plan(m) for m in (flatten, ForwardMode.DECODE)}
-    check(all(p.paged for p in plans.values()), "the first step's plans are not paged")
     runs = (("flatten", flatten, None), ("seq", ForwardMode.DECODE, None),
             ("flatten again", flatten, None),
             ("flatten+ulp noise", flatten, ulp_noise),
-            ("flatten, block dropped", flatten, with_plan(drop_block)),
-            ("flatten, own token hidden", flatten, with_plan(hide_own_token(width))))
+            ("flatten, block dropped", flatten, with_plan(drop_block)))
+    if not midrun:
+        runs += (("flatten, own token hidden", flatten,
+                  with_plan(hide_own_token(width))),)
     logits = {}
     for name, mode, attn in runs:
         with (mock.patch.object(runner, "_attn_fn", lambda m, paged, a=attn: a)
@@ -2992,32 +3502,87 @@ def profile_batch(runner, prompts, width, steps):
     runner.reset_state()
 
 
+def marked(name, fn):
+    """fn inside a record_function range `name`."""
+    from torch.profiler import record_function
+
+    def run(*a, **k):
+        with record_function(name):
+            return fn(*a, **k)
+    return run
+
+
+@contextlib.contextmanager
+def model_ranges():
+    """The model's kv_store calls and MoE blocks (either route) marked."""
+    from unittest import mock
+
+    from deft_tpu_torch.models import llama
+
+    with (mock.patch.object(llama, "kv_store", marked("kv_store", llama.kv_store)),
+          mock.patch.object(llama, "_moe_mlp", marked("moe", llama._moe_mlp)),
+          mock.patch.object(llama, "_moe_mlp_gmm", marked("moe", llama._moe_mlp_gmm))):
+        yield
+
+
 def profile_steps(label, step, steps):
     """torch.profiler over `steps` calls of step(): device time by kernel,
     the device's busy share of the wall time, and the host and device time
     of each step's plan building, its forward and the model's kv_store calls
     and MoE blocks (either route) within it (RANGES, marked with
     record_function while the profiler runs)."""
-    from unittest import mock
-
-    from deft_tpu_torch.models import llama
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    def marked(name, fn):
-        def run(*a):
-            with record_function(name):
-                return fn(*a)
-        return run
+    from torch.profiler import ProfilerActivity, profile
 
     with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof,
-          mock.patch.object(llama, "kv_store", marked("kv_store", llama.kv_store)),
-          mock.patch.object(llama, "_moe_mlp", marked("moe", llama._moe_mlp)),
-          mock.patch.object(llama, "_moe_mlp_gmm", marked("moe", llama._moe_mlp_gmm))):
+          model_ranges()):
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    profile_report(label, prof, steps, wall_ms)
 
+
+def profile_generate(runner, mode, prompt, fn, template, start, steps, label):
+    """torch.profiler over decode steps start .. start + steps - 1 of one
+    generation of workload `fn` through tree_generate: each step's alloc,
+    plan (build_plan), merge copies (apply_kv_copies, within forward),
+    forward and branching, reported as profile_steps does."""
+    from unittest import mock
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    n, wall = [0], []
+    alloc = runner.tree.alloc
+
+    def alloc_at_step():  # each decode step starts with the tree's alloc
+        n[0] += 1
+        if n[0] == start:
+            prof.start()  # its set-up lies outside the timed window
+        if n[0] in (start, start + steps):
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter())
+        if n[0] == start + steps:
+            prof.stop()
+        return alloc()
+
+    with (mock.patch.object(runner.tree, "alloc", alloc_at_step),
+          mock.patch.object(runner, "build_plan", marked("build_plan", runner.build_plan)),
+          mock.patch.object(runner, "forward_tree_decode",
+                            marked("forward", runner.forward_tree_decode)),
+          mock.patch.object(runner, "apply_kv_copies",
+                            marked("apply_kv_copies", runner.apply_kv_copies)),
+          model_ranges()):
+        generate_run(runner, mode, prompt, fn, template)
+    check(len(wall) == 2, f"{label}: the run took fewer than {start + steps} steps")
+    profile_report(label, prof, steps, (wall[1] - wall[0]) * 1e3,
+                   RANGES + ("apply_kv_copies",))
+
+
+def profile_report(label, prof, steps, wall_ms, ranges=RANGES):
+    """Print a profile of `steps` steps that took wall_ms (see
+    profile_steps)."""
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(
             e, "self_cuda_time_total", 0)
@@ -3031,13 +3596,13 @@ def profile_steps(label, step, steps):
     # range's device-side copy spans its kernels)
     evs = [e for e in avgs
            if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us(e) > 0
-           and e.key not in RANGES]
+           and e.key not in ranges]
     busy_ms = sum(dev_us(e) for e in evs) / 1e3
     print(f"[profile] {label}: {steps} steps, "
           f"wall {wall_ms / steps:.3f} ms/step, "
           f"device busy {busy_ms / steps:.3f} ms/step "
           f"({busy_ms / wall_ms:.1%}; idle {1 - busy_ms / wall_ms:.1%})", flush=True)
-    for key in RANGES:
+    for key in ranges:
         st = [e for e in avgs if e.key == key
               and str(getattr(e, "device_type", "")).endswith("CPU")]
         if not st:
@@ -3818,21 +4383,25 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace 8 decode steps per mode with torch.profiler "
                          "(the 4000-token prompt over bf16 and int8 KV, the "
-                         "16-token prompt over bf16 KV, the two MoE paths) and "
+                         "16-token prompt over bf16 KV, the two MoE paths), "
                          "8 batched flatten steps of the batch path's four "
-                         "requests")
+                         "requests, and 8 flatten steps each of the workloads "
+                         "phase's ToT and speculative runs (W1, W2)")
     ap.add_argument("--flatten-only", action="store_true",
                     help="only the card, the build and the flatten kernels' checks and "
                          "times (phase_flatten_only); prints no result line")
     ap.add_argument("--seq-only", action="store_true",
                     help="only the card, the build and the seq kernels' checks and "
                          "times (phase_seq_only); prints no result line")
+    ap.add_argument("--workloads-only", action="store_true",
+                    help="only the card, the build and the workloads phase "
+                         "(phase_workloads); prints no result line")
     ap.add_argument("--root", default=None,
                     help="with --flatten-only or --seq-only: import deft_tpu_torch from "
                          "this checkout (a parent commit timed in turns with this one)")
     args = ap.parse_args(argv)
-    if args.flatten_only and args.seq_only:
-        ap.error("--flatten-only and --seq-only are two runs")
+    if args.flatten_only + args.seq_only + args.workloads_only > 1:
+        ap.error("--flatten-only, --seq-only and --workloads-only are separate runs")
     if args.root is not None:
         if not (args.flatten_only or args.seq_only):
             ap.error("--root goes with --flatten-only or --seq-only")
@@ -3860,7 +4429,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
     try:
-        smi, name = phase_card()
+        smi, device_kind = phase_card()
         phase_build(bodies=args.root is None)
         shapes = path_shapes(dev)
         if args.flatten_only or args.seq_only:
@@ -3870,12 +4439,17 @@ def main(argv=None) -> int:
                 phase_seq_only(dev, shapes, edges=args.root is None)
             print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}", flush=True)
             return 0
-        errs = phase_kernels(dev, shapes)
+        if not args.workloads_only:
+            errs = phase_kernels(dev, shapes)
         t0 = time.perf_counter()
         params = random_params(PRESETS["8b"], SEED, dev, torch.bfloat16)
         torch.cuda.synchronize()
         print(f"[main] 8b random bf16 weights made on the card in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if args.workloads_only:
+            phase_workloads(dev, params, main_prompt(), smi, args.profile)
+            print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}", flush=True)
+            return 0
         launches, prompt, ids, lf, main_runs = phase_main(dev, params, args.profile)
         int8_launches, lq = phase_int8(dev, params, prompt, ids, lf, args.profile)
         launches.update({k: v for k, v in int8_launches.items()
@@ -3886,6 +4460,9 @@ def main(argv=None) -> int:
         batch = phase_batch(dev, params, args.profile)
         launches["ragged_prefill"] = batch["ragged_prefill"]
         launches["flatten_gather"] += batch["flatten_gather"]  # its multi-tree gather steps
+        wl = phase_workloads(dev, params, prompt, smi, args.profile)
+        for k in ("flatten_gather", "seq_gather"):  # their driven gather plans
+            launches[k] += wl.get(k, 0)
         del params
         release()
         launches["int8_matmul"] = phase_int8w(dev, prompt, ids, main_runs)["int8_matmul"]
@@ -3913,7 +4490,8 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": device_kind,
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

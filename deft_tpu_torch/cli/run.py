@@ -1,23 +1,29 @@
 """Experiment CLI: one tree generation with random weights.
 
-Port of deft_tpu/cli/run.py:26 (build_parser) and :200 (main), with the
-flags ported so far: --random-model, --mode flatten|seq, --Branch_controller
-Simple_Tree, --max_width, --max_depth, --max_seq_len, --prompt_len,
---block_len, --dtype, --kv-dtype inherit|int8, --weight-dtype
-inherit|int8|int8-pallas, --kv_pool_slots, --seed, --output_file,
---print-branches, --batch N (N requests through the continuous-batching
-engine, deft_tpu :270-296), --device cuda|cpu (default cuda; a missing
-GPU raises), and the multi-device engine (deft_tpu :84-90, :141-167,
-:213-216): --mesh DPxSPxTP|auto starts dp*sp*tp ranks on this host
-(parallel/launch.py) and runs the generation on the grid, --multihost makes
-this process one rank of a torchrun job (its environment names the group),
+Port of deft_tpu/cli/run.py:26 (build_parser) and :200 (main): --random-model,
+--mode node|seq|flatten|tree|node_chunk|tree_index with --mem paged|unpaged
+(deft_tpu's mode_from_cli), --Branch_controller Simple_Tree|Beam_Search|
+Random_Tree|Practical_Tree|Speculative_Decoding, --dataset (a Reasoning or
+Speculative_Decoding JSON; without it the synthetic templates of
+data/synthetic.py, deft_tpu :216-245), --traversal (accepted for parity),
+--tree_idx, --node_chunk_len, --max_width, --max_depth, --max_seq_len,
+--prompt_len, --block_len, --dtype, --kv-dtype inherit|int8,
+--weight-dtype inherit|int8|int8-pallas, --kv_pool_slots, --seed,
+--output_file, --print-branches, --batch N (N requests through the
+continuous-batching engine, deft_tpu :270-296), --device cuda|cpu (default
+cuda; a missing GPU raises), and the multi-device engine (deft_tpu :84-90,
+:141-167, :213-216): --mesh DPxSPxTP|auto starts dp*sp*tp ranks on this host
+(parallel/launch.py) and runs the generation on the grid (--mode flatten and
+seq, paged; the other modes raise, ROADMAP A7), --multihost makes this
+process one rank of a torchrun job (its environment names the group),
 --dist-backend nccl|gloo (default nccl on cuda, gloo on cpu; nccl refuses
-two ranks on one card).  Only rank 0 prints.  The other modes and workloads
-are not ported yet, so argparse refuses them.
+two ranks on one card).  Only rank 0 prints.  deft_tpu's --model, --kernels
+and --trace-dir are not ported, so argparse refuses them.
 
 Usage (the default 16-token prompt; add --kv-dtype int8 for the int8 cache,
 --weight-dtype int8-pallas for int8 weights through kernel B9, --batch 3
-for three requests decoded together, --mesh 1x2x2 for four ranks):
+for three requests decoded together, --mesh 1x2x2 for four ranks,
+--Branch_controller Practical_Tree for a synthetic ToT template):
     python -m deft_tpu_torch.cli.run --device cpu --random-model tiny \
         --mode flatten --max_width 3 --max_seq_len 40 --dtype float32 \
         --kv_pool_slots 4096
@@ -29,6 +35,11 @@ import argparse
 import random
 import sys
 import time
+import zlib
+
+WORKLOADS = {"Simple_Tree": "simple_tree", "Beam_Search": "beam_search",
+             "Random_Tree": "random_tree", "Practical_Tree": "practical_tree",
+             "Speculative_Decoding": "speculative_decoding"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -37,15 +48,31 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["tiny", "1b", "3b", "7b", "8b", "8b-8l",
                             "mixtral-6l"],
                    help="random-init preset (no weights needed)")
-    p.add_argument("--mode", default="flatten", choices=["seq", "flatten"])
+    p.add_argument("--mode", default="flatten",
+                   choices=["node", "seq", "flatten", "tree", "node_chunk",
+                            "tree_index"])
+    p.add_argument("--mem", choices=["paged", "unpaged"], default="paged")
     p.add_argument("--Branch_controller", default="Simple_Tree",
-                   choices=["Simple_Tree"])
+                   choices=list(WORKLOADS))
+    p.add_argument("--dataset", type=str, default=None,
+                   help="tree-template JSON (Practical_Tree /"
+                        " Speculative_Decoding); default: a synthetic template")
+    p.add_argument("--traversal", choices=["dfs", "bfs_token", "bfs_node"],
+                   default="dfs",
+                   help="accepted for parity; plans always use DFS (the"
+                        " reference's non-dfs options are dead code,"
+                        " tree_cache.py:588,725)")
     p.add_argument("--max_depth", type=int, default=10)
     p.add_argument("--max_width", type=int, default=50)
     p.add_argument("--prompt_len", type=int, default=None)
     p.add_argument("--max_seq_len", type=int, default=500)
+    p.add_argument("--tree_idx", type=int, default=0)
     p.add_argument("--output_file", type=str, default=None)
     p.add_argument("--block_len", type=int, default=256)
+    p.add_argument("--node_chunk_len", type=int, default=None,
+                   help="node_chunk mode: max tokens of one node per kernel"
+                        " block (default --block_len; reference MAX_BLOCK_LEN,"
+                        " run_DeFT_llama_paged.py:146-150)")
     p.add_argument("--dtype", choices=["bfloat16", "float32"],
                    default="bfloat16")
     p.add_argument("--kv-dtype", choices=["inherit", "int8"],
@@ -78,14 +105,58 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def make_prompt(prompt_len, max_seq_len: int, vocab_size: int, seed: int) -> list:
+def encode(text: str, vocab_size: int) -> list:
+    """deft_tpu cli/run.py:94 (_IdTokenizer.encode), the tokenizer of a
+    random-init model: numeric words map to their value mod the vocabulary,
+    any other word hashes stably into it."""
+    def tok(t: str) -> int:
+        body = t[1:] if t.startswith("-") else t
+        if body.isdecimal():
+            return int(t) % vocab_size
+        return (zlib.crc32(t.encode()) % (vocab_size - 4)) + 4
+
+    return [tok(t) for t in text.split()]
+
+
+def make_prompt(prompt_len, max_seq_len: int, vocab_size: int, seed: int,
+                text: str = None) -> list:
     """Prompt ids of a random-init run, as deft_tpu cli/run.py:179 makes
-    them without a template: seeded random ids, or 7.. when no length (or a
-    length <= 0, which deft_tpu maps to none, cli/run.py:202-203)."""
+    them: a template's prompt text encoded, trimmed or padded with seeded
+    random ids to prompt_len; without text, seeded random ids, or 7.. when
+    no length (or a length <= 0, which deft_tpu maps to none,
+    cli/run.py:202-203)."""
+    ids = encode(text, vocab_size) if text else []
     if prompt_len and prompt_len > 0:
+        if len(ids) >= prompt_len:
+            return ids[:prompt_len]
         rnd = random.Random(seed)
-        return [rnd.randrange(4, max(8, vocab_size - 1)) for _ in range(prompt_len)]
-    return list(range(7, 7 + min(16, max(2, max_seq_len // 2))))
+        return ids + [rnd.randrange(4, max(8, vocab_size - 1))
+                      for _ in range(prompt_len - len(ids))]
+    return ids or list(range(7, 7 + min(16, max(2, max_seq_len // 2))))
+
+
+def make_template(args):
+    """The workload's template (deft_tpu cli/run.py:216-245): a ToT schedule
+    for Practical_Tree, a token tree and accept schedule for
+    Speculative_Decoding, from --dataset or, without it, synthetic; None for
+    the other workloads."""
+    from deft_tpu_torch.data import load_prompts, load_trees
+    from deft_tpu_torch.data.synthetic import synth_spec_tree, synth_tot_tree
+
+    synthetic = args.dataset in (None, "synthetic")
+    gen_len = max(8, args.max_seq_len - (args.prompt_len or 16) - 1)
+    if args.Branch_controller == "Practical_Tree":
+        if not synthetic:
+            return load_trees(args.dataset)[args.tree_idx]
+        return synth_tot_tree(seed=args.seed + args.tree_idx,
+                              width=min(args.max_width, 4),
+                              max_leaves=args.max_width, total_iters=gen_len)
+    if args.Branch_controller == "Speculative_Decoding":
+        if not synthetic:
+            return load_prompts(args.dataset)[args.tree_idx]
+        return synth_spec_tree(token_tree_size=args.max_width, gen_len=gen_len,
+                               seed=args.seed + args.tree_idx)
+    return None
 
 
 def grid_shape(mesh: str, n_ranks: int, num_kv_heads: int) -> tuple:
@@ -104,8 +175,14 @@ def grid_shape(mesh: str, n_ranks: int, num_kv_heads: int) -> tuple:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.prompt_len is not None and args.prompt_len <= 0:
+        args.prompt_len = None
     from deft_tpu_torch.models import PRESETS
+    from deft_tpu_torch.runtime import mode_from_cli
+    from deft_tpu_torch.runtime.runner import check_grid_mode
 
+    if args.mesh or args.multihost:
+        check_grid_mode(mode_from_cli(args.mode, args.mem))
     cfg = PRESETS[args.random_model]
     if args.multihost:
         import torch.distributed as dist
@@ -160,29 +237,41 @@ def run(grid, args) -> int:
     device); only rank 0 prints and writes the output file."""
     from deft_tpu_torch.config import AttentionConfig, EngineConfig
     from deft_tpu_torch.control import Branch_Controller, workloads
+    from deft_tpu_torch.data import generate_accepted_len_list
     from deft_tpu_torch.models import PRESETS
     from deft_tpu_torch.runtime import ModelRunner, mode_from_cli, tree_generate
 
     cfg = PRESETS[args.random_model]
-    ecfg = EngineConfig(attention=AttentionConfig(block_len=args.block_len),
+    chunk = ((args.node_chunk_len or args.block_len) if args.mode == "node_chunk"
+             else None)
+    ecfg = EngineConfig(attention=AttentionConfig(block_len=args.block_len,
+                                                  node_chunk_len=chunk),
                         kv_pool_slots=args.kv_pool_slots, dtype=args.dtype,
                         kv_dtype=args.kv_dtype, weight_dtype=args.weight_dtype)
     runner = ModelRunner(cfg, ecfg, device=args.device, seed=args.seed,
-                         topk_k=max(64, args.max_width), mesh=grid)
+                         topk_k=max(64, args.max_width), mesh=grid,
+                         use_tree_index=args.mode == "tree_index")
+    template = make_template(args)
     prompt_ids = make_prompt(args.prompt_len, args.max_seq_len, cfg.vocab_size,
-                             args.seed)
+                             args.seed, getattr(template, "prompt", None))
+    if template is not None and template.accepted_len_list is not None:
+        generate_accepted_len_list(args.max_seq_len - len(prompt_ids), template,
+                                   seed=args.seed)
+    fn = getattr(workloads, WORKLOADS[args.Branch_controller])
+    mode = mode_from_cli(args.mode, args.mem)
     if args.batch > 1:
-        return run_batch(args, runner, mode_from_cli(args.mode), prompt_ids)
+        return run_batch(args, runner, mode, prompt_ids, fn, template)
     primary = grid is None or grid.rank == 0
     pm = tree_generate(
         model=runner,
-        mode=mode_from_cli(args.mode),
+        mode=mode,
         tokenizer=None,
         prompt_ids=prompt_ids,
         max_seq_len=args.max_seq_len,
         width=args.max_width,
         depth=args.max_depth,
-        branch_controller=Branch_Controller(workloads.simple_tree),
+        branch_controller=Branch_Controller(fn),
+        tree_template=template,
         output_file=args.output_file if primary else None,
         print_branches=args.print_branches and primary,
     )
@@ -191,16 +280,16 @@ def run(grid, args) -> int:
     return 0
 
 
-def run_batch(args, runner, mode, prompt_ids) -> int:
+def run_batch(args, runner, mode, prompt_ids, fn, template) -> int:
     """--batch N: N requests of the same prompt and workload, admitted by one
     ragged prefill and decoded together (deft_tpu cli/run.py:270-296)."""
-    from deft_tpu_torch.control import Branch_Controller, workloads
+    from deft_tpu_torch.control import Branch_Controller
     from deft_tpu_torch.obs.timers import synchronize
     from deft_tpu_torch.runtime.batched import BatchedEngine, Request
 
     eng = BatchedEngine(runner, mode=mode)
-    reqs = [Request(prompt_ids, Branch_Controller(workloads.simple_tree),
-                    args.max_seq_len, width=args.max_width, depth=args.max_depth)
+    reqs = [Request(prompt_ids, Branch_Controller(fn), args.max_seq_len,
+                    width=args.max_width, depth=args.max_depth, template=template)
             for _ in range(args.batch)]
     t0 = time.perf_counter()
     eng.add_requests(reqs)

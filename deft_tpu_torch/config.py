@@ -24,12 +24,15 @@ class AttentionConfig:
         tree_cache.py:587).  Default 256, deft_tpu's choice for its TPU
         kernels, kept so both packages build the same plans; the Hopper
         kernels take any multiple of 64.
+    node_chunk_len: when set, DeFT-Node plans chunk node KV runs to at most
+        this many tokens (the reference's MAX_BLOCK_LEN node_chunk mode,
+        examples/run_DeFT_llama_paged.py:145-150).
 
-    deft_tpu's max_q_tile and node_chunk_len are not here: no ported code
-    reads them yet.
+    deft_tpu's max_q_tile is not here: no ported code reads it.
     """
 
     block_len: int = 256
+    node_chunk_len: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -337,11 +337,19 @@ def lm_head(params, x: torch.Tensor, shard=None) -> torch.Tensor:
 
 
 def decode_forward(cfg: LlamaConfig, params, rope_tbl, k_pool: KVPool,
-                   v_pool: KVPool, batch, attn: AttnFn, shard=None) -> torch.Tensor:
+                   v_pool: KVPool, batch, attn: AttnFn, shard=None,
+                   compute_logits: bool = True) -> torch.Tensor:
     """One tree-decode step over ``batch`` (q_tokens, q_pos, out_loc and the
-    attention plan's arrays); returns (R, V) fp32 logits."""
+    attention plan's arrays); returns (R, V) fp32 logits.
+
+    compute_logits=False (deft_tpu llama.py:433-452) skips the lm_head
+    product and returns the final hidden state (R, E): steps whose tokens
+    are fixed ahead (a speculative accept schedule) need only the KV the
+    step writes."""
     x = forward_layers(cfg, params, rope_tbl, k_pool, v_pool, batch.q_tokens,
                        batch.q_pos, batch.out_loc, attn, batch, shard)
+    if not compute_logits:
+        return x
     return lm_head(params, x, shard)
 
 

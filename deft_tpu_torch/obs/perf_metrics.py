@@ -1,7 +1,8 @@
 """Per-iteration latency and analytic IO-byte accounting.
 
 Port of deft_tpu/obs/perf_metrics.py:16 (PerfMetrics), trimmed to what the
-port calls, with the same JSON schema: the dump keeps the reference
+port calls (update_dense_tree_attn_IO :94 among it), with the same JSON
+schema: the dump keeps the reference
 PerfMetrics's keys (DeFT's deft/tree_decoding/perf_metrics.py:62-92), so
 dumps of deft_tpu, of the port and of the reference compare directly.
 Counters are per instance (no class-level state shared across runs).
@@ -29,7 +30,7 @@ class PerfMetrics:
         # Analytic IO counters (bytes), same semantics as the reference:
         # KV_IO counts K+V bytes read by attention; Mask_IO counts mask
         # metadata bytes; QO_IO query+output bytes; QK_IO / softmax terms
-        # model the dense-attention baselines (zero in the port's modes).
+        # model the dense-attention baseline (UNPAGED_MEDUSA only).
         self.KV_IO: float = 0.0
         self.QO_IO: float = 0.0
         self.Mask_IO: float = 0.0
@@ -76,6 +77,23 @@ class PerfMetrics:
         self.positions_per_iter.append(positions)
         self.tree_metadata_per_iter.append(tree_metadata)
         self.input_metadata_per_iter.append(input_metadata)
+
+    # -- IO accounting (bytes; KV assumed 2-byte elements, K+V => *4) -------
+    def update_dense_tree_attn_IO(
+        self, q_len: int, kv_len: int, hidden_size: int, head_num: int
+    ) -> None:
+        """IO model for the dense masked-attention (Medusa) baseline
+        (deft_tpu perf_metrics.py:94): materialized QK^T, scaled+masked
+        scores, and softmax intermediates, mirroring the reference's
+        update_Causal_Tree_Attn_IO (perf_metrics.py:124-163)."""
+        score_bytes = q_len * kv_len * head_num * 2
+        self.QK_IO += score_bytes * 2          # write + read
+        self.QK_scale_IO += score_bytes * 2
+        self.QK_scale_masked_IO += score_bytes * 2
+        self.SoftMax_IO += score_bytes * 2
+        self.Mask_IO += q_len * kv_len * 2     # dense mask reads
+        self.KV_IO += kv_len * hidden_size * 4
+        self.QO_IO += q_len * hidden_size * 4
 
     # -- aggregates ----------------------------------------------------------
     def update_e2e_latency(self, e2e_latency: float) -> None:

@@ -23,7 +23,10 @@ batch.seg_ids).
 ``flatten_attn_xla`` and ``seq_attn_xla`` are deft_tpu's dense oracles over
 the gather plans' arrays: B6's and B7's plain versions (int8 rows
 dequantised in fp32) behind the AttnFn interface, and
-``ragged_prefill_attn_xla`` is B8's; no runner path takes them.
+``ragged_prefill_attn_xla`` is B8's.  One runner path takes
+``flatten_attn_xla``: UNPAGED_MEDUSA, the dense masked-attention baseline,
+which is this same plain attention in deft_tpu (runner.py:448-453), not a
+kernel's stand-in.
 """
 
 from __future__ import annotations

@@ -5,6 +5,7 @@ from deft_tpu_torch.plan.padding import (
 )
 from deft_tpu_torch.plan.flatten import FlattenPlan, build_flatten_plan
 from deft_tpu_torch.plan.seq import SeqPlan, build_seq_plan
+from deft_tpu_torch.plan.node import build_node_plan, build_tree_index_plan
 from deft_tpu_torch.plan.multi import (build_multi_flatten_plan,
                                        build_multi_seq_plan)
 
@@ -16,6 +17,8 @@ __all__ = [
     "build_flatten_plan",
     "SeqPlan",
     "build_seq_plan",
+    "build_node_plan",
+    "build_tree_index_plan",
     "build_multi_flatten_plan",
     "build_multi_seq_plan",
 ]

@@ -12,9 +12,10 @@ logits.  Requests join (feed) and finish between steps.
 deft_tpu's device-chained fast path for all-greedy steps (placeholder
 tokens, backfilled later; batched.py:186-244) was built for its remote TPU
 link and is not ported: every step here reads its logits on the host, the
-top-1 only when no request makes a structural decision in it.  Node-mode
-plans are not ported yet (plan/node.py), so the engine takes flatten and
-seq modes.
+top-1 only when no request makes a structural decision in it.  Each tree's
+queued merge copies (speculative decoding) land before its alloc
+(batched.py:190).  Node mode runs on the multi-tree flatten plan, as in
+deft_tpu (:101, :209-212); node-aligned multi-tree plans are ROADMAP A6.
 """
 
 from __future__ import annotations
@@ -93,9 +94,9 @@ class BatchedEngine:
 
     def __init__(self, runner: ModelRunner,
                  mode: ForwardMode = ForwardMode.TREE_DECODE_FLATTEN):
-        if mode.plan_kind not in ("flatten", "seq"):
-            raise NotImplementedError(
-                f"batched {mode.name}: only flatten and seq plans are ported")
+        if mode.plan_kind not in ("flatten", "node", "seq"):
+            raise ValueError(f"batched {mode.name}: the engine takes flatten, "
+                             "node or seq modes (deft_tpu batched.py:101)")
         if runner.mesh is not None:
             raise NotImplementedError("the batched engine on a grid is not ported "
                                       "yet (ROADMAP A6, batching; A5 in older "
@@ -122,7 +123,8 @@ class BatchedEngine:
             return
         r = self.runner
         for req in reqs:
-            req.tree = TreeCache(r.token_to_kv_pool, r.req_to_token_pool)
+            req.tree = TreeCache(r.token_to_kv_pool, r.req_to_token_pool,
+                                 r.tree_index_pool)
         view = r.forward_prefill_batch([req.prompt_ids for req in reqs],
                                        [req.tree for req in reqs])
         for i, req in enumerate(reqs):
@@ -147,8 +149,9 @@ class BatchedEngine:
     def build_plan(self, trees: List[TreeCache]):
         """The multi-tree plan of this step, with deft_tpu's batched rules
         (batched.py:192-212): seq plans ask for the paged layout where the
-        head dim packs (128 % D == 0), and int8 pools take 128-token
-        segments at a waste limit of 3."""
+        head dim packs (128 % D == 0), flatten and node modes take the
+        multi-tree flatten plan, and int8 pools take 128-token segments at
+        a waste limit of 3."""
         r = self.runner
         a = r.ecfg.attention
         kw = dict(q_per_kv=r.cfg.q_per_kv, block_len=a.block_len,
@@ -172,10 +175,7 @@ class BatchedEngine:
             raise RuntimeError("step() with no active or waiting request")
         trees = [req.tree for req in self.active]
         for t in trees:
-            if t.pending_kv_copies:  # merge compactions: ROADMAP A6
-                raise NotImplementedError(
-                    "a tree queued KV copies (merge_nodes); applying them "
-                    "comes with speculative decoding")
+            self.runner.apply_kv_copies(t)  # merge compactions (spec decode)
             t.alloc()
         plan = self.build_plan(trees)
         structural = any(req.is_structural(req.iter) for req in self.active)

@@ -6,6 +6,14 @@ attention plan, run one decode step, apply the branch controller and record
 PerfMetrics; stop on the controller's signal or at max_gen_len.  The device
 chains, decode windows and replay slabs of deft_tpu were built for its remote
 TPU link and are not ported: every step here reads its logits on the host.
+
+How much of the logits head a step computes follows deft_tpu's per-step rule
+(:559-574), from the workload's ``structural_iters``, ``logits_free_iters``
+and ``supports_deferred``: "greedy" (top-1) on iterations that only append
+each leaf's greedy token, "skip" (no lm_head) on structural iterations that
+read no logits (a speculative accept schedule), "topk" otherwise.  A
+workload that supports deferred selection reads its tokens on the host here,
+so its logits-free iterations take "topk".
 """
 
 from __future__ import annotations
@@ -31,9 +39,14 @@ def tree_generate(
     output_file: Optional[str] = None,
     perf_metrics: Optional[PerfMetrics] = None,
     print_branches: bool = False,
+    rng=None,
+    seed: Optional[int] = None,
 ) -> PerfMetrics:
     """Generate a tree from ``prompt_ids``; finished branches end up in
-    ``model.tree.all_finished_seqs`` (read them before the next run)."""
+    ``model.tree.all_finished_seqs`` (read them before the next run).
+    ``rng`` (a np.random.RandomState) and ``seed``, when given, are passed
+    to every call of the branching function (sampled simple_tree,
+    random_tree); otherwise the workloads' own defaults hold."""
     if perf_metrics is None:
         perf_metrics = PerfMetrics(output_file)
     prompt_ids = [int(t) for t in prompt_ids]
@@ -51,21 +64,28 @@ def tree_generate(
     kv_bytes_per_tok = int(model.cfg.num_kv_heads * model.cfg.head_dim * 2
                            * kv_elem) * model.cfg.num_layers
 
+    extra = {k: v for k, v in (("rng", rng), ("seed", seed)) if v is not None}
     start_time = time.perf_counter()
     logits = model.forward_prefill(prompt_ids)
     stop = branch_controller.apply_branching(
         model=model, iter=0, max_gen_len=max_gen_len, width=width,
         depth=depth, logits=logits,
-        execution_graph=branch_controller.tree_templates,
+        execution_graph=branch_controller.tree_templates, **extra,
     )
     perf_metrics.TTFT = (time.perf_counter() - start_time) * 1000
 
     # iterations that branch or prune need the top-K; the others append
-    # each leaf's greedy token and need the top-1 only
-    structural_fn = getattr(branch_controller.branching_function,
-                            "structural_iters", None)
-    structural = (structural_fn(branch_controller.tree_templates, max_gen_len)
+    # each leaf's greedy token and need the top-1 only; structural
+    # iterations that read no logits values need none
+    fn = branch_controller.branching_function
+    template = branch_controller.tree_templates
+    structural_fn = getattr(fn, "structural_iters", None)
+    structural = (structural_fn(template, max_gen_len)
                   if structural_fn is not None else None)
+    logits_free_fn = getattr(fn, "logits_free_iters", None)
+    logits_free = (logits_free_fn(template, max_gen_len)
+                   if logits_free_fn is not None else frozenset())
+    supports_deferred = getattr(fn, "supports_deferred", False)
 
     it = 0
     while not stop and it + 1 < max_gen_len:
@@ -82,13 +102,26 @@ def tree_generate(
         GlobalTimer.stop("tree_metadata")
         GlobalTimer.stop("prepare")
 
-        is_struct = structural is None or it in structural
-        logits, fwd_t = model.forward_tree_decode(
-            mode, plan, logits_kind="topk" if is_struct else "greedy")
+        if structural is not None and it not in structural:
+            logits_kind = "greedy"
+        elif it in logits_free and not supports_deferred:
+            logits_kind = "skip"
+        else:
+            logits_kind = "topk"
+        logits, fwd_t = model.forward_tree_decode(mode, plan,
+                                                  logits_kind=logits_kind)
 
         # analytic KV / mask IO accounting (per layer x layers)
         if mode.is_sequential:
             perf_metrics.KV_IO += plan.total_kv * kv_bytes_per_tok
+        elif mode is ForwardMode.UNPAGED_MEDUSA:
+            # the dense masked baseline: KV, materialised scores, mask and
+            # softmax intermediates, per layer
+            for _ in range(model.cfg.num_layers):
+                perf_metrics.update_dense_tree_attn_IO(
+                    plan.n_leaves, plan.n_tokens,
+                    model.cfg.num_kv_heads * model.cfg.head_dim,
+                    model.cfg.num_q_heads)
         else:
             perf_metrics.KV_IO += plan.n_tokens * kv_bytes_per_tok
             perf_metrics.Mask_IO += plan.n_tokens * 8 * model.cfg.num_layers
@@ -97,7 +130,7 @@ def tree_generate(
         stop = branch_controller.apply_branching(
             model=model, iter=it, max_gen_len=max_gen_len, width=width,
             depth=depth, logits=logits,
-            execution_graph=branch_controller.tree_templates,
+            execution_graph=branch_controller.tree_templates, **extra,
         )
         GlobalTimer.stop("branch")
         perf_metrics.update(

@@ -2,22 +2,29 @@
 prefill and tree-decode steps.
 
 Port of the per-step path of deft_tpu/runtime/runner.py: LogitsView (:66),
-the constructor (:194, int8 weights :223-239, int8 KV pools :273-279), pool
-sizing (:382, here from ``torch.cuda.mem_get_info``), the kernel choice
-(_attn_fn :418-477), forward_prefill (:1125), forward_prefill_batch
-(:1154), build_plan (:1205-1273, with want_paged=True and the int8 segment
-rules), _use_paged (:1275) and forward_tree_decode (:2004), which takes
-single-tree and multi-tree plans (plan/multi.py) alike, after draining the
-tree's queued merge copies (apply_kv_copies :1727); MoE layers take the
-grouped-matmul route wherever the token count allows it (deft_tpu's
-single-chip dispatch, :302-317; models/llama.py's _moe_gmm_ok).  PyTorch
+the constructor (:194, int8 weights :223-239, int8 KV pools :273-279, the
+tree-index pool :293-299), pool sizing (:382, here from
+``torch.cuda.mem_get_info``), the kernel choice (_attn_fn :418-477),
+forward_prefill (:1125), forward_prefill_batch (:1154), build_plan
+(:1205-1273: flatten, node, node_chunk and tree_index plans, seq plans with
+want_paged=True, and the int8 segment rules), _use_paged (:1275) and
+forward_tree_decode (:2004; logits kinds "topk", "greedy" and "skip"),
+which takes single-tree and multi-tree plans (plan/multi.py) alike, after
+draining the tree's queued merge copies (apply_kv_copies :1727); MoE
+layers take the grouped-matmul route wherever the token count allows it
+(deft_tpu's single-chip dispatch, :302-317; models/llama.py's
+_moe_gmm_ok).  PyTorch
 runs eagerly, so there are no jitted steps, shape-bucket floors, plan
 patches or replay slabs: each step uploads its plan arrays in one
 host-to-device copy and runs the forward.
 
 Every plan runs through a kernel: segment-aligned (paged) plans through the
 paged kernels, the others through the gather kernels, over bf16/fp32 or
-int8 pools (ops/attn_impls.py's table).
+int8 pools (ops/attn_impls.py's table); node and tree_index plans are
+flatten plans with node-aligned blocks and take the flatten kernels.  The
+one exception is deft_tpu's: UNPAGED_MEDUSA is the dense masked-attention
+baseline, plain attention over the plan's kv_idx in both packages
+(deft_tpu runner.py:448-453, its _use_paged excludes the mode at :1293).
 
 ``ModelRunner(mesh=grid)`` (deft_tpu runner.py:206-317, :420-447, :482) runs
 one rank of a (dp, sp, tp) grid (parallel/): the params and pools are the
@@ -38,7 +45,8 @@ import numpy as np
 import torch
 
 from deft_tpu_torch.config import EngineConfig
-from deft_tpu_torch.core import ReqToTokenPool, TokenKVPool, TreeCache
+from deft_tpu_torch.core import (ReqToTokenPool, TokenKVPool, TreeCache,
+                                 TreeIndexPool)
 from deft_tpu_torch.models.config import LlamaConfig
 from deft_tpu_torch.models.llama import (KVPool, RaggedPrefillBatch,
                                          decode_forward, prefill_forward,
@@ -49,7 +57,8 @@ from deft_tpu_torch.obs import create_logger
 from deft_tpu_torch.obs.timers import synchronize
 from deft_tpu_torch.ops import attn_impls
 from deft_tpu_torch.ops.paged_flatten_attn import row_tile_tiles
-from deft_tpu_torch.plan import build_flatten_plan, build_seq_plan
+from deft_tpu_torch.plan import (build_flatten_plan, build_node_plan,
+                                 build_seq_plan, build_tree_index_plan)
 from deft_tpu_torch.plan.flatten import FlattenPlan
 from deft_tpu_torch.plan.seq import SeqPlan
 from deft_tpu_torch.runtime.modes import ForwardMode
@@ -81,6 +90,14 @@ def topk_lowest_index(probs: torch.Tensor, k: int) -> tuple:
     ids, perm = ids.sort(dim=-1)
     vals, perm2 = vals.gather(-1, perm).sort(dim=-1, descending=True, stable=True)
     return vals[:, :k], ids.gather(-1, perm2)[:, :k]
+
+
+def check_grid_mode(mode: ForwardMode) -> None:
+    """A (dp, sp, tp) grid runs the flatten and seq modes; the others raise."""
+    if mode not in (ForwardMode.TREE_DECODE_FLATTEN, ForwardMode.DECODE):
+        raise NotImplementedError(
+            f"{mode.name} on a grid is not ported (ROADMAP A7): the grid runs "
+            "--mode flatten and --mode seq over the paged memory")
 
 
 class LogitsView:
@@ -122,6 +139,7 @@ class ModelRunner:
         topk_k: int = 64,
         retain_full_logits: bool = False,
         mesh=None,
+        use_tree_index: bool = False,
     ):
         check_supported(model_config)
         self.cfg = model_config
@@ -185,7 +203,13 @@ class ModelRunner:
         self.token_to_kv_pool = TokenKVPool(slots)
         self.req_to_token_pool = ReqToTokenPool(
             engine_config.max_requests, engine_config.max_context_len)
-        self.tree = TreeCache(self.token_to_kv_pool, self.req_to_token_pool)
+        # tree_index mode: a fixed row of KV indices per tree node
+        # (deft_tpu runner.py:293-299)
+        self.tree_index_pool = (
+            TreeIndexPool(engine_config.max_requests, engine_config.max_context_len)
+            if use_tree_index else None)
+        self.tree = TreeCache(self.token_to_kv_pool, self.req_to_token_pool,
+                              self.tree_index_pool)
 
     # -- sizing ------------------------------------------------------------------
     def _kv_cell_bytes(self) -> int:
@@ -222,22 +246,25 @@ class ModelRunner:
 
     # -- helpers -----------------------------------------------------------------
     def _attn_fn(self, mode: ForwardMode, paged: bool):
-        """The step's attention entry, from the plan's layout and the pools'
-        dtype (deft_tpu runner.py:455-477)."""
+        """The step's attention entry, from the mode, the plan's layout and
+        the pools' dtype (deft_tpu runner.py:448-477): flatten, node and
+        tree_index plans take the flatten kernels, UNPAGED_MEDUSA the dense
+        masked attention over kv_idx."""
         kind = mode.plan_kind
         if self.mesh is not None:
+            check_grid_mode(mode)
             return self._sharded_attn_fn(kind, paged)
-        if kind == "flatten" and mode is not ForwardMode.UNPAGED_MEDUSA:
-            if not paged:
-                return attn_impls.flatten_gather_attn
-            return (attn_impls.flatten_attn_q if self.kv_quantized
-                    else attn_impls.flatten_attn)
+        if mode is ForwardMode.UNPAGED_MEDUSA:
+            return attn_impls.flatten_attn_xla
         if kind == "seq":
             if not paged:
                 return attn_impls.seq_gather_attn
             return (attn_impls.seq_attn_q if self.kv_quantized
                     else attn_impls.seq_attn)
-        raise NotImplementedError(f"mode {mode.name} is not ported yet")
+        if not paged:
+            return attn_impls.flatten_gather_attn
+        return (attn_impls.flatten_attn_q if self.kv_quantized
+                else attn_impls.flatten_attn)
 
     def _sharded_attn_fn(self, kind: str, paged: bool):
         """The grid's AttnFn (deft_tpu runner.py:420-447): flatten plans
@@ -249,10 +276,8 @@ class ModelRunner:
 
         if kind == "flatten":
             return make_sharded_tree_attn(self.mesh, paged)
-        if kind == "seq":
-            return (make_sharded_seq_attn(self.mesh) if paged
-                    else attn_impls.seq_gather_attn)
-        raise NotImplementedError(f"{kind} plans are not ported yet")
+        return (make_sharded_seq_attn(self.mesh) if paged
+                else attn_impls.seq_gather_attn)
 
     def _upload(self, parts: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """One host-to-device copy of the concatenated int32 arrays; returns
@@ -287,6 +312,8 @@ class ModelRunner:
             self.tree.free()
         self.token_to_kv_pool.clear()
         self.req_to_token_pool.clear()
+        if self.tree_index_pool is not None:
+            self.tree_index_pool.clear()
 
     def forward_prefill(self, prompt_ids, tree: Optional[TreeCache] = None
                         ) -> LogitsView:
@@ -358,31 +385,38 @@ class ModelRunner:
         the paged layouts are asked for, with the configured bucket sizes.
         int8 pools take deft_tpu's int8 segment rules (runner.py:1227-1246),
         made for its TPU kernels' 128-lane scale reads and kept so both
-        packages build the same plans: flatten segments of 512, 256 or 128
-        tokens at waste limits 1.1, 1.2 and 3.0, seq segments of 128 at 32."""
-        kw = dict(q_per_kv=self.cfg.q_per_kv,
-                  block_len=self.ecfg.attention.block_len,
+        packages build the same plans: flatten-family (flatten, node,
+        tree_index) segments of 512, 256 or 128 tokens at waste limits 1.1,
+        1.2 and 3.0, seq segments of 128 at 32."""
+        a = self.ecfg.attention
+        kw = dict(q_per_kv=self.cfg.q_per_kv, block_len=a.block_len,
                   min_token_bucket=self.ecfg.min_token_bucket)
         kind = mode.plan_kind
-        if self.kv_quantized and kind == "flatten":
-            kw.update(seg_len=(512, 256, 128), waste_limit=(1.1, 1.2, 3.0))
-        elif self.kv_quantized and kind == "seq":
+        if self.kv_quantized and kind == "seq":
             kw.update(seg_len=(128,), waste_limit=32.0)
+        elif self.kv_quantized:
+            kw.update(seg_len=(512, 256, 128), waste_limit=(1.1, 1.2, 3.0))
         if kind == "flatten":
             return build_flatten_plan(self.tree, **kw)
-        if kind == "seq":
-            return build_seq_plan(self.tree, want_paged=True, **kw)
-        raise NotImplementedError(f"{kind} plans are not ported yet")
+        if kind == "node":
+            return build_node_plan(self.tree, chunk_len=a.node_chunk_len, **kw)
+        if kind == "tree_index":
+            return build_tree_index_plan(self.tree, **kw)
+        return build_seq_plan(self.tree, want_paged=True, **kw)
 
-    def _use_paged(self, plan) -> bool:
+    def _use_paged(self, plan, mode: Optional[ForwardMode] = None) -> bool:
         """Paged-kernel eligibility (deft_tpu runner.py:1275): a seg-aligned
-        plan.  The Hopper kernels have no head-packing constraint."""
-        return isinstance(plan, (FlattenPlan, SeqPlan)) and plan.paged
+        plan, in any mode but UNPAGED_MEDUSA.  The Hopper kernels have no
+        head-packing constraint."""
+        return (isinstance(plan, (FlattenPlan, SeqPlan)) and plan.paged
+                and mode is not ForwardMode.UNPAGED_MEDUSA)
 
-    def _step_batch(self, plan) -> SimpleNamespace:
+    def _step_batch(self, plan, paged: Optional[bool] = None) -> SimpleNamespace:
         """The step's plan arrays on the device, as the AttnFn batch: the
         segment tables of a paged plan, else the gather plan's kv_idx (flatten)
-        or paths and seq_lens (seq)."""
+        or paths and seq_lens (seq).  ``paged=False`` asks for kv_idx of a
+        flatten plan that is segment-aligned (UNPAGED_MEDUSA)."""
+        paged = plan.paged if paged is None else paged
         parts = {"q_tokens": plan.q_tokens, "q_pos": plan.q_pos,
                  "out_loc": plan.out_loc}
         block_len = None
@@ -395,14 +429,14 @@ class ModelRunner:
         else:
             parts.update(tok_lo=plan.tok_lo, tok_hi=plan.tok_hi,
                          blk_lo=plan.blk_lo, blk_hi=plan.blk_hi)
-            parts.update({"seg_src": plan.seg_src} if plan.paged
+            parts.update({"seg_src": plan.seg_src} if paged
                          else {"kv_idx": plan.kv_idx})
             block_len = plan.block_len
         dev = self._upload(parts)
         dev["out_loc"] = dev["out_loc"].long()
         if "paths" in dev:
             dev["paths"] = dev["paths"].view(plan.paths.shape)
-        if isinstance(plan, FlattenPlan) and not plan.paged:
+        if isinstance(plan, FlattenPlan) and not paged:
             # B6's span rule reads the row tiles' work from the numpy plan,
             # so the wrapper reads nothing back from the device
             qpk = self.cfg.q_per_kv
@@ -419,13 +453,24 @@ class ModelRunner:
                             logits_kind: str = "topk") -> tuple:
         """Run one tree-decode step.  Returns (LogitsView, forward_seconds);
         the time includes the plan upload and ends after the device is done.
-        logits_kind: "topk" (softmax + top-K) or "greedy" (top-1 only)."""
-        attn = self._attn_fn(mode, self._use_paged(plan))
+        logits_kind: "topk" (softmax + top-K), "greedy" (top-1 only) or
+        "skip" (no lm_head product; an (R, 1) view of zeros, for steps that
+        read no logits).  retain_full_logits turns "skip" into "topk"
+        (deft_tpu runner.py:2033-2036)."""
+        paged = self._use_paged(plan, mode)
+        attn = self._attn_fn(mode, paged)
+        if logits_kind == "skip" and self.retain_full_logits:
+            logits_kind = "topk"
         self.apply_kv_copies()  # merge compactions land before the step
         t0 = time.perf_counter()
-        batch = self._step_batch(plan)
-        logits = decode_forward(self.cfg, self.params, self._rope_tbl,
-                                self.k_pool, self.v_pool, batch, attn, self._shard)
-        view = self._logits_view(logits, logits_kind)
+        batch = self._step_batch(plan, paged)
+        out = decode_forward(self.cfg, self.params, self._rope_tbl, self.k_pool,
+                             self.v_pool, batch, attn, self._shard,
+                             compute_logits=logits_kind != "skip")
+        if logits_kind == "skip":
+            view = LogitsView(np.zeros((out.shape[0], 1), np.float32),
+                              np.zeros((out.shape[0], 1), np.int32))
+        else:
+            view = self._logits_view(out, logits_kind)
         synchronize(self.device)
         return view, time.perf_counter() - t0

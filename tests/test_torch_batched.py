@@ -8,7 +8,9 @@
 - forward_prefill_batch's logits and pool writes against deft_tpu's;
 - BatchedEngine emits deft_tpu's greedy ids in flatten and in seq, the same
   as each request run alone, with feed() mid-decode, a one-token request
-  and an int8 KV cache;
+  and an int8 KV cache, and deft_tpu's ids in node mode and for
+  Speculative_Decoding requests (each tree's queued merge copies applied
+  before its alloc);
 - the CLI's --batch runs on the CPU.
 
 Tolerances, relative to the largest output: fp32 2e-5 (summation order
@@ -22,8 +24,12 @@ import pytest
 import torch
 
 import deft_tpu.core as jcore
+import deft_tpu.data.loader as jloader
+import deft_tpu.data.synthetic as jsynth
 import deft_tpu.plan.multi as jmulti
 import deft_tpu_torch.core as tcore
+import deft_tpu_torch.data.loader as tloader
+import deft_tpu_torch.data.synthetic as tsynth
 import deft_tpu_torch.plan.multi as tmulti
 from deft_tpu.config import EngineConfig as JEngineConfig
 from deft_tpu.control import Branch_Controller as JController
@@ -189,9 +195,11 @@ def test_forward_prefill_batch_matches_deft_tpu(jrunner):
 
 # -- (d)-(g) the engine ----------------------------------------------------------
 
-def engine_ids(engine_cls, request_cls, ctl_cls, policy, runner, mode, feed_after=None):
+def engine_ids(engine_cls, request_cls, ctl_cls, policy, runner, mode, feed_after=None,
+               template=None):
     eng = engine_cls(runner, mode=mode)
-    reqs = [request_cls(p, ctl_cls(policy), len(p) + GEN, width=WIDTH)
+    reqs = [request_cls(p, ctl_cls(policy), len(p) + GEN, width=WIDTH,
+                        template=template() if template else None)
             for p in PROMPTS]
     if feed_after is None:
         eng.add_requests(reqs)
@@ -271,17 +279,62 @@ def test_batched_max_gen_one_stops_after_prefill_branch():
     assert tr.token_to_kv_pool.used_size() == 0  # the tree was freed
 
 
-def test_engine_refusals():
+def spec_template(loader, synth):
+    """A 4-leaf token tree whose accept schedule covers GEN tokens."""
+    tpl = synth.synth_spec_tree(token_tree_size=4, gen_len=GEN - 1, seed=2)
+    loader.generate_accepted_len_list(GEN, tpl, seed=0)
+    return tpl
+
+
+@pytest.mark.parametrize("mode,policy", [("node", "simple_tree"),
+                                         ("flatten", "speculative_decoding"),
+                                         ("seq", "speculative_decoding"),
+                                         ("node", "speculative_decoding")])
+def test_batched_node_and_speculative_match_deft_tpu(mode, policy):
+    """Node mode (on the multi-tree flatten plan, as deft_tpu) and
+    Speculative_Decoding requests, whose merges queue KV copies that the
+    engine applies before each tree's alloc: deft_tpu's BatchedEngine and
+    the port's give the same branch tokens on the same weights."""
+    spec = policy == "speculative_decoding"
+    jr = JRunner(JPRESETS["tiny"], JEngineConfig(**ECFG), kernels="xla", seed=0)
+    want = engine_ids(JEngine, JRequest, JController, getattr(jworkloads, policy), jr,
+                      j_mode(mode), template=(lambda: spec_template(jloader, jsynth))
+                      if spec else None)
     tr = ModelRunner(PRESETS["tiny"], EngineConfig(**ECFG), device="cpu")
-    with pytest.raises(NotImplementedError, match="flatten and seq"):
-        BatchedEngine(tr, mode=mode_from_cli("node"))
-    eng = BatchedEngine(tr)
+    copies = []
+    apply = tr.apply_kv_copies
+
+    def counting_apply(tree=None):  # the engine passes each request's tree
+        if tree is not None:
+            copies.append(len(tree.pending_kv_copies))
+        return apply(tree)
+
+    tr.apply_kv_copies = counting_apply
+    got = engine_ids(BatchedEngine, Request, Branch_Controller, getattr(workloads, policy),
+                     tr, mode_from_cli(mode), template=(
+                         lambda: spec_template(tloader, tsynth)) if spec else None)
+    assert got == want and all(got)
+    assert any(copies) == spec
+
+
+def test_engine_refusals():
+    """The engine takes flatten, node and seq modes (deft_tpu batched.py:101)
+    and refuses the others; node mode runs, and a tree's queued KV copies
+    land in the pools before its alloc."""
+    tr = ModelRunner(PRESETS["tiny"], EngineConfig(**ECFG), device="cpu")
+    with pytest.raises(ValueError, match="flatten, node or seq"):
+        BatchedEngine(tr, mode=mode_from_cli("tree_index"))
+    eng = BatchedEngine(tr, mode=mode_from_cli("node"))
     req = Request(PROMPTS[0], Branch_Controller(workloads.simple_tree),
                   len(PROMPTS[0]) + GEN, width=WIDTH)
     eng.add_request(req)
-    req.tree.pending_kv_copies.append((np.array([1]), np.array([2])))
-    with pytest.raises(NotImplementedError, match="KV copies"):
-        eng.step()
+    src, dst = int(req.tree.root.kv_indices[0]), 4000  # a slot no step writes
+    req.tree.pending_kv_copies.append((np.array([src]), np.array([dst])))
+    eng.step()
+    assert not req.tree.pending_kv_copies
+    for pool in (tr.k_pool, tr.v_pool):
+        assert torch.equal(pool.data[:, dst], pool.data[:, src])
+        assert pool.data[:, dst].abs().sum() > 0
 
 
 def test_cli_batch_runs_on_cpu(capsys):

@@ -103,7 +103,14 @@ def test_cli_runs_on_cpu(tmp_path, capsys):
     assert "TPOT (ms/token)" in text and text.count("Branch ID") == 2
     assert out.exists()
     for flag, value in (("--mode", "node"), ("--Branch_controller", "Beam_Search")):
-        with pytest.raises(SystemExit):  # not ported yet: argparse refuses it
+        assert run.main(["--device", "cpu", "--random-model", "tiny", "--max_width", "2",
+                         "--prompt_len", "300", "--max_seq_len", "306", "--dtype",
+                         "float32", "--kv_pool_slots", "4096", "--print-branches",
+                         flag, value]) == 0
+        text = capsys.readouterr().out
+        assert "TPOT (ms/token)" in text and text.count("Branch ID") == 2
+    for flag, value in (("--model", str(tmp_path)), ("--kernels", "xla")):
+        with pytest.raises(SystemExit):  # not ported: argparse refuses it
             run.main(["--device", "cpu", "--random-model", "tiny", flag, value])
 
 
