@@ -37,13 +37,20 @@ result line):
               rows, m where a row saw a token); the sp merge of B1p's two
               halves of the main plan against B1 over the whole; the edges
               of the tensor-core bodies (b9_edges, seq_edges for B2 and B5,
-              b7_edges, b4_edges, b1_edges, b6_edges, wgmma_edges), each with a fault
+              b7_edges, b4_edges, b1_edges, b6_edges, wgmma_edges; qpk 1, 4,
+              7 (Qwen2.5-7B) and 8), each with a fault
               control through the plain version that must read above the
               tolerance; b1_edges and b6_edges also print the grids B1, B1p,
               B6 and B11 take at their path shapes.  B6 runs at the short
               tree and at the batch path's four trees halfway (their
               multi-tree gather plan), bf16 and int8 pools, with the row
-              tiles the runner counts on the host;
+              tiles the runner counts on the host.  The wide heads
+              (WIDE_HEADS: Phi-3-mini 32/32 x D 96, Gemma-7B 16/16 x D 256,
+              which take gather plans only) run B3, B8, B6, B7 (bf16 and
+              int8 pools) and B11 at the same path shapes (wide_shapes),
+              fp32 and bf16 edge cases and a fault control each
+              (wide_edges); their rows in the kernels line are named
+              <kernel>_d96 and <kernel>_d256;
   4. main:    the 8B model (random bf16 weights from a CUDA torch.Generator,
               all 32 layers) serves Simple_Tree few-shot, width 50, prompt
               4000, 64 generated tokens, block_len 256, in flatten then seq
@@ -53,7 +60,13 @@ result line):
               the same step must land on either side of that limit: one ulp
               of noise in every layer's attention output below it, one plan
               block of the prompt hidden from every leaf above it (a rerun
-              and a one-token mask fault are printed beside them);
+              and a one-token mask fault are printed beside them); then
+              checkpoint and restore (runtime/checkpoint.py): save mid-run,
+              restore into a fresh runner on the same weights, the next
+              step's logits against the uninterrupted run's below
+              LOGITS_LIMIT (a dropped block above), greedy ids compared; the
+              same at the 8B widths, 4 layers, fp32, where every leaf's
+              greedy id must be equal;
   5. int8:    the same weights and workload over an int8 KV cache, flatten
               then seq: B4 and B5 must launch and B1 and B2 must not; the
               first decode step's logits are compared with the bf16 cache's;
@@ -140,12 +153,28 @@ result line):
  13. sharded-moe: mixtral-6l on grid 1x2x2 (4 experts a rank): B10 on every
               rank's prefill, its last-token logits against the moe path's
               below MOE_LIMIT, then 8 decode tokens;
- 14. timing:  CUDA-event times of each kernel, its plain version and, where
+ 14. families: Qwen2.5-7B (qkv bias, 7 q heads a KV head), Qwen3-8B
+              (qk-norm) and Gemma-7B (Gemma norms, GeGLU, tied lm_head,
+              head_dim 256) at the widths typed into FAMILIES from their
+              config.json: each written at full width and 2 layers as a
+              two-file safetensors checkpoint by the script's own writer,
+              loaded through `python3 -m deft_tpu_torch.cli.run --model DIR
+              --device cuda` and bit-exactly through load_params; then
+              served at full depth from random weights on the main path's
+              settings: the first step seq against flatten below the
+              family's FAMILY_LIMITS (noise below, every other prompt block
+              dropped above), B1/B2 (Qwen) or B6/B7 (Gemma, every step)
+              launched, TTFT, TPOT and peak memory printed; Gemma's B3, B6
+              and B7 launches join the kernels line's _d256 rows;
+ 15. tracing: one short CLI run under --trace-dir: the Chrome trace holds
+              the decode_step spans and kernels of the port;
+ 16. timing:  CUDA-event times of each kernel, its plain version and, where
               one PyTorch call computes the same function, that call, at its
               path's shapes, beside the least time the card could take
               (B6 at both its plans, B7 at the short tree and the main
               tree's gather plan, bf16 and int8 pools, the short plans'
-              bf16 cases in the kernels line); B1, B1p, B4, B4p, B6 and B11
+              bf16 cases in the kernels line; the wide heads' kernels at
+              their path shapes); B1, B1p, B4, B4p, B6 and B11
               also with one span and with a warm L2 (flat_q_tile_cost).
 Each path's counts are set to 0 just before it and read just after (the
 short path's two runs each, summed; the batch path's two engine runs each).
@@ -166,6 +195,7 @@ import argparse
 import contextlib
 import inspect
 import json
+import os
 import subprocess
 import sys
 import time
@@ -260,6 +290,18 @@ SHORT_GRID = (2, 1, 2)
 TMA_KERNELS = ("prefill", "ragged_prefill", "gmm", "gmm_scaled")
 # the launch counter of a wrapper that counts two kernels (ops/gmm.py)
 COUNT_ATTR = {"gmm_scaled": "scaled_launches"}
+# Head widths whose row does not pack into 128 lanes: deft_tpu's runner
+# gives such models gather plans only, so B3/B8 and the gather kernels
+# B6, B7 and B11 take them (runner.packs_heads).  Each width's kernels
+# are rows of their own in the kernels line, checked and timed at the
+# heads of the model named: head_dim -> (model, Hq, Hkv)
+WIDE_HEADS = {96: ("Phi-3-mini", 32, 32), 256: ("Gemma-7B", 16, 16)}
+WIDE_OF = {f"{base}_d{D}": base for D in WIDE_HEADS
+           for base in ("prefill", "ragged_prefill", "flatten_gather", "seq_gather",
+                        "flatten_gather_partial")}
+KERNELS.update({wide: KERNELS[base] for wide, base in WIDE_OF.items()})
+PARTIAL_OF.update({f"flatten_gather_partial_d{D}": f"flatten_gather_d{D}"
+                   for D in WIDE_HEADS})
 
 
 class Failure(Exception):
@@ -293,7 +335,8 @@ def rel_l2(got, want) -> float:
 
 def wrappers():
     """name -> (kernel wrapper, its plain version): the wrappers carry the
-    launch counters."""
+    launch counters.  The wide heads' names (WIDE_OF) share their base
+    kernel's wrapper and counter."""
     from deft_tpu_torch.ops import flatten_attn as fa
     from deft_tpu_torch.ops import gmm as gm
     from deft_tpu_torch.ops import int8_matmul as i8
@@ -304,7 +347,7 @@ def wrappers():
     from deft_tpu_torch.ops import seq_attn as sa
     from deft_tpu_torch.ops import sharded_flatten as sf
 
-    return {
+    out = {
         "prefill": (pr.prefill_attention, pr.prefill_attention_plain),
         "paged_flatten": (pf.paged_flatten_attention, pf.paged_flatten_attention_plain),
         "paged_seq": (ps.paged_seq_attention, ps.paged_seq_attention_plain),
@@ -328,21 +371,27 @@ def wrappers():
         "flatten_gather_partial": (sf.flatten_attention_partial,
                                    sf.flatten_attention_partial_plain),
     }
+    return out | {wide: out[base] for wide, base in WIDE_OF.items()}
+
+
+def counters() -> dict:
+    """name -> wrapper of each launch counter (the base names only)."""
+    return {name: fn for name, (fn, _) in wrappers().items() if name not in WIDE_OF}
 
 
 def reset_counts() -> None:
-    for name, (fn, _) in wrappers().items():
+    for name, fn in counters().items():
         setattr(fn, COUNT_ATTR.get(name, "launches"), 0)
 
 
 def read_counts() -> dict:
     return {name: getattr(fn, COUNT_ATTR.get(name, "launches"))
-            for name, (fn, _) in wrappers().items()}
+            for name, fn in counters().items()}
 
 
 def restore_counts(counts: dict) -> None:
     """Set every launch counter back to `counts` (read_counts' dict)."""
-    for name, (fn, _) in wrappers().items():
+    for name, fn in counters().items():
         setattr(fn, COUNT_ATTR.get(name, "launches"), counts[name])
 
 
@@ -679,6 +728,8 @@ def path_shapes(dev):
 
     short = grow_tree(16, WIDTH, GEN_LEN // 2, 16384, np.random.default_rng(SEED))
     for name, base in PARTIAL_OF.items():
+        if name in WIDE_OF:  # wide_shapes
+            continue
         gather = KERNELS[name][4] == "gather"
         shape = SHORT_GRID if gather else SHARDED_GRID
         plan, args = kernel_case(base, short if gather else main, 4, 4, 128, bf16, dev,
@@ -721,6 +772,76 @@ def path_shapes(dev):
         out[name] = [(f"{label} M={M} E={e} F={f}", None,
                       gmm_case(x, ne, e, f, bf16, scaled, dev, gen, tile_eid))
                      for label, (x, e, f) in xs.items()]
+    return out
+
+
+def wide_case(kind, tree, qpk, Hkv, D, kv, dev, gen):
+    """(plan, args) of B6 (kind "flatten") or B7 ("seq") at a wide head
+    width on `tree`, with the plan the runner builds there (block_len 256,
+    int8 pools: the int8 segment rules): seq plans in the gather layout
+    (runner.packs_heads), flatten plans as built, run through their kv_idx
+    whether or not they are segment-aligned (runner._use_paged).  Random
+    bf16 q, and pools of bf16 or int8 (`kv`), as kernel_case makes them."""
+    import torch
+    from deft_tpu_torch.plan import build_flatten_plan, build_seq_plan
+
+    kw = INT8_RULES[kind] if kv == "int8" else {}
+    if kind == "flatten":
+        plan = build_flatten_plan(tree, q_per_kv=qpk, block_len=256, min_token_bucket=1024,
+                                  **kw)
+    else:
+        plan = build_seq_plan(tree, q_per_kv=qpk, block_len=256, min_token_bucket=1024,
+                              want_paged=False, **kw)
+        check(not plan.paged, "a wide-head seq plan is paged")
+    bf16 = torch.bfloat16
+    pools, scales = random_pools(kv, tree.token_to_kv_pool.size, Hkv, D, bf16, dev, gen)
+    q = torch.randn((plan.l_pad, qpk * Hkv, D), generator=gen, device=dev).to(bf16)
+    if kind == "flatten":
+        return plan, gather_args(plan, q, pools, scales, dev)
+    return plan, (q, *pools, 0, *to_dev([plan.paths, plan.seq_lens], dev), D ** -0.5,
+                  *scales)
+
+
+def wide_shapes(dev):
+    """Kernel inputs at the wide heads' path shapes (WIDE_HEADS: Phi-3-mini
+    Hq 32, Hkv 32, D 96; Gemma-7B Hq 16, Hkv 16, D 256), bf16 q, width
+    50: B3 on the 4000-token prompt; B8 over the batch path's prompts; B6
+    on the 4000-token prompt's tree halfway (segment-aligned, run through
+    kv_idx at these widths: the families phase's served shape, first) and
+    on the CLI's 16-token prompt's tree halfway (a gather plan); B7 on the
+    main tree halfway and at the short tree's fifth step (gather seq plans,
+    the only ones at these widths); both over bf16 and int8 pools; B11 at rank 0's window of SHORT_GRID on the
+    short tree (tp 2: half the KV heads).  name -> [(label, plan, args)],
+    as path_shapes."""
+    import torch
+    from deft_tpu_torch.parallel.mesh import Grid
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 20)
+    bf16 = torch.bfloat16
+    main = grow_tree(PROMPT_LEN, WIDTH, GEN_LEN // 2, 16384, np.random.default_rng(SEED))
+    short = grow_tree(16, WIDTH, GEN_LEN // 2, 16384, np.random.default_rng(SEED))
+    seq_short = grow_tree(16, WIDTH, 4, 16384, np.random.default_rng(SEED))
+    out = {}
+    for D, (model, Hq, Hkv) in WIDE_HEADS.items():
+        qpk = Hq // Hkv
+        out[f"prefill_d{D}"] = [(model, None, prefill_case(PROMPT_LEN, Hq, Hkv, D, bf16,
+                                                           dev, gen))]
+        out[f"ragged_prefill_d{D}"] = [(model, None, ragged_case(BATCH_LENS, Hq, Hkv, D,
+                                                                 bf16, dev, gen)[0])]
+        # the main tree first: the served path's shape, the kernels line's
+        for name, kind, trees in ((f"flatten_gather_d{D}", "flatten",
+                                   (("main", main), ("short", short))),
+                                  (f"seq_gather_d{D}", "seq",
+                                   (("main", main), ("short", seq_short)))):
+            out[name] = [(f"{model} {label} {kv}", *wide_case(kind, tree, qpk, Hkv, D, kv,
+                                                             dev, gen))
+                         for label, tree in trees for kv in ("inherit", "int8")]
+        plan, args = wide_case("flatten", short, qpk, Hkv // 2, D, "inherit", dev, gen)
+        wargs, live = window_case(f"flatten_gather_partial_d{D}", plan, args,
+                                  Grid(SHORT_GRID, 0, dev))
+        out[f"flatten_gather_partial_d{D}"] = [(f"{model} rank 0 of grid {SHORT_GRID}",
+                                                (plan, live), wargs)]
     return out
 
 
@@ -768,7 +889,17 @@ MMA_BODIES = {"B2/B2p (deft_seq_q, bf16 KV)": ("paged_seq", "seq_q_mmaI13__nv_bf
                                                 "flatten_q_mmaI13__nv_bfloat16", "HGMMA"),
               "B6/B11 (deft_flat_q, int8 KV)": ("flatten_gather", "flatten_q_mmaIa", "HMMA"),
               "B7 (deft_seq_q, bf16 KV)": ("seq_gather", "seq_q_mmaI13__nv_bfloat16", "HMMA"),
-              "B7 (deft_seq_q, int8 KV)": ("seq_gather", "seq_q_mmaIa", "HMMA")}
+              "B7 (deft_seq_q, int8 KV)": ("seq_gather", "seq_q_mmaIa", "HMMA"),
+              # the wide heads (D 96, 256) over bf16 q: flash_common.cuh's
+              # body on mma.sync (B7's there is seq_body.cuh's FMA body)
+              "B3/B8 at D 96 and 256 (flash_common, bf16)": (
+                  "prefill", "prefill_kernelI13__nv_bfloat16", "HMMA"),
+              "B6/B11 at D 96 and 256 (flatten_body, bf16 q)": (
+                  "flatten_gather", "flatten_partial_kernelI13__nv_bfloat16", "HMMA")}
+# the wide heads' bf16 bodies whose registers and spills phase_build prints
+WIDE_BODIES = {"B3/B8": ("prefill", "prefill_kernelI13__nv_bfloat16"),
+               "B6/B11": ("flatten_gather", "flatten_partial_kernelI13__nv_bfloat16"),
+               "B7": ("seq_gather", "seq_kernelI13__nv_bfloat16")}
 
 
 def ptxas_lines(name: str, function: str) -> list:
@@ -823,6 +954,9 @@ def phase_build(bodies: bool = True):
     for label in ("B1/B1p (deft_flat_q, bf16 KV)", "B6/B11 (deft_flat_q, bf16 KV)"):
         for line in ptxas_lines(*MMA_BODIES[label][:2]):
             print(f"[build] {label.split()[0]} body: {line}", flush=True)
+    for label, (lib, fn) in WIDE_BODIES.items():
+        for line in ptxas_lines(lib, fn):
+            print(f"[build] {label} wide-head body: {line}", flush=True)
 
 
 def phase_kernels(dev, shapes):
@@ -947,6 +1081,8 @@ def phase_kernels(dev, shapes):
         for block_len in (128, 256):
             for tree, label in ((a, "FULL/dead/few-leaf tree"), (b, "unaligned tree")):
                 for name, base in PARTIAL_OF.items():
+                    if name in WIDE_OF:  # wide_edges
+                        continue
                     for kv in (("inherit", "int8") if base == "flatten_gather" else (None,)):
                         plan, args = kernel_case(base, tree, 4, 2, D, f32, dev, gen,
                                                  block_len, kv=kv)
@@ -984,6 +1120,7 @@ def phase_kernels(dev, shapes):
     b4_edges(dev, gen)
     b1_edges(dev, gen, shapes)
     b6_edges(dev, gen, shapes)
+    wide_edges(dev, gen)
     return errs
 
 
@@ -1129,7 +1266,7 @@ def seq_edges(dev, gen, int8):
     """B5 and B5p (int8 pools), or B2 and B2p (bf16 / fp32 pools), against
     their plain versions on synthetic per-leaf tables: dead blocks,
     segments straddling the 16-token tiles, path lengths off the tile and a
-    leaf of one token; qpk 1, 4 and 8; D 64 and 128; bf16 q (the
+    leaf of one token; qpk 1, 4, 7 (Qwen2.5-7B) and 8; D 64 and 128; bf16 q (the
     tensor-core body) with the path split over 1, 3 and 8 blocks of a
     cluster, fp32 q (the FMA body) unsplit.  Control: a 17-token path
     against the plain version with its last token hidden."""
@@ -1154,7 +1291,7 @@ def seq_edges(dev, gen, int8):
         return [q, *pools, 0, *to_dev(tables, dev)]
 
     for D in (64, 128):
-        for qpk in (1, 4, 8):
+        for qpk in (1, 4, 7, 8):
             tables = synthetic_seq_plan(rng, R, nb, spb, seg_len, S, one_token_leaf=2)
             lens = (tables[2].reshape(R, -1)
                     * np.repeat(tables[3].reshape(R, nb), spb, axis=1)).sum(1)
@@ -1222,7 +1359,7 @@ def b7_edges(dev, gen):
     every row (padded leaves give 0 in both) and every output finite:
     synthetic gather plans with path lengths off the 16-token tile, a
     one-token leaf, a seq_len 0 leaf between live ones (its rows must be
-    exactly 0) and a path as long as the padded width; qpk 1, 4 and 8; D 64
+    exactly 0) and a path as long as the padded width; qpk 1, 4, 7 and 8; D 64
     and 128; bf16 and int8 pools; each path split over 1, 3 and 8 blocks of
     a cluster.  The pool rows at DUMP_SLOT (and for int8 their scales) hold
     NaN in the kernel's pools, so a pad read would show as a non-finite
@@ -1258,7 +1395,7 @@ def b7_edges(dev, gen):
     lens = [37, 1, 0, C, 16, 100, 150, 0]
     for kv in ("inherit", "int8"):
         for D in (64, 128):
-            for qpk in (1, 4, 8):
+            for qpk in (1, 4, 7, 8):
                 args, clean = case(lens, qpk, D, kv)
                 want = plain(*clean)
                 for sp in (1, 3, 8):
@@ -1310,7 +1447,7 @@ def check_edge(tag, name, label, args, leaves, qpk, tol):
     got = fn(*args)
     torch.cuda.synchronize()
     want = plain(*args)
-    if name.endswith("_partial"):
+    if name in PARTIAL_OF:
         rows = ((slice(None), slice(0, leaves * qpk)) if KERNELS[name][2] == "flatten"
                 else (slice(0, leaves),))
         seen = want[2][rows] > 0
@@ -1357,7 +1494,7 @@ def b4_edges(dev, gen):
     their plain versions on a width-40 tree over a 4000-token prompt: FULL
     prefix blocks, few-leaf suffix blocks, a dead bucket tail, and at qpk 4
     and 8 more than 128 folded rows, so row tiles differ in the blocks they
-    see; seg_len 32, 128, 256 and 512; qpk 1 (64 rows: 4-warp blocks), 4
+    see; seg_len 32, 128, 256 and 512; qpk 1 (64 rows: 4-warp blocks), 4, 7
     and 8; D 64 and 128; B4p also on windows of the plan's first 21 and 32
     blocks.  Control: B4's output against the plain version with the tokens
     of one span of the first row tile hidden."""
@@ -1375,7 +1512,7 @@ def b4_edges(dev, gen):
 
     for seg_len in (32, 128, 256, 512):
         block_len = max(128, seg_len)
-        for qpk in (1, 4, 8):
+        for qpk in (1, 4, 7, 8):
             plan = build_flatten_plan(tree, q_per_kv=qpk, block_len=block_len,
                                       min_token_bucket=1024, seg_len=(seg_len,),
                                       waste_limit=64.0)
@@ -1469,7 +1606,7 @@ def b1_edges(dev, gen, shapes):
     against their plain versions, bf16, tolerance 2e-2: the width-40 tree
     over the 4000-token prompt (FULL prefix blocks, few-leaf suffix blocks,
     a dead bucket tail; at qpk 4 and 8 two or more row tiles) at seg_len 32,
-    64 and 256, qpk 1, 4 and 8, D 64 and 128, B1p also on windows of the
+    64 and 256, qpk 1, 4, 7 and 8, D 64 and 128, B1p also on windows of the
     plan's first 15 and 21 blocks; 1 span and twice the rule's spans,
     forced, at seg_len 64, qpk 4, D 128.  Controls through the plain
     version: span 0 of the first row tile hidden; a 17-token path (a
@@ -1493,7 +1630,7 @@ def b1_edges(dev, gen, shapes):
     control = None
     for seg_len in (32, 64, 256):
         block_len = max(128, seg_len)
-        for qpk in (1, 4, 8):
+        for qpk in (1, 4, 7, 8):
             plan = build_flatten_plan(tree, q_per_kv=qpk, block_len=block_len,
                                       min_token_bucket=1024, seg_len=(seg_len,),
                                       waste_limit=64.0)
@@ -1693,6 +1830,114 @@ def b6_edges(dev, gen, shapes):
                     got[:, rows], want[:, rows], tol)
 
 
+def wide_edges(dev, gen):
+    """The wide heads' kernels (WIDE_HEADS: D 96 and 256) beyond their path
+    shapes, each against its plain version, every output finite.  fp32
+    (tolerance 2e-5): B3 at N 300 and 1017, qpk 4 and 1; B8 over prompts
+    off the 64-token tiles with a pad tail; B6 and B7 over fp32 and int8
+    pools on the FULL/dead/few-leaf tree in the gather layout and on the
+    16-token prompt's tree as the runner builds it, at block_len 128 and
+    256; B11 on every rank's window of a dp 2 x sp 3 grid.  bf16 (2e-2): B3
+    and B8 at qpk 4 and 1, N 1017; B6, B7 and B11 at qpk 4 over both pool
+    types.  Controls through the plain versions, each above the tolerance:
+    B3 and B8 a causal mask off by one; B6 and B11 two leaves' own tokens'
+    kv_idx swapped; B7 the last entries of two 17-token paths swapped
+    between the leaves."""
+    import torch
+    from deft_tpu_torch.parallel.mesh import Grid
+    from deft_tpu_torch.plan import build_flatten_plan
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    a, _, c = small_trees(np.random.default_rng(SEED + 21))
+    windows = [Grid((2, 3, 1), r, dev) for r in range(6)]
+    for D in WIDE_HEADS:
+        B3, B8 = f"prefill_d{D}", f"ragged_prefill_d{D}"
+        B6, B7, B11 = f"flatten_gather_d{D}", f"seq_gather_d{D}", f"flatten_gather_partial_d{D}"
+        for dt, tol in ((f32, TOL["float32"]), (bf16, TOL["bfloat16"])):
+            tag = "fp32" if dt == f32 else "bf16"
+            for N, Hq, Hkv in ((300, 8, 2), (1017, 8, 2), (1017, 2, 2)):
+                if dt == f32 or N == 1017:
+                    args = prefill_case(N, Hq, Hkv, D, dt, dev, gen)
+                    check_edge("wide", B3, f"{tag} D={D} qpk {Hq // Hkv} N={N}", args, N,
+                               Hq // Hkv, tol)
+            for Hq, Hkv in ((8, 2), (2, 2)):
+                for lens, pad in (((60, 83, 100), 13), ((500, 300, 217), 24)):
+                    rargs, rows = ragged_case(lens, Hq, Hkv, D, dt, dev, gen, pad)
+                    got = check_edge("wide", B8, f"{tag} D={D} qpk {Hq // Hkv} lens {lens} "
+                                     f"pad {pad}", rargs, int(rows.sum()), Hq // Hkv, tol)
+                    check(not bool(got[~rows].any()), f"{B8}: pad rows are not 0")
+            trees = ((a, "FULL/dead/few-leaf tree", False), (c, "short-prompt plan", True))
+            for block_len in ((128, 256) if dt == f32 else (256,)):
+                for tree, label, built in trees:
+                    for name in (B6, B7):
+                        for kv in ("inherit", "int8"):
+                            plan, args = kernel_case(name, tree, 4, 2, D, dt, dev, gen,
+                                                     block_len, kv=kv, as_built=built)
+                            check_edge("wide", name, f"{tag} {kv} D={D} block {block_len} "
+                                       f"{label}", args, plan.n_leaves, 4, tol)
+                            if name != B6:
+                                continue
+                            for grid in (windows if dt == f32 else windows[:2]):
+                                wargs, leaves = window_case(B11, plan, args, grid)
+                                check_edge("wide", B11, f"{tag} {kv} D={D} block {block_len} "
+                                           f"{label}, rank {grid.coords}", wargs, leaves, 4,
+                                           tol)
+        tol = TOL["bfloat16"]
+        # controls, bf16: B3 and B8 on their last cases (qpk 1, N 1017; the
+        # long ragged prompts), a causal mask off by one
+        q, k, v, scale = args = prefill_case(1017, 2, 2, D, bf16, dev, gen)
+        pos = torch.arange(q.shape[0], device=dev)
+        rel_err_control(B3, f"D={D} one-token causal-mask fault (row i sees i + 1)",
+                        wrappers()[B3][0](*args),
+                        dense_masked(q, k, v, scale, pos[None, :] <= pos[:, None] + 1), tol)
+        q, k, v, seg, scale = rargs
+        pos = torch.arange(q.shape[0], device=dev)
+        same = (seg[:, None] == seg[None, :]) & (seg[:, None] >= 0)
+        rel_err_control(B8, f"D={D} one-token causal-mask fault (row i sees i + 1)",
+                        wrappers()[B8][0](*rargs)[rows],
+                        dense_masked(q, k, v, scale, same & (pos[None, :] <= pos[:, None] + 1))
+                        [rows], tol)
+        # B6 and B11: 17-token paths (a 16-token prompt and the leaf's own
+        # token), leaf 0's and leaf 1's own tokens' kv_idx swapped
+        tree = grow_tree(16, 8, 0, 4096, np.random.default_rng(SEED + 6))
+        plan = build_flatten_plan(tree, q_per_kv=4, block_len=128, min_token_bucket=128,
+                                  seg_len=None)
+        pools, scales = random_pools("inherit", tree.token_to_kv_pool.size, 2, D, bf16, dev,
+                                     gen)
+        q = torch.randn((plan.l_pad, 8, D), generator=gen, device=dev).to(bf16)
+        args = gather_args(plan, q, pools, scales, dev)
+        own = [int(np.nonzero((plan.tok_lo == i) & (plan.tok_hi == i + 1))[0][0])
+               for i in (0, 1)]
+        got = check_edge("wide", B6, f"bf16 D={D} 17-token paths", args, plan.n_leaves, 4, tol)
+        named = named_args(B6, args)
+        swapped = named["kv_idx"].clone()
+        swapped[own[0]], swapped[own[1]] = named["kv_idx"][own[1]], named["kv_idx"][own[0]]
+        rel_err_control(B6, f"D={D} 17-token paths, leaf 0's and leaf 1's own tokens' kv_idx "
+                        "swapped", got[:2], wrappers()[B6][1](**dict(named, kv_idx=swapped))[:2],
+                        tol)
+        wargs, leaves = window_case(B11, plan, args, Grid((1, 1, 1), 0, dev))
+        got = partial_out(check_edge("wide", B11, f"bf16 D={D} 17-token paths, one window",
+                                     wargs, leaves, 4, tol))
+        wnamed = named_args(B11, wargs)
+        want = partial_out(wrappers()[B11][1](**dict(wnamed, kv_idx=swapped)))
+        rel_err_control(B11, f"D={D} 17-token paths, leaf 0's and leaf 1's own tokens' "
+                        "kv_idx swapped", got[:, :8], want[:, :8], tol)
+        # B7: the last entries of two 17-token paths swapped between the leaves
+        rng = np.random.default_rng(SEED + 22)
+        paths, seq_lens = synthetic_gather_paths(rng, [17, 17, 150], 192, 4096)
+        pools, scales = random_pools("inherit", 4096, 2, D, bf16, dev, gen)
+        q = torch.randn((3, 8, D), generator=gen, device=dev).to(bf16)
+        q[:2] *= 0.05  # small queries: each token weighs about a seventeenth
+        args = (q, *pools, 0, *to_dev([paths, seq_lens], dev), D ** -0.5, *scales)
+        got = check_edge("wide", B7, f"bf16 D={D} 17-token paths", args, 3, 4, tol)
+        named = named_args(B7, args)
+        swapped = named["paths"].clone()
+        swapped[0, 16], swapped[1, 16] = named["paths"][1, 16], named["paths"][0, 16]
+        rel_err_control(B7, f"D={D} 17-token paths, leaf 0's and leaf 1's last entries "
+                        "swapped", got[:2], wrappers()[B7][1](**dict(named, paths=swapped))[:2],
+                        tol)
+
+
 def dense_masked(q, k, v, scale, mask):
     """Attention of q (N, Hq, D) over k, v (N, Hkv, D) under a (N, N) mask
     of visible (row, key) pairs, fp32, cast to q's dtype; rows that see
@@ -1827,13 +2072,15 @@ def phase_merge(dev, shapes):
 
 
 def make_runner(cfg, params, dev, kv_dtype="inherit", prompt_len=PROMPT_LEN,
-                slots=16384, max_requests=2 * WIDTH, mesh=None, use_tree_index=False):
+                slots=16384, max_requests=2 * WIDTH, mesh=None, use_tree_index=False,
+                dtype="bfloat16"):
     from deft_tpu_torch.config import AttentionConfig, EngineConfig
     from deft_tpu_torch.runtime import ModelRunner
 
     ecfg = EngineConfig(attention=AttentionConfig(block_len=256),
                         kv_pool_slots=slots, max_requests=max_requests,
-                        max_context_len=prompt_len + GEN_LEN + 64, kv_dtype=kv_dtype)
+                        max_context_len=prompt_len + GEN_LEN + 64, kv_dtype=kv_dtype,
+                        dtype=dtype)
     return ModelRunner(cfg, ecfg, device=dev, params=params,
                        topk_k=max(64, WIDTH), retain_full_logits=True, mesh=mesh,
                        use_tree_index=use_tree_index)
@@ -3342,7 +3589,414 @@ def phase_sharded_moe(moe_logits):
     return out["prefill"][0]
 
 
-def logits_controls(runner, width, midrun=False):
+# -- checkpoint and restore, model families, tracing ---------------------------------
+
+def grow_greedy(runner, prompt, steps):
+    """Prefill `prompt`, branch the root into WIDTH leaves (the prefill's
+    top WIDTH tokens), then `steps` greedy flatten steps, each leaf taking
+    its argmax: the main path's Simple_Tree up to mid-run."""
+    from deft_tpu_torch.runtime import ForwardMode
+
+    flatten = ForwardMode.TREE_DECODE_FLATTEN
+    _, ids = runner.forward_prefill(prompt).topk(0, WIDTH)
+    tree = runner.tree
+    for c, child in enumerate(tree.branch(tree.root, WIDTH)):
+        child.append_token(int(ids[c]))
+    for _ in range(steps):
+        tree.alloc()
+        view, _ = runner.forward_tree_decode(flatten, runner.build_plan(flatten), "greedy")
+        tok, _ = view.argmax()
+        for leaf in list(tree.leaves.values()):
+            leaf.append_token(int(tok[tree.leaf_to_q[leaf.id]]))
+
+
+def next_step_logits(runner, fault=False):
+    """The next flatten step's (WIDTH, V) fp32 logits on the runner's tree
+    (alloc, plan, forward); with `fault` also the same step with one FULL
+    block of the prompt hidden (``drop_block``), run second."""
+    from unittest import mock
+
+    from deft_tpu_torch.runtime import ForwardMode
+
+    flatten = ForwardMode.TREE_DECODE_FLATTEN
+    runner.tree.alloc()
+    plan = runner.build_plan(flatten)
+    out = [runner.forward_tree_decode(flatten, plan)[0].full_logits()[:WIDTH].float()]
+    if fault:
+        attn = plan_edited(runner._attn_fn(flatten, runner._use_paged(plan, flatten)),
+                           drop_block)
+        with mock.patch.object(runner, "_attn_fn", lambda m, paged: attn):
+            out.append(runner.forward_tree_decode(flatten, plan)[0].full_logits()[:WIDTH]
+                       .float())
+    return out
+
+
+def phase_checkpoint(dev, params, prompt):
+    """Checkpoint and restore (runtime/checkpoint.py) mid-run on the main
+    path: the 8B bf16 weights at 32 layers, prompt 4000, WIDTH leaves,
+    GEN_LEN // 2 greedy flatten steps, then save_checkpoint; a fresh runner
+    on the same weights restores the file (each root-to-leaf path
+    re-prefilled through B3) and takes the next step beside the
+    uninterrupted runner.  The restored tree's nodes must equal the saved
+    ones; the next step's logits must lie below LOGITS_LIMIT of the
+    uninterrupted run's, with a dropped prompt block above it; the greedy
+    ids are compared and printed (bf16: the restored KV of the decoded
+    tokens went through B3's rounding, not B1's).  Then the same on the 8B
+    widths at 4 layers in fp32 (depth cut for the fp32 weights' and
+    re-prefills' time), where rounding cannot move an argmax: every leaf's
+    next greedy id must equal the uninterrupted run's."""
+    import dataclasses
+
+    import torch
+    from deft_tpu_torch.models import PRESETS
+    from deft_tpu_torch.models.loader import random_params
+    from deft_tpu_torch.ops import _cuda
+    from deft_tpu_torch.runtime.checkpoint import restore, save_checkpoint
+
+    path = str(_cuda.BUILD / "checkpoint.json")
+    _cuda.BUILD.mkdir(parents=True, exist_ok=True)
+    cfg32 = dataclasses.replace(PRESETS["8b"], num_layers=4)
+    for tag, cfg, weights, dtype in (("bf16", PRESETS["8b"], params, "bfloat16"),
+                                     ("fp32 4 layers", cfg32, None, "float32")):
+        if weights is None:
+            weights = random_params(cfg, SEED, dev, torch.float32)
+        t0 = time.perf_counter()
+        runner = make_runner(cfg, weights, dev, dtype=dtype)
+        grow_greedy(runner, prompt, GEN_LEN // 2 - 1)
+        save_checkpoint(runner.tree, path)
+        saved = {n.id: (list(n.token_ids), n.kv_len, n.position_offset)
+                 for n in runner.tree.nodes.values()}
+        want, fault = next_step_logits(runner, fault=True)
+        del runner
+        fresh = make_runner(cfg, weights, dev, dtype=dtype)
+        t1 = time.perf_counter()
+        restore(fresh, path)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t1
+        got = {n.id: (list(n.token_ids), n.kv_len, n.position_offset)
+               for n in fresh.tree.nodes.values()}
+        check(got == saved, f"checkpoint {tag}: the restored tree differs from the saved one")
+        (logits,) = next_step_logits(fresh)
+        err, err_fault = rel_l2(logits, want), rel_l2(fault, want)
+        same = int((logits.argmax(-1) == want.argmax(-1)).sum())
+        print(f"[checkpoint] {tag}: {len(saved)} nodes, {fresh.tree.get_tree_kv_len()} KV "
+              f"tokens saved after {GEN_LEN // 2 - 1} steps ({os.path.getsize(path)} bytes); "
+              f"restore (re-prefill of {WIDTH} paths) {t_restore:.2f} s; next step's "
+              f"logits against the uninterrupted run's: relative L2 {err:.3e}, the "
+              f"uninterrupted step with a prompt block dropped {err_fault:.3e} (limit "
+              f"{LOGITS_LIMIT:.0e}); greedy ids equal on {same} of {WIDTH} leaves; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        check(err < LOGITS_LIMIT, f"checkpoint {tag}: restored logits stray: {err}")
+        check(err_fault > LOGITS_LIMIT, f"checkpoint {tag}: a dropped block stays under "
+              f"the limit ({err_fault})")
+        if dtype == "float32":
+            check(same == WIDTH, f"checkpoint {tag}: greedy ids differ on "
+                  f"{WIDTH - same} leaves after restore")
+        del fresh, weights
+        release()
+    os.remove(path)
+
+
+# Published configurations (each model's config.json on the Hugging Face
+# hub, as named), typed in: the families phase serves them at full width
+# and depth from random weights, and writes and loads each at full width
+# and 2 layers.  name -> (source, config.json fields)
+FAMILIES = {
+    "qwen2.5-7b": ("huggingface.co/Qwen/Qwen2.5-7B config.json", {
+        "architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2",
+        "hidden_size": 3584, "intermediate_size": 18944, "num_hidden_layers": 28,
+        "num_attention_heads": 28, "num_key_value_heads": 4, "vocab_size": 152064,
+        "rope_theta": 1000000.0, "rms_norm_eps": 1e-06, "max_position_embeddings": 131072,
+        "sliding_window": 131072, "use_sliding_window": False, "max_window_layers": 28,
+        "tie_word_embeddings": False, "hidden_act": "silu", "torch_dtype": "bfloat16"}),
+    "qwen3-8b": ("huggingface.co/Qwen/Qwen3-8B config.json", {
+        "architectures": ["Qwen3ForCausalLM"], "model_type": "qwen3",
+        "hidden_size": 4096, "intermediate_size": 12288, "num_hidden_layers": 36,
+        "num_attention_heads": 32, "num_key_value_heads": 8, "head_dim": 128,
+        "vocab_size": 151936, "rope_theta": 1000000, "rms_norm_eps": 1e-06,
+        "max_position_embeddings": 40960, "sliding_window": None,
+        "use_sliding_window": False, "attention_bias": False,
+        "tie_word_embeddings": False, "hidden_act": "silu", "torch_dtype": "bfloat16"}),
+    "gemma-7b": ("huggingface.co/google/gemma-7b config.json", {
+        "architectures": ["GemmaForCausalLM"], "model_type": "gemma",
+        "hidden_size": 3072, "intermediate_size": 24576, "num_hidden_layers": 28,
+        "num_attention_heads": 16, "num_key_value_heads": 16, "head_dim": 256,
+        "vocab_size": 256000, "rope_theta": 10000.0, "rms_norm_eps": 1e-06,
+        "max_position_embeddings": 8192, "attention_bias": False, "hidden_act": "gelu",
+        "hidden_activation": "gelu_pytorch_tanh", "torch_dtype": "bfloat16"}),
+}
+CHECKPOINT_LAYERS = 2
+# Each family's first-step limit (family_serve): the geometric mean of its
+# one-ulp noise control and its every-other-prompt-block fault on an H100
+# (PERF.md §4), rounded down.  Qwen2.5-7B: 1.597e-2 and 7.300e-2
+# (one dropped block only 2.260e-2: its random V bias is most of each
+# attention output); Qwen3-8B: 2.232e-2 and 6.427e-1; Gemma-7B: 8.997e-2
+# and 1.366 (its (1 + w) norms at w = 1 and sqrt(3072)-scaled embeddings
+# amplify one ulp of noise past the 8B path's LOGITS_LIMIT)
+FAMILY_LIMITS = {"qwen2.5-7b": 3e-2, "qwen3-8b": 1e-1, "gemma-7b": 3e-1}
+
+
+def write_safetensors(path, tensors: dict) -> None:
+    """A ``.safetensors`` file, written without the safetensors package (the
+    card's machine has none): an 8-byte little-endian header length, the
+    JSON header (name -> dtype, shape, byte offsets), padded with spaces to
+    8 bytes, then each tensor's raw little-endian bytes in order."""
+    import torch
+
+    codes = {torch.bfloat16: "BF16", torch.float32: "F32"}
+    header, o = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": codes[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [o, o + n]}
+        o += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+
+
+def family_checkpoint(cfg, dev, gen) -> tuple:
+    """Random bf16 tensors of `cfg` under their HF names (N(0, 1) / sqrt(fan
+    in); norms 1 + N(0, 0.1)), and the port's fused parameters they must load
+    as, built here from the HF layout without the loader."""
+    import torch
+
+    E, D, I, V = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size, cfg.vocab_size
+    qd, kvd = cfg.num_q_heads * D, cfg.num_kv_heads * D
+
+    def w(*shape):
+        fan_in = shape[-1] if len(shape) > 1 else 1
+        return (torch.randn(shape, generator=gen, device=dev) * fan_in ** -0.5).to(
+            torch.bfloat16)
+
+    def norm(n):
+        return (1 + 0.1 * torch.randn((n,), generator=gen, device=dev)).to(torch.bfloat16)
+
+    hf = {"model.embed_tokens.weight": w(V, E)}
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        hf |= {p + "input_layernorm.weight": norm(E),
+               p + "self_attn.q_proj.weight": w(qd, E),
+               p + "self_attn.k_proj.weight": w(kvd, E),
+               p + "self_attn.v_proj.weight": w(kvd, E),
+               p + "self_attn.o_proj.weight": w(E, qd),
+               p + "post_attention_layernorm.weight": norm(E),
+               p + "mlp.gate_proj.weight": w(I, E), p + "mlp.up_proj.weight": w(I, E),
+               p + "mlp.down_proj.weight": w(E, I)}
+        if cfg.qkv_bias:
+            hf |= {p + f"self_attn.{x}_proj.bias": norm(n) - 1
+                   for x, n in (("q", qd), ("k", kvd), ("v", kvd))}
+        if cfg.qk_norm:
+            hf |= {p + "self_attn.q_norm.weight": norm(D), p + "self_attn.k_norm.weight": norm(D)}
+    hf["model.norm.weight"] = norm(E)
+    if not cfg.tie_word_embeddings:
+        hf["lm_head.weight"] = w(V, E)
+
+    def layers(fn):
+        return torch.stack([fn(f"model.layers.{i}.") for i in range(cfg.num_layers)])
+
+    want = {"embed": hf["model.embed_tokens.weight"],
+            "ln1": layers(lambda p: hf[p + "input_layernorm.weight"]),
+            "wqkv": layers(lambda p: torch.cat([hf[p + f"self_attn.{x}_proj.weight"].t()
+                                                for x in "qkv"], dim=1)),
+            "wo": layers(lambda p: hf[p + "self_attn.o_proj.weight"].t()),
+            "ln2": layers(lambda p: hf[p + "post_attention_layernorm.weight"]),
+            "wgu": layers(lambda p: torch.cat([hf[p + f"mlp.{x}_proj.weight"].t()
+                                               for x in ("gate", "up")], dim=1)),
+            "wdown": layers(lambda p: hf[p + "mlp.down_proj.weight"].t()),
+            "ln_f": hf["model.norm.weight"],
+            "lm_head": hf.get("lm_head.weight", hf["model.embed_tokens.weight"]).t()}
+    if cfg.qkv_bias:
+        want["bqkv"] = layers(lambda p: torch.cat([hf[p + f"self_attn.{x}_proj.bias"]
+                                                   for x in "qkv"]))
+    if cfg.qk_norm:
+        want |= {f"ln_{x}": layers(lambda p, x=x: hf[p + f"self_attn.{x}_norm.weight"])
+                 for x in "qk"}
+    return hf, want
+
+
+def family_load(name, source, hf_cfg, dev) -> None:
+    """(a) The family at full width and CHECKPOINT_LAYERS layers: its
+    config.json and random bf16 weights written in two ``.safetensors``
+    files, loaded through ``python3 -m deft_tpu_torch.cli.run --model DIR
+    --device cuda`` (a short run that must finish its branches), then
+    through the loader in this process, every tensor bit-equal to what was
+    written."""
+    import shutil
+
+    import torch
+    from deft_tpu_torch.models.config import LlamaConfig
+    from deft_tpu_torch.models.loader import load_params
+    from deft_tpu_torch.ops import _cuda
+
+    t0 = time.perf_counter()
+    d = _cuda.BUILD / "families" / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    hf_cfg = dict(hf_cfg, num_hidden_layers=CHECKPOINT_LAYERS)
+    (d / "config.json").write_text(json.dumps(hf_cfg))
+    cfg = LlamaConfig.from_hf_config(hf_cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 30)
+    hf, want = family_checkpoint(cfg, dev, gen)
+    layer_names = [n for n in hf if n.startswith("model.layers.")]
+    write_safetensors(d / "model-00001-of-00002.safetensors", {n: hf[n] for n in layer_names})
+    write_safetensors(d / "model-00002-of-00002.safetensors",
+                      {n: t for n, t in hf.items() if n not in layer_names})
+    size = sum(f.stat().st_size for f in d.glob("*.safetensors"))
+    t1 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "deft_tpu_torch.cli.run", "--model", str(d),
+                          "--device", "cuda", "--max_width", "4", "--max_seq_len", "40",
+                          "--kv_pool_slots", "4096", "--print-branches"],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=str(_cuda.BUILD.parent))
+    t_cli = time.perf_counter() - t1
+    tail = "\n".join((res.stdout + res.stderr).splitlines()[-6:])
+    check(res.returncode == 0 and "TPOT (ms/token)" in res.stdout
+          and res.stdout.count("Branch ID") == 4,
+          f"families {name}: the CLI run over the checkpoint failed (rc "
+          f"{res.returncode}):\n{tail}")
+    for line in (res.stdout + res.stderr).splitlines():  # the run's own clock
+        if "INFO" in line or "TTFT" in line or "TPOT" in line:
+            print(f"[families] {name} CLI: {line.strip()}", flush=True)
+    params = load_params(str(d), cfg, dev, torch.bfloat16)
+    check(sorted(params) == sorted(want),
+          f"families {name}: loaded {sorted(params)}, expected {sorted(want)}")
+    for k, t in want.items():
+        check(torch.equal(params[k], t), f"families {name}: {k} loads unlike the file")
+    print(f"[families] {name} ({source}): config.json and {len(hf)} bf16 tensors at full "
+          f"width, {CHECKPOINT_LAYERS} layers, {size / 1e9:.2f} GB in two safetensors files; "
+          f"python3 -m deft_tpu_torch.cli.run --model {d.name} --device cuda ran in "
+          f"{t_cli:.1f} s; load_params bit-equal on {len(want)} parameters; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del params, hf, want
+    shutil.rmtree(d)
+    release()
+
+
+def family_serve(name, source, hf_cfg, dev, smi) -> dict:
+    """(b)-(d) The family at full width and depth from random bf16 weights
+    made on the card: the main path's workload (Simple_Tree, prompt 4000,
+    width 50, 64 tokens, flatten then seq) through ModelRunner and
+    tree_generate; first the first decode step's logits, seq against
+    flatten below the family's FAMILY_LIMITS, one ulp of attention noise
+    below it and every other prompt block dropped above it (one dropped
+    block printed);
+    the decode kernels each mode must run (B1/B2 where the heads pack, B6/B7
+    at the wide heads, never the other layout's); TTFT, TPOT and peak
+    memory printed.  Returns the served runs' launches."""
+    import torch
+    from deft_tpu_torch.models.config import LlamaConfig
+    from deft_tpu_torch.models.loader import random_params
+    from deft_tpu_torch.runtime.runner import packs_heads
+
+    cfg = LlamaConfig.from_hf_config(hf_cfg)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = random_params(cfg, SEED, dev, torch.bfloat16)
+    runner = make_runner(cfg, params, dev)
+    rng = np.random.default_rng(SEED)
+    prompt = [int(t) for t in rng.integers(4, cfg.vocab_size - 4, PROMPT_LEN)]
+    _, ids = runner.forward_prefill(prompt).topk(0, WIDTH)
+    runner.reset_state()
+    first_step(runner, prompt, ids)
+    paged = packs_heads(cfg.head_dim)
+    half = "flatten, every other prompt block dropped"
+    lf, ls, readings = logits_controls(runner, WIDTH, midrun=not paged,
+                                       extra=((half, lambda b: drop_block(b, every=2)),))
+    limit = FAMILY_LIMITS[name]
+    print(f"[families] {name}: first decode step, relative L2 error of the logits "
+          f"against flatten's: " + ", ".join(f"{k} {v:.3e}" for k, v in readings.items())
+          + f" (limit {limit:.0e}); top-1 agreement seq "
+          f"{float((lf.argmax(-1) == ls.argmax(-1)).float().mean()):.3f}", flush=True)
+    check(readings["seq"] < limit, f"families {name}: flatten and seq logits "
+          f"disagree: {readings['seq']}")
+    check(readings["flatten+ulp noise"] < limit,
+          f"families {name}: one ulp of attention noise moves the logits past the limit")
+    # the fault the limit must see: half the prompt's blocks lost (a split-KV
+    # merge that drops every other span); one dropped block is printed beside
+    check(readings[half] > limit,
+          f"families {name}: half the prompt's blocks dropped stay under the limit")
+    runner.reset_state()
+    runner.retain_full_logits = False
+    reset_counts()
+    runs = generate_both(runner, prompt, f"families {name}", count_plans=True)
+    launches = read_counts()
+    mine = {"flatten": "paged_flatten" if paged else "flatten_gather",
+            "seq": "paged_seq" if paged else "seq_gather"}
+    other = {"flatten": "flatten_gather" if paged else "paged_flatten",
+             "seq": "seq_gather" if paged else "paged_seq"}
+    for mode in ("flatten", "seq"):
+        moved = runs[mode]["launches"]
+        check(moved.get(mine[mode], 0) > 0, f"families {name} {mode}: {mine[mode]} "
+              f"never launched: {moved}")
+        check(paged or not moved.get(other[mode], 0), f"families {name} {mode}: "
+              f"{other[mode]} launched at head_dim {cfg.head_dim}: {moved}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    f, s = runs["flatten"]["pm"], runs["seq"]["pm"]
+    print(f"[families] {name} ({source}; {cfg.num_layers} layers, {cfg.num_q_heads}/"
+          f"{cfg.num_kv_heads} heads of {cfg.head_dim}): TTFT {f.TTFT:.3f} / {s.TTFT:.3f} ms, "
+          f"TPOT {f.TPOT:.4f} / {s.TPOT:.4f} ms (flatten / seq), peak {peak:.2f} GB, launches "
+          f"{ {k: n for k, n in launches.items() if n} }; {time.perf_counter() - t0:.1f} s; "
+          f"{smi}", flush=True)
+    del runner, params
+    release()
+    return launches
+
+
+def phase_families(dev, smi) -> dict:
+    """Each of FAMILIES: written, loaded and checked at 2 layers
+    (family_load), then served at full width and depth (family_serve).
+    Returns the kernels line's launches of the wide heads' kernels: Gemma's
+    served runs' B3, B6 and B7 (D 256); the others 0 (no served path)."""
+    launches = {}
+    for name, (source, hf_cfg) in FAMILIES.items():
+        family_load(name, source, hf_cfg, dev)
+        launches[name] = family_serve(name, source, hf_cfg, dev, smi)
+    gemma = launches["gemma-7b"]
+    out = {wide: 0 for wide in WIDE_OF}
+    out.update({f"{base}_d256": gemma[base]
+                for base in ("prefill", "flatten_gather", "seq_gather")})
+    return out
+
+
+def phase_tracing(dev) -> None:
+    """One short run under ``--trace-dir`` (the CLI's main in this
+    process: the 8b-8l preset, the 16-token prompt, width 4): its Chrome
+    trace must hold the decode_step spans and kernels of the port (CUDA
+    kernel events in the deft namespaces)."""
+    import shutil
+
+    from deft_tpu_torch.cli import run
+    from deft_tpu_torch.ops import _cuda
+
+    d = _cuda.BUILD / "trace"
+    shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    rc = run.main(["--random-model", "8b-8l", "--device", "cuda", "--max_width", "4",
+                   "--max_seq_len", "40", "--kv_pool_slots", "4096", "--trace-dir", str(d)])
+    files = list(d.glob("*.json"))
+    check(rc == 0 and len(files) == 1, f"tracing: rc {rc}, trace files {files}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    steps = sum(e.get("name") == "decode_step" for e in events)
+    kernels = sorted({e["name"] for e in events
+                      if e.get("cat") == "kernel" and "deft" in e.get("name", "")})
+    print(f"[tracing] --trace-dir wrote {files[0].name} ({files[0].stat().st_size / 1e6:.1f} "
+          f"MB, {len(events)} events): {steps} decode_step spans, "
+          f"{sum(e.get('name') == 'plan_build' for e in events)} plan_build, "
+          f"{sum(e.get('name') == 'prefill' for e in events)} prefill; port kernels "
+          f"{[k[:60] for k in kernels]}; {time.perf_counter() - t0:.1f} s", flush=True)
+    check(steps > 0, "tracing: the trace holds no decode_step span")
+    check(kernels, "tracing: the trace holds no kernel of the port")
+    shutil.rmtree(d)
+    release()
+
+
+def logits_controls(runner, width, midrun=False, extra=()):
     """The first decode step on the runner's current tree, run in flatten
     mode, in seq mode and under three controls; returns flatten's and seq's
     (width, V) logits and each run's relative L2 error against flatten's.
@@ -3357,7 +4011,8 @@ def logits_controls(runner, width, midrun=False):
     merge that lost a span does, at the grain of one block), and each
     leaf's own newest token hidden from it (a mask off by one).  Each step
     rewrites the new tokens' KV before any layer reads it, so the runs do
-    not disturb one another."""
+    not disturb one another.  ``extra``: more (name, plan edit) faults,
+    run on the flatten entry after these."""
     import contextlib
     from unittest import mock
 
@@ -3382,12 +4037,6 @@ def logits_controls(runner, width, midrun=False):
     def with_plan(edit):
         return plan_edited(base, edit)
 
-    def drop_block(b):  # the middle one of the FULL (prompt-only) blocks
-        full = (b.blk_lo < -(1 << 20)).nonzero().flatten()
-        check(len(full) > 0, "the flatten plan has no FULL block")
-        b.blk_lo, b.blk_hi = b.blk_lo.clone(), b.blk_hi.clone()
-        b.blk_lo[full[len(full) // 2]] = b.blk_hi[full[len(full) // 2]] = 0
-
     runs = (("flatten", flatten, None), ("seq", ForwardMode.DECODE, None),
             ("flatten again", flatten, None),
             ("flatten+ulp noise", flatten, ulp_noise),
@@ -3395,6 +4044,7 @@ def logits_controls(runner, width, midrun=False):
     if not midrun:
         runs += (("flatten, own token hidden", flatten,
                   with_plan(hide_own_token(width))),)
+    runs += tuple((name, flatten, with_plan(edit)) for name, edit in extra)
     logits = {}
     for name, mode, attn in runs:
         with (mock.patch.object(runner, "_attn_fn", lambda m, paged, a=attn: a)
@@ -3405,6 +4055,16 @@ def logits_controls(runner, width, midrun=False):
     readings = {name: float((x - lf).norm() / lf.norm())
                 for name, x in logits.items() if name != "flatten"}
     return lf, logits["seq"], readings
+
+
+def drop_block(b, every=None):
+    """A flatten plan edit: the middle one of the FULL (prompt-only) blocks
+    hidden from every leaf; with `every`, each `every`-th FULL block."""
+    full = (b.blk_lo < -(1 << 20)).nonzero().flatten()
+    check(len(full) > 0, "the flatten plan has no FULL block")
+    gone = full[::every] if every else full[len(full) // 2:len(full) // 2 + 1]
+    b.blk_lo, b.blk_hi = b.blk_lo.clone(), b.blk_hi.clone()
+    b.blk_lo[gone] = b.blk_hi[gone] = 0
 
 
 def plan_edited(attn, edit):
@@ -3714,19 +4374,19 @@ LIBRARY = {}
 GMM_LIVE_TILES = {}
 
 
-def ragged_timing_row(fns, shapes, bound):
-    """B8 at the batch path's shapes: kernel, plain and library callables,
-    bound.  Library: torch.nn.attention.varlen's varlen_attn where the
+def ragged_timing_row(fns, shapes, bound, name="ragged_prefill"):
+    """B8 (or its wide heads' row `name`) at the batch path's shapes:
+    kernel, plain and library callables, bound.  Library: torch.nn.attention.varlen's varlen_attn where the
     installed torch has it and it agrees with the plain version, else
     scaled_dot_product_attention with the block-diagonal causal mask as a
     boolean attn_mask."""
     import torch
     import torch.nn.functional as F
 
-    q, k, v, seg, scale = shapes["ragged_prefill"][0][2]
+    q, k, v, seg, scale = shapes[name][0][2]
     N, Hq, D = q.shape
     qpk = Hq // k.shape[1]
-    want = fns["ragged_prefill"][1](q, k, v, seg, scale)
+    want = fns[name][1](q, k, v, seg, scale)
     cu = torch.tensor(np.cumsum((0,) + BATCH_LENS), dtype=torch.int32, device=q.device)
     lib = None
     try:
@@ -3747,12 +4407,12 @@ def ragged_timing_row(fns, shapes, bound):
             return varlen_attn(q, kk, vv, cu, cu, L, L, **kw)
 
         e = rel_err(lib(), want)
-        print(f"[timing] ragged_prefill library: varlen_attn({', '.join(kw)}) vs "
+        print(f"[timing] {name} library: varlen_attn({', '.join(kw)}) vs "
               f"plain rel err {e:.3e}", flush=True)
         check(e < TOL["bfloat16"], "varlen_attn disagrees")
-        LIBRARY["ragged_prefill"] = "torch.nn.attention.varlen.varlen_attn"
+        LIBRARY[name] = "torch.nn.attention.varlen.varlen_attn"
     except (ImportError, TypeError, RuntimeError, Failure) as err:
-        print(f"[timing] ragged_prefill library: varlen_attn not usable here "
+        print(f"[timing] {name} library: varlen_attn not usable here "
               f"({type(err).__name__}: {str(err)[:120]}); SDPA with a boolean "
               "block-diagonal causal mask instead", flush=True)
         pos = torch.arange(N, device=q.device)
@@ -3763,10 +4423,10 @@ def ragged_timing_row(fns, shapes, bound):
         def lib():
             return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale)
 
-        LIBRARY["ragged_prefill"] = "SDPA, boolean block-diagonal causal attn_mask"
+        LIBRARY[name] = "SDPA, boolean block-diagonal causal attn_mask"
     pairs = sum(n * (n + 1) // 2 for n in BATCH_LENS)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + 4 * N
-    kern, plain = fns["ragged_prefill"]
+    kern, plain = fns[name]
     return (lambda: kern(q, k, v, seg, scale), lambda: plain(q, k, v, seg, scale), lib,
             *bound(nbytes, 2 * 2 * Hq * D * pairs))
 
@@ -4202,25 +4862,30 @@ def phase_timing(dev, shapes):
         elif KERNELS[name][2] is not None:  # prefill, B8, B9: below
             attention_row(name, name, *cases[0][1:])
     # B6 also over int8 pools and at the batch plan (its other path shape),
-    # B7 over int8 pools and at the main tree's gather plan
-    for name in ("flatten_gather", "seq_gather"):
-        for label, plan, args in shapes[name][1:]:
-            attention_row(name, f"{name} ({label})", plan, args)
+    # B7 over int8 pools and at the main tree's gather plan; the wide heads'
+    # B6 and B7 at their other cases
+    for name in shapes:
+        if WIDE_OF.get(name, name) in ("flatten_gather", "seq_gather"):
+            for label, plan, args in shapes[name][1:]:
+                attention_row(name, f"{name} ({label})", plan, args)
     # prefill: causal FLOPs 2 * 2 * Hq * N^2 * D / 2
-    q, k, v, scale = shapes["prefill"][0][2]
-    N, Hq, D = q.shape
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    # SDPA takes (batch, heads, N, D) with every query head's K/V spelled out
-    qt = q.transpose(0, 1).contiguous()[None]
-    kt, vt = (x.repeat_interleave(Hq // x.shape[1], dim=1).transpose(0, 1)
-              .contiguous()[None] for x in (k, v))
-    fn, plain = fns["prefill"]
-    LIBRARY["prefill"] = "SDPA is_causal, K/V repeated to the query heads"
-    rows["prefill"] = (lambda f=fn: f(q, k, v, scale),
-                       lambda p=plain: p(q, k, v, scale),
-                       lambda: F.scaled_dot_product_attention(
-                           qt, kt, vt, is_causal=True, scale=scale),
-                       *bound(nbytes, 2 * 2 * Hq * N * N * D / 2))
+    for name in shapes:
+        if WIDE_OF.get(name, name) != "prefill":
+            continue
+        q, k, v, scale = shapes[name][0][2]
+        N, Hq, D = q.shape
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        # SDPA takes (batch, heads, N, D) with every query head's K/V spelled out
+        qt = q.transpose(0, 1).contiguous()[None]
+        kt, vt = (x.repeat_interleave(Hq // x.shape[1], dim=1).transpose(0, 1)
+                  .contiguous()[None] for x in (k, v))
+        fn, plain = fns[name]
+        LIBRARY[name] = "SDPA is_causal, K/V repeated to the query heads"
+        rows[name] = (lambda f=fn, a=(q, k, v, scale): f(*a),
+                      lambda p=plain, a=(q, k, v, scale): p(*a),
+                      lambda a=(qt, kt, vt), sc=scale: F.scaled_dot_product_attention(
+                          *a, is_causal=True, scale=sc),
+                      *bound(nbytes, 2 * 2 * Hq * N * N * D / 2))
 
     from deft_tpu_torch.ops import _cuda
     from deft_tpu_torch.ops import paged_flatten_attn as pf
@@ -4243,7 +4908,9 @@ def phase_timing(dev, shapes):
               f"{-(-rq // 64)} row tiles of 64 x {Hkv} x {staged} spans = "
               f"{-(-rq // 64) * Hkv * staged} blocks of 4 warps", flush=True)
     flat_q_tile_cost(dev, shapes, flush)
-    rows["ragged_prefill"] = ragged_timing_row(fns, shapes, bound)
+    for name in shapes:
+        if WIDE_OF.get(name, name) == "ragged_prefill":
+            rows[name] = ragged_timing_row(fns, shapes, bound, name)
     rows["int8_matmul"] = int8mm_timing_row(fns, shapes, bound, flush)
     rows.update(gmm_timing_rows(fns, shapes, bound))
 
@@ -4440,6 +5107,7 @@ def main(argv=None) -> int:
             print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}", flush=True)
             return 0
         if not args.workloads_only:
+            shapes.update(wide_shapes(dev))
             errs = phase_kernels(dev, shapes)
         t0 = time.perf_counter()
         params = random_params(PRESETS["8b"], SEED, dev, torch.bfloat16)
@@ -4451,6 +5119,7 @@ def main(argv=None) -> int:
             print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}", flush=True)
             return 0
         launches, prompt, ids, lf, main_runs = phase_main(dev, params, args.profile)
+        phase_checkpoint(dev, params, prompt)
         int8_launches, lq = phase_int8(dev, params, prompt, ids, lf, args.profile)
         launches.update({k: v for k, v in int8_launches.items()
                          if k in ("paged_flatten_q", "paged_seq_q")})
@@ -4473,6 +5142,8 @@ def main(argv=None) -> int:
                                                         main_runs).items()
                          if k in PARTIAL_OF})
         phase_sharded_moe(moe_logits)
+        launches.update(phase_families(dev, smi))
+        phase_tracing(dev)
         if args.profile:
             profile_kv_store(dev)
         timing = phase_timing(dev, shapes)

@@ -1,7 +1,12 @@
-"""Experiment CLI: one tree generation with random weights.
+"""Experiment CLI: one tree generation, from a local HF checkpoint or with
+random weights.
 
-Port of deft_tpu/cli/run.py:26 (build_parser) and :200 (main): --random-model,
---mode node|seq|flatten|tree|node_chunk|tree_index with --mem paged|unpaged
+Port of deft_tpu/cli/run.py:26 (build_parser), :120 (_load_model_and_
+tokenizer) and :200 (main): --model DIR (a local HF checkpoint: its
+config.json through LlamaConfig.from_hf_config, its weights through
+models/loader.py load_params, its tokenizer through transformers'
+AutoTokenizer where that loads, else the id tokenizer of random-init runs)
+or --random-model PRESET, one of the two; --mode node|seq|flatten|tree|node_chunk|tree_index with --mem paged|unpaged
 (deft_tpu's mode_from_cli), --Branch_controller Simple_Tree|Beam_Search|
 Random_Tree|Practical_Tree|Speculative_Decoding, --dataset (a Reasoning or
 Speculative_Decoding JSON; without it the synthetic templates of
@@ -17,10 +22,14 @@ cuda; a missing GPU raises), and the multi-device engine (deft_tpu :84-90,
 seq, paged; the other modes raise, ROADMAP A7), --multihost makes this
 process one rank of a torchrun job (its environment names the group),
 --dist-backend nccl|gloo (default nccl on cuda, gloo on cpu; nccl refuses
-two ranks on one card).  Only rank 0 prints.  deft_tpu's --model, --kernels
-and --trace-dir are not ported, so argparse refuses them.
+two ranks on one card); --trace-dir DIR writes a torch.profiler Chrome
+trace of the run there, with the prefill, plan_build and decode_step spans
+(obs/tracing.py).  Only rank 0 prints and traces.  deft_tpu's --kernels
+(its xla choice would put the plain versions on the card's main path) and
+--platform are not ported, so argparse refuses them.
 
-Usage (the default 16-token prompt; add --kv-dtype int8 for the int8 cache,
+Usage (the default 16-token prompt; --model DIR in place of --random-model
+tiny for a checkpoint; add --kv-dtype int8 for the int8 cache,
 --weight-dtype int8-pallas for int8 weights through kernel B9, --batch 3
 for three requests decoded together, --mesh 1x2x2 for four ranks,
 --Branch_controller Practical_Tree for a synthetic ToT template):
@@ -44,10 +53,14 @@ WORKLOADS = {"Simple_Tree": "simple_tree", "Beam_Search": "beam_search",
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="deft_tpu_torch tree-decoding run")
-    p.add_argument("--random-model", type=str, required=True,
-                   choices=["tiny", "1b", "3b", "7b", "8b", "8b-8l",
-                            "mixtral-6l"],
-                   help="random-init preset (no weights needed)")
+    model = p.add_mutually_exclusive_group(required=True)
+    model.add_argument("--model", type=str, default=None,
+                       help="local HF checkpoint dir (config.json + safetensors"
+                            " or pytorch_model*.bin)")
+    model.add_argument("--random-model", type=str, default=None,
+                       choices=["tiny", "1b", "3b", "7b", "8b", "8b-8l",
+                                "mixtral-6l"],
+                       help="random-init preset (no weights needed)")
     p.add_argument("--mode", default="flatten",
                    choices=["node", "seq", "flatten", "tree", "node_chunk",
                             "tree_index"])
@@ -102,7 +115,47 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
                    help="torch.distributed backend (default: nccl on cuda, "
                         "gloo on cpu)")
+    p.add_argument("--trace-dir", type=str, default=None,
+                   help="write a torch.profiler Chrome trace of the run here")
     return p
+
+
+class IdTokenizer:
+    """The tokenizer of a random-init model or of a checkpoint without one
+    (deft_tpu cli/run.py:94, _IdTokenizer): ids <-> their decimal words."""
+
+    def __init__(self, vocab_size: int):
+        self.vocab_size = vocab_size
+
+    def encode(self, text: str) -> list:
+        return encode(text, self.vocab_size)
+
+    def decode(self, ids, **kw) -> str:
+        return " ".join(str(int(t)) for t in ids)
+
+
+def model_config(args):
+    """The LlamaConfig of --model (its config.json) or --random-model."""
+    from deft_tpu_torch.models import PRESETS
+    from deft_tpu_torch.models.config import LlamaConfig
+
+    if args.model:
+        return LlamaConfig.from_pretrained(args.model)
+    return PRESETS[args.random_model]
+
+
+def load_tokenizer(args, cfg):
+    """--model's tokenizer through transformers.AutoTokenizer where that
+    package and the checkpoint's tokenizer files load, else the id
+    tokenizer (deft_tpu cli/run.py:167-173)."""
+    if args.model:
+        try:
+            from transformers import AutoTokenizer
+
+            return AutoTokenizer.from_pretrained(args.model)
+        except Exception:  # no transformers, or no tokenizer files
+            pass
+    return IdTokenizer(cfg.vocab_size)
 
 
 def encode(text: str, vocab_size: int) -> list:
@@ -119,13 +172,18 @@ def encode(text: str, vocab_size: int) -> list:
 
 
 def make_prompt(prompt_len, max_seq_len: int, vocab_size: int, seed: int,
-                text: str = None) -> list:
-    """Prompt ids of a random-init run, as deft_tpu cli/run.py:179 makes
-    them: a template's prompt text encoded, trimmed or padded with seeded
-    random ids to prompt_len; without text, seeded random ids, or 7.. when
-    no length (or a length <= 0, which deft_tpu maps to none,
-    cli/run.py:202-203)."""
-    ids = encode(text, vocab_size) if text else []
+                text: str = None, tokenizer=None) -> list:
+    """Prompt ids, as deft_tpu cli/run.py:179 makes them: a template's
+    prompt text encoded (by ``tokenizer``, else the id tokenizer), trimmed
+    or padded with seeded random ids below ``vocab_size`` to prompt_len;
+    without text, seeded random ids, or 7.. when no length (or a length
+    <= 0, which deft_tpu maps to none, cli/run.py:202-203)."""
+    if not text:
+        ids = []
+    elif tokenizer is not None:
+        ids = list(tokenizer.encode(text))
+    else:
+        ids = encode(text, vocab_size)
     if prompt_len and prompt_len > 0:
         if len(ids) >= prompt_len:
             return ids[:prompt_len]
@@ -177,13 +235,12 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.prompt_len is not None and args.prompt_len <= 0:
         args.prompt_len = None
-    from deft_tpu_torch.models import PRESETS
     from deft_tpu_torch.runtime import mode_from_cli
     from deft_tpu_torch.runtime.runner import check_grid_mode
 
     if args.mesh or args.multihost:
         check_grid_mode(mode_from_cli(args.mode, args.mem))
-    cfg = PRESETS[args.random_model]
+    cfg = model_config(args)
     if args.multihost:
         import torch.distributed as dist
 
@@ -238,10 +295,10 @@ def run(grid, args) -> int:
     from deft_tpu_torch.config import AttentionConfig, EngineConfig
     from deft_tpu_torch.control import Branch_Controller, workloads
     from deft_tpu_torch.data import generate_accepted_len_list
-    from deft_tpu_torch.models import PRESETS
+    from deft_tpu_torch.obs import Tracer
     from deft_tpu_torch.runtime import ModelRunner, mode_from_cli, tree_generate
 
-    cfg = PRESETS[args.random_model]
+    cfg = model_config(args)
     chunk = ((args.node_chunk_len or args.block_len) if args.mode == "node_chunk"
              else None)
     ecfg = EngineConfig(attention=AttentionConfig(block_len=args.block_len,
@@ -250,37 +307,47 @@ def run(grid, args) -> int:
                         kv_dtype=args.kv_dtype, weight_dtype=args.weight_dtype)
     runner = ModelRunner(cfg, ecfg, device=args.device, seed=args.seed,
                          topk_k=max(64, args.max_width), mesh=grid,
-                         use_tree_index=args.mode == "tree_index")
+                         use_tree_index=args.mode == "tree_index",
+                         model_path=args.model)
+    tokenizer = load_tokenizer(args, cfg)
     template = make_template(args)
-    prompt_ids = make_prompt(args.prompt_len, args.max_seq_len, cfg.vocab_size,
-                             args.seed, getattr(template, "prompt", None))
+    prompt_ids = make_prompt(args.prompt_len, args.max_seq_len,
+                             getattr(tokenizer, "vocab_size", cfg.vocab_size),
+                             args.seed, getattr(template, "prompt", None),
+                             tokenizer)
     if template is not None and template.accepted_len_list is not None:
         generate_accepted_len_list(args.max_seq_len - len(prompt_ids), template,
                                    seed=args.seed)
     fn = getattr(workloads, WORKLOADS[args.Branch_controller])
     mode = mode_from_cli(args.mode, args.mem)
-    if args.batch > 1:
-        return run_batch(args, runner, mode, prompt_ids, fn, template)
     primary = grid is None or grid.rank == 0
-    pm = tree_generate(
-        model=runner,
-        mode=mode,
-        tokenizer=None,
-        prompt_ids=prompt_ids,
-        max_seq_len=args.max_seq_len,
-        width=args.max_width,
-        depth=args.max_depth,
-        branch_controller=Branch_Controller(fn),
-        tree_template=template,
-        output_file=args.output_file if primary else None,
-        print_branches=args.print_branches and primary,
-    )
+    tracer = Tracer(args.trace_dir if primary else None)
+    with tracer.session():
+        if args.batch > 1:
+            return run_batch(args, runner, mode, prompt_ids, fn, template,
+                             tokenizer)
+        pm = tree_generate(
+            model=runner,
+            mode=mode,
+            tokenizer=tokenizer,
+            prompt_ids=prompt_ids,
+            max_seq_len=args.max_seq_len,
+            width=args.max_width,
+            depth=args.max_depth,
+            branch_controller=Branch_Controller(fn),
+            tree_template=template,
+            output_file=args.output_file if primary else None,
+            print_branches=args.print_branches and primary,
+            tracer=tracer,
+        )
     if primary:
         pm.print_latency()
+        if tracer.trace_file:
+            print(f"trace written to {tracer.trace_file}")
     return 0
 
 
-def run_batch(args, runner, mode, prompt_ids, fn, template) -> int:
+def run_batch(args, runner, mode, prompt_ids, fn, template, tokenizer) -> int:
     """--batch N: N requests of the same prompt and workload, admitted by one
     ragged prefill and decoded together (deft_tpu cli/run.py:270-296)."""
     from deft_tpu_torch.control import Branch_Controller
@@ -303,8 +370,7 @@ def run_batch(args, runner, mode, prompt_ids, fn, template) -> int:
     if args.print_branches:
         for i, r in enumerate(reqs):
             for s in r.finished_seqs:
-                print(f"req {i} branch {s.id}: "
-                      f"{' '.join(str(int(t)) for t in s.token_ids)}")
+                print(f"req {i} branch {s.id}: {tokenizer.decode(s.token_ids)}")
     return 0
 
 

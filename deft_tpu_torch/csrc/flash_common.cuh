@@ -19,6 +19,13 @@
 // scores are multiplied by the K scales after the product and P by the V
 // scales before it is rounded for PV, the order of deft_tpu
 // ops/paged_quant.py:150-177; l sums the unscaled P.
+//
+// Head widths: any multiple of 16 (64, 96, 128 and 256 are instantiated).
+// Above 128, Q's bf16 A fragments are read from shared memory each tile
+// instead of held in registers (D / 16 x 4 words a thread, 64 at D = 256,
+// beside the 128 of the O accumulators), and an int8 tile of fp32 T is
+// widened straight from device memory, without the staging area that
+// would take the block past 227 KB.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -78,9 +85,11 @@ struct Smem {
   alignas(16) T q[kBM * QS];
   alignas(16) T k[kBN * QS];
   alignas(16) T v[kBN * QS];
+  // int8 tiles pass through a staging area, except fp32 tiles above D 128
+  static constexpr bool kStage = kQ && !(kF32 && D > 128);
   alignas(16) float p[kF32 ? kWarps * 16 * PS : 4];
-  alignas(16) int8_t kst[kQ ? kBN * D : 16];  // int8 tiles as loaded
-  alignas(16) int8_t vst[kQ ? kBN * D : 16];
+  alignas(16) int8_t kst[kStage ? kBN * D : 16];  // int8 tiles as loaded
+  alignas(16) int8_t vst[kStage ? kBN * D : 16];
   float ks[kQ ? kBN : 1];  // per-token K and V scales of the tile's head
   float vs[kQ ? kBN : 1];
   long long roff[kBN];  // element offset of each tile token's row, -1: zeros
@@ -93,7 +102,8 @@ struct Smem {
 // g = lane / 4 and tig = lane % 4 index the mma fragment layout.
 template <int D>
 struct RowState {
-  uint32_t qa[D / 16][4];  // bf16 Q A-fragments (unused on the fp32 path)
+  static constexpr bool kQReg = D <= 128;  // Q's fragments held in registers
+  uint32_t qa[kQReg ? D / 16 : 1][4];  // bf16 Q A-fragments (unused on fp32)
   float o[D / 8][4];       // O accumulators, C-fragment layout
   float m[2];
   float l[2];
@@ -136,13 +146,20 @@ __device__ __forceinline__ void load_kv_tile(Smem<T, D>& sm, const T* __restrict
   cp_async_wait_all();
 }
 
-// Widen a staged (kBN, D) int8 tile to T rows of pitch QS, 16 values a step.
+// Widen a (kBN, D) int8 tile to T rows of pitch QS, 16 values a step: row
+// r from src + r * D (a staged tile), or with `off` from src + off[r] (the
+// pool, zeros where off[r] < 0).
 template <typename T, int D>
-__device__ __forceinline__ void widen_rows(T* dst, const int8_t* src) {
+__device__ __forceinline__ void widen_rows(T* dst, const int8_t* src,
+                                           const long long* off = nullptr) {
   constexpr int QS = Smem<T, D, int8_t>::QS;
   for (int i = threadIdx.x; i < kBN * D / 16; i += kThreads) {
     const int r = i / (D / 16), c = (i % (D / 16)) * 16;
-    const int4 raw = *reinterpret_cast<const int4*>(src + r * D + c);
+    int4 raw = make_int4(0, 0, 0, 0);
+    if (off == nullptr)
+      raw = *reinterpret_cast<const int4*>(src + r * D + c);
+    else if (off[r] >= 0)
+      raw = *reinterpret_cast<const int4*>(src + off[r] + c);
     const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
     T* d = dst + r * QS + c;
     if constexpr (std::is_same<T, float>::value) {
@@ -169,17 +186,25 @@ __device__ __forceinline__ void load_kv_tile(Smem<T, D, int8_t>& sm,
                                              const int8_t* __restrict__ vp,
                                              const float* __restrict__ ksp,
                                              const float* __restrict__ vsp) {
-  load_rows<int8_t, D>(sm.kst, D, kp, sm.roff, kBN);
-  load_rows<int8_t, D>(sm.vst, D, vp, sm.roff, kBN);
+  using S = Smem<T, D, int8_t>;
+  if constexpr (S::kStage) {
+    load_rows<int8_t, D>(sm.kst, D, kp, sm.roff, kBN);
+    load_rows<int8_t, D>(sm.vst, D, vp, sm.roff, kBN);
+  }
   if (threadIdx.x < kBN) {
     const long long so = sm.soff[threadIdx.x];
     sm.ks[threadIdx.x] = so >= 0 ? ksp[so] : 0.f;
     sm.vs[threadIdx.x] = so >= 0 ? vsp[so] : 0.f;
   }
-  cp_async_wait_all();
-  __syncthreads();
-  widen_rows<T, D>(sm.k, sm.kst);
-  widen_rows<T, D>(sm.v, sm.vst);
+  if constexpr (S::kStage) {
+    cp_async_wait_all();
+    __syncthreads();
+    widen_rows<T, D>(sm.k, sm.kst);
+    widen_rows<T, D>(sm.v, sm.vst);
+  } else {
+    widen_rows<T, D>(sm.k, kp, sm.roff);
+    widen_rows<T, D>(sm.v, vp, sm.roff);
+  }
 }
 
 // Two transposed 8x8 b16 matrices from shared memory: the B fragment of
@@ -202,7 +227,7 @@ __device__ __forceinline__ void init_state(RowState<D>& st, const Smem<T, D, KV>
     for (int i = 0; i < 4; ++i) st.o[n][i] = 0.f;
   st.m[0] = st.m[1] = kNeg;
   st.l[0] = st.l[1] = 0.f;
-  if constexpr (!Smem<T, D, KV>::kF32) {
+  if constexpr (!Smem<T, D, KV>::kF32 && RowState<D>::kQReg) {
     using S = Smem<T, D, KV>;
     const T* q0 = sm.q + (warp * 16 + g) * S::QS + tig * 2;
     const T* q1 = q0 + 8 * S::QS;
@@ -241,11 +266,21 @@ __device__ __forceinline__ void tile_scores(float s[kBN / 8][4], const RowState<
       }
     } else {
       const T* kr = sm.k + (n * 8 + g) * S::QS + tig * 2;
+      const T* q0 = sm.q + (warp * 16 + g) * S::QS + tig * 2;
+      const T* q1 = q0 + 8 * S::QS;
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks) {
         const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr + ks * 16);
         const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kr + ks * 16 + 8);
-        mma_bf16(s[n], st.qa[ks], b0, b1);
+        if constexpr (RowState<D>::kQReg) {
+          mma_bf16(s[n], st.qa[ks], b0, b1);
+        } else {  // wide heads: Q's fragment from shared memory
+          const uint32_t qa[4] = {*reinterpret_cast<const uint32_t*>(q0 + ks * 16),
+                                  *reinterpret_cast<const uint32_t*>(q1 + ks * 16),
+                                  *reinterpret_cast<const uint32_t*>(q0 + ks * 16 + 8),
+                                  *reinterpret_cast<const uint32_t*>(q1 + ks * 16 + 8)};
+          mma_bf16(s[n], qa, b0, b1);
+        }
       }
     }
 #pragma unroll

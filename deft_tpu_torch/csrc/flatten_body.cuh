@@ -2,8 +2,12 @@
 // checks), shared by paged_flatten.cu (B1, B4: tokens read through the plan's
 // segment table) and flatten_gather.cu (B6, B11: tokens read through one pool
 // index each), over fp32 pools or int8 pools with fp32 scales.  Over bf16 q
-// every flatten entry runs flat_q_body.cuh's tensor-core body, which shares
-// the row sources, the pool view and the merge kernel below.
+// the flatten entries run flat_q_body.cuh's tensor-core body at head_dim 64
+// and 128, which shares the row sources, the pool view and the merge kernel
+// below; at 96 and 256 (Phi-3-mini, Gemma: gather plans only, B6 and B11)
+// they run this body over bf16 q and pools or int8 pools, its products on
+// mma.sync (flash_common.cuh), P rounded to bf16 for P V.  Simple and right
+// first; its time at those widths is in PERF.md.
 //
 // Folded row r (leaf r / qpk, query head h * qpk + r % qpk) sees plan token t
 // iff tok_lo[t] <= r / qpk < tok_hi[t].  Blocks with blk_lo >= blk_hi are
@@ -236,31 +240,38 @@ cudaError_t launch_flatten(const void* q, Pools<KV> pools, Rows rows, const int*
   return cudaGetLastError();
 }
 
-// Check the sizes, then instantiate launch_flatten for fp32 q (dtype 0; bf16
-// q runs flat_q_body.cuh) and head_dim (64 or 128) over pools of KV: float,
-// or int8 with scales.  m_o, l_o: see launch_flatten.
-template <typename KV, typename Rows>
+// Check the sizes, then instantiate launch_flatten for q of type T and
+// head_dim over pools of KV (T, or int8 with scales): fp32 q at 64 and 128,
+// and with kWide (the gather entries) at 96 and 256; bf16 q at 96 and 256
+// only (64 and 128 run flat_q_body.cuh).  m_o, l_o: see launch_flatten.
+template <typename T, typename KV, bool kWide, typename Rows>
 cudaError_t dispatch_flatten(const void* q, const void* k, const void* v, const float* ks,
                              const float* vs, long long layer_off, long long scale_off,
                              int S, Rows rows, const int* tok_lo, const int* tok_hi,
                              const int* blk_lo, const int* blk_hi, float* acc, float* m,
                              float* l, void* o, float* m_o, float* l_o, int R, int Hq,
-                             int Hkv, int D, int nb, int block_len, int n_spans, int dtype,
-                             float scale, void* stream) {
+                             int Hkv, int D, int nb, int block_len, int n_spans, float scale,
+                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (R <= 0 || Hkv <= 0 || Hq % Hkv || n_spans <= 0 || nb <= 0 || block_len % kBN ||
-      !m_o != !l_o || dtype != 0)
+      !m_o != !l_o)
     return cudaErrorInvalidValue;
   Pools<KV> p{static_cast<const KV*>(k), static_cast<const KV*>(v), ks, vs, layer_off,
               scale_off, S};
-  if (D == 128)
-    return launch_flatten<float, KV, 128>(q, p, rows, tok_lo, tok_hi, blk_lo, blk_hi, acc, m,
-                                          l, o, m_o, l_o, R, Hq, Hkv, nb, block_len, n_spans,
-                                          scale, st);
-  if (D == 64)
-    return launch_flatten<float, KV, 64>(q, p, rows, tok_lo, tok_hi, blk_lo, blk_hi, acc, m,
-                                         l, o, m_o, l_o, R, Hq, Hkv, nb, block_len, n_spans,
-                                         scale, st);
+#define DEFT_FLATTEN_AT(DD)                                                              \
+  if (D == DD)                                                                         \
+    return launch_flatten<T, KV, DD>(q, p, rows, tok_lo, tok_hi, blk_lo, blk_hi, acc, m, l, \
+                                     o, m_o, l_o, R, Hq, Hkv, nb, block_len, n_spans,    \
+                                     scale, st);
+  if constexpr (std::is_same<T, float>::value) {
+    DEFT_FLATTEN_AT(64)
+    DEFT_FLATTEN_AT(128)
+  }
+  if constexpr (kWide) {
+    DEFT_FLATTEN_AT(96)
+    DEFT_FLATTEN_AT(256)
+  }
+#undef DEFT_FLATTEN_AT
   return cudaErrorInvalidValue;
 }
 

@@ -20,8 +20,9 @@
 // tile's 64 pool rows, read from kv_idx a tile ahead, into the boxes RS
 // wgmma reads (bf16 pools) or into rows the int8 codes are widened from in
 // registers for mma.sync (int8 pools); then the merge kernel.  The wrapper
-// picks the spans (ops/paged_flatten_attn.py).  Over fp32 q, the staged
-// split-KV kernels of flatten_body.cuh with the same row source.
+// picks the spans (ops/paged_flatten_attn.py).  Over fp32 q, and over bf16
+// q at head_dim 96 and 256 (Phi-3-mini, Gemma), the staged split-KV kernels
+// of flatten_body.cuh with the same row source (mma.sync products for bf16).
 #include "flat_q_body.cuh"
 
 namespace {
@@ -32,30 +33,40 @@ int gather_entry(const void* q, const void* k_pool, const void* v_pool,
                  const int* tok_hi, const int* blk_lo, const int* blk_hi, float* acc, float* m,
                  float* l, void* o, float* m_o, float* l_o, int R, int Hq, int Hkv, int D,
                  int nb, int block_len, int n_spans, int dtype, float scale, void* stream) {
-  if (!k_scale != !v_scale || !acc || !m || !l) return cudaErrorInvalidValue;
+  if (!k_scale != !v_scale || !acc || !m || !l || (dtype != 0 && dtype != 1))
+    return cudaErrorInvalidValue;
   const deft::IdxRows rows{kv_idx};
-  if (dtype == 1 && k_scale)
+  const bool wide = D == 96 || D == 256;  // flatten_body.cuh's body over bf16 q
+  if (dtype == 1 && k_scale && !wide)
     return deft_flat_q::dispatch<int8_t>(
         q, {static_cast<const int8_t*>(k_pool), static_cast<const int8_t*>(v_pool), k_scale,
             v_scale, layer_off, scale_off, S},
         rows, tok_lo, tok_hi, blk_lo, blk_hi, acc, m, l, o, m_o, l_o, R, Hq, Hkv, D, nb,
         block_len, n_spans, scale, stream);
-  if (dtype == 1)
+  if (dtype == 1 && !wide)
     return deft_flat_q::dispatch<__nv_bfloat16>(
         q,
         {static_cast<const __nv_bfloat16*>(k_pool), static_cast<const __nv_bfloat16*>(v_pool),
          nullptr, nullptr, layer_off, 0, 0},
         rows, tok_lo, tok_hi, blk_lo, blk_hi, acc, m, l, o, m_o, l_o, R, Hq, Hkv, D, nb,
         block_len, n_spans, scale, stream);
+  if (dtype == 1 && k_scale)
+    return deft::dispatch_flatten<__nv_bfloat16, int8_t, true>(
+        q, k_pool, v_pool, k_scale, v_scale, layer_off, scale_off, S, rows, tok_lo, tok_hi,
+        blk_lo, blk_hi, acc, m, l, o, m_o, l_o, R, Hq, Hkv, D, nb, block_len, n_spans, scale,
+        stream);
+  if (dtype == 1)
+    return deft::dispatch_flatten<__nv_bfloat16, __nv_bfloat16, true>(
+        q, k_pool, v_pool, nullptr, nullptr, layer_off, 0, 0, rows, tok_lo, tok_hi, blk_lo,
+        blk_hi, acc, m, l, o, m_o, l_o, R, Hq, Hkv, D, nb, block_len, n_spans, scale, stream);
   if (k_scale)
-    return deft::dispatch_flatten<int8_t>(
-        q, k_pool, v_pool, k_scale, v_scale, layer_off, scale_off, S, rows, tok_lo,
-        tok_hi, blk_lo, blk_hi, acc, m, l, o, m_o, l_o, R, Hq, Hkv, D, nb, block_len,
-        n_spans, dtype, scale, stream);
-  return deft::dispatch_flatten<float>(
+    return deft::dispatch_flatten<float, int8_t, true>(
+        q, k_pool, v_pool, k_scale, v_scale, layer_off, scale_off, S, rows, tok_lo, tok_hi,
+        blk_lo, blk_hi, acc, m, l, o, m_o, l_o, R, Hq, Hkv, D, nb, block_len, n_spans, scale,
+        stream);
+  return deft::dispatch_flatten<float, float, true>(
       q, k_pool, v_pool, nullptr, nullptr, layer_off, 0, 0, rows, tok_lo, tok_hi, blk_lo,
-      blk_hi, acc, m, l, o, m_o, l_o, R, Hq, Hkv, D, nb, block_len, n_spans, dtype, scale,
-      stream);
+      blk_hi, acc, m, l, o, m_o, l_o, R, Hq, Hkv, D, nb, block_len, n_spans, scale, stream);
 }
 
 }  // namespace

@@ -62,15 +62,15 @@ int paged_entry(bool int8, const void* q, const void* k_pool, const void* v_pool
          nullptr, nullptr, layer_off, 0, 0},
         rows, tok_lo, tok_hi, blk_lo, blk_hi, acc, m, l, o, m_o, l_o, R, Hq, Hkv, D, nb,
         block_len, n_spans, scale, stream);
+  if (dtype != 0) return cudaErrorInvalidValue;
   if (int8)
-    return deft::dispatch_flatten<int8_t>(
+    return deft::dispatch_flatten<float, int8_t, false>(
         q, k_pool, v_pool, k_scale, v_scale, layer_off, scale_off, S, rows, tok_lo, tok_hi,
-        blk_lo, blk_hi, acc, m, l, o, m_o, l_o, R, Hq, Hkv, D, nb, block_len, n_spans, dtype,
-        scale, stream);
-  return deft::dispatch_flatten<float>(
+        blk_lo, blk_hi, acc, m, l, o, m_o, l_o, R, Hq, Hkv, D, nb, block_len, n_spans, scale,
+        stream);
+  return deft::dispatch_flatten<float, float, false>(
       q, k_pool, v_pool, nullptr, nullptr, layer_off, 0, 0, rows, tok_lo, tok_hi, blk_lo,
-      blk_hi, acc, m, l, o, m_o, l_o, R, Hq, Hkv, D, nb, block_len, n_spans, dtype, scale,
-      stream);
+      blk_hi, acc, m, l, o, m_o, l_o, R, Hq, Hkv, D, nb, block_len, n_spans, scale, stream);
 }
 
 }  // namespace

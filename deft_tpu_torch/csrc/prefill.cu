@@ -48,15 +48,21 @@
 //   prompts cost sum L_i^2 / 2, not (sum L_i)^2 / 2.
 // fp32 (the exactness checks) keeps the first design's FMA body from
 // flash_common.cuh: wgmma takes no fp32 input, and TF32 would change the
-// numbers.
+// numbers.  bf16 at head_dim 96 (Phi-3-mini) and 256 (Gemma) runs that
+// body's mma.sync form: the wgmma body's 128-byte-swizzled boxes are 64
+// columns wide and its O accumulator a warpgroup's 64 x D, which at D 256
+// would be 128 registers a thread beside S's 64; the first design keeps
+// 16 rows a warp, 64-token tiles, and Q's fragments in shared memory above
+// D 128 (flash_common.cuh).  Simple and right first: its time at those
+// widths is in PERF.md.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
 namespace deft {
 
-// -- fp32: the FMA body of flash_common.cuh ----------------------------------------
+// -- fp32, and bf16 at D 96 and 256: the body of flash_common.cuh ------------------
 
-namespace fp32 {
+namespace mma {
 
 template <typename T, int D, bool kRagged>
 __global__ void __launch_bounds__(kThreads)
@@ -171,7 +177,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* seg,
   return cudaGetLastError();
 }
 
-}  // namespace fp32
+}  // namespace mma
 
 // -- bf16: wgmma over TMA stages ---------------------------------------------------
 
@@ -432,18 +438,28 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const int* seg
     return wg::launch<128, kRagged>(q, k, v, seg, seg_start, o, N, Hq, Hkv, scale, s);
   if (dtype == 1 && D == 64)
     return wg::launch<64, kRagged>(q, k, v, seg, seg_start, o, N, Hq, Hkv, scale, s);
+  if (dtype == 1 && D == 96)
+    return mma::launch<__nv_bfloat16, 96, kRagged>(q, k, v, seg, seg_start, o, N, Hq, Hkv,
+                                                   scale, s);
+  if (dtype == 1 && D == 256)
+    return mma::launch<__nv_bfloat16, 256, kRagged>(q, k, v, seg, seg_start, o, N, Hq, Hkv,
+                                                    scale, s);
   if (dtype == 0 && D == 128)
-    return fp32::launch<float, 128, kRagged>(q, k, v, seg, seg_start, o, N, Hq, Hkv, scale, s);
+    return mma::launch<float, 128, kRagged>(q, k, v, seg, seg_start, o, N, Hq, Hkv, scale, s);
   if (dtype == 0 && D == 64)
-    return fp32::launch<float, 64, kRagged>(q, k, v, seg, seg_start, o, N, Hq, Hkv, scale, s);
+    return mma::launch<float, 64, kRagged>(q, k, v, seg, seg_start, o, N, Hq, Hkv, scale, s);
+  if (dtype == 0 && D == 96)
+    return mma::launch<float, 96, kRagged>(q, k, v, seg, seg_start, o, N, Hq, Hkv, scale, s);
+  if (dtype == 0 && D == 256)
+    return mma::launch<float, 256, kRagged>(q, k, v, seg, seg_start, o, N, Hq, Hkv, scale, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace deft
 
-// dtype: 0 = float32, 1 = bfloat16.  q, o: (N, Hq, D); k, v: (N, Hkv, D),
-// all contiguous and 16-byte aligned; bf16 takes Hq / Hkv <= 128.  Returns
-// a cudaError_t code (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16.  q, o: (N, Hq, D), D 64, 96, 128 or 256;
+// k, v: (N, Hkv, D), all contiguous and 16-byte aligned; bf16 at D 64 and
+// 128 takes Hq / Hkv <= 128.  Returns a cudaError_t code (0 = launched).
 extern "C" int deft_prefill(const void* q, const void* k, const void* v, void* o,
                             int N, int Hq, int Hkv, int D, int dtype, float scale,
                             void* stream) {

@@ -28,16 +28,19 @@
 // checks): fp32 FMA products with the tensor cores idle, 64-token tiles
 // behind block barriers with no copy in flight, and one block a (leaf,
 // head) however few leaves there are.  Per-leaf re-reads of the shared
-// prefix are kept: they are the baseline's defining cost.
+// prefix are kept: they are the baseline's defining cost.  At head_dim 96
+// and 256 (Phi-3-mini, Gemma) bf16 q runs that staged body, over bf16 or
+// int8 pools (one block a leaf and head, splits 1): simple and right
+// first, timed in PERF.md.
 #include "seq_q_body.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16 (q and o; the pools too unless int8).
 // k_scale / v_scale: (L, Hkv, S) fp32 scales of int8 pools, null for pools
 // of the q type.  q, o: (R, Hq, D); pools (L, S, Hkv*D); layer_off = li * S
 // * Hkv * D; scale_off = li * Hkv * S; paths (R, C); seq_lens (R,), each at
-// most C.  splits: the blocks of a cluster that share each (leaf, head)'s
-// path, 1 .. 8 over bf16 q (the tensor-core body), else 1.  Returns a
-// cudaError_t code.
+// most C.  D: 64, 96, 128 or 256.  splits: the blocks of a cluster that
+// share each (leaf, head)'s path, 1 .. 8 over bf16 q at D 64 and 128 (the
+// tensor-core body), else 1.  Returns a cudaError_t code.
 extern "C" int deft_seq_gather(const void* q, const void* k_pool, const void* v_pool,
                                const float* k_scale, const float* v_scale, void* o,
                                long long layer_off, long long scale_off, int S,
@@ -48,6 +51,17 @@ extern "C" int deft_seq_gather(const void* q, const void* k_pool, const void* v_
       (dtype == 0 && splits != 1))
     return cudaErrorInvalidValue;
   const deft_seq::IdxPath path{paths, seq_lens, C};
+  if (D == 96 || D == 256) {  // seq_body.cuh's body, over bf16 q too
+    if (splits != 1) return cudaErrorInvalidValue;
+    if (dtype == 1 && k_scale)
+      return deft_seq::dispatch_seq<__nv_bfloat16, int8_t, true>(
+          q, k_pool, v_pool, k_scale, v_scale, o, nullptr, nullptr, layer_off, scale_off, S,
+          path, 0, R, Hq, Hkv, D, scale, stream);
+    if (dtype == 1)
+      return deft_seq::dispatch_seq<__nv_bfloat16, __nv_bfloat16, true>(
+          q, k_pool, v_pool, nullptr, nullptr, o, nullptr, nullptr, layer_off, 0, 0, path, 0,
+          R, Hq, Hkv, D, scale, stream);
+  }
   if (dtype == 1 && k_scale)
     return deft_seq_q::dispatch<int8_t>(
         q, {static_cast<const int8_t*>(k_pool), static_cast<const int8_t*>(v_pool), k_scale,
@@ -60,10 +74,11 @@ extern "C" int deft_seq_gather(const void* q, const void* k_pool, const void* v_
          nullptr, nullptr, layer_off, 0, 0},
         path, o, nullptr, nullptr, R, Hq, Hkv, D, splits, scale, stream);
   if (k_scale)
-    return deft_seq::dispatch_seq<int8_t>(q, k_pool, v_pool, k_scale, v_scale, o, nullptr,
-                                          nullptr, layer_off, scale_off, S, path, 0, R, Hq,
-                                          Hkv, D, scale, stream);
-  return deft_seq::dispatch_seq<float>(q, k_pool, v_pool, nullptr, nullptr, o, nullptr,
-                                       nullptr, layer_off, 0, 0, path, 0, R, Hq, Hkv, D,
-                                       scale, stream);
+    return deft_seq::dispatch_seq<float, int8_t, true>(q, k_pool, v_pool, k_scale, v_scale, o,
+                                                       nullptr, nullptr, layer_off, scale_off,
+                                                       S, path, 0, R, Hq, Hkv, D, scale,
+                                                       stream);
+  return deft_seq::dispatch_seq<float, float, true>(q, k_pool, v_pool, nullptr, nullptr, o,
+                                                    nullptr, nullptr, layer_off, 0, 0, path, 0,
+                                                    R, Hq, Hkv, D, scale, stream);
 }

@@ -6,8 +6,10 @@ weights included), rms_norm (:161), the Mixtral-family sparse MoE block
 (_moe_mlp :188, _moe_gmm_ok :232, _moe_mlp_gmm :245), the per-layer body
 (:318-417, a lax.scan there, a Python loop over layers here),
 decode_forward (:420), prefill_forward (:456) and ragged_prefill_forward
-(:488).  Gemma norms, qk-norm and qkv biases come in later slices;
-loader.check_supported refuses such configs.  The forwards take a
+(:488), with every family deft_tpu runs: Gemma's (1 + w) norms in fp32
+(gemma_rms_norm :167), its embedding scale and GeGLU (_act_fn :177), the
+Qwen2 qkv bias and the Qwen3 per-head q/k norms (:332-375).  The forwards
+take a
 ``shard`` (parallel/engine.py ShardedModel) to run one rank of a (dp, sp,
 tp) grid on its slices of the parameters; the MoE routes' pieces
 (routing_weights, moe_dense_sum, top_k_routes, moe_grouped_sum) serve the
@@ -122,6 +124,26 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
+def gemma_rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """Gemma's RMSNorm: (1 + w) multiplied in fp32 before the output cast
+    (transformers GemmaRMSNorm; deft_tpu llama.py:167)."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * (1.0 + w.float())).to(x.dtype)
+
+
+def _act_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The MLP gate activation by its HF name, fp32 in and out (deft_tpu
+    llama.py:177): silu, the tanh gelu (Gemma's GeGLU) or the exact gelu."""
+    if name == "silu":
+        return torch.nn.functional.silu
+    if name in ("gelu_pytorch_tanh", "gelu_new"):
+        return lambda x: torch.nn.functional.gelu(x, approximate="tanh")
+    if name == "gelu":
+        return torch.nn.functional.gelu
+    raise NotImplementedError(f"hidden_act {name!r}")
+
+
 def _router_probs(lp: Dict[str, torch.Tensor], h: torch.Tensor) -> torch.Tensor:
     """The MoE router's softmax over the experts, fp32 (n, NE)."""
     return torch.softmax((h @ lp["wrt"].to(h.dtype)).float(), dim=-1)
@@ -145,7 +167,7 @@ def routing_weights(cfg: LlamaConfig, lp: Dict[str, torch.Tensor],
 
 
 def moe_dense_sum(lp: Dict[str, torch.Tensor], h: torch.Tensor,
-                  rw: torch.Tensor) -> torch.Tensor:
+                  rw: torch.Tensor, act=torch.nn.functional.silu) -> torch.Tensor:
     """sum_e rw[:, e] * expert_e(h) over the experts stacked in lp (all of
     them, or a rank's slice with its columns of rw), fp32 (n, E)."""
 
@@ -158,7 +180,7 @@ def moe_dense_sum(lp: Dict[str, torch.Tensor], h: torch.Tensor,
 
     g = emm(h, "wg", "re,neo->nro")  # (NE, R, I)
     u = emm(h, "wu", "re,neo->nro")
-    z = torch.nn.functional.silu(g.float()).to(h.dtype) * u
+    z = act(g.float()).to(h.dtype) * u
     o = emm(z, "wdown", "nri,nie->nre")  # (NE, R, E)
     return torch.einsum("nre,rn->re", o.float(), rw.float())
 
@@ -172,7 +194,8 @@ def _moe_mlp(cfg: LlamaConfig, lp: Dict[str, torch.Tensor],
     them is the read the step needs anyway.  int8 experts are widened to
     h's dtype for the product, which is rounded, then scaled in fp32 and cast
     (``emm``; deft_tpu has no expert-batched int8 kernel)."""
-    return moe_dense_sum(lp, h, routing_weights(cfg, lp, h)).to(h.dtype)
+    return moe_dense_sum(lp, h, routing_weights(cfg, lp, h),
+                         _act_fn(cfg.hidden_act)).to(h.dtype)
 
 
 # Row tile of the grouped-matmul dispatch; the gmm route engages when the
@@ -236,8 +259,8 @@ def _moe_mlp_gmm(cfg: LlamaConfig, lp: Dict[str, torch.Tensor],
     pad rows and is dropped.  FLOPs and expert-weight reads scale with k, not
     NE."""
     top_i, top_w = top_k_routes(cfg, lp, h)
-    return moe_grouped_sum(lp, h, *moe_dispatch(top_i, top_w, cfg.num_experts)
-                           ).to(h.dtype)
+    return moe_grouped_sum(lp, h, *moe_dispatch(top_i, top_w, cfg.num_experts),
+                           act=_act_fn(cfg.hidden_act)).to(h.dtype)
 
 
 def top_k_routes(cfg: LlamaConfig, lp: Dict[str, torch.Tensor], h: torch.Tensor):
@@ -247,7 +270,8 @@ def top_k_routes(cfg: LlamaConfig, lp: Dict[str, torch.Tensor], h: torch.Tensor)
 
 
 def moe_grouped_sum(lp: Dict[str, torch.Tensor], h: torch.Tensor, row_src,
-                    tok_pos, w_pos, tile_eid) -> torch.Tensor:
+                    tok_pos, w_pos, tile_eid,
+                    act=torch.nn.functional.silu) -> torch.Tensor:
     """The grouped route's three B10 launches over the experts stacked in lp
     (all of them, or a rank's slice) on a dispatch layout, combined in fp32
     into (n, E); rows with tok_pos == n are dropped."""
@@ -255,7 +279,7 @@ def moe_grouped_sum(lp: Dict[str, torch.Tensor], h: torch.Tensor, row_src,
     xs = h[row_src]  # (M_pad, E)
     gx = gmm_op.gmm(xs, lp["wg"], tile_eid, _expert_scale(lp, "wg"))
     ux = gmm_op.gmm(xs, lp["wu"], tile_eid, _expert_scale(lp, "wu"))
-    zx = torch.nn.functional.silu(gx.float()).to(h.dtype) * ux
+    zx = act(gx.float()).to(h.dtype) * ux
     yx = gmm_op.gmm(zx, lp["wdown"], tile_eid, _expert_scale(lp, "wdown"))
     out = torch.zeros((n + 1, E), dtype=torch.float32, device=h.device)
     out.index_add_(0, tok_pos, yx.float() * w_pos[:, None])
@@ -264,7 +288,8 @@ def moe_grouped_sum(lp: Dict[str, torch.Tensor], h: torch.Tensor, row_src,
 
 AttnFn = Callable[..., torch.Tensor]
 
-_LAYER_KEYS = ("ln1", "wqkv", "wo", "ln2", "wgu", "wdown", "wrt", "wg", "wu")
+_LAYER_KEYS = ("ln1", "wqkv", "bqkv", "ln_q", "ln_k", "wo", "ln2", "wgu", "wdown",
+               "wrt", "wg", "wu")
 
 
 def layer_params(params: Dict[str, torch.Tensor], li: int) -> Dict[str, torch.Tensor]:
@@ -288,8 +313,18 @@ def forward_layers(cfg: LlamaConfig, params: Dict[str, torch.Tensor],
     params hold the rank's slices, so its head and MLP widths are read off
     ``wo`` and ``wqkv``; the row-parallel ``wo`` and ``wdown`` products are
     summed over tp (``shard.reduce_tp``) and a MoE layer runs
-    ``shard.moe``."""
+    ``shard.moe``.
+
+    Families (deft_tpu llama.py:331-375): Gemma scales the embedding by
+    sqrt(hidden) rounded to the model dtype and takes gemma_rms_norm; the
+    MLP gate takes the config's activation; a Qwen2 qkv bias is added to
+    the fused product; Qwen3 RMS-normalises each head of q and k before
+    RoPE."""
     x = params["embed"][tokens]
+    if cfg.gemma_norm:
+        x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype)
+    norm = gemma_rms_norm if cfg.gemma_norm else rms_norm
+    act = _act_fn(cfg.hidden_act)
     n = x.shape[0]
     D = cfg.head_dim
     hq = params["wo"].shape[-2] // D  # the rank's heads (all without a grid)
@@ -300,18 +335,23 @@ def forward_layers(cfg: LlamaConfig, params: Dict[str, torch.Tensor],
     reduce = shard.reduce_tp if shard is not None else (lambda y: y)
     for li in range(cfg.num_layers):
         lp = layer_params(params, li)
-        h = rms_norm(x, lp["ln1"], eps)
+        h = norm(x, lp["ln1"], eps)
         qkv = mm(h, lp, "wqkv")
+        if cfg.qkv_bias:
+            qkv = qkv + lp["bqkv"].to(qkv.dtype)
         q = qkv[:, :nq_d].reshape(n, hq, D)
         k = qkv[:, nq_d:nq_d + nkv_d].reshape(n, hkv, D)
         v = qkv[:, nq_d + nkv_d:].reshape(n, hkv, D)
+        if cfg.qk_norm:
+            q = rms_norm(q, lp["ln_q"], eps)
+            k = rms_norm(k, lp["ln_k"], eps)
         qk = apply_rope(torch.cat([q, k], dim=1), positions, rope_tbl)
         q, k = qk[:, :hq], qk[:, hq:]
         kv_store(k_pool, li, out_loc, k)
         kv_store(v_pool, li, out_loc, v)
         o = attn(q, k, v, k_pool, v_pool, li, batch, scale)
         x = x + reduce(mm(o.reshape(n, -1).to(x.dtype), lp, "wo"))
-        h = rms_norm(x, lp["ln2"], eps)
+        h = norm(x, lp["ln2"], eps)
         if cfg.num_experts > 0:
             if shard is not None:
                 x = x + shard.moe(cfg, lp, h)
@@ -323,9 +363,8 @@ def forward_layers(cfg: LlamaConfig, params: Dict[str, torch.Tensor],
         gu = mm(h, lp, "wgu")
         I = gu.shape[-1] // 2
         g, u = gu[:, :I], gu[:, I:]
-        x = x + reduce(mm(torch.nn.functional.silu(g.float()).to(x.dtype) * u,
-                          lp, "wdown"))
-    return rms_norm(x, params["ln_f"], eps)
+        x = x + reduce(mm(act(g.float()).to(x.dtype) * u, lp, "wdown"))
+    return norm(x, params["ln_f"], eps)
 
 
 def lm_head(params, x: torch.Tensor, shard=None) -> torch.Tensor:

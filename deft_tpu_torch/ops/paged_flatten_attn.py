@@ -194,18 +194,27 @@ def balanced_spans(row_tiles, Hkv: int, sms: int) -> int:
     return max(1, min(busiest, even if 2 * even >= 3 * one_wave else one_wave))
 
 
+# head widths of the paged kernels (deft_tpu's paged plans need 128 % D ==
+# 0) and of the gather kernels B6, B7 and B11 (Phi-3-mini's 96 and Gemma's
+# 256 too, which only gather plans reach)
+PAGED_WIDTHS = (64, 128)
+GATHER_WIDTHS = (64, 96, 128, 256)
+
+
 def check_pools(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                 k_scale: Optional[torch.Tensor],
-                v_scale: Optional[torch.Tensor]) -> int:
+                v_scale: Optional[torch.Tensor],
+                widths: Sequence[int] = PAGED_WIDTHS) -> int:
     """Refuse pools the kernels do not take; returns Hkv.  Pools hold the
-    q dtype, or int8 with (L, Hkv, S) fp32 scales."""
+    q dtype, or int8 with (L, Hkv, S) fp32 scales; head_dim one of
+    ``widths``."""
     R, Hq, D = q.shape
     L, S, HD = k_pool.shape
     Hkv = HD // D
     _cuda.require(Hkv * D == HD and Hq % Hkv == 0, "pool width != Hkv * D")
     _cuda.require(v_pool.shape == k_pool.shape and v_pool.dtype == k_pool.dtype,
                   "k/v pools differ")
-    _cuda.require(D in (64, 128), f"head_dim {D}: the kernels take 64 or 128")
+    _cuda.require(D in widths, f"head_dim {D}: the kernels take {widths}")
     _cuda.dtype_code(q.dtype)
     if k_scale is None:
         _cuda.require(v_scale is None and k_pool.dtype == q.dtype,
@@ -237,7 +246,8 @@ def launch_flatten(source: str, entry: str, q, k_pool, v_pool, k_scale,
     m, l (Hkv, R*qpk)), fp32."""
     R, Hq, D = q.shape
     L, S, HD = k_pool.shape
-    Hkv = check_pools(q, k_pool, v_pool, k_scale, v_scale)
+    Hkv = check_pools(q, k_pool, v_pool, k_scale, v_scale,
+                      PAGED_WIDTHS if seg_len else GATHER_WIDTHS)
     nb = blk_lo.shape[0]
     T = tok_lo.shape[0]
     _cuda.require(T == nb * block_len and block_len % 64 == 0
@@ -253,7 +263,7 @@ def launch_flatten(source: str, entry: str, q, k_pool, v_pool, k_scale,
                          blk_lo, blk_hi)
     q = q.contiguous()
     Rq = R * (Hq // Hkv)
-    if q.dtype == torch.bfloat16:  # the tensor-core body (deft_flat_q)
+    if q.dtype == torch.bfloat16 and D in PAGED_WIDTHS:  # deft_flat_q's body
         sms = _cuda.sm_count(q.device.index)
         if row_tiles is None:
             spans = q_spans(Rq, Hkv, nb, block_len, sms)

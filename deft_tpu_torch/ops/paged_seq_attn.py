@@ -39,7 +39,7 @@ from deft_tpu_torch.models.llama import KVPool, kv_gather_heads
 from deft_tpu_torch.ops import _cuda
 from deft_tpu_torch.ops.dense_oracle import (dense_path_attention,
                                               dense_path_attention_state)
-from deft_tpu_torch.ops.paged_flatten_attn import check_pools
+from deft_tpu_torch.ops.paged_flatten_attn import PAGED_WIDTHS, check_pools
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -114,7 +114,7 @@ def paged_seq_attention_q_partial_plain(q, k_pool, v_pool, k_scale, v_scale, li,
 
 def launch_seq(source: str, entry: str, argtypes: list, q, k_pool, v_pool,
                k_scale, v_scale, li, plan_arrays, lead, tail, scale,
-               partial: bool = False):
+               partial: bool = False, widths=PAGED_WIDTHS):
     """Launch a seq kernel of csrc/<source>.cu on q (R, Hq, D).  Its C
     arguments: q, k and v pools, k and v scales, o (a partial entry: acc, m,
     l), layer and scale offsets, S, *plan_arrays, R, *lead, Hq, Hkv, D,
@@ -122,7 +122,7 @@ def launch_seq(source: str, entry: str, argtypes: list, q, k_pool, v_pool,
     entry (acc (R, Hq, D), m, l (R, Hq)), fp32."""
     R, Hq, D = q.shape
     L, S, HD = k_pool.shape
-    Hkv = check_pools(q, k_pool, v_pool, k_scale, v_scale)
+    Hkv = check_pools(q, k_pool, v_pool, k_scale, v_scale, widths)
     _cuda.require(Hq // Hkv <= 8, "more than 8 q heads per KV head")
     for t in plan_arrays:
         _cuda.require(t.dtype == torch.int32 and t.is_contiguous(),

@@ -5,7 +5,8 @@ Port of deft_tpu/ops/prefill.py:143 (prefill_attention, the Pallas kernel
 _prefill_kernel :82), :190 (prefill_attn_pallas), :288
 (ragged_prefill_attention, the Pallas kernel _ragged_prefill_kernel :205)
 and :365 (ragged_prefill_attn_pallas).  Both Hopper kernels are
-csrc/prefill.cu (entries deft_prefill, deft_ragged_prefill); each
+csrc/prefill.cu (entries deft_prefill, deft_ragged_prefill; bf16 at
+head_dim 64 and 128 on wgmma, at 96 and 256 on mma.sync); each
 ``*_plain`` function is the same function in plain torch, which the wrapper
 runs for CPU tensors only.  Layouts stay the model's: q (N, Hq, D), k and v
 (N, Hkv, D), output (N, Hq, D); query head h * qpk + g attends KV head h
@@ -39,7 +40,8 @@ def _check(q, k, v, *rest):
     _cuda.require(k.shape == v.shape and k.shape[0] == N and k.shape[2] == D
                   and Hq % k.shape[1] == 0, f"bad shapes {q.shape} {k.shape}")
     _cuda.require(q.dtype == k.dtype == v.dtype, "q, k, v dtypes differ")
-    _cuda.require(D in (64, 128), f"head_dim {D}: the kernel takes 64 or 128")
+    _cuda.require(D in (64, 96, 128, 256),
+                  f"head_dim {D}: the kernel takes 64, 96, 128 or 256")
     _cuda.require(Hq // k.shape[1] <= 128, f"{Hq // k.shape[1]} query heads a KV head: "
                   "the kernel folds at most 128")
     _cuda.require_device(q, k, v, *rest)

@@ -122,10 +122,11 @@ def run_all(grid: Grid, calls: Sequence[Tuple[Callable, dict]]) -> list:
     return [fn(grid, **kwargs) for fn, kwargs in calls]
 
 
-def _runner(grid: Grid, cfg, ecfg, seed: int):
+def _runner(grid: Grid, cfg, ecfg, seed: int, model_path=None):
     from deft_tpu_torch.runtime import ModelRunner
 
-    return ModelRunner(cfg, ecfg, device=grid.device, seed=seed, mesh=grid)
+    return ModelRunner(cfg, ecfg, device=grid.device, seed=seed, mesh=grid,
+                       model_path=model_path)
 
 
 def generate_tokens(grid: Grid, cfg, ecfg, prompt, mode: str = "flatten",
@@ -154,13 +155,15 @@ def generate_tokens(grid: Grid, cfg, ecfg, prompt, mode: str = "flatten",
 
 
 def first_step(grid: Grid, cfg, ecfg, prompt, mode: str = "flatten",
-               width: int = 5, seed: int = 0, first_token: int = 100):
+               width: int = 5, seed: int = 0, first_token: int = 100,
+               model_path=None):
     """Worker: prefill ``prompt``, branch the root into ``width`` leaves
     with tokens first_token + i, run one decode step; returns its
-    plan.paged and the top-K ids and probabilities of the leaves' rows."""
+    plan.paged and the top-K ids and probabilities of the leaves' rows.
+    ``model_path``: a local HF checkpoint in place of random weights."""
     from deft_tpu_torch.runtime import mode_from_cli
 
-    runner = _runner(grid, cfg, ecfg, seed)
+    runner = _runner(grid, cfg, ecfg, seed, model_path)
     runner.forward_prefill(prompt)
     tree = runner.tree
     for i, c in enumerate(tree.branch(tree.root, width)):

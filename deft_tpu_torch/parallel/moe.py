@@ -28,7 +28,7 @@ from typing import Dict
 import torch
 
 from deft_tpu_torch.models.config import LlamaConfig
-from deft_tpu_torch.models.llama import (_GMM_TILE_M, moe_dense_sum,
+from deft_tpu_torch.models.llama import (_GMM_TILE_M, _act_fn, moe_dense_sum,
                                          moe_grouped_sum, routing_weights,
                                          top_k_routes)
 from deft_tpu_torch.ops.gmm import gmm_eligible
@@ -118,10 +118,12 @@ def make_sharded_moe(grid: Grid):
         if sharded_gmm_ok(grid, cfg, h.shape[0]):
             top_i, top_w = top_k_routes(cfg, lp, h)
             out = moe_grouped_sum(lp, h, *moe_dispatch_local(top_i, top_w, e0,
-                                                             ne_local))
+                                                             ne_local),
+                                  act=_act_fn(cfg.hidden_act))
         else:
             rw = routing_weights(cfg, lp, h)
-            out = moe_dense_sum(lp, h, rw[:, e0:e0 + ne_local])
+            out = moe_dense_sum(lp, h, rw[:, e0:e0 + ne_local],
+                                _act_fn(cfg.hidden_act))
         return grid.all_reduce(out, ("sp", "tp") if ep else "tp").to(h.dtype)
 
     return moe_fn

@@ -8,7 +8,9 @@ the same specs (one entry an axis: None, "tp" or "sp"):
   ``wdown`` row-parallel on the input axis (tp), their partial sums joined
   by an all-reduce over tp after the product (engine.ShardedModel);
 - ``lm_head`` vocab-sharded (tp), its rows joined before the top-k; embed,
-  norms and the MoE router replicated;
+  norms (Qwen3's per-head ``ln_q``/``ln_k`` too) and the MoE router
+  replicated;
+- Qwen2's qkv biases follow their projections' output columns (tp);
 - int8 per-output-column scales follow their weight's output axis; the
   row-parallel weights' scales span the whole input axis, so a rank keeps
   the whole scale vector beside its slice of the codes (a layer is
@@ -50,7 +52,11 @@ def param_shardings() -> Dict[str, Spec]:
         (None, None, None)
     specs: Dict[str, Spec] = {
         "embed": rep2, "ln1": rep2, "ln2": rep2, "ln_f": (None,),
+        "ln_q": rep2, "ln_k": rep2,  # Qwen3 per-head norms (L, D)
         "wq": col, "wk": col, "wv": col, "wqkv": col,
+        # Qwen2 biases (L, out): the output columns of their projection
+        "bq": (None, "tp"), "bk": (None, "tp"), "bv": (None, "tp"),
+        "bqkv": (None, "tp"),
         "wg": col, "wu": col, "wgu": col,
         "wo": row, "wdown": row,
         "lm_head": (None, "tp"),
@@ -89,12 +95,13 @@ def _widen_for_experts(grid: Grid, name: str, spec: Spec, shape) -> Spec:
 
 def fused_blocks(cfg: LlamaConfig) -> Dict[str, Tuple[int, ...]]:
     """Column blocks of the fused tensors, each cut over tp on its own:
-    wqkv = [q | k | v], wgu = [g | u] (and their scales)."""
+    wqkv = [q | k | v], wgu = [g | u] (and their scales), and Qwen2's
+    bqkv = [q | k | v] as wqkv."""
     D = cfg.head_dim
     qkv = (cfg.num_q_heads * D, cfg.num_kv_heads * D, cfg.num_kv_heads * D)
     gu = (cfg.intermediate_size,) * 2
     return {n + suf: b for n, b in (("wqkv", qkv), ("wgu", gu))
-            for suf in ("", "_s", "_sp")}
+            for suf in ("", "_s", "_sp")} | {"bqkv": qkv}
 
 
 def slice_tensor(grid: Grid, t: torch.Tensor, spec: Spec,

@@ -25,7 +25,7 @@ from typing import List, Optional
 from deft_tpu_torch.core.tree import TreeCache
 from deft_tpu_torch.plan.multi import build_multi_flatten_plan, build_multi_seq_plan
 from deft_tpu_torch.runtime.modes import ForwardMode
-from deft_tpu_torch.runtime.runner import LogitsView, ModelRunner
+from deft_tpu_torch.runtime.runner import LogitsView, ModelRunner, packs_heads
 
 
 class _RowWindowView:
@@ -160,7 +160,7 @@ class BatchedEngine:
             kw.update(seg_len=(128,), waste_limit=3.0)
         if self.mode.plan_kind == "seq":
             return build_multi_seq_plan(
-                trees, want_paged=128 % r.cfg.head_dim == 0, **kw)
+                trees, want_paged=packs_heads(r.cfg.head_dim), **kw)
         return build_multi_flatten_plan(trees, **kw)
 
     def step(self) -> None:

@@ -14,6 +14,11 @@ each leaf's greedy token, "skip" (no lm_head) on structural iterations that
 read no logits (a speculative accept schedule), "topk" otherwise.  A
 workload that supports deferred selection reads its tokens on the host here,
 so its logits-free iterations take "topk".
+
+A ``tracer`` (obs/tracing.py) brackets the prefill, each step's alloc and
+plan build, and each decode step with the spans deft_tpu names
+(generate.py:81-88, :106, :540, :587): ``prefill``, ``plan_build`` and
+``decode_step``.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ from __future__ import annotations
 import time
 from typing import Optional
 
-from deft_tpu_torch.obs import GlobalTimer, PerfMetrics
+from deft_tpu_torch.obs import GlobalTimer, PerfMetrics, Tracer
 from deft_tpu_torch.runtime.modes import ForwardMode
 from deft_tpu_torch.runtime.runner import ModelRunner
 
@@ -41,12 +46,16 @@ def tree_generate(
     print_branches: bool = False,
     rng=None,
     seed: Optional[int] = None,
+    tracer: Optional[Tracer] = None,
 ) -> PerfMetrics:
     """Generate a tree from ``prompt_ids``; finished branches end up in
     ``model.tree.all_finished_seqs`` (read them before the next run).
     ``rng`` (a np.random.RandomState) and ``seed``, when given, are passed
     to every call of the branching function (sampled simple_tree,
-    random_tree); otherwise the workloads' own defaults hold."""
+    random_tree); otherwise the workloads' own defaults hold.  ``tracer``:
+    the spans of a torch.profiler session (run inside tracer.session())."""
+    if tracer is None:
+        tracer = Tracer(None)
     if perf_metrics is None:
         perf_metrics = PerfMetrics(output_file)
     prompt_ids = [int(t) for t in prompt_ids]
@@ -66,7 +75,8 @@ def tree_generate(
 
     extra = {k: v for k, v in (("rng", rng), ("seed", seed)) if v is not None}
     start_time = time.perf_counter()
-    logits = model.forward_prefill(prompt_ids)
+    with tracer.span("prefill"):
+        logits = model.forward_prefill(prompt_ids)
     stop = branch_controller.apply_branching(
         model=model, iter=0, max_gen_len=max_gen_len, width=width,
         depth=depth, logits=logits,
@@ -94,12 +104,13 @@ def tree_generate(
             GlobalTimer.reset(name)
         step_start = time.perf_counter()
         GlobalTimer.start("prepare")
-        GlobalTimer.start("alloc")
-        model.tree.alloc()
-        GlobalTimer.stop("alloc")
-        GlobalTimer.start("tree_metadata")
-        plan = model.build_plan(mode)
-        GlobalTimer.stop("tree_metadata")
+        with tracer.span("plan_build"):
+            GlobalTimer.start("alloc")
+            model.tree.alloc()
+            GlobalTimer.stop("alloc")
+            GlobalTimer.start("tree_metadata")
+            plan = model.build_plan(mode)
+            GlobalTimer.stop("tree_metadata")
         GlobalTimer.stop("prepare")
 
         if structural is not None and it not in structural:
@@ -108,8 +119,9 @@ def tree_generate(
             logits_kind = "skip"
         else:
             logits_kind = "topk"
-        logits, fwd_t = model.forward_tree_decode(mode, plan,
-                                                  logits_kind=logits_kind)
+        with tracer.span("decode_step"):
+            logits, fwd_t = model.forward_tree_decode(mode, plan,
+                                                      logits_kind=logits_kind)
 
         # analytic KV / mask IO accounting (per layer x layers)
         if mode.is_sequential:

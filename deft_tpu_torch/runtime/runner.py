@@ -2,12 +2,13 @@
 prefill and tree-decode steps.
 
 Port of the per-step path of deft_tpu/runtime/runner.py: LogitsView (:66),
-the constructor (:194, int8 weights :223-239, int8 KV pools :273-279, the
-tree-index pool :293-299), pool sizing (:382, here from
+the constructor (:194, a local checkpoint or random weights :223-239, int8
+KV pools :273-279, the tree-index pool :293-299), pool sizing (:382, here from
 ``torch.cuda.mem_get_info``), the kernel choice (_attn_fn :418-477),
 forward_prefill (:1125), forward_prefill_batch (:1154), build_plan
-(:1205-1273: flatten, node, node_chunk and tree_index plans, seq plans with
-want_paged=True, and the int8 segment rules), _use_paged (:1275) and
+(:1205-1273: flatten, node, node_chunk and tree_index plans, seq plans
+asking for the paged layout where the head width allows it, and the int8
+segment rules), _use_paged (:1275) and
 forward_tree_decode (:2004; logits kinds "topk", "greedy" and "skip"),
 which takes single-tree and multi-tree plans (plan/multi.py) alike, after
 draining the tree's queued merge copies (apply_kv_copies :1727); MoE
@@ -51,7 +52,7 @@ from deft_tpu_torch.models.config import LlamaConfig
 from deft_tpu_torch.models.llama import (KVPool, RaggedPrefillBatch,
                                          decode_forward, prefill_forward,
                                          ragged_prefill_forward)
-from deft_tpu_torch.models.loader import check_supported, random_params
+from deft_tpu_torch.models.loader import load_params, random_params
 from deft_tpu_torch.models.rope import rope_table
 from deft_tpu_torch.obs import create_logger
 from deft_tpu_torch.obs.timers import synchronize
@@ -90,6 +91,14 @@ def topk_lowest_index(probs: torch.Tensor, k: int) -> tuple:
     ids, perm = ids.sort(dim=-1)
     vals, perm2 = vals.gather(-1, perm).sort(dim=-1, descending=True, stable=True)
     return vals[:, :k], ids.gather(-1, perm2)[:, :k]
+
+
+def packs_heads(head_dim: int) -> bool:
+    """deft_tpu's gate of its paged kernels (runner.py:1262-1295): a head's
+    row packs into 128 lanes (128 % head_dim == 0).  Other widths (Phi-3's
+    96, Gemma's 256) take gather plans and the gather kernels B6 and B7 in
+    both packages, so the port builds deft_tpu's plans at every width."""
+    return 128 % head_dim == 0
 
 
 def check_grid_mode(mode: ForwardMode) -> None:
@@ -135,13 +144,16 @@ class ModelRunner:
         engine_config: EngineConfig = EngineConfig(),
         device="cuda",
         params: Optional[Dict[str, torch.Tensor]] = None,
+        model_path: Optional[str] = None,
         seed: int = 0,
         topk_k: int = 64,
         retain_full_logits: bool = False,
         mesh=None,
         use_tree_index: bool = False,
     ):
-        check_supported(model_config)
+        """``params``: the port's parameter dict; else ``model_path``: a
+        local HF checkpoint (models/loader.py load_params); else random
+        weights from ``seed``."""
         self.cfg = model_config
         self.ecfg = engine_config
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
@@ -161,12 +173,21 @@ class ModelRunner:
                                                           shard_params)
 
             self._shard = ShardedModel(self.mesh)
-            if params is None:
+            if params is None and model_path is not None:
+                params = shard_params(self.mesh, load_params(
+                    model_path, model_config, "cpu", self.dtype,
+                    engine_config.weight_dtype), model_config)
+            elif params is None:
                 params = random_shard_params(model_config, seed, self.mesh,
                                              self.device, self.dtype,
                                              engine_config.weight_dtype)
             else:
                 params = shard_params(self.mesh, params, model_config)
+        elif params is None and model_path is not None:
+            logger.info("loading weights from %s (weights=%s)", model_path,
+                        engine_config.weight_dtype)
+            params = load_params(model_path, model_config, self.device,
+                                 self.dtype, engine_config.weight_dtype)
         elif params is None:
             logger.info("random-init params (seed=%d, weights=%s)", seed,
                         engine_config.weight_dtype)
@@ -177,7 +198,8 @@ class ModelRunner:
         max_pos = min(self.cfg.context_len, engine_config.max_context_len)
         self._rope_tbl = torch.from_numpy(rope_table(
             self.cfg.head_dim, max_pos, self.cfg.rope_theta,
-            self.cfg.rope_scaling)).to(self.device)
+            self.cfg.rope_scaling,
+            orig_max_pos=self.cfg.max_position_embeddings)).to(self.device)
 
         self.kv_quantized = engine_config.kv_dtype == "int8"
         slots = engine_config.kv_pool_slots or self._profile_slots()
@@ -387,7 +409,9 @@ class ModelRunner:
         made for its TPU kernels' 128-lane scale reads and kept so both
         packages build the same plans: flatten-family (flatten, node,
         tree_index) segments of 512, 256 or 128 tokens at waste limits 1.1,
-        1.2 and 3.0, seq segments of 128 at 32."""
+        1.2 and 3.0, seq segments of 128 at 32.  Seq plans ask for the
+        paged layout only where the head width packs (``packs_heads``), as
+        deft_tpu's do."""
         a = self.ecfg.attention
         kw = dict(q_per_kv=self.cfg.q_per_kv, block_len=a.block_len,
                   min_token_bucket=self.ecfg.min_token_bucket)
@@ -402,14 +426,19 @@ class ModelRunner:
             return build_node_plan(self.tree, chunk_len=a.node_chunk_len, **kw)
         if kind == "tree_index":
             return build_tree_index_plan(self.tree, **kw)
-        return build_seq_plan(self.tree, want_paged=True, **kw)
+        return build_seq_plan(self.tree, want_paged=packs_heads(self.cfg.head_dim),
+                              **kw)
 
     def _use_paged(self, plan, mode: Optional[ForwardMode] = None) -> bool:
         """Paged-kernel eligibility (deft_tpu runner.py:1275): a seg-aligned
-        plan, in any mode but UNPAGED_MEDUSA.  The Hopper kernels have no
-        head-packing constraint."""
+        plan, in any mode but UNPAGED_MEDUSA, at a head width that packs
+        (``packs_heads``).  A flatten plan at another width is segment-
+        aligned and gathers all the same: it runs B6 over its kv_idx, as
+        deft_tpu runs it there; the paged kernels are built for head_dim 64
+        and 128 only."""
         return (isinstance(plan, (FlattenPlan, SeqPlan)) and plan.paged
-                and mode is not ForwardMode.UNPAGED_MEDUSA)
+                and mode is not ForwardMode.UNPAGED_MEDUSA
+                and packs_heads(self.cfg.head_dim))
 
     def _step_batch(self, plan, paged: Optional[bool] = None) -> SimpleNamespace:
         """The step's plan arrays on the device, as the AttnFn batch: the

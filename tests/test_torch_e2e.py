@@ -110,13 +110,16 @@ def test_cli_runs_on_cpu(tmp_path, capsys):
         text = capsys.readouterr().out
         assert "TPOT (ms/token)" in text and text.count("Branch ID") == 2
     for flag, value in (("--model", str(tmp_path)), ("--kernels", "xla")):
-        with pytest.raises(SystemExit):  # not ported: argparse refuses it
+        # --model beside --random-model, and the unported --kernels:
+        # argparse refuses both
+        with pytest.raises(SystemExit):
             run.main(["--device", "cpu", "--random-model", "tiny", flag, value])
 
 
 def test_refusals():
-    """No silent fallbacks: CUDA without a GPU, unported families, rope
-    scalings and engine options raise; a gather plan (short prompt) runs
+    """No silent fallbacks: CUDA without a GPU, the families deft_tpu
+    refuses, unknown rope scalings and engine options raise; the ported
+    families and scalings construct; a gather plan (short prompt) runs
     through its kernel entry and matches the dense oracle.  On the CPU both
     are B6's / B7's plain version, so this checks the dispatch only;
     tests/test_torch_gather.py holds them against deft_tpu."""
@@ -149,15 +152,22 @@ def test_refusals():
         assert float((g - w).abs().max() / w.abs().max()) < 1e-5  # fp32 order
     import dataclasses
 
-    qk = dataclasses.replace(PRESETS["tiny"], qk_norm=True)  # Qwen3: not ported
-    with pytest.raises(NotImplementedError, match="qk-norm"):
-        ModelRunner(qk, EngineConfig(**ECFG), device="cpu")
+    qk = dataclasses.replace(PRESETS["tiny"], qk_norm=True)  # Qwen3: ported
+    assert ModelRunner(qk, EngineConfig(**ECFG), device="cpu").params["ln_q"].shape == (2, 32)
     moe = dataclasses.replace(PRESETS["tiny"], num_experts=4)  # Mixtral: ported
     assert ModelRunner(moe, EngineConfig(**ECFG), device="cpu").params["wg"].dim() == 4
     yarn = dataclasses.replace(PRESETS["tiny"],
                                rope_scaling={"rope_type": "yarn", "factor": 4.0})
-    with pytest.raises(NotImplementedError, match="yarn"):
-        ModelRunner(yarn, EngineConfig(**ECFG), device="cpu")
+    ModelRunner(yarn, EngineConfig(**ECFG), device="cpu")  # ported
+    unknown = dataclasses.replace(PRESETS["tiny"],
+                                  rope_scaling={"rope_type": "su", "factor": 4.0})
+    with pytest.raises(NotImplementedError, match="su"):
+        ModelRunner(unknown, EngineConfig(**ECFG), device="cpu")
+    from deft_tpu_torch.models.config import LlamaConfig
+
+    with pytest.raises(NotImplementedError, match="Gemma2"):
+        LlamaConfig.from_hf_config({"architectures": ["Gemma2ForCausalLM"],
+                                    "hidden_size": 64, "num_attention_heads": 4})
     with pytest.raises(ValueError, match="kv_dtype"):
         EngineConfig(**ECFG, kv_dtype="fp8")
 

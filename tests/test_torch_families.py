@@ -1,0 +1,278 @@
+"""deft_tpu_torch on local HF checkpoints of every family deft_tpu loads,
+held against deft_tpu and against transformers.
+
+Six tiny random HF models (Llama, Qwen2 with qkv biases, Qwen3 with q/k
+norms, Gemma with (1 + w) norms, GeGLU and a tied lm_head, Mixtral's sparse
+MoE, Phi-3 with fused qkv/gate_up tensors and LongRoPE), built as
+tests/test_hf_parity.py builds them and saved with ``save_pretrained``:
+
+- the port's parsed config equals deft_tpu's;
+- the port's load_params equals deft_tpu's (fused names) exactly in fp32;
+- the prefill distribution matches HF and deft_tpu within atol 5e-5;
+- a branch-into-2 tree decode matches HF's per-path rerun within 5e-5,
+  with equal greedy ids;
+- an int8 load stays within 5e-2 of HF with an equal argmax;
+- ``--model`` runs the CLI on each checkpoint;
+- a tiny Qwen2 and Qwen3 on a gloo grid 1x1x2 give the single process's
+  first decode step within 2e-5.
+
+Then the port's safetensors reader against ``safetensors.safe_open`` (F32,
+BF16 and a two-file checkpoint), the ``.bin`` path, and the loader's
+refusals.
+"""
+
+import json
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+import transformers
+from safetensors import safe_open
+from safetensors.torch import save_file
+
+from deft_tpu.config import EngineConfig as JEngineConfig
+from deft_tpu.models.config import LlamaConfig as JLlamaConfig
+from deft_tpu.models.loader import load_params as j_load_params
+from deft_tpu.runtime import ModelRunner as JRunner
+from deft_tpu_torch.cli import run as cli
+from deft_tpu_torch.config import EngineConfig
+from deft_tpu_torch.models.config import LlamaConfig
+from deft_tpu_torch.models.loader import load_params, read_safetensors
+from deft_tpu_torch.parallel import launch
+from deft_tpu_torch.parallel.launch import first_step, run_all
+from deft_tpu_torch.runtime import ForwardMode, ModelRunner
+
+PROMPT = [3, 11, 250, 77, 141, 9, 62, 200, 5, 18, 33, 127]
+DECODE_STEPS = 6
+FAMILIES = ["llama", "qwen2", "qwen3", "gemma", "mixtral", "phi3"]
+ECFG = dict(kv_pool_slots=2048, max_requests=16, max_context_len=256,
+            min_token_bucket=128, dtype="float32")
+_TINY = dict(vocab_size=256, hidden_size=64, intermediate_size=128,
+             num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+             max_position_embeddings=512, rms_norm_eps=1e-5,
+             tie_word_embeddings=False, torch_dtype=torch.float32)
+
+
+def make_hf(family):
+    """The tiny HF model of ``family`` (tests/test_hf_parity.py:48-96)."""
+    if family == "llama":
+        cfg = transformers.LlamaConfig(rope_theta=10000.0, attention_bias=False,
+                                       mlp_bias=False, **_TINY)
+        cls = transformers.LlamaForCausalLM
+    elif family == "qwen2":
+        cfg = transformers.Qwen2Config(rope_theta=1e6, use_sliding_window=False, **_TINY)
+        cls = transformers.Qwen2ForCausalLM
+    elif family == "qwen3":
+        cfg = transformers.Qwen3Config(rope_theta=1e6, use_sliding_window=False,
+                                       attention_bias=False, head_dim=16, **_TINY)
+        cls = transformers.Qwen3ForCausalLM
+    elif family == "gemma":
+        cfg = transformers.GemmaConfig(rope_theta=10000.0, attention_bias=False,
+                                       head_dim=16, **(_TINY | {"tie_word_embeddings": True}))
+        cls = transformers.GemmaForCausalLM
+    elif family == "mixtral":
+        cfg = transformers.MixtralConfig(rope_theta=1e6, sliding_window=None,
+                                         attention_bias=False, num_local_experts=4,
+                                         num_experts_per_tok=2, **_TINY)
+        cls = transformers.MixtralForCausalLM
+    else:
+        cfg = transformers.Phi3Config(
+            rope_theta=10000.0, sliding_window=None, pad_token_id=0,
+            original_max_position_embeddings=256,
+            rope_scaling={"type": "longrope",
+                          "short_factor": [1.0 + 0.25 * i for i in range(8)],
+                          "long_factor": [4.0 + 0.5 * i for i in range(8)]},
+            **_TINY)
+        cls = transformers.Phi3ForCausalLM
+    torch.manual_seed(0)
+    return cls(cfg).eval()
+
+
+@pytest.fixture(scope="module", params=FAMILIES)
+def hf_model(request, tmp_path_factory):
+    model = make_hf(request.param)
+    d = tmp_path_factory.mktemp(f"hf_{request.param}")
+    model.save_pretrained(d, safe_serialization=True)
+    return str(d), model
+
+
+def hf_next_probs(model, token_ids):
+    with torch.no_grad():
+        logits = model(torch.tensor([token_ids])).logits[0, -1]
+    return torch.softmax(logits.double(), -1).numpy()
+
+
+def port_runner(path, **kw):
+    return ModelRunner(LlamaConfig.from_pretrained(path), EngineConfig(**ECFG, **kw),
+                       device="cpu", model_path=path, retain_full_logits=True)
+
+
+def port_probs(view, rows):
+    return torch.softmax(view.full_logits()[:rows].double(), -1).numpy()
+
+
+def test_config_matches_deft_tpu(hf_model):
+    path, _ = hf_model
+    cfg = json.loads((pathlib.Path(path) / "config.json").read_text())
+    assert LlamaConfig.from_hf_config(cfg).__dict__ == JLlamaConfig.from_hf_config(cfg).__dict__
+
+
+def test_load_params_matches_deft_tpu(hf_model):
+    path, _ = hf_model
+    cfg = LlamaConfig.from_pretrained(path)
+    got = load_params(path, cfg, "cpu", torch.float32)
+    want = j_load_params(path, JLlamaConfig.from_pretrained(path),
+                         dtype=np.float32, fuse=True)
+    assert sorted(got) == sorted(want)
+    for name, w in want.items():
+        np.testing.assert_array_equal(got[name].numpy(), np.asarray(w), err_msg=name)
+
+
+def test_prefill_matches_hf_and_deft_tpu(hf_model):
+    path, model = hf_model
+    view = port_runner(path).forward_prefill(PROMPT)
+    got = port_probs(view, 1)[0]
+    np.testing.assert_allclose(got, hf_next_probs(model, PROMPT), rtol=0, atol=5e-5)
+    jr = JRunner(JLlamaConfig.from_pretrained(path), JEngineConfig(**ECFG),
+                 kernels="xla", model_path=path, retain_full_logits=True)
+    want = jr.forward_prefill(PROMPT).full_probs()[0] - 1e-6
+    np.testing.assert_allclose(got, want, rtol=0, atol=5e-5)
+    assert int(view.ids[0, 0]) == int(want.argmax())
+
+
+def test_tree_decode_matches_hf_per_path(hf_model):
+    """Branch the root into the prefill's top 2, decode greedily: every
+    step, each leaf's distribution is HF's over the leaf's whole path."""
+    path, model = hf_model
+    runner = port_runner(path)
+    view = runner.forward_prefill(PROMPT)
+    tree = runner.tree
+    _, top2 = view.topk(0, 2)
+    for c, child in enumerate(tree.branch(tree.root, 2)):
+        child.append_token(int(top2[c]))
+    for step in range(DECODE_STEPS):
+        tree.alloc()
+        plan = runner.build_plan(ForwardMode.TREE_DECODE_FLATTEN)
+        lv, _ = runner.forward_tree_decode(ForwardMode.TREE_DECODE_FLATTEN, plan)
+        probs = port_probs(lv, plan.l_pad)
+        ids, _ = lv.argmax()
+        for leaf in list(tree.leaves.values()):
+            q = tree.leaf_to_q[leaf.id]
+            node, chain = leaf, []
+            while node is not None:
+                chain.append(node)
+                node = node.parent
+            tokens = [int(t) for n in reversed(chain) for t in n.token_ids]
+            want = hf_next_probs(model, tokens)
+            np.testing.assert_allclose(probs[q], want, rtol=0, atol=5e-5,
+                                       err_msg=f"step {step}, leaf {leaf.id}")
+            assert int(ids[q]) == int(want.argmax()), (step, leaf.id)
+            leaf.append_token(int(ids[q]))
+
+
+def test_int8_load_matches_hf(hf_model):
+    path, model = hf_model
+    runner = port_runner(path, weight_dtype="int8")
+    assert any(k.endswith("_s") for k in runner.params)
+    assert not any(k.startswith(("bqkv", "ln")) and runner.params[k].dtype == torch.int8
+                   for k in runner.params)  # biases and norms stay unquantised
+    view = runner.forward_prefill(PROMPT)
+    want = hf_next_probs(model, PROMPT)
+    assert int(view.ids[0, 0]) == int(want.argmax())
+    np.testing.assert_allclose(port_probs(view, 1)[0], want, rtol=0, atol=5e-2)
+
+
+def test_cli_model_runs_each_family(hf_model, capsys):
+    path, _ = hf_model
+    assert cli.main(["--device", "cpu", "--model", path, "--max_width", "2",
+                     "--max_seq_len", "24", "--dtype", "float32", "--kv_pool_slots",
+                     "2048", "--print-branches"]) == 0
+    out = capsys.readouterr().out
+    assert "TPOT (ms/token)" in out and out.count("Branch ID") == 2
+
+
+@pytest.fixture(scope="module")
+def grid_checkpoints(tmp_path_factory):
+    """Tiny Qwen2 and Qwen3 checkpoints and their first decode step on a
+    gloo grid 1x1x2 (one launch for both)."""
+    paths = {}
+    for family in ("qwen2", "qwen3"):
+        d = tmp_path_factory.mktemp(f"grid_{family}")
+        make_hf(family).save_pretrained(d, safe_serialization=True)
+        paths[family] = str(d)
+    calls = [(first_step, dict(cfg=LlamaConfig.from_pretrained(p),
+                               ecfg=EngineConfig(**ECFG), prompt=PROMPT,
+                               mode="flatten", width=3, model_path=p))
+             for p in paths.values()]
+    # the worker lives in the package: a spawned rank imports no test module
+    got = launch(run_all, (1, 1, 2), "cpu", args=(calls,), timeout=600)
+    return paths, dict(zip(paths, got))
+
+
+@pytest.mark.parametrize("family", ["qwen2", "qwen3"])
+def test_grid_matches_single_process(grid_checkpoints, family):
+    paths, got = grid_checkpoints
+    from deft_tpu_torch.parallel.mesh import Grid
+
+    one = first_step(Grid((1, 1, 1), 0, torch.device("cpu")),
+                     LlamaConfig.from_pretrained(paths[family]), EngineConfig(**ECFG),
+                     PROMPT, "flatten", width=3, model_path=paths[family])
+    _, ids, vals = got[family]
+    np.testing.assert_array_equal(ids, one[1])
+    np.testing.assert_allclose(vals, one[2], rtol=2e-5, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["F32", "BF16", "two files"])
+def test_safetensors_reader_matches_safe_open(tmp_path, kind):
+    rng = np.random.default_rng(0)
+    dtype = torch.bfloat16 if kind == "BF16" else torch.float32
+    tensors = {f"t{i}": torch.from_numpy(rng.standard_normal((3 + i, 5)).astype(np.float32)
+                                         ).to(dtype) for i in range(4)}
+    tensors["i8"] = torch.from_numpy(rng.integers(-127, 128, (7,), dtype=np.int8))
+    tensors["f16"] = torch.from_numpy(rng.standard_normal(6).astype(np.float16))
+    files = ([dict(list(tensors.items())[:3]), dict(list(tensors.items())[3:])]
+             if kind == "two files" else [tensors])
+    for i, part in enumerate(files):
+        save_file(part, str(tmp_path / f"model-{i:05d}.safetensors"))
+    got = {}
+    for i in range(len(files)):
+        f = str(tmp_path / f"model-{i:05d}.safetensors")
+        got.update(read_safetensors(f))
+        with safe_open(f, framework="pt") as sf:
+            for name in sf.keys():
+                want = sf.get_tensor(name)
+                assert got[name].dtype == want.dtype and torch.equal(got[name], want), name
+    assert sorted(got) == sorted(tensors)
+
+
+def test_bin_checkpoint_loads(tmp_path):
+    """A pytorch_model.bin checkpoint loads as its safetensors twin does."""
+    model = make_hf("llama")
+    st, pt = tmp_path / "st", tmp_path / "bin"
+    model.save_pretrained(st, safe_serialization=True)
+    model.save_pretrained(pt, safe_serialization=False)
+    assert list(pt.glob("pytorch_model*.bin")) and not list(pt.glob("*.safetensors"))
+    cfg = LlamaConfig.from_pretrained(str(st))
+    a = load_params(str(st), cfg, "cpu", torch.float32)
+    b = load_params(str(pt), cfg, "cpu", torch.float32)
+    assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+def test_loader_refusals(tmp_path):
+    model = make_hf("llama")
+    model.save_pretrained(tmp_path, safe_serialization=True)
+    cfg = LlamaConfig.from_pretrained(str(tmp_path))
+    state = {k: v.contiguous() for k, v in model.state_dict().items()}
+    for f in tmp_path.glob("*.safetensors"):
+        f.unlink()
+    # an untied config whose checkpoint has no lm_head: refused, never tied
+    save_file({k: v for k, v in state.items() if k != "lm_head.weight"},
+              str(tmp_path / "model.safetensors"))
+    with pytest.raises(ValueError, match="lm_head"):
+        load_params(str(tmp_path), cfg, "cpu", torch.float32)
+    # a name the map does not know
+    save_file(state | {"model.layers.0.mlp.extra.weight": torch.zeros(2)},
+              str(tmp_path / "model.safetensors"))
+    with pytest.raises(KeyError, match="unmapped"):
+        load_params(str(tmp_path), cfg, "cpu", torch.float32)
