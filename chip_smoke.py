@@ -9,7 +9,11 @@
         # profiled flatten steps), over this checkout's package or DIR's:
         # a parent commit timed in turns with this one on one card
     python3 chip_smoke.py --seq-only [--root DIR]
-        # the same for the seq kernels (B2, B2p, B5, B5p, B7)
+        # the same for the seq kernels (B2, B2p, B5, B5p, B7; B7 also at
+        # the wide heads, D 96 and 256, and its path edges at every width)
+    python3 chip_smoke.py --prefill-only [--root DIR]
+        # the same for B3 and B8 at head_dim 64, 96, 128 and 256: each
+        # against its plain version, then its time beside its bound
     python3 chip_smoke.py --workloads-only [--profile]
         # the card, the build and the workloads phase (8 below) alone
 
@@ -17,9 +21,11 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
 result line):
   1. card:    nvidia-smi's name and power limit, torch's device name;
   2. build:   nvcc builds every kernel from csrc/, one process per source;
-              the wgmma bodies (B1's among them) must hold HGMMA, the
-              mma.sync bodies of B2, B4, B5 and B7 HMMA (cuobjdump's SASS);
-              ptxas's register and spill lines of B1's body;
+              the wgmma bodies (B1's among them, B3/B8's instantiations at
+              D 96 and 256) must hold HGMMA, the mma.sync bodies of B2, B4,
+              B5 and B7 (seq_q_wide at D 96 and 256 too) HMMA (cuobjdump's
+              SASS); ptxas's register and spill lines of B1's body and of
+              the wide heads' bodies, B3/B8's and B7's without a spill;
   3. kernels: each kernel against its plain torch version on the card, on the
               shapes its path gives it (Llama-3.1-8B heads and matmuls, B10
               at Mixtral-8x7B's prefill; the partial entries B1p, B4p, B2p
@@ -49,8 +55,10 @@ result line):
               which take gather plans only) run B3, B8, B6, B7 (bf16 and
               int8 pools) and B11 at the same path shapes (wide_shapes),
               fp32 and bf16 edge cases and a fault control each
-              (wide_edges); their rows in the kernels line are named
-              <kernel>_d96 and <kernel>_d256;
+              (wide_edges; B3 at qpk 1, 2, 4 and 8, B7 also on b7_edges'
+              synthetic paths at qpk 1, 2 and 8 with its controls); their
+              rows in the kernels line are named <kernel>_d96 and
+              <kernel>_d256;
   4. main:    the 8B model (random bf16 weights from a CUDA torch.Generator,
               all 32 layers) serves Simple_Tree few-shot, width 50, prompt
               4000, 64 generated tokens, block_len 256, in flatten then seq
@@ -164,8 +172,10 @@ result line):
               settings: the first step seq against flatten below the
               family's FAMILY_LIMITS (noise below, every other prompt block
               dropped above), B1/B2 (Qwen) or B6/B7 (Gemma, every step)
-              launched, TTFT, TPOT and peak memory printed; Gemma's B3, B6
-              and B7 launches join the kernels line's _d256 rows;
+              launched, TTFT, TPOT and peak memory printed, and for
+              Gemma B7's device ms in 4 profiled seq steps against their
+              device busy and wall time; Gemma's B3, B6 and B7 launches
+              join the kernels line's _d256 rows;
  15. tracing: one short CLI run under --trace-dir: the Chrome trace holds
               the decode_step spans and kernels of the port;
  16. timing:  CUDA-event times of each kernel, its plain version and, where
@@ -196,6 +206,7 @@ import contextlib
 import inspect
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -876,9 +887,9 @@ def sass_count(name: str, opcode: str, function: str = "") -> int:
         if function else sass.count(opcode)
 
 
-# the tensor-core bodies over bf16 q of the decode kernels: label -> (library,
-# the mangled-name fragment of its kernels, the SASS opcode it must hold:
-# HMMA for mma.sync, HGMMA for wgmma)
+# the tensor-core bodies over bf16 q of the decode kernels and of B3/B8 at
+# the wide heads: label -> (library, the mangled-name fragment of its
+# kernels, the SASS opcode it must hold: HMMA for mma.sync, HGMMA for wgmma)
 MMA_BODIES = {"B2/B2p (deft_seq_q, bf16 KV)": ("paged_seq", "seq_q_mmaI13__nv_bfloat16",
                                                 "HMMA"),
               "B5/B5p (deft_seq_q, int8 KV)": ("paged_seq", "seq_q_mmaIa", "HMMA"),
@@ -890,16 +901,29 @@ MMA_BODIES = {"B2/B2p (deft_seq_q, bf16 KV)": ("paged_seq", "seq_q_mmaI13__nv_bf
               "B6/B11 (deft_flat_q, int8 KV)": ("flatten_gather", "flatten_q_mmaIa", "HMMA"),
               "B7 (deft_seq_q, bf16 KV)": ("seq_gather", "seq_q_mmaI13__nv_bfloat16", "HMMA"),
               "B7 (deft_seq_q, int8 KV)": ("seq_gather", "seq_q_mmaIa", "HMMA"),
-              # the wide heads (D 96, 256) over bf16 q: flash_common.cuh's
-              # body on mma.sync (B7's there is seq_body.cuh's FMA body)
-              "B3/B8 at D 96 and 256 (flash_common, bf16)": (
-                  "prefill", "prefill_kernelI13__nv_bfloat16", "HMMA"),
+              # the wide heads (D 96, 256): B3/B8 on the wgmma body, B7 on
+              # seq_q_wide (path tokens on M), B6/B11 on flatten_body.cuh's
+              # mma.sync body
+              "B3/B8 at D 96 (wgmma, bf16)": ("prefill", "prefill_wgmmaILi96E", "HGMMA"),
+              "B3/B8 at D 256 (wgmma, bf16)": ("prefill", "prefill_wgmmaILi256E", "HGMMA"),
+              "B7 at D 96 and 256 (seq_q_wide, bf16 KV)": (
+                  "seq_gather", "seq_q_wideI13__nv_bfloat16", "HMMA"),
+              "B7 at D 96 and 256 (seq_q_wide, int8 KV)": ("seq_gather", "seq_q_wideIa",
+                                                           "HMMA"),
               "B6/B11 at D 96 and 256 (flatten_body, bf16 q)": (
                   "flatten_gather", "flatten_partial_kernelI13__nv_bfloat16", "HMMA")}
-# the wide heads' bf16 bodies whose registers and spills phase_build prints
-WIDE_BODIES = {"B3/B8": ("prefill", "prefill_kernelI13__nv_bfloat16"),
+# the wide heads' bf16 bodies whose registers and spills phase_build prints;
+# those redesigned for the wide heads (spill_free) must not spill
+WIDE_BODIES = {"B3/B8 D 96": ("prefill", "prefill_wgmmaILi96E"),
+               "B3/B8 D 256": ("prefill", "prefill_wgmmaILi256E"),
                "B6/B11": ("flatten_gather", "flatten_partial_kernelI13__nv_bfloat16"),
-               "B7": ("seq_gather", "seq_kernelI13__nv_bfloat16")}
+               "B7": ("seq_gather", "seq_q_wide")}
+SPILL_FREE = ("B3/B8 D 96", "B3/B8 D 256", "B7")
+
+
+def spill_bytes(line: str) -> int:
+    """The spill store and load bytes on one of ptxas -v's lines."""
+    return sum(int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", line))
 
 
 def ptxas_lines(name: str, function: str) -> list:
@@ -934,8 +958,9 @@ def phase_build(bodies: bool = True):
         for line in log.splitlines():  # ptxas serialising wgmma costs speed
             if "wgmma" in line:
                 print(f"[build] {name}: {line.strip()}")
-    # the bf16 bodies of B3/B8, B10, B9, B1 and B6 run on wgmma (HGMMA in
-    # their SASS), B2's, B4's, B5's and B7's over bf16 q on mma.sync (HMMA)
+    # the bf16 bodies of B3/B8 (every width), B10, B9, B1 and B6 run on
+    # wgmma (HGMMA in their SASS), B2's, B4's, B5's and B7's over bf16 q on
+    # mma.sync (HMMA)
     hgmma = {name: sass_count(name, "HGMMA") for name in _cuda.SOURCES}
     hmma = {name: sass_count(name, "HMMA") for name in _cuda.SOURCES}
     print(f"[build] HGMMA instructions by library: {hgmma}", flush=True)
@@ -955,8 +980,14 @@ def phase_build(bodies: bool = True):
         for line in ptxas_lines(*MMA_BODIES[label][:2]):
             print(f"[build] {label.split()[0]} body: {line}", flush=True)
     for label, (lib, fn) in WIDE_BODIES.items():
-        for line in ptxas_lines(lib, fn):
+        lines = ptxas_lines(lib, fn)
+        for line in lines:
             print(f"[build] {label} wide-head body: {line}", flush=True)
+        if label in SPILL_FREE:
+            check(any("spill" in line for line in lines),
+                  f"no ptxas spill line for the {label} body")
+            check(not any(spill_bytes(line) for line in lines),
+                  f"the {label} body spills registers")
 
 
 def phase_kernels(dev, shapes):
@@ -1353,18 +1384,19 @@ def b7_split_tokens(length, splits, split):
                      min(16 * (tiles * (split + 1) // splits), length))
 
 
-def b7_edges(dev, gen):
-    """B7 over bf16 q (deft_seq_q with the path table as its path source)
-    against its plain version beyond the path shapes, bf16, tolerance 2e-2,
-    every row (padded leaves give 0 in both) and every output finite:
-    synthetic gather plans with path lengths off the 16-token tile, a
-    one-token leaf, a seq_len 0 leaf between live ones (its rows must be
-    exactly 0) and a path as long as the padded width; qpk 1, 4, 7 and 8; D 64
-    and 128; bf16 and int8 pools; each path split over 1, 3 and 8 blocks of
-    a cluster.  The pool rows at DUMP_SLOT (and for int8 their scales) hold
-    NaN in the kernel's pools, so a pad read would show as a non-finite
-    output; the plain version reads the same pools with row 0 finite.
-    Controls through the plain version: leaf 0's and leaf 1's last path
+def b7_edges(dev, gen, widths=(64, 128), qpks=(1, 4, 7, 8)):
+    """B7 over bf16 q (deft_seq_q with the path table as its path source;
+    seq_q_wide at D 96 and 256) against its plain version beyond the path
+    shapes, bf16, tolerance 2e-2, every row (padded leaves give 0 in both)
+    and every output finite: synthetic gather plans with path lengths off
+    the 16-token tile, a one-token leaf, a seq_len 0 leaf between live ones
+    (its rows must be exactly 0) and a path as long as the padded width;
+    qpk `qpks` (1, 4, 7 and 8); D `widths` (64 and 128); bf16 and int8
+    pools; each path split over 1, 3 and 8 blocks of a cluster.  The pool
+    rows at DUMP_SLOT (and for int8 their scales) hold NaN in the kernel's
+    pools, so a pad read would show as a non-finite output; the plain
+    version reads the same pools with row 0 finite.  Controls through the
+    plain version, at the last width: leaf 0's and leaf 1's last path
     entries swapped between the leaves (17-token paths); leaf 0's last
     token hidden; the share of a 150-token path that the middle of three
     blocks takes left out."""
@@ -1394,8 +1426,8 @@ def b7_edges(dev, gen):
 
     lens = [37, 1, 0, C, 16, 100, 150, 0]
     for kv in ("inherit", "int8"):
-        for D in (64, 128):
-            for qpk in (1, 4, 7, 8):
+        for D in widths:
+            for qpk in qpks:
                 args, clean = case(lens, qpk, D, kv)
                 want = plain(*clean)
                 for sp in (1, 3, 8):
@@ -1413,7 +1445,7 @@ def b7_edges(dev, gen):
                           f"seq_gather {label}: a seq_len 0 leaf is not 0")
     # controls: 17-token paths, queries small so each token weighs about a
     # seventeenth
-    args, clean = case([17, 17, 150], 4, 128, "inherit")
+    args, clean = case([17, 17, 150], 4, widths[-1], "inherit")
     args[0][:2] *= 0.05  # q, shared by both
     named = named_args("seq_gather", clean)
     got = kern(*args)
@@ -1838,11 +1870,13 @@ def wide_edges(dev, gen):
     pools on the FULL/dead/few-leaf tree in the gather layout and on the
     16-token prompt's tree as the runner builds it, at block_len 128 and
     256; B11 on every rank's window of a dp 2 x sp 3 grid.  bf16 (2e-2): B3
-    and B8 at qpk 4 and 1, N 1017; B6, B7 and B11 at qpk 4 over both pool
-    types.  Controls through the plain versions, each above the tolerance:
-    B3 and B8 a causal mask off by one; B6 and B11 two leaves' own tokens'
-    kv_idx swapped; B7 the last entries of two 17-token paths swapped
-    between the leaves."""
+    at qpk 4, 2, 8 and 1 and B8 at qpk 4 and 1, N 1017; B6, B7 and B11 at
+    qpk 4 over both pool types; B7 on b7_edges' synthetic gather paths at
+    qpk 1, 2 and 8, over 1, 3 and 8 blocks a path.  Controls through the
+    plain versions, each above the tolerance: B3 and B8 a causal mask off
+    by one; B6 and B11 two leaves' own tokens' kv_idx swapped; B7 the last
+    entries of two 17-token paths swapped between the leaves (and
+    b7_edges' controls at D 256)."""
     import torch
     from deft_tpu_torch.parallel.mesh import Grid
     from deft_tpu_torch.plan import build_flatten_plan
@@ -1855,8 +1889,10 @@ def wide_edges(dev, gen):
         B6, B7, B11 = f"flatten_gather_d{D}", f"seq_gather_d{D}", f"flatten_gather_partial_d{D}"
         for dt, tol in ((f32, TOL["float32"]), (bf16, TOL["bfloat16"])):
             tag = "fp32" if dt == f32 else "bf16"
-            for N, Hq, Hkv in ((300, 8, 2), (1017, 8, 2), (1017, 2, 2)):
-                if dt == f32 or N == 1017:
+            for N, Hq, Hkv in ((300, 8, 2), (1017, 8, 2), (1017, 4, 2), (1017, 16, 2),
+                               (1017, 2, 2)):
+                # fp32 at qpk 4 and 1; bf16 at N 1017, qpk 4, 2, 8 and 1
+                if dt == bf16 and N == 1017 or dt == f32 and Hq // Hkv in (4, 1):
                     args = prefill_case(N, Hq, Hkv, D, dt, dev, gen)
                     check_edge("wide", B3, f"{tag} D={D} qpk {Hq // Hkv} N={N}", args, N,
                                Hq // Hkv, tol)
@@ -1936,6 +1972,8 @@ def wide_edges(dev, gen):
         rel_err_control(B7, f"D={D} 17-token paths, leaf 0's and leaf 1's last entries "
                         "swapped", got[:2], wrappers()[B7][1](**dict(named, paths=swapped))[:2],
                         tol)
+    # B7's wide body at the path edges, with its row mapping at several live rows
+    b7_edges(dev, gen, widths=tuple(WIDE_HEADS), qpks=(1, 2, 8))
 
 
 def dense_masked(q, k, v, scale, mask):
@@ -3937,6 +3975,8 @@ def family_serve(name, source, hf_cfg, dev, smi) -> dict:
         check(paged or not moved.get(other[mode], 0), f"families {name} {mode}: "
               f"{other[mode]} launched at head_dim {cfg.head_dim}: {moved}")
     peak = torch.cuda.max_memory_allocated() / 1e9
+    if not paged:  # B7's share of a seq step (every step a gather plan)
+        seq_step_share(runner, prompt, name, smi)
     f, s = runs["flatten"]["pm"], runs["seq"]["pm"]
     print(f"[families] {name} ({source}; {cfg.num_layers} layers, {cfg.num_q_heads}/"
           f"{cfg.num_kv_heads} heads of {cfg.head_dim}): TTFT {f.TTFT:.3f} / {s.TTFT:.3f} ms, "
@@ -3946,6 +3986,22 @@ def family_serve(name, source, hf_cfg, dev, smi) -> dict:
     del runner, params
     release()
     return launches
+
+
+def seq_step_share(runner, prompt, name, smi, steps=4) -> None:
+    """torch.profiler over `steps` seq decode steps right after branching
+    (profile_decode): B7's device ms a step (the seq kernels of
+    csrc/seq_gather.cu, by name) against the step's device busy time and
+    its wall time."""
+    from deft_tpu_torch.runtime import ForwardMode
+
+    kernels, wall = profile_decode(runner, ForwardMode.DECODE, prompt, WIDTH, steps)
+    b7 = sum(ms for key, ms in kernels.items() if "deft_seq" in key)
+    busy = sum(kernels.values())
+    check(b7 > 0, f"families {name}: no B7 kernel in the profiled seq steps")
+    print(f"[families] {name}: B7 {b7:.3f} ms of a seq step's {busy:.3f} device ms "
+          f"({b7 / busy:.1%}) and {wall:.3f} wall ms ({b7 / wall:.1%}; profiled, "
+          f"{steps} steps); {smi}", flush=True)
 
 
 def phase_families(dev, smi) -> dict:
@@ -4122,8 +4178,9 @@ def profile_decode(runner, mode, prompt, width, steps):
     cfg = runner.cfg
     model = (f"{'MoE ' if cfg.num_experts else ''}{cfg.num_layers} layers, "
              f"{str(runner.params['wo'].dtype).split('.')[-1]} wo")
-    profile_steps(f"{mode.name}, prompt {len(prompt)}, {kv} KV, {model}", step, steps)
+    out = profile_steps(f"{mode.name}, prompt {len(prompt)}, {kv} KV, {model}", step, steps)
     runner.reset_state()
+    return out
 
 
 def profile_batch(runner, prompts, width, steps):
@@ -4190,7 +4247,8 @@ def profile_steps(label, step, steps):
     the device's busy share of the wall time, and the host and device time
     of each step's plan building, its forward and the model's kv_store calls
     and MoE blocks (either route) within it (RANGES, marked with
-    record_function while the profiler runs)."""
+    record_function while the profiler runs).  Returns (kernel name ->
+    device ms a step, wall ms a step)."""
     from torch.profiler import ProfilerActivity, profile
 
     with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof,
@@ -4199,7 +4257,7 @@ def profile_steps(label, step, steps):
         for _ in range(steps):
             step()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    profile_report(label, prof, steps, wall_ms)
+    return profile_report(label, prof, steps, wall_ms), wall_ms / steps
 
 
 def profile_generate(runner, mode, prompt, fn, template, start, steps, label):
@@ -4242,7 +4300,7 @@ def profile_generate(runner, mode, prompt, fn, template, start, steps, label):
 
 def profile_report(label, prof, steps, wall_ms, ranges=RANGES):
     """Print a profile of `steps` steps that took wall_ms (see
-    profile_steps)."""
+    profile_steps); returns kernel name -> device ms a step."""
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(
             e, "self_cuda_time_total", 0)
@@ -4277,6 +4335,7 @@ def profile_report(label, prof, steps, wall_ms, ranges=RANGES):
     for e in sorted(evs, key=dev_us, reverse=True)[:12]:
         print(f"[profile]   {dev_us(e) / 1e3 / steps:8.3f} ms/step "
               f"{e.count // steps:5d}/step  {e.key[:90]}")
+    return {e.key: dev_us(e) / 1e3 / steps for e in evs}
 
 
 def profile_kv_store(dev, reps: int = 20):
@@ -4779,18 +4838,23 @@ SEQ_NAMES = ("paged_seq", "paged_seq_partial", "paged_seq_q", "paged_seq_q_parti
              "seq_gather")
 
 
+# B7 at the wide heads: its rows in the kernels line
+WIDE_SEQ = tuple(f"seq_gather_d{D}" for D in WIDE_HEADS)
+
+
 def seq_grids(shapes, sms, tag):
     """Print the grid each seq kernel takes over bf16 q at its path shapes:
     leaves x KV heads x the blocks of a cluster a path is split over."""
     from deft_tpu_torch.ops import paged_seq_attn as ps
 
-    for name in SEQ_NAMES:
-        for label, _, args in shapes[name]:
+    for name in SEQ_NAMES + WIDE_SEQ:
+        for label, _, args in shapes.get(name, ()):
             a = named_args(name, args)
-            R, Hkv = a["q"].shape[0], a["k_pool"].shape[-1] // a["q"].shape[-1]
+            R, D = a["q"].shape[0], a["q"].shape[-1]
+            Hkv = a["k_pool"].shape[-1] // D
             int8 = a.get("k_scale") is not None
             print(f"[{tag}] {name}{' ' + label if label else ''} grid: {R} rows x {Hkv} KV "
-                  f"heads, each path over {ps.seq_splits(R, Hkv, sms, int8)} blocks of a "
+                  f"heads, each path over {ps.seq_splits(R, Hkv, sms, int8, D)} blocks of a "
                   f"cluster", flush=True)
 
 
@@ -5010,17 +5074,19 @@ def phase_flatten_only(dev, shapes, profile: bool):
 def phase_seq_only(dev, shapes, edges: bool):
     """--seq-only: the seq kernels (B2, B2p, B5, B5p on the main tree and
     rank 0's window of grid 1x2x2; B7 at the short tree and the main tree's
-    gather plan, bf16 and int8 pools) at their path shapes against their
-    plain versions, then their CUDA-event times; with `edges` (this
-    checkout's package) also b7_edges and B7 over forced splits.  Runs on
-    the package of --root too, so a parent commit is timed in turns with
+    gather plan, bf16 and int8 pools, at Llama-3.1-8B's heads and at the
+    wide heads, WIDE_SEQ) at their path shapes against their plain
+    versions, then their CUDA-event times; with `edges` (this checkout's
+    package) also b7_edges at every width and B7 over forced splits.  Runs
+    on the package of --root too, so a parent commit is timed in turns with
     this one on one card."""
     import torch
     from deft_tpu_torch.ops import _cuda
     from deft_tpu_torch.ops import paged_seq_attn as ps
 
     fns = wrappers()
-    for name in SEQ_NAMES:
+    names = SEQ_NAMES + WIDE_SEQ
+    for name in names:
         for label, plan, args in shapes[name]:
             leaves = plan[1] if name in PARTIAL_OF else plan.n_leaves
             check_edge("seq", name, f"bf16 path shapes {label}", args, leaves, 4,
@@ -5029,20 +5095,62 @@ def phase_seq_only(dev, shapes, edges: bool):
     gen.manual_seed(SEED + 12)
     if edges:
         b7_edges(dev, gen)
+        b7_edges(dev, gen, widths=tuple(WIDE_HEADS), qpks=(1, 2, 8))
         seq_grids(shapes, _cuda.sm_count(dev.index), "seq")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    for name in SEQ_NAMES:
+    for name in names:
         for label, _, args in shapes[name]:
             ms = time_ms(lambda: fns[name][0](*args), 20, flush)
             print(f"[seq] {name}{' ' + label if label else ''}: kernel {ms:.4f} ms",
                   flush=True)
     if edges:
-        for label, _, args in shapes["seq_gather"]:
-            for sp in (1, 2, 4, 8):
-                with forced(ps, "seq_splits", sp):
-                    ms = time_ms(lambda: fns["seq_gather"][0](*args), 20, flush)
-                print(f"[seq] seq_gather {label}, {sp} splits forced: kernel {ms:.4f} ms",
-                      flush=True)
+        for name in ("seq_gather",) + WIDE_SEQ:
+            for label, _, args in shapes[name]:
+                for sp in (1, 2, 4, 8):
+                    with forced(ps, "seq_splits", sp):
+                        ms = time_ms(lambda: fns[name][0](*args), 20, flush)
+                    print(f"[seq] {name} {label}, {sp} splits forced: kernel {ms:.4f} ms",
+                          flush=True)
+
+
+# the prefill kernels' head widths in --prefill-only: head_dim -> (model,
+# Hq, Hkv); Llama-3.2-1B's and Llama-3.1-8B's config.json beside WIDE_HEADS
+PREFILL_HEADS = {64: ("Llama-3.2-1B", 32, 8), 96: WIDE_HEADS[96],
+                 128: ("Llama-3.1-8B", 32, 8), 256: WIDE_HEADS[256]}
+
+
+def phase_prefill_only(dev):
+    """--prefill-only: B3 on the 4000-token prompt and B8 over the batch
+    path's four prompts at every head width (PREFILL_HEADS), bf16, against
+    their plain versions (2e-2; B8's pad rows, none here, would give 0),
+    then their CUDA-event times beside the least time the card could take
+    (operations: 4 Hq D FLOPs a causal pair).  Runs on the package of
+    --root too, so a parent commit is timed in turns with this one on one
+    card."""
+    import torch
+
+    fns = wrappers()
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 30)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    for D, (model, Hq, Hkv) in sorted(PREFILL_HEADS.items()):
+        cases = (("prefill", prefill_case(PROMPT_LEN, Hq, Hkv, D, bf16, dev, gen),
+                  PROMPT_LEN * (PROMPT_LEN + 1) // 2),
+                 ("ragged_prefill", ragged_case(BATCH_LENS, Hq, Hkv, D, bf16, dev, gen)[0],
+                  sum(n * (n + 1) // 2 for n in BATCH_LENS)))
+        for name, args, pairs in cases:
+            fn, plain = fns[name]
+            got = fn(*args)
+            torch.cuda.synchronize()
+            e = rel_err(got, plain(*args))
+            check(e < TOL["bfloat16"] and bool(torch.isfinite(got).all()),
+                  f"{name} D={D} disagrees with its plain version: {e}")
+            ms = time_ms(lambda: fn(*args), 20, flush)
+            bound = 4 * Hq * D * pairs / PEAK_FLOPS["bfloat16"] * 1e3
+            print(f"[prefill] {name} D={D} ({model}, {Hq}/{Hkv} heads, tokens "
+                  f"{args[0].shape[0]}): rel err {e:.3e}, kernel {ms:.4f} ms, bound "
+                  f"{bound:.4f} ms (operations), {bound / ms:.1%} of the bound", flush=True)
 
 
 def main(argv=None) -> int:
@@ -5060,18 +5168,25 @@ def main(argv=None) -> int:
     ap.add_argument("--seq-only", action="store_true",
                     help="only the card, the build and the seq kernels' checks and "
                          "times (phase_seq_only); prints no result line")
+    ap.add_argument("--prefill-only", action="store_true",
+                    help="only the card, the build and B3's and B8's checks and times "
+                         "at head_dim 64, 96, 128 and 256 (phase_prefill_only); prints no "
+                         "result line")
     ap.add_argument("--workloads-only", action="store_true",
                     help="only the card, the build and the workloads phase "
                          "(phase_workloads); prints no result line")
     ap.add_argument("--root", default=None,
-                    help="with --flatten-only or --seq-only: import deft_tpu_torch from "
-                         "this checkout (a parent commit timed in turns with this one)")
+                    help="with --flatten-only, --seq-only or --prefill-only: import "
+                         "deft_tpu_torch from this checkout (a parent commit timed in "
+                         "turns with this one)")
     args = ap.parse_args(argv)
-    if args.flatten_only + args.seq_only + args.workloads_only > 1:
-        ap.error("--flatten-only, --seq-only and --workloads-only are separate runs")
+    only = args.flatten_only + args.seq_only + args.prefill_only + args.workloads_only
+    if only > 1:
+        ap.error("--flatten-only, --seq-only, --prefill-only and --workloads-only are "
+                 "separate runs")
     if args.root is not None:
-        if not (args.flatten_only or args.seq_only):
-            ap.error("--root goes with --flatten-only or --seq-only")
+        if not (args.flatten_only or args.seq_only or args.prefill_only):
+            ap.error("--root goes with --flatten-only, --seq-only or --prefill-only")
         sys.path.insert(0, args.root)
     try:
         import torch
@@ -5098,11 +5213,16 @@ def main(argv=None) -> int:
     try:
         smi, device_kind = phase_card()
         phase_build(bodies=args.root is None)
+        if args.prefill_only:
+            phase_prefill_only(dev)
+            print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}", flush=True)
+            return 0
         shapes = path_shapes(dev)
         if args.flatten_only or args.seq_only:
             if args.flatten_only:
                 phase_flatten_only(dev, shapes, args.profile)
             else:
+                shapes.update({k: v for k, v in wide_shapes(dev).items() if k in WIDE_SEQ})
                 phase_seq_only(dev, shapes, edges=args.root is None)
             print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}", flush=True)
             return 0

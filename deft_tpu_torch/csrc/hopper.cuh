@@ -147,6 +147,27 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
 }
 
+// d (64 x 64, fp32) += A (64 x 16) * B (16 x 64), both bf16 in shared memory
+// (descriptors da, db); accumulate iff scale_d.  TB = 1: B is N-major.
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                                  int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      "%30, %31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
 // d (64 x 128, fp32) += A (64 x 16, bf16 in registers: per warp the
 // mma.sync m16n8k16 A fragment of its 16 rows) * B (16 x 128, bf16 in shared
 // memory, descriptor db).  TB = 1: B is N-major.
@@ -299,6 +320,30 @@ __device__ __forceinline__ void wgmma_rs_kmajor(float (&d)[N / 2], const uint32_
   else {
     static_assert(N == 256, "wgmma N");
     wgmma_m64n256k16_rs<0>(d, a, db);
+  }
+}
+
+// m64nNk16 with A from registers and B N-major in shared memory (V's head
+// dims across 64-column boxes), N = 64, 128 or 256.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_nmajor(float (&d)[N / 2], const uint32_t (&a)[4],
+                                                uint64_t db) {
+  if constexpr (N == 64) wgmma_m64n64k16_rs<1>(d, a, db);
+  else if constexpr (N == 128) wgmma_m64n128k16_rs<1>(d, a, db);
+  else {
+    static_assert(N == 256, "wgmma N");
+    wgmma_m64n256k16_rs<1>(d, a, db);
+  }
+}
+
+// m64nNk16 with both operands K-major in shared memory, N = 64 or 128.
+template <int N>
+__device__ __forceinline__ void wgmma_ss_kmajor(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  if constexpr (N == 64) wgmma_m64n64k16_ss<0>(d, da, db, scale_d);
+  else {
+    static_assert(N == 128, "wgmma N");
+    wgmma_m64n128k16_ss<0>(d, da, db, scale_d);
   }
 }
 

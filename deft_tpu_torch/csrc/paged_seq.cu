@@ -56,10 +56,10 @@ int paged_seq_entry(bool int8, const void* q, const void* k_pool, const void* v_
          nullptr, nullptr, layer_off, 0, 0},
         path, o, m_o, l_o, R, Hq, Hkv, D, splits, scale, stream);
   if (int8)
-    return deft_seq::dispatch_seq<float, int8_t, false>(
+    return deft_seq::dispatch_seq<int8_t, false>(
         q, k_pool, v_pool, k_scale, v_scale, o, m_o, l_o, layer_off, scale_off, S, path,
         deft_seq_q::path_smem(path), R, Hq, Hkv, D, scale, stream);
-  return deft_seq::dispatch_seq<float, float, false>(
+  return deft_seq::dispatch_seq<float, false>(
       q, k_pool, v_pool, nullptr, nullptr, o, m_o, l_o, layer_off, 0, 0, path,
       deft_seq_q::path_smem(path), R, Hq, Hkv, D, scale, stream);
 }

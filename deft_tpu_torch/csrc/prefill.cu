@@ -26,41 +26,53 @@
 // before its products) took 0.8397 and 1.7190 ms there on an H100 80GB HBM3
 // at 700 W, 3.2x SDPA and 2.1x varlen_attn.
 //
-// bf16: FA3-style, warp-specialised, on wgmma and TMA.
+// bf16: FA3-style, warp-specialised, on wgmma and TMA, at head_dim 64, 96,
+// 128 and 256.
 // - One block per (128 folded rows, KV head), blocks issued last row tile
 //   first so the longest rows start first.  Warpgroup 0 is the producer:
-//   one thread TMA-loads the Q tile once, then K and V tiles of 128 tokens
-//   into a two-stage ring (full/empty mbarriers), so copies overlap the
-//   products.  Warpgroups 1 and 2 each own 64 rows.
-// - No fold copies: the folded rows of KV head h are a 3-D box (tokens,
-//   qpk heads, 64 of D) of q viewed as (N, Hq, D), 128 / qpk tokens deep
+//   one thread TMA-loads the Q tile once, then K and V tiles into a
+//   two-stage ring (full/empty mbarriers), so copies overlap the products.
+//   Warpgroups 1 and 2 each own 64 rows.
+// - No fold copies: the folded rows of KV head h are a 3-D box (64 of D,
+//   qpk heads, tokens) of q viewed as (N, Hq, D), 128 / qpk tokens deep
 //   (128 rows when qpk divides 128); o is stored through the same box from
-//   shared memory.  K and V are 2-D maps over (N, Hkv * D) at column h * D.
-//   Under 128-byte swizzle a box is at most 128 bytes wide, so D = 128 is
-//   two 64-column boxes.
-// - S = Q K^T is SS wgmma (m64n128k16, K-major both); the online softmax
-//   runs on the accumulator fragments in registers; P becomes bf16 in
-//   registers, already in the A-fragment layout, and O += P V is RS wgmma
-//   with V N-major through the transpose bit.
+//   shared memory.  K and V are 3-D maps over (D, Hkv, N), a box (64 of D,
+//   head h, a tile's tokens).  Under 128-byte swizzle a box is at most 128
+//   bytes wide, so D spans ceil(D / 64) boxes.
+// - S = Q K^T is SS wgmma (m64nTk16, K-major both, T the tile's tokens);
+//   the online softmax runs on the accumulator fragments in registers; P
+//   becomes bf16 in registers, already in the A-fragment layout, and
+//   O += P V is RS wgmma with V N-major through the transpose bit, N the
+//   boxes' 64 D columns each.
 // - Tiles above the diagonal are skipped and only the diagonal tile takes
 //   the causal mask.  B8 starts at the first row's prompt start and takes
 //   the segment mask only on tiles that straddle a prompt boundary, so B
 //   prompts cost sum L_i^2 / 2, not (sum L_i)^2 / 2.
+// - Tile depth by width (Layout): 128 tokens at D <= 128.  At D 256 a
+//   128-token K + V stage is 128 KB and two would not fit beside the 64 KB
+//   Q tile in 227 KB, so tiles are 64 tokens (two 64 KB stages + Q = 193
+//   KB); S is then m64n64k16 (32 registers) beside the 64 x 256 O
+//   accumulator (128), and the producer warpgroup drops to 24 registers a
+//   thread so that each consumer thread may hold 240 (128 x 24 + 256 x 240
+//   <= 65536), as FlashAttention-3 splits them at this width.
+// - D 96 (Phi-3-mini) is one 64-column box plus 32 columns.  The second box
+//   reads columns 64..127 of each row: TMA fills 96..127 with zeros, since
+//   they lie outside the 3-D maps' first dimension, and drops them on the
+//   o store.  S issues only the 6 k16 steps over live columns; P V runs at
+//   N 128 over both boxes (a quarter of its products on the zero columns):
+//   an N-major operand under 128-byte swizzle is laid out in whole 64-column
+//   atoms, so N 96 (or n64 + n32) has no canonical descriptor, and a
+//   64-byte-swizzled third box would need a second set of descriptors and
+//   maps for 32 columns.
 // fp32 (the exactness checks) keeps the first design's FMA body from
 // flash_common.cuh: wgmma takes no fp32 input, and TF32 would change the
-// numbers.  bf16 at head_dim 96 (Phi-3-mini) and 256 (Gemma) runs that
-// body's mma.sync form: the wgmma body's 128-byte-swizzled boxes are 64
-// columns wide and its O accumulator a warpgroup's 64 x D, which at D 256
-// would be 128 registers a thread beside S's 64; the first design keeps
-// 16 rows a warp, 64-token tiles, and Q's fragments in shared memory above
-// D 128 (flash_common.cuh).  Simple and right first: its time at those
-// widths is in PERF.md.
+// numbers.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
 namespace deft {
 
-// -- fp32, and bf16 at D 96 and 256: the body of flash_common.cuh ------------------
+// -- fp32: the body of flash_common.cuh ---------------------------------------------
 
 namespace mma {
 
@@ -184,18 +196,28 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* seg,
 namespace wg {
 
 constexpr int kRows = 128;  // folded rows per block: two consumer warpgroups of 64
-constexpr int kTok = 128;   // KV tokens per tile
 constexpr int kStages = 2;
 constexpr int kThreads = 384;
-constexpr uint32_t kChunk = 128 * 128;  // 128 rows x 64 bf16: one swizzled box
+constexpr uint32_t kBoxRow = 128;  // bytes of a swizzled box row: 64 bf16
 
 template <int D>
 struct Layout {
-  static constexpr int NC = D / 64;                     // 64-column boxes across D
-  static constexpr uint32_t kQ = NC * kChunk;           // Q tile, then the o staging
-  static constexpr uint32_t kKV = NC * kChunk;          // K (or V) of one stage
+  static constexpr int NC = (D + 63) / 64;       // 64-column boxes across D
+  static constexpr int kSteps = D / 16;          // k16 steps of S over live columns
+  static constexpr int DN = NC * 64;             // P V's N: whole boxes
+  static constexpr int kTok = D > 128 ? 64 : 128;  // KV tokens per tile
+  static constexpr uint32_t kQBox = kRows * kBoxRow;  // one box of the Q tile
+  static constexpr uint32_t kKVBox = kTok * kBoxRow;  // one box of a K (or V) tile
+  static constexpr uint32_t kQ = NC * kQBox;           // Q tile, then the o staging
+  static constexpr uint32_t kKV = NC * kKVBox;         // K (or V) of one stage
   static constexpr uint32_t kStage = 2 * kKV;
   static constexpr size_t kBytes = 1024 + kQ + kStages * kStage + (1 + 2 * kStages) * 8;
+  // registers a thread after setmaxnreg: producer, consumers (128 x 24 +
+  // 256 x 240 and 128 x 40 + 256 x 232 both come to 64512 of 65536)
+  static constexpr int kProducerRegs = D > 128 ? 24 : 40;
+  static constexpr int kConsumerRegs = D > 128 ? 240 : 232;
+  static_assert(kBytes <= 232448, "shared memory of a block");
+  static_assert(128 * kProducerRegs + 256 * kConsumerRegs <= 65536, "registers of an SM");
 };
 
 template <int D, bool kRagged>
@@ -206,7 +228,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                   const __grid_constant__ CUtensorMap omap, const int* __restrict__ seg,
                   const int* __restrict__ seg_start, int N, int qpk, int T, float s2) {
   using L = Layout<D>;
-  constexpr int NC = L::NC;
+  constexpr int NC = L::NC, kTok = L::kTok;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* qs = base;
@@ -239,19 +261,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
 
   if (warp < 4) {  // producer warpgroup: one thread issues every copy
-    hopper::reg_dealloc<40>();
+    hopper::reg_dealloc<L::kProducerRegs>();
     if (threadIdx.x == 0) {
+      // a box's bytes arrive whole, its part outside the tensor as zeros
       hopper::mbar_arrive_expect_tx(q_full, NC * 64 * qpk * T * 2);
       for (int c = 0; c < NC; ++c)
-        hopper::tma_load_3d(qs + c * kChunk, &qmap, q_full, c * 64, h * qpk, t0);
+        hopper::tma_load_3d(qs + c * L::kQBox, &qmap, q_full, c * 64, h * qpk, t0);
       for (int i = 0; i < n_kv; ++i) {
         const int s = i % kStages, j0 = j_begin + i * kTok;
         hopper::mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
         uint8_t* st = base + L::kQ + s * L::kStage;
         hopper::mbar_arrive_expect_tx(&full[s], L::kStage);
         for (int c = 0; c < NC; ++c) {
-          hopper::tma_load_2d(st + c * kChunk, &kmap, &full[s], h * D + c * 64, j0);
-          hopper::tma_load_2d(st + L::kKV + c * kChunk, &vmap, &full[s], h * D + c * 64, j0);
+          hopper::tma_load_3d(st + c * L::kKVBox, &kmap, &full[s], c * 64, h, j0);
+          hopper::tma_load_3d(st + L::kKV + c * L::kKVBox, &vmap, &full[s], c * 64, h, j0);
         }
       }
     }
@@ -260,7 +283,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // consumer warpgroups: folded rows cw * 64 .. + 63 of the block; this
   // thread's rows lr0 and lr0 + 8 (the wgmma accumulator layout)
-  hopper::reg_alloc<232>();
+  hopper::reg_alloc<L::kConsumerRegs>();
   const int cw = warp / 4 - 1, g = lane / 4, tig = lane % 4;
   const int lr0 = cw * 64 + warp % 4 * 16 + g;
   const int tok_r0 = t0 + lr0 / qpk, tok_r1 = t0 + (lr0 + 8) / qpk;
@@ -269,9 +292,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     seg_r0 = tok_r0 < N ? seg[tok_r0] : -1;
     seg_r1 = tok_r1 < N ? seg[tok_r1] : -1;
   }
-  float o[D / 2];
+  // o[4n + e]: row lr0 (e < 2) or lr0 + 8, column 8n + 2 tig + e % 2
+  float o[L::DN / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < L::DN / 2; ++i) o[i] = 0.f;
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
   hopper::mbar_wait(q_full, 0);
   for (int i = 0; i < n_kv; ++i) {
@@ -282,11 +306,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     float sc[kTok / 2];
     hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < L::kSteps; ++kk) {
       const int c = kk / 4, off = kk % 4 * 32;
-      const uint64_t da = hopper::desc_sw128(qs + c * kChunk + cw * 64 * 128 + off, 16, 1024);
-      const uint64_t db = hopper::desc_sw128(st + c * kChunk + off, 16, 1024);
-      hopper::wgmma_m64n128k16_ss<0>(sc, da, db, kk > 0);
+      const uint64_t da =
+          hopper::desc_sw128(qs + c * L::kQBox + cw * 64 * kBoxRow + off, 16, 1024);
+      const uint64_t db = hopper::desc_sw128(st + c * L::kKVBox + off, 16, 1024);
+      hopper::wgmma_ss_kmajor<kTok>(sc, da, db, kk > 0);
     }
     hopper::wgmma_commit();
     hopper::fence_regs(sc);
@@ -340,7 +365,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       m[hh] = m_new;
     }
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < L::DN / 8; ++n) {
       o[4 * n] *= alpha[0];
       o[4 * n + 1] *= alpha[0];
       o[4 * n + 2] *= alpha[1];
@@ -360,11 +385,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     hopper::wgmma_fence();
 #pragma unroll
     for (int kt = 0; kt < kTok / 16; ++kt) {
-      const uint64_t db = hopper::desc_sw128(st + L::kKV + kt * 16 * 128, kChunk, 1024);
-      if constexpr (D == 128)
-        hopper::wgmma_m64n128k16_rs<1>(o, pa[kt], db);
-      else
-        hopper::wgmma_m64n64k16_rs<1>(o, pa[kt], db);
+      // V's tokens 16 kt .. + 15 (k), its NC boxes' columns (N) one box apart
+      const uint64_t db =
+          hopper::desc_sw128(st + L::kKV + kt * 16 * kBoxRow, L::kKVBox, 1024);
+      hopper::wgmma_rs_nmajor<L::DN>(o, pa[kt], db);
     }
     hopper::wgmma_commit();
     hopper::fence_regs(o);
@@ -376,14 +400,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   // o / l into this warpgroup's rows of the Q tile (its products are done),
-  // swizzled as the box is, then one TMA store of the block's rows
+  // swizzled as the box is, then one TMA store of the block's rows (D 96:
+  // the columns past 96, zeros, lie outside the map and are dropped)
   const float inv[2] = {l[0] == 0.f ? 0.f : 1.f / l[0], l[1] == 0.f ? 0.f : 1.f / l[1]};
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < L::DN / 8; ++n) {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int lr = lr0 + 8 * hh;
-      uint8_t* p = qs + n / 8 * kChunk + lr * 128 + (((n % 8) ^ (lr & 7)) << 4) + tig * 4;
+      uint8_t* p = qs + n / 8 * L::kQBox + lr * kBoxRow + (((n % 8) ^ (lr & 7)) << 4) +
+                   tig * 4;
       *reinterpret_cast<uint32_t*>(p) =
           pack_bf16(o[4 * n + 2 * hh] * inv[hh], o[4 * n + 2 * hh + 1] * inv[hh]);
     }
@@ -391,7 +417,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   hopper::fence_proxy_async();
   hopper::named_barrier(1, 256);
   if (threadIdx.x == 128) {
-    for (int c = 0; c < NC; ++c) hopper::tma_store_3d(&omap, qs + c * kChunk, c * 64, h * qpk, t0);
+    for (int c = 0; c < NC; ++c)
+      hopper::tma_store_3d(&omap, qs + c * L::kQBox, c * 64, h * qpk, t0);
     hopper::tma_store_commit_and_wait();
   }
 }
@@ -404,18 +431,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* seg,
   if (qpk > kRows) return cudaErrorInvalidValue;
   const int T = kRows / qpk;  // tokens per block: T * qpk <= 128 folded rows
   CUtensorMap qmap, kmap, vmap, omap;
+  // q, o: (D, Hq, N), box (64, qpk, T); k, v: (D, Hkv, N), box (64, 1, a tile)
   const cuuint64_t qdims[3] = {cuuint64_t(D), cuuint64_t(Hq), cuuint64_t(N)};
   const cuuint64_t qstrides[2] = {cuuint64_t(D) * 2, cuuint64_t(Hq) * D * 2};
   const cuuint32_t qbox[3] = {64, cuuint32_t(qpk), cuuint32_t(T)};
-  const cuuint64_t kdims[2] = {cuuint64_t(Hkv) * D, cuuint64_t(N)};
-  const cuuint64_t kstrides[1] = {cuuint64_t(Hkv) * D * 2};
-  const cuuint32_t kbox[2] = {64, kTok};
+  const cuuint64_t kdims[3] = {cuuint64_t(D), cuuint64_t(Hkv), cuuint64_t(N)};
+  const cuuint64_t kstrides[2] = {cuuint64_t(D) * 2, cuuint64_t(Hkv) * D * 2};
+  const cuuint32_t kbox[3] = {64, 1, cuuint32_t(Layout<D>::kTok)};
   const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
   cudaError_t err = hopper::make_map(&qmap, bf16, 3, q, qdims, qstrides, qbox, sw);
   if (err == cudaSuccess) err = hopper::make_map(&omap, bf16, 3, o, qdims, qstrides, qbox, sw);
-  if (err == cudaSuccess) err = hopper::make_map(&kmap, bf16, 2, k, kdims, kstrides, kbox, sw);
-  if (err == cudaSuccess) err = hopper::make_map(&vmap, bf16, 2, v, kdims, kstrides, kbox, sw);
+  if (err == cudaSuccess) err = hopper::make_map(&kmap, bf16, 3, k, kdims, kstrides, kbox, sw);
+  if (err == cudaSuccess) err = hopper::make_map(&vmap, bf16, 3, v, kdims, kstrides, kbox, sw);
   if (err != cudaSuccess) return err;
   auto kernel = prefill_wgmma<D, kRagged>;
   static const cudaError_t attr = allow_smem(kernel, Layout<D>::kBytes);
@@ -434,32 +462,27 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const int* seg
                      float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (N <= 0 || Hkv <= 0 || Hq % Hkv) return cudaErrorInvalidValue;
-  if (dtype == 1 && D == 128)
-    return wg::launch<128, kRagged>(q, k, v, seg, seg_start, o, N, Hq, Hkv, scale, s);
-  if (dtype == 1 && D == 64)
-    return wg::launch<64, kRagged>(q, k, v, seg, seg_start, o, N, Hq, Hkv, scale, s);
-  if (dtype == 1 && D == 96)
-    return mma::launch<__nv_bfloat16, 96, kRagged>(q, k, v, seg, seg_start, o, N, Hq, Hkv,
-                                                   scale, s);
-  if (dtype == 1 && D == 256)
-    return mma::launch<__nv_bfloat16, 256, kRagged>(q, k, v, seg, seg_start, o, N, Hq, Hkv,
-                                                    scale, s);
-  if (dtype == 0 && D == 128)
-    return mma::launch<float, 128, kRagged>(q, k, v, seg, seg_start, o, N, Hq, Hkv, scale, s);
-  if (dtype == 0 && D == 64)
-    return mma::launch<float, 64, kRagged>(q, k, v, seg, seg_start, o, N, Hq, Hkv, scale, s);
-  if (dtype == 0 && D == 96)
-    return mma::launch<float, 96, kRagged>(q, k, v, seg, seg_start, o, N, Hq, Hkv, scale, s);
-  if (dtype == 0 && D == 256)
-    return mma::launch<float, 256, kRagged>(q, k, v, seg, seg_start, o, N, Hq, Hkv, scale, s);
+#define DEFT_PREFILL_AT(DD)                                                               \
+  if (D == DD) {                                                                         \
+    if (dtype == 1)                                                                      \
+      return wg::launch<DD, kRagged>(q, k, v, seg, seg_start, o, N, Hq, Hkv, scale, s);  \
+    if (dtype == 0)                                                                      \
+      return mma::launch<float, DD, kRagged>(q, k, v, seg, seg_start, o, N, Hq, Hkv, scale, \
+                                             s);                                         \
+  }
+  DEFT_PREFILL_AT(64)
+  DEFT_PREFILL_AT(96)
+  DEFT_PREFILL_AT(128)
+  DEFT_PREFILL_AT(256)
+#undef DEFT_PREFILL_AT
   return cudaErrorInvalidValue;
 }
 
 }  // namespace deft
 
 // dtype: 0 = float32, 1 = bfloat16.  q, o: (N, Hq, D), D 64, 96, 128 or 256;
-// k, v: (N, Hkv, D), all contiguous and 16-byte aligned; bf16 at D 64 and
-// 128 takes Hq / Hkv <= 128.  Returns a cudaError_t code (0 = launched).
+// k, v: (N, Hkv, D), all contiguous and 16-byte aligned; bf16 takes
+// Hq / Hkv <= 128.  Returns a cudaError_t code (0 = launched).
 extern "C" int deft_prefill(const void* q, const void* k, const void* v, void* o,
                             int N, int Hq, int Hkv, int D, int dtype, float scale,
                             void* stream) {

@@ -1,13 +1,9 @@
 // The sequential per-leaf decode kernel over fp32 q (the exactness checks),
 // shared by paged_seq.cu (B2, B5: each leaf's path read through its segment
 // table) and seq_gather.cu (B7: through its padded row of pool indices),
-// over fp32 pools or int8 pools with fp32 scales.  bf16 q runs the
-// tensor-core body of seq_q_body.cuh instead, on the same path sources, at
-// head_dim 64 and 128; at 96 and 256 (Phi-3-mini, Gemma: gather plans only,
-// B7) it runs this body over bf16 q and pools or int8 pools, the tiles
-// widened to fp32 in shared memory and P rounded to bf16 before P V, as the
-// tensor-core body rounds it.  Simple and right first; its time at those
-// widths is in PERF.md.
+// over fp32 pools or int8 pools with fp32 scales, at head_dim 64 and 128
+// and, over path tables, 96 and 256.  bf16 q runs the tensor-core bodies of
+// seq_q_body.cuh at every width instead; this body takes no bf16.
 //
 // One block per (leaf, KV head) walks the leaf's path in tiles of 64 tokens,
 // each holding only live path tokens.  K and V tiles are staged in shared
@@ -103,19 +99,13 @@ struct SeqSmem {
   // followed by int cum[nseg + 1] (dynamic, paged plans)
 };
 
-// Store one 16-byte chunk of KV as fp32 values at dst (4-byte aligned).
+// Store one 16-byte chunk of KV (fp32, or int8 widened) as fp32 values at
+// dst (4-byte aligned).
 template <typename KV>
 __device__ __forceinline__ void store_chunk(float* dst, const uint4& c) {
   uint32_t* d = reinterpret_cast<uint32_t*>(dst);
   if constexpr (std::is_same<KV, float>::value) {
     d[0] = c.x; d[1] = c.y; d[2] = c.z; d[3] = c.w;
-  } else if constexpr (std::is_same<KV, __nv_bfloat16>::value) {
-    const uint32_t w[4] = {c.x, c.y, c.z, c.w};  // a bf16 is fp32's high half
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      d[2 * j] = w[j] << 16;
-      d[2 * j + 1] = w[j] & 0xffff0000u;
-    }
   } else {
     const int8_t* b = reinterpret_cast<const int8_t*>(&c);
 #pragma unroll
@@ -123,11 +113,10 @@ __device__ __forceinline__ void store_chunk(float* dst, const uint4& c) {
   }
 }
 
-// q and the normalised o are Tq (fp32, or bf16 at the wide heads); the
-// partial form's acc is fp32.
-template <typename Tq, typename KV, int D, typename Path>
+// q, o and the partial form's acc are fp32.
+template <typename KV, int D, typename Path>
 __global__ void __launch_bounds__(kThreads)
-    seq_kernel(const Tq* __restrict__ q, SeqPools<KV> pools, Path path,
+    seq_kernel(const float* __restrict__ q, SeqPools<KV> pools, Path path,
                void* __restrict__ o, float* __restrict__ m_out, float* __restrict__ l_out,
                int Hq, int Hkv, float s2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -163,7 +152,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   for (int i = tid; i < qpk * D; i += kThreads) {
     const int g = i / D, d = i % D;
-    sm.q[i] = deft::to_f(q[((long long)leaf * Hq + h * qpk + g) * D + d]) * s2;
+    sm.q[i] = q[((long long)leaf * Hq + h * qpk + g) * D + d] * s2;
   }
   if (tid < qpk) {
     sm.m[tid] = kNeg;
@@ -275,10 +264,6 @@ __global__ void __launch_bounds__(kThreads)
         w0 *= sm.vs[lane];
         w1 *= sm.vs[lane + 32];
       }
-      if constexpr (!std::is_same<Tq, float>::value) {  // P rounded for P V
-        w0 = __bfloat162float(__float2bfloat16(w0));
-        w1 = __bfloat162float(__float2bfloat16(w1));
-      }
       pr[lane] = w0;
       pr[lane + 32] = w1;
       float sum = p0 + p1;  // l sums the unrounded, unscaled P
@@ -337,24 +322,19 @@ __global__ void __launch_bounds__(kThreads)
       const int g = idx / (D / 2), d = (idx % (D / 2)) * 2;
       const float l = sm.l[g];
       const float inv = l == 0.f ? 0.f : 1.f / l;
-      const long long at = ((long long)leaf * Hq + h * qpk + g) * D + d;
-      if constexpr (std::is_same<Tq, float>::value) {
-        store2(static_cast<float*>(o) + at, acc[k].x * inv, acc[k].y * inv);
-      } else {
-        *reinterpret_cast<uint32_t*>(static_cast<Tq*>(o) + at) =
-            deft::pack_bf16(acc[k].x * inv, acc[k].y * inv);
-      }
+      store2(static_cast<float*>(o) + ((long long)leaf * Hq + h * qpk + g) * D + d,
+             acc[k].x * inv, acc[k].y * inv);
     }
   }
 }
 
-// m_out, l_out: null for the normalised output o (R, Hq, D) in Tq; else the
-// partial form, fp32.
-template <typename Tq, typename KV, int D, typename Path>
+// m_out, l_out: null for the normalised output o (R, Hq, D); else the
+// partial form.
+template <typename KV, int D, typename Path>
 cudaError_t launch_seq(const void* q, SeqPools<KV> pools, Path path, void* o, float* m_out,
                        float* l_out, int R, int Hq, int Hkv, size_t dyn_smem, float scale,
                        cudaStream_t stream) {
-  auto kernel = seq_kernel<Tq, KV, D, Path>;
+  auto kernel = seq_kernel<KV, D, Path>;
   const size_t smem = sizeof(SeqSmem<D, KV>) + dyn_smem;
   if (smem > 48 * 1024) {
     const cudaError_t attr = cudaFuncSetAttribute(
@@ -362,17 +342,16 @@ cudaError_t launch_seq(const void* q, SeqPools<KV> pools, Path path, void* o, fl
     if (attr != cudaSuccess) return attr;
   }
   dim3 grid(R, Hkv);
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const Tq*>(q), pools, path, o, m_out,
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const float*>(q), pools, path, o, m_out,
                                            l_out, Hq, Hkv, scale * kLog2e);
   return cudaGetLastError();
 }
 
-// Check the sizes, then instantiate launch_seq for q of type Tq and
-// head_dim; the pools hold KV (Tq, or int8 with scales).  fp32 q at 64 and
-// 128, and with kWide (the gather entry) at 96 and 256; bf16 q at 96 and
-// 256 only (64 and 128 run seq_q_body.cuh).  dyn_smem: bytes of the path's
-// dynamic shared memory.  m_out, l_out: see launch_seq.
-template <typename Tq, typename KV, bool kWide, typename Path>
+// Check the sizes, then instantiate launch_seq for head_dim 64 and 128, and
+// with kWide (the gather entry) 96 and 256; the pools hold KV (fp32, or
+// int8 with scales).  dyn_smem: bytes of the path's dynamic shared memory.
+// m_out, l_out: see launch_seq.
+template <typename KV, bool kWide, typename Path>
 cudaError_t dispatch_seq(const void* q, const void* k, const void* v, const float* ks,
                          const float* vs, void* o, float* m_out, float* l_out,
                          long long layer_off, long long scale_off, int S, Path path,
@@ -385,12 +364,9 @@ cudaError_t dispatch_seq(const void* q, const void* k, const void* v, const floa
                  scale_off, S};
 #define DEFT_SEQ_AT(DD)                                                                  \
   if (D == DD)                                                                         \
-    return launch_seq<Tq, KV, DD>(q, p, path, o, m_out, l_out, R, Hq, Hkv, dyn_smem, scale, \
-                                  st);
-  if constexpr (std::is_same<Tq, float>::value) {
-    DEFT_SEQ_AT(64)
-    DEFT_SEQ_AT(128)
-  }
+    return launch_seq<KV, DD>(q, p, path, o, m_out, l_out, R, Hq, Hkv, dyn_smem, scale, st);
+  DEFT_SEQ_AT(64)
+  DEFT_SEQ_AT(128)
   if constexpr (kWide) {
     DEFT_SEQ_AT(96)
     DEFT_SEQ_AT(256)

@@ -15,23 +15,24 @@
 // scales, sum_r seq_lens[r] * Hkv * 4 * 2) and 4 bytes of paths a token,
 // against 3.35 TB/s; the shared prefix's re-reads mostly hit L2, so each
 // live row read once is the lower bound.  Design: over bf16 q, the
-// tensor-core body of seq_q_body.cuh (B2's and B5's, deft_seq_q) with
-// deft_seq::IdxPath as its path source: one block of 4 warps per (leaf, KV
-// head, span of the path), the blocks of a cluster sharing a path where the
-// (leaf, head) pairs alone would leave SMs idle (the wrapper's splits, from
-// R, Hkv and the SM count), each warp walking its span of 16-token tiles
-// through a 3-stage cp.async ring, the pool rows of a tile read from paths a
-// tile ahead; mma.sync over bf16 pools (ldmatrix) and over int8 pools (codes
-// widened in registers, scales at the token's pool row); the cluster merges
-// its warps' states in a fixed order.  What this answers in the staged body
-// that B7 ran before (seq_body.cuh, which fp32 q keeps for the exactness
-// checks): fp32 FMA products with the tensor cores idle, 64-token tiles
-// behind block barriers with no copy in flight, and one block a (leaf,
-// head) however few leaves there are.  Per-leaf re-reads of the shared
-// prefix are kept: they are the baseline's defining cost.  At head_dim 96
-// and 256 (Phi-3-mini, Gemma) bf16 q runs that staged body, over bf16 or
-// int8 pools (one block a leaf and head, splits 1): simple and right
-// first, timed in PERF.md.
+// tensor-core bodies of seq_q_body.cuh (B2's and B5's, deft_seq_q) with
+// deft_seq::IdxPath as their path source: one block of 2 warps per (leaf,
+// KV head, span of the path), the blocks of a cluster sharing a path where
+// the (leaf, head) pairs alone would leave SMs idle (the wrapper's splits,
+// from R, Hkv and the SM count), each warp walking its span of 16-token
+// tiles through a 3-stage cp.async ring, the pool rows of a tile read from
+// paths a tile ahead; mma.sync over bf16 pools (ldmatrix) and over int8
+// pools (codes widened in registers, scales at the token's pool row); the
+// cluster merges its warps' states in a fixed order.  At head_dim 64 and
+// 128 the query rows lie on the products' M (seq_q_mma); at 96 and 256
+// (Phi-3-mini, Gemma-7B, one query row a KV head) on N, the path tokens on
+// M (seq_q_wide): S^T = K Q^T, O^T = V^T P^T, so a thread holds D / 16 x 4
+// accumulators, not D / 8 x 4 of which half are always zero.  What this
+// answers in the staged body that B7 ran before (seq_body.cuh, which fp32 q
+// keeps for the exactness checks): fp32 FMA products with the tensor cores
+// idle, 64-token tiles behind block barriers with no copy in flight, and
+// one block a (leaf, head) however few leaves there are.  Per-leaf re-reads
+// of the shared prefix are kept: they are the baseline's defining cost.
 #include "seq_q_body.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16 (q and o; the pools too unless int8).
@@ -39,8 +40,8 @@
 // of the q type.  q, o: (R, Hq, D); pools (L, S, Hkv*D); layer_off = li * S
 // * Hkv * D; scale_off = li * Hkv * S; paths (R, C); seq_lens (R,), each at
 // most C.  D: 64, 96, 128 or 256.  splits: the blocks of a cluster that
-// share each (leaf, head)'s path, 1 .. 8 over bf16 q at D 64 and 128 (the
-// tensor-core body), else 1.  Returns a cudaError_t code.
+// share each (leaf, head)'s path, 1 .. 8 over bf16 q (the tensor-core
+// bodies), else 1.  Returns a cudaError_t code.
 extern "C" int deft_seq_gather(const void* q, const void* k_pool, const void* v_pool,
                                const float* k_scale, const float* v_scale, void* o,
                                long long layer_off, long long scale_off, int S,
@@ -51,17 +52,6 @@ extern "C" int deft_seq_gather(const void* q, const void* k_pool, const void* v_
       (dtype == 0 && splits != 1))
     return cudaErrorInvalidValue;
   const deft_seq::IdxPath path{paths, seq_lens, C};
-  if (D == 96 || D == 256) {  // seq_body.cuh's body, over bf16 q too
-    if (splits != 1) return cudaErrorInvalidValue;
-    if (dtype == 1 && k_scale)
-      return deft_seq::dispatch_seq<__nv_bfloat16, int8_t, true>(
-          q, k_pool, v_pool, k_scale, v_scale, o, nullptr, nullptr, layer_off, scale_off, S,
-          path, 0, R, Hq, Hkv, D, scale, stream);
-    if (dtype == 1)
-      return deft_seq::dispatch_seq<__nv_bfloat16, __nv_bfloat16, true>(
-          q, k_pool, v_pool, nullptr, nullptr, o, nullptr, nullptr, layer_off, 0, 0, path, 0,
-          R, Hq, Hkv, D, scale, stream);
-  }
   if (dtype == 1 && k_scale)
     return deft_seq_q::dispatch<int8_t>(
         q, {static_cast<const int8_t*>(k_pool), static_cast<const int8_t*>(v_pool), k_scale,
@@ -74,11 +64,10 @@ extern "C" int deft_seq_gather(const void* q, const void* k_pool, const void* v_
          nullptr, nullptr, layer_off, 0, 0},
         path, o, nullptr, nullptr, R, Hq, Hkv, D, splits, scale, stream);
   if (k_scale)
-    return deft_seq::dispatch_seq<float, int8_t, true>(q, k_pool, v_pool, k_scale, v_scale, o,
-                                                       nullptr, nullptr, layer_off, scale_off,
-                                                       S, path, 0, R, Hq, Hkv, D, scale,
-                                                       stream);
-  return deft_seq::dispatch_seq<float, float, true>(q, k_pool, v_pool, nullptr, nullptr, o,
-                                                    nullptr, nullptr, layer_off, 0, 0, path, 0,
-                                                    R, Hq, Hkv, D, scale, stream);
+    return deft_seq::dispatch_seq<int8_t, true>(q, k_pool, v_pool, k_scale, v_scale, o,
+                                                nullptr, nullptr, layer_off, scale_off, S,
+                                                path, 0, R, Hq, Hkv, D, scale, stream);
+  return deft_seq::dispatch_seq<float, true>(q, k_pool, v_pool, nullptr, nullptr, o, nullptr,
+                                             nullptr, layer_off, 0, 0, path, 0, R, Hq, Hkv,
+                                             D, scale, stream);
 }

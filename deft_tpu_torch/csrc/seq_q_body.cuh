@@ -1,8 +1,10 @@
-// The tensor-core body of the sequential per-leaf decode kernels over bf16
+// The tensor-core bodies of the sequential per-leaf decode kernels over bf16
 // q, deft_seq_q, shared by paged_seq.cu (B2, B2p, B5, B5p: each leaf's path
 // read through its segment table, deft_seq::SegPath) and seq_gather.cu (B7:
-// through its padded row of pool indices, deft_seq::IdxPath).  fp32 q (the
-// exactness checks) keeps seq_body.cuh's FMA body.
+// through its padded row of pool indices, deft_seq::IdxPath): seq_q_mma at
+// head_dim 64 and 128, seq_q_wide (the operands swapped, below) at 96 and
+// 256, which only B7 takes.  fp32 q (the exactness checks) keeps
+// seq_body.cuh's FMA body.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -66,7 +68,12 @@
 //   column n of n-tile nt is d = (D / 8) n + nt, so one 16-byte (D 64:
 //   8-byte) load a token row feeds every n-tile.
 // Bound on this card: bytes, each leaf re-reading its path (the shared
-// prefix's re-reads hit L2 at the main tree, whose KV of a layer fits it).
+// prefix's re-reads hit L2 at the main tree, whose KV of a layer fits it at
+// Llama-3.1-8B's heads).  At Gemma-7B's (16 x 256) a layer's KV at 4000
+// tokens is 65.5 MB, more than the 50 MB L2, so the re-reads hit it only
+// where the blocks sharing a KV head's path run together: the grid's x is
+// the leaf, so a head's leaves are issued one after another, and the
+// resident blocks hold a few heads' paths (4 MB each) at a time.
 // At the end each warp leaves (m, l, acc) in shared memory; after a cluster
 // barrier block r merges its share of the (row, d) outputs over every warp
 // of every block of the cluster with the LSE rule of flatten_body.cuh's
@@ -345,48 +352,49 @@ __device__ __forceinline__ void tile_pv(float (&acc)[D / 8][4], const uint32_t (
   }
 }
 
-template <typename KV, int D, typename Path>
-__global__ void __launch_bounds__(Traits<Path>::kWarps * 32)
-    seq_q_mma(const __nv_bfloat16* __restrict__ q, deft_seq::SeqPools<KV> pools, Path path,
-              void* __restrict__ o, float* __restrict__ m_out, float* __restrict__ l_out,
-              int Hq, int Hkv, float s2) {
-  constexpr int W = Traits<Path>::kWarps, NT = W * 32;
-  using L = Layout<KV, D, W>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  int* cum = reinterpret_cast<int*>(smem_raw + L::kBytes);  // SegPath only
-  const int leaf = blockIdx.x, h = blockIdx.y, split = blockIdx.z, splits = gridDim.z;
-  const int qpk = Hq / Hkv;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+// Q's fragments of query row g (zero at g >= qpk), step ks: int8 pools,
+// d = (D / 4) tig + 4 ks + 0, 1 (word 0) and + 2, 3 (word 1); bf16, d =
+// 16 ks + 2 tig + 0, 1 and + 8, 9.  deft_seq_q takes them as its A
+// fragments (rows g; rows g + 8 are zero), deft_seq_q's wide body as its B
+// fragments (query row g on N).
+template <typename KV, int D>
+__device__ __forceinline__ void load_q(uint32_t (&qa)[D / 16][2], const __nv_bfloat16* q,
+                                       int leaf, int Hq, int h, int qpk, int lane) {
+  constexpr bool kQ = std::is_same<KV, int8_t>::value;
   const int g = lane / 4, tig = lane % 4;
-  const int pre = path_setup(path, leaf, cum, warp, lane);
-  // Q's A fragments (rows g < qpk; rows g + 8 are zero), step ks: int8,
-  // d = (D / 4) tig + 4 ks + 0, 1 (a0) and + 2, 3 (a2); bf16, d = 16 ks +
-  // 2 tig + 0, 1 (a0) and + 8, 9 (a2)
-  uint32_t qa[D / 16][2];
-  const __nv_bfloat16* qr = q + ((long long)leaf * Hq + h * qpk + g) * D +
-                            (L::kQ ? (D / 4) * tig : 2 * tig);
+  const __nv_bfloat16* qr =
+      q + ((long long)leaf * Hq + h * qpk + g) * D + (kQ ? (D / 4) * tig : 2 * tig);
 #pragma unroll
   for (int ks = 0; ks < D / 16; ++ks) {
-    const int o0 = L::kQ ? 4 * ks : 16 * ks, o1 = L::kQ ? 4 * ks + 2 : 16 * ks + 8;
+    const int o0 = kQ ? 4 * ks : 16 * ks, o1 = kQ ? 4 * ks + 2 : 16 * ks + 8;
     qa[ks][0] = g < qpk ? *reinterpret_cast<const uint32_t*>(qr + o0) : 0u;
     qa[ks][1] = g < qpk ? *reinterpret_cast<const uint32_t*>(qr + o1) : 0u;
   }
-  __syncthreads();
-  const int total = path_total(path, pre, cum);
+}
+
+// A warp's span of the path's 16-token tiles: block `split` of `splits`
+// takes its share of the tiles, warp `warp` of W a share of its block's.
+// Returns the first tile; n: how many.
+template <int W>
+__device__ __forceinline__ int warp_span(int total, int split, int splits, int warp, int& n) {
   const int tiles = (total + kTile - 1) / kTile;
   const int b0 = tiles * split / splits, b1 = tiles * (split + 1) / splits;
   const int w0 = b0 + (b1 - b0) * warp / W, w1 = b0 + (b1 - b0) * (warp + 1) / W;
-  const int n = w1 - w0;
+  n = w1 - w0;
+  return w0;
+}
 
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
-  float m = kNeg, l = 0.f;  // row g's running max (base 2) and sum
-  uint8_t* ring = smem_raw + warp * kStages * L::kStage;
-  // the first stages' references, all taken before any is used; then, with
-  // kAhead, always the reference of the next tile to issue
+// Walk tiles w0 .. w0 + n - 1 of the path through the warp's ring of
+// kStages cp.async stages: the first stages' references are all taken
+// before any is used, then (with kAhead) always the reference of the next
+// tile to issue; per tile the stage freed last is refilled, the tile waited
+// for, and tile(st, i0) called on its stage and its first path position.
+template <typename KV, int D, typename Path, typename F>
+__device__ __forceinline__ void walk_tiles(const Path& path, int leaf, const int* cum,
+                                           const deft_seq::SeqPools<KV>& pools, int h, int Hkv,
+                                           uint8_t* ring, int w0, int n, int total, int lane,
+                                           F&& tile) {
+  using L = Layout<KV, D, 1>;
   int refs[kStages - 1];
 #pragma unroll
   for (int p = 0; p < kStages - 1; ++p)
@@ -413,10 +421,95 @@ __global__ void __launch_bounds__(Traits<Path>::kWarps * 32)
     }
     cp_async_wait<kStages - 1>();
     __syncwarp();  // every lane's copies of tile it have landed
-    const uint8_t* st = ring + it % kStages * L::kStage;
+    tile(ring + it % kStages * L::kStage, (w0 + it) * kTile);
+  }
+  cp_async_wait<0>();
+}
+
+// After every warp of the block has left its state in shared memory at sm_m
+// (m, l of its 8 rows, acc (8, D) at pitch kAccPitch, a pad word every 32
+// columns) and before any leaves: block `split` merges outputs [o0, o1) of
+// the (qpk, D) rows over the cluster's blocks and their warps with the LSE
+// rule, in that order, and writes o = acc / l (bf16), or the partial form.
+template <typename KV, int D, int W>
+__device__ __forceinline__ void merge_cluster(float* sm_m, void* __restrict__ o,
+                                              float* __restrict__ m_out,
+                                              float* __restrict__ l_out, int leaf, int h,
+                                              int qpk, int Hq, int split, int splits,
+                                              int tid) {
+  using L = Layout<KV, D, W>;
+  float* sm_l = sm_m + W * 8;
+  float* sm_acc = sm_l + W * 8;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int items = qpk * D;
+  const int o0 = items * split / splits, o1 = items * (split + 1) / splits;
+  for (int it = o0 + tid; it < o1; it += W * 32) {
+    const int r = it / D, d = it % D;
+    float mm = kNeg;
+    for (int b = 0; b < splits; ++b) {
+      const float* pm = cluster.map_shared_rank(sm_m, b);
+      for (int w = 0; w < W; ++w) mm = fmaxf(mm, pm[w * 8 + r]);
+    }
+    float ls = 0.f, a = 0.f;
+    for (int b = 0; b < splits; ++b) {
+      const float* pm = cluster.map_shared_rank(sm_m, b);
+      const float* pl = cluster.map_shared_rank(sm_l, b);
+      const float* pa = cluster.map_shared_rank(sm_acc, b);
+      for (int w = 0; w < W; ++w) {
+        const float f = exp2f(pm[w * 8 + r] - mm);
+        ls += pl[w * 8 + r] * f;
+        a += pa[(w * 8 + r) * L::kAccPitch + d + d / 32] * f;
+      }
+    }
+    const long long row_o = (long long)leaf * Hq + h * qpk + r;
+    if (m_out) {  // partial form: the unnormalised state, m in natural log
+      static_cast<float*>(o)[row_o * D + d] = a;
+      if (d == 0) {
+        m_out[row_o] = mm * deft_seq::kLn2;
+        l_out[row_o] = ls;
+      }
+    } else {
+      static_cast<__nv_bfloat16*>(o)[row_o * D + d] =
+          __float2bfloat16(ls == 0.f ? 0.f : a / ls);
+    }
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
+}
+
+template <typename KV, int D, typename Path>
+__global__ void __launch_bounds__(Traits<Path>::kWarps * 32)
+    seq_q_mma(const __nv_bfloat16* __restrict__ q, deft_seq::SeqPools<KV> pools, Path path,
+              void* __restrict__ o, float* __restrict__ m_out, float* __restrict__ l_out,
+              int Hq, int Hkv, float s2) {
+  constexpr int W = Traits<Path>::kWarps;
+  using L = Layout<KV, D, W>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int* cum = reinterpret_cast<int*>(smem_raw + L::kBytes);  // SegPath only
+  const int leaf = blockIdx.x, h = blockIdx.y, split = blockIdx.z, splits = gridDim.z;
+  const int qpk = Hq / Hkv;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, tig = lane % 4;
+  const int pre = path_setup(path, leaf, cum, warp, lane);
+  uint32_t qa[D / 16][2];  // Q's A fragments (load_q)
+  load_q<KV, D>(qa, q, leaf, Hq, h, qpk, lane);
+  __syncthreads();
+  const int total = path_total(path, pre, cum);
+  int n;
+  const int w0 = warp_span<W>(total, split, splits, warp, n);
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+  float m = kNeg, l = 0.f;  // row g's running max (base 2) and sum
+  uint8_t* ring = smem_raw + warp * kStages * L::kStage;
+  walk_tiles<KV, D>(path, leaf, cum, pools, h, Hkv, ring, w0, n, total, lane,
+                    [&](const uint8_t* st, int i0) {
     const float* ksc = reinterpret_cast<const float*>(st + 2 * L::kRows);
     const float* vsc = ksc + kTile;
-    const int i0 = (w0 + it) * kTile;
 
     float s[2][4];
     tile_scores<KV, D>(s, qa, st, lane);
@@ -458,8 +551,7 @@ __global__ void __launch_bounds__(Traits<Path>::kWarps * 32)
       acc[nt][1] *= alpha;
     }
     tile_pv<KV, D>(acc, pa, st, lane);
-  }
-  cp_async_wait<0>();
+  });
 
   // each warp's state: m, l of its 8 rows, acc (8, D)
   __syncthreads();  // every warp is done with its ring
@@ -478,44 +570,277 @@ __global__ void __launch_bounds__(Traits<Path>::kWarps * 32)
       sm_acc[(warp * 8 + g) * L::kAccPitch + d + d / 32] = acc[nt][e];
     }
 
-  namespace cg = cooperative_groups;
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  // block `split` merges outputs [o0, o1) of the (qpk, D) rows over the
-  // cluster's blocks and their warps, in that order
-  const int items = qpk * D;
-  const int o0 = items * split / splits, o1 = items * (split + 1) / splits;
-  for (int it = o0 + tid; it < o1; it += NT) {
-    const int r = it / D, d = it % D;
-    float mm = kNeg;
-    for (int b = 0; b < splits; ++b) {
-      const float* pm = cluster.map_shared_rank(sm_m, b);
-      for (int w = 0; w < W; ++w) mm = fmaxf(mm, pm[w * 8 + r]);
-    }
-    float ls = 0.f, a = 0.f;
-    for (int b = 0; b < splits; ++b) {
-      const float* pm = cluster.map_shared_rank(sm_m, b);
-      const float* pl = cluster.map_shared_rank(sm_l, b);
-      const float* pa = cluster.map_shared_rank(sm_acc, b);
-      for (int w = 0; w < W; ++w) {
-        const float f = exp2f(pm[w * 8 + r] - mm);
-        ls += pl[w * 8 + r] * f;
-        a += pa[(w * 8 + r) * L::kAccPitch + d + d / 32] * f;
+  merge_cluster<KV, D, W>(sm_m, o, m_out, l_out, leaf, h, qpk, Hq, split, splits, tid);
+}
+
+// -- bf16 q at head_dim 96 and 256 (Phi-3-mini, Gemma: B7's gather plans) ---
+//
+// deft_seq_q puts the query rows on M: at D 256 its accumulator is D / 8 x
+// 4 = 128 registers a thread, half of them rows 8-15 that are always zero,
+// beside Q's 32; and at q_per_kv 1 (both models) 15 of 16 rows are zero.
+// The wide body swaps the operands: path tokens on M, the <= 8 query rows
+// on N, so each m16n8k16 takes 16 tokens (S) or 16 head dims (P V):
+// - S^T = K Q^T: K's tile rows are the A operand (bf16: ldmatrix of 16
+//   tokens x 16 head dims; int8: rows g and g + 8, D / 4 bytes at
+//   (D / 4) tig, widened in registers), Q's fragments the B operand (the
+//   same registers deft_seq_q holds as A, load_q).  s[i]: token g + 8 (i /
+//   2), query row 2 tig + i % 2.
+// - The online softmax runs per query row over the lanes of one tig (xor 4,
+//   8, 16); each thread keeps m, l of rows 2 tig and 2 tig + 1.
+// - P^T, the B operand of O^T = V^T P^T, wants tokens 2 tig, + 1, + 8, + 9
+//   of query row g: four shuffles from the lanes that hold them as S^T
+//   (8 tig + g / 2 and + 4), a byte permute picking row g's halves.
+// - V^T's A fragments: bf16, ldmatrix.trans of 16 tokens x 16 head dims;
+//   int8, per m-tile mt and row m of it head dim (D / 16) m + mt, so a
+//   thread reads D / 16 consecutive codes of each of its 4 token rows at
+//   rows m = g, g + 8 (16 bytes at D 256; 6 at D 96, from the 4-byte-aligned
+//   8 around them), pairs two tokens' codes with prmt and widens them.
+// acc is D / 16 x 4 = 64 registers at D 256 (O^T: head dim of m-tile mt,
+// row g + 8 (i / 2); query row 2 tig + i % 2), all live at q_per_kv 8.
+// The path source, the split over blocks and warps, the ring, the tile
+// rows read a tile ahead and the cluster merge are deft_seq_q's.
+
+// The words at p: N of 4 bytes (16, 8 or 4 bytes aligned so).
+template <int N>
+__device__ __forceinline__ void load_words(uint32_t (&w)[N], const uint8_t* p) {
+  if constexpr (N == 4) {
+    const uint4 c = *reinterpret_cast<const uint4*>(p);
+    w[0] = c.x;
+    w[1] = c.y;
+    w[2] = c.z;
+    w[3] = c.w;
+  } else if constexpr (N == 2) {
+    const uint2 c = *reinterpret_cast<const uint2*>(p);
+    w[0] = c.x;
+    w[1] = c.y;
+  } else {
+    static_assert(N == 1, "words a load");
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
+}
+
+// S^T = K Q^T of one tile: s[i] is token g + 8 (i / 2), query row 2 tig + i % 2.
+template <typename KV, int D>
+__device__ __forceinline__ void tile_scores_t(float (&s)[4], const uint32_t (&qb)[D / 16][2],
+                                              const uint8_t* st, int lane) {
+  using L = Layout<KV, D, 1>;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) s[i] = 0.f;
+  if constexpr (L::kQ) {
+    // step ks: word ks of rows g (a0: bytes 0, 1; a2: 2, 3) and g + 8 (a1, a3)
+    const int g = lane / 4, tig = lane % 4;
+    const uint8_t* k0 = st + g * L::P + (D / 4) * tig;
+    const uint8_t* k1 = k0 + 8 * L::P;
+    constexpr int WL = D % 64 == 0 ? 4 : 2;  // words a load: 16 bytes, or 8 at D 96
+#pragma unroll
+    for (int j = 0; j < D / 16 / WL; ++j) {
+      uint32_t w0[WL], w1[WL];
+      load_words<WL>(w0, k0 + 4 * WL * j);
+      load_words<WL>(w1, k1 + 4 * WL * j);
+#pragma unroll
+      for (int u = 0; u < WL; ++u) {
+        uint32_t a[4];
+        deft::hopper::widen4(w0[u], a[0], a[2]);
+        deft::hopper::widen4(w1[u], a[1], a[3]);
+        deft::mma_bf16(s, a, qb[WL * j + u][0], qb[WL * j + u][1]);
       }
     }
-    const long long row_o = (long long)leaf * Hq + h * qpk + r;
-    if (m_out) {  // partial form: the unnormalised state, m in natural log
-      static_cast<float*>(o)[row_o * D + d] = a;
-      if (d == 0) {
-        m_out[row_o] = mm * deft_seq::kLn2;
-        l_out[row_o] = ls;
-      }
-    } else {
-      static_cast<__nv_bfloat16*>(o)[row_o * D + d] =
-          __float2bfloat16(ls == 0.f ? 0.f : a / ls);
+  } else {
+    // lane l: token l % 16, head dims 8 (l / 16) .. + 7 of each 16
+    const uint8_t* kr = st + (lane % 16) * L::P + (lane / 16) * 16;
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      uint32_t a[4];
+      ldsm_x4(a, kr + 32 * ks);
+      deft::mma_bf16(s, a, qb[ks][0], qb[ks][1]);
     }
   }
-  cluster.sync();  // no block leaves while another reads its shared memory
+}
+
+// The D / 16 int8 codes of a V row at head dims (D / 16) m .. + D / 16 - 1
+// (row m of every m-tile), code mt in byte mt % 4 of word mt / 4.
+template <int D>
+__device__ __forceinline__ void v_codes(uint32_t (&c)[(D + 63) / 64], const uint8_t* row,
+                                        int m) {
+  constexpr int B = D / 16;
+  if constexpr (B % 4 == 0) {
+    load_words<B / 4>(c, row + B * m);
+  } else {
+    static_assert(B == 6, "int8 V codes a row");
+    // 6 bytes at 6 m, 2-byte aligned: the aligned 8 bytes around them
+    const int sh = 16 * (m & 1);
+    const uint8_t* p = row + B * m - sh / 8;
+    const uint32_t w0 = *reinterpret_cast<const uint32_t*>(p);
+    const uint32_t w1 = *reinterpret_cast<const uint32_t*>(p + 4);
+    c[0] = __funnelshift_r(w0, w1, sh);
+    c[1] = w1 >> sh;
+  }
+}
+
+// O^T += V^T P^T of one tile; pb0, pb1: P^T's B fragment (tokens 2 tig, + 1
+// and 2 tig + 8, + 9 of query row g).
+template <typename KV, int D>
+__device__ __forceinline__ void tile_pv_t(float (&acc)[D / 16][4], uint32_t pb0, uint32_t pb1,
+                                          const uint8_t* st, int lane) {
+  using L = Layout<KV, D, 1>;
+  if constexpr (L::kQ) {
+    constexpr int CW = (D + 63) / 64;
+    const int g = lane / 4, tig = lane % 4;
+    const uint8_t* vr = st + L::kRows + 2 * tig * L::P;
+    // c[t][hh]: token 2 tig + t % 2 + 8 (t / 2), row m = g + 8 hh of the m-tiles
+    uint32_t c[4][2][CW];
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        v_codes<D>(c[t][hh], vr + (t % 2 + 8 * (t / 2)) * L::P, g + 8 * hh);
+#pragma unroll
+    for (int u = 0; u < CW; ++u) {
+      // a[j][r]: register r of m-tile 4 u + j, r = 0 .. 3: (tokens 2 tig, + 1;
+      // row g), (the same; g + 8), (tokens 2 tig + 8, + 9; g), (the same; g + 8)
+      uint32_t a[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int t = 2 * (r / 2), hh = r % 2;
+        deft::hopper::widen4(deft::hopper::pair_lo(c[t][hh][u], c[t + 1][hh][u]), a[0][r],
+                             a[1][r]);
+        deft::hopper::widen4(deft::hopper::pair_hi(c[t][hh][u], c[t + 1][hh][u]), a[2][r],
+                             a[3][r]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (4 * u + j < D / 16) deft::mma_bf16(acc[4 * u + j], a[j], pb0, pb1);
+    }
+  } else {
+    // lane l: token l % 8 + 8 (l / 16), head dims 8 ((l / 8) % 2) .. + 7 of each 16
+    const uint8_t* vr =
+        st + L::kRows + (lane % 8 + 8 * (lane / 16)) * L::P + (lane / 8) % 2 * 16;
+#pragma unroll
+    for (int mt = 0; mt < D / 16; ++mt) {
+      uint32_t a[4];
+      ldsm_x4_trans(a, vr + 32 * mt);
+      deft::mma_bf16(acc[mt], a, pb0, pb1);
+    }
+  }
+}
+
+template <typename KV, int D, typename Path>
+__global__ void __launch_bounds__(Traits<Path>::kWarps * 32)
+    seq_q_wide(const __nv_bfloat16* __restrict__ q, deft_seq::SeqPools<KV> pools, Path path,
+               void* __restrict__ o, float* __restrict__ m_out, float* __restrict__ l_out,
+               int Hq, int Hkv, float s2) {
+  constexpr int W = Traits<Path>::kWarps;
+  using L = Layout<KV, D, W>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int* cum = reinterpret_cast<int*>(smem_raw + L::kBytes);  // SegPath only
+  const int leaf = blockIdx.x, h = blockIdx.y, split = blockIdx.z, splits = gridDim.z;
+  const int qpk = Hq / Hkv;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, tig = lane % 4;
+  const int pre = path_setup(path, leaf, cum, warp, lane);
+  uint32_t qb[D / 16][2];  // Q^T's B fragments (load_q)
+  load_q<KV, D>(qb, q, leaf, Hq, h, qpk, lane);
+  __syncthreads();
+  const int total = path_total(path, pre, cum);
+  int n;
+  const int w0 = warp_span<W>(total, split, splits, warp, n);
+
+  float acc[D / 16][4];  // O^T
+#pragma unroll
+  for (int mt = 0; mt < D / 16; ++mt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[mt][i] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};  // query rows 2 tig + e
+  uint8_t* ring = smem_raw + warp * kStages * L::kStage;
+  walk_tiles<KV, D>(path, leaf, cum, pools, h, Hkv, ring, w0, n, total, lane,
+                    [&](const uint8_t* st, int i0) {
+    const float* ksc = reinterpret_cast<const float*>(st + 2 * L::kRows);
+    const float* vsc = ksc + kTile;
+
+    float s[4];
+    tile_scores_t<KV, D>(s, qb, st, lane);
+    // online softmax of query rows 2 tig + e over tokens g, g + 8 of every g
+    float mx[2] = {kNeg, kNeg};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int tok = g + 8 * (i / 2);
+      float v = s[i] * s2;
+      if constexpr (L::kQ) v *= ksc[tok];
+      v = i0 + tok < total ? v : kNeg;
+      s[i] = v;
+      mx[i % 2] = fmaxf(mx[i % 2], v);
+    }
+    float m_new[2], alpha[2], sum[2] = {0.f, 0.f}, pv[4];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+#pragma unroll
+      for (int x = 4; x < 32; x *= 2)
+        mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], x));
+      m_new[e] = fmaxf(fmaxf(m[e], mx[e]), deft_seq::kMClamp);
+      alpha[e] = exp2f(m[e] - m_new[e]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float p = exp2f(s[i] - m_new[i % 2]);
+      sum[i % 2] += p;
+      pv[i] = L::kQ ? p * vsc[g + 8 * (i / 2)] : p;
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+#pragma unroll
+      for (int x = 4; x < 32; x *= 2) sum[e] += __shfl_xor_sync(0xffffffffu, sum[e], x);
+      l[e] = l[e] * alpha[e] + sum[e];
+      m[e] = m_new[e];
+    }
+    // P^T's B fragment: tokens 2 tig and 2 tig + 1 of query row g are in
+    // lanes 8 tig + g / 2 and + 4, the half g % 2 of their first words
+    // (tokens + 8: of their second)
+    const uint32_t w01 = deft::pack_bf16(pv[0], pv[1]), w23 = deft::pack_bf16(pv[2], pv[3]);
+    const int src = 8 * tig + g / 2;
+    const uint32_t sel = g % 2 ? 0x7632u : 0x5410u;
+    const uint32_t pb0 = __byte_perm(__shfl_sync(0xffffffffu, w01, src),
+                                     __shfl_sync(0xffffffffu, w01, src + 4), sel);
+    const uint32_t pb1 = __byte_perm(__shfl_sync(0xffffffffu, w23, src),
+                                     __shfl_sync(0xffffffffu, w23, src + 4), sel);
+#pragma unroll
+    for (int mt = 0; mt < D / 16; ++mt) {
+      acc[mt][0] *= alpha[0];
+      acc[mt][1] *= alpha[1];
+      acc[mt][2] *= alpha[0];
+      acc[mt][3] *= alpha[1];
+    }
+    tile_pv_t<KV, D>(acc, pb0, pb1, st, lane);
+  });
+
+  // each warp's state: m, l of its 8 query rows, acc (8, D)
+  __syncthreads();  // every warp is done with its ring
+  float* sm_m = reinterpret_cast<float*>(smem_raw);
+  float* sm_l = sm_m + W * 8;
+  float* sm_acc = sm_l + W * 8;
+  if (g == 0) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      sm_m[warp * 8 + 2 * tig + e] = m[e];
+      sm_l[warp * 8 + 2 * tig + e] = l[e];
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < D / 16; ++mt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int mm = g + 8 * (i / 2);
+      const int d = L::kQ ? (D / 16) * mm + mt : 16 * mt + mm;
+      sm_acc[(warp * 8 + 2 * tig + i % 2) * L::kAccPitch + d + d / 32] = acc[mt][i];
+    }
+
+  merge_cluster<KV, D, W>(sm_m, o, m_out, l_out, leaf, h, qpk, Hq, split, splits, tid);
+}
+
+// The body of head_dim D: deft_seq_q's at 64 and 128, the wide body at 96 and 256.
+template <typename KV, int D, typename Path>
+inline auto body() {
+  if constexpr (D == 64 || D == 128) return seq_q_mma<KV, D, Path>;
+  else return seq_q_wide<KV, D, Path>;
 }
 
 template <typename KV, int D, typename Path>
@@ -523,7 +848,7 @@ cudaError_t launch(const void* q, deft_seq::SeqPools<KV> pools, Path path, void*
                    float* m_out, float* l_out, int R, int Hq, int Hkv, int splits, float scale,
                    cudaStream_t stream) {
   constexpr int W = Traits<Path>::kWarps;
-  auto kernel = seq_q_mma<KV, D, Path>;
+  auto kernel = body<KV, D, Path>();
   const size_t smem = Layout<KV, D, W>::kBytes + path_smem(path);
   if (smem > 48 * 1024) {
     const cudaError_t attr = cudaFuncSetAttribute(
@@ -548,7 +873,8 @@ cudaError_t launch(const void* q, deft_seq::SeqPools<KV> pools, Path path, void*
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// Check the sizes, then instantiate launch for head_dim (64 or 128).  q
+// Check the sizes, then instantiate launch for head_dim: 64 or 128, and over
+// path tables (B7, whose wide heads take gather plans only) 96 and 256.  q
 // bf16; o bf16, or with m_out and l_out the partial form's fp32 acc.
 // splits: the blocks of a cluster that share each (leaf, head)'s path, 1 .. 8.
 template <typename KV, typename Path>
@@ -563,6 +889,12 @@ cudaError_t dispatch(const void* q, deft_seq::SeqPools<KV> pools, Path path, voi
     return launch<KV, 128>(q, pools, path, o, m_out, l_out, R, Hq, Hkv, splits, scale, st);
   if (D == 64)
     return launch<KV, 64>(q, pools, path, o, m_out, l_out, R, Hq, Hkv, splits, scale, st);
+  if constexpr (std::is_same<Path, deft_seq::IdxPath>::value) {
+    if (D == 256)
+      return launch<KV, 256>(q, pools, path, o, m_out, l_out, R, Hq, Hkv, splits, scale, st);
+    if (D == 96)
+      return launch<KV, 96>(q, pools, path, o, m_out, l_out, R, Hq, Hkv, splits, scale, st);
+  }
   return cudaErrorInvalidValue;
 }
 

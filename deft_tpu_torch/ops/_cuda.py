@@ -34,7 +34,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
-# ptxas register / shared-memory report of each build, by source name
+# ptxas register / shared-memory report of each build, by source name (a
+# library built before is read back from the .log file beside it)
 build_log: Dict[str, str] = {}
 
 
@@ -60,9 +61,13 @@ def library_path(name: str) -> Path:
 
 
 def _start(name: str) -> Optional[tuple]:
-    """Start nvcc for ``name`` unless its library is already built."""
+    """Start nvcc for ``name`` unless its library is already built (then
+    its build's ptxas report is read back into build_log)."""
     out = library_path(name)
     if out.exists():
+        report = out.with_suffix(".log")
+        if report.exists():
+            build_log.setdefault(name, report.read_text())
         return None
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -78,6 +83,7 @@ def _finish(job: tuple) -> None:
     build_log[name] = log
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
 
 

@@ -150,22 +150,28 @@ def launch_seq(source: str, entry: str, argtypes: list, q, k_pool, v_pool,
 #  blk_live, R, Hq, Hkv, D, nseg, spb, splits, dtype, scale, stream)
 _PAGED_SEQ_ARGS = [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _P, _P, _P, _P,
                    _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
-# the tensor-core body over bf16 q: blocks a cluster may split one (leaf,
+# the tensor-core bodies over bf16 q: blocks a cluster may split one (leaf,
 # head)'s path over, and how many of its blocks an SM holds, by pool type:
-# int8 (B5) 57 KB of shared memory a block, bf16 (B2) 104 KB at D = 128
+# at head_dim 64 and 128, int8 (B5) 57 KB of shared memory a block, bf16
+# (B2) 104 KB at D = 128; at 96 and 256 (B7's wide body, 2 warps of 3
+# stages of 16 K and V rows of 2 D + 16 bytes, or D + 16 and the scales),
+# what 228 KB holds at 1 KB reserved a block
 _MAX_SPLITS = 8
 _BLOCKS_PER_SM = {"int8": 3, "bfloat16": 2}
+_WIDE_BLOCKS_PER_SM = {(96, "bfloat16"): 5, (96, "int8"): 10,
+                       (256, "bfloat16"): 2, (256, "int8"): 4}
 
 
-def seq_splits(R: int, Hkv: int, sms: int, int8: bool = True) -> int:
+def seq_splits(R: int, Hkv: int, sms: int, int8: bool = True, D: int = 128) -> int:
     """Blocks of a cluster that share each (leaf, KV head)'s path in the
-    tensor-core body (bf16 q; int8 pools, else bf16): enough that the R *
-    Hkv pairs fill the SMs' resident blocks, at most 8; 1 where the pairs
-    alone fill them (the 8B main tree, 64 x 8 pairs).  Each block takes a
-    contiguous share of the path's 16-token tiles, computed on the device
-    from the segment table (B2, B5) or the path's length (B7): the host
-    needs no path length."""
-    per_sm = _BLOCKS_PER_SM["int8" if int8 else "bfloat16"]
+    tensor-core bodies (bf16 q; int8 pools, else bf16; head_dim D): enough
+    that the R * Hkv pairs fill the SMs' resident blocks, at most 8; 1
+    where the pairs alone fill them (the 8B main tree, 64 x 8 pairs).  Each
+    block takes a contiguous share of the path's 16-token tiles, computed
+    on the device from the segment table (B2, B5) or the path's length
+    (B7): the host needs no path length."""
+    pool = "int8" if int8 else "bfloat16"
+    per_sm = _WIDE_BLOCKS_PER_SM.get((D, pool)) or _BLOCKS_PER_SM[pool]
     return max(1, min(_MAX_SPLITS, -(-per_sm * sms // max(1, R * Hkv))))
 
 

@@ -5,8 +5,8 @@ Port of deft_tpu/ops/prefill.py:143 (prefill_attention, the Pallas kernel
 _prefill_kernel :82), :190 (prefill_attn_pallas), :288
 (ragged_prefill_attention, the Pallas kernel _ragged_prefill_kernel :205)
 and :365 (ragged_prefill_attn_pallas).  Both Hopper kernels are
-csrc/prefill.cu (entries deft_prefill, deft_ragged_prefill; bf16 at
-head_dim 64 and 128 on wgmma, at 96 and 256 on mma.sync); each
+csrc/prefill.cu (entries deft_prefill, deft_ragged_prefill; bf16 on wgmma
+and TMA at head_dim 64, 96, 128 and 256, fp32 on an FMA body); each
 ``*_plain`` function is the same function in plain torch, which the wrapper
 runs for CPU tensors only.  Layouts stay the model's: q (N, Hq, D), k and v
 (N, Hkv, D), output (N, Hq, D); query head h * qpk + g attends KV head h
