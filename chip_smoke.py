@@ -5,7 +5,8 @@
     python3 chip_smoke.py --profile  # also torch.profiler decode breakdowns
     python3 chip_smoke.py --flatten-only [--profile] [--root DIR]
         # the card, the build and the flatten kernels' checks and times only
-        # (B1, B1p, B4, B4p, B6, B11; with --profile the batch path's
+        # (B1, B1p, B4, B4p, B6, B11; B6 and B11 also at the wide heads, D 96
+        # and 256, over bf16 and int8 pools; with --profile the batch path's
         # profiled flatten steps), over this checkout's package or DIR's:
         # a parent commit timed in turns with this one on one card
     python3 chip_smoke.py --seq-only [--root DIR]
@@ -21,11 +22,14 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
 result line):
   1. card:    nvidia-smi's name and power limit, torch's device name;
   2. build:   nvcc builds every kernel from csrc/, one process per source;
-              the wgmma bodies (B1's among them, B3/B8's instantiations at
-              D 96 and 256) must hold HGMMA, the mma.sync bodies of B2, B4,
-              B5 and B7 (seq_q_wide at D 96 and 256 too) HMMA (cuobjdump's
+              the wgmma bodies (B1's among them, B3/B8's and B6's over bf16
+              pools at D 96 and 256 too) must hold HGMMA, the mma.sync
+              bodies of B2, B4, B5 and B7 (seq_q_wide at D 96 and 256 too)
+              and B6's over int8 pools at every width HMMA (cuobjdump's
               SASS); ptxas's register and spill lines of B1's body and of
-              the wide heads' bodies, B3/B8's and B7's without a spill;
+              the wide heads' bodies (B3/B8, B7, B6/B11), none with a
+              spill; no flatten library instantiates the fp32-q staged body
+              (flatten_body.cuh) over bf16 q;
   3. kernels: each kernel against its plain torch version on the card, on the
               shapes its path gives it (Llama-3.1-8B heads and matmuls, B10
               at Mixtral-8x7B's prefill; the partial entries B1p, B4p, B2p
@@ -52,13 +56,15 @@ result line):
               multi-tree gather plan), bf16 and int8 pools, with the row
               tiles the runner counts on the host.  The wide heads
               (WIDE_HEADS: Phi-3-mini 32/32 x D 96, Gemma-7B 16/16 x D 256,
-              which take gather plans only) run B3, B8, B6, B7 (bf16 and
-              int8 pools) and B11 at the same path shapes (wide_shapes),
-              fp32 and bf16 edge cases and a fault control each
-              (wide_edges; B3 at qpk 1, 2, 4 and 8, B7 also on b7_edges'
-              synthetic paths at qpk 1, 2 and 8 with its controls); their
-              rows in the kernels line are named <kernel>_d96 and
-              <kernel>_d256;
+              which take gather plans only) run B3, B8, B6, B7 and B11
+              (B6, B7 and B11 over bf16 and int8 pools) at the same path
+              shapes (wide_shapes), fp32 and bf16 edge cases and a fault
+              control each (wide_edges; B3 at qpk 1, 2, 4 and 8, B7 also on
+              b7_edges' synthetic paths at qpk 1, 2 and 8 with its
+              controls; b6_edges: B6 and B11 at 4- and 8-warp blocks, 1,
+              the rule's and twice its spans, DUMP_SLOT's row NaN, both dp
+              windows, with controls); their rows in the kernels line are
+              named <kernel>_d96 and <kernel>_d256;
   4. main:    the 8B model (random bf16 weights from a CUDA torch.Generator,
               all 32 layers) serves Simple_Tree few-shot, width 50, prompt
               4000, 64 generated tokens, block_len 256, in flatten then seq
@@ -162,20 +168,25 @@ result line):
               rank's prefill, its last-token logits against the moe path's
               below MOE_LIMIT, then 8 decode tokens;
  14. families: Qwen2.5-7B (qkv bias, 7 q heads a KV head), Qwen3-8B
-              (qk-norm) and Gemma-7B (Gemma norms, GeGLU, tied lm_head,
-              head_dim 256) at the widths typed into FAMILIES from their
-              config.json: each written at full width and 2 layers as a
-              two-file safetensors checkpoint by the script's own writer,
+              (qk-norm), Gemma-7B (Gemma norms, GeGLU, tied lm_head,
+              head_dim 256) and Phi-3-mini's widths (head_dim 96; its
+              published sliding window set to null, which both packages
+              refuse) at the widths typed into FAMILIES from their
+              config.json: the first three each written at full width
+              and 2 layers as a two-file safetensors checkpoint by the
+              script's own writer,
               loaded through `python3 -m deft_tpu_torch.cli.run --model DIR
               --device cuda` and bit-exactly through load_params; then
               served at full depth from random weights on the main path's
               settings: the first step seq against flatten below the
               family's FAMILY_LIMITS (noise below, every other prompt block
-              dropped above), B1/B2 (Qwen) or B6/B7 (Gemma, every step)
-              launched, TTFT, TPOT and peak memory printed, and for
-              Gemma B7's device ms in 4 profiled seq steps against their
-              device busy and wall time; Gemma's B3, B6 and B7 launches
-              join the kernels line's _d256 rows;
+              dropped above), B1/B2 (Qwen) or B6/B7 (Gemma and Phi-3,
+              every step) launched, TTFT, TPOT and peak memory printed,
+              and for the wide heads B6's (with its merge) and B7's device
+              ms in 4 profiled steps of each mode against their device busy
+              and wall time; Phi-3-mini's and Gemma's B3,
+              B6 and B7 launches join the kernels line's _d96 and _d256
+              rows;
  15. tracing: one short CLI run under --trace-dir: the Chrome trace holds
               the decode_step spans and kernels of the port;
  16. timing:  CUDA-event times of each kernel, its plain version and, where
@@ -821,9 +832,9 @@ def wide_shapes(dev):
     kv_idx at these widths: the families phase's served shape, first) and
     on the CLI's 16-token prompt's tree halfway (a gather plan); B7 on the
     main tree halfway and at the short tree's fifth step (gather seq plans,
-    the only ones at these widths); both over bf16 and int8 pools; B11 at rank 0's window of SHORT_GRID on the
-    short tree (tp 2: half the KV heads).  name -> [(label, plan, args)],
-    as path_shapes."""
+    the only ones at these widths); B11 at rank 0's window of SHORT_GRID on
+    the short tree (tp 2: half the KV heads); each over bf16 pools, then
+    int8.  name -> [(label, plan, args)], as path_shapes."""
     import torch
     from deft_tpu_torch.parallel.mesh import Grid
 
@@ -848,11 +859,14 @@ def wide_shapes(dev):
             out[name] = [(f"{model} {label} {kv}", *wide_case(kind, tree, qpk, Hkv, D, kv,
                                                              dev, gen))
                          for label, tree in trees for kv in ("inherit", "int8")]
-        plan, args = wide_case("flatten", short, qpk, Hkv // 2, D, "inherit", dev, gen)
-        wargs, live = window_case(f"flatten_gather_partial_d{D}", plan, args,
-                                  Grid(SHORT_GRID, 0, dev))
-        out[f"flatten_gather_partial_d{D}"] = [(f"{model} rank 0 of grid {SHORT_GRID}",
-                                                (plan, live), wargs)]
+        out[f"flatten_gather_partial_d{D}"] = []
+        for kv in ("inherit", "int8"):
+            plan, args = wide_case("flatten", short, qpk, Hkv // 2, D, kv, dev, gen)
+            wargs, live = window_case(f"flatten_gather_partial_d{D}", plan, args,
+                                      Grid(SHORT_GRID, 0, dev))
+            out[f"flatten_gather_partial_d{D}"].append(
+                (f"{model} rank 0 of grid {SHORT_GRID}{' int8' if kv == 'int8' else ''}",
+                 (plan, live), wargs))
     return out
 
 
@@ -902,23 +916,27 @@ MMA_BODIES = {"B2/B2p (deft_seq_q, bf16 KV)": ("paged_seq", "seq_q_mmaI13__nv_bf
               "B7 (deft_seq_q, bf16 KV)": ("seq_gather", "seq_q_mmaI13__nv_bfloat16", "HMMA"),
               "B7 (deft_seq_q, int8 KV)": ("seq_gather", "seq_q_mmaIa", "HMMA"),
               # the wide heads (D 96, 256): B3/B8 on the wgmma body, B7 on
-              # seq_q_wide (path tokens on M), B6/B11 on flatten_body.cuh's
-              # mma.sync body
+              # seq_q_wide (path tokens on M), B6/B11 on deft_flat_q (wgmma
+              # over bf16 pools, mma.sync over int8)
               "B3/B8 at D 96 (wgmma, bf16)": ("prefill", "prefill_wgmmaILi96E", "HGMMA"),
               "B3/B8 at D 256 (wgmma, bf16)": ("prefill", "prefill_wgmmaILi256E", "HGMMA"),
               "B7 at D 96 and 256 (seq_q_wide, bf16 KV)": (
                   "seq_gather", "seq_q_wideI13__nv_bfloat16", "HMMA"),
               "B7 at D 96 and 256 (seq_q_wide, int8 KV)": ("seq_gather", "seq_q_wideIa",
-                                                           "HMMA"),
-              "B6/B11 at D 96 and 256 (flatten_body, bf16 q)": (
-                  "flatten_gather", "flatten_partial_kernelI13__nv_bfloat16", "HMMA")}
-# the wide heads' bf16 bodies whose registers and spills phase_build prints;
-# those redesigned for the wide heads (spill_free) must not spill
+                                                           "HMMA")}
+# the wide heads' bodies whose registers and spills phase_build prints and
+# which must not spill
 WIDE_BODIES = {"B3/B8 D 96": ("prefill", "prefill_wgmmaILi96E"),
                "B3/B8 D 256": ("prefill", "prefill_wgmmaILi256E"),
-               "B6/B11": ("flatten_gather", "flatten_partial_kernelI13__nv_bfloat16"),
                "B7": ("seq_gather", "seq_q_wide")}
-SPILL_FREE = ("B3/B8 D 96", "B3/B8 D 256", "B7")
+MMA_BODIES.update({f"B6/B11 at D {D} (deft_flat_q, {kv} KV)": (
+    "flatten_gather", f"flatten_q_mmaI{code}Li{D}E", op) for D in (96, 256)
+    for kv, code, op in (("bf16", "13__nv_bfloat16", "HGMMA"), ("int8", "a", "HMMA"))})
+WIDE_BODIES.update({label: body[:2] for label, body in MMA_BODIES.items()
+                    if label.startswith("B6/B11 at D")})
+# the fp32-q split-KV body (flatten_body.cuh), which over bf16 q no flatten
+# library may instantiate any more
+STAGED_BF16 = "flatten_partial_kernelI13__nv_bfloat16"
 
 
 def spill_bytes(line: str) -> int:
@@ -983,11 +1001,13 @@ def phase_build(bodies: bool = True):
         lines = ptxas_lines(lib, fn)
         for line in lines:
             print(f"[build] {label} wide-head body: {line}", flush=True)
-        if label in SPILL_FREE:
-            check(any("spill" in line for line in lines),
-                  f"no ptxas spill line for the {label} body")
-            check(not any(spill_bytes(line) for line in lines),
-                  f"the {label} body spills registers")
+        check(any("spill" in line for line in lines),
+              f"no ptxas spill line for the {label} body")
+        check(not any(spill_bytes(line) for line in lines),
+              f"the {label} body spills registers")
+    for name in ("paged_flatten", "flatten_gather"):
+        check(not sass_count(name, "EXIT", STAGED_BF16),
+              f"{name} instantiates flatten_body.cuh's staged body over bf16 q")
 
 
 def phase_kernels(dev, shapes):
@@ -1468,17 +1488,18 @@ def b7_edges(dev, gen, widths=(64, 128), qpks=(1, 4, 7, 8)):
                     f"{int(share[0])}-{int(share[-1])}) left out", got[2:3], want[2:3], tol)
 
 
-def check_edge(tag, name, label, args, leaves, qpk, tol):
+def check_edge(tag, name, label, args, leaves, qpk, tol, clean=None):
     """An attention kernel's edge case against its plain version: the first
     `leaves` leaves' rows (partial entries: acc and l on their rows, folded
     for a flatten kernel, m where a row saw a token), every output finite,
-    pad rows included.  Returns the kernel's output."""
+    pad rows included.  The plain version reads `clean` where given (the
+    arguments with DUMP_SLOT's row finite).  Returns the kernel's output."""
     import torch
 
     fn, plain = wrappers()[name]
     got = fn(*args)
     torch.cuda.synchronize()
-    want = plain(*args)
+    want = plain(*(clean or args))
     if name in PARTIAL_OF:
         rows = ((slice(None), slice(0, leaves * qpk)) if KERNELS[name][2] == "flatten"
                 else (slice(0, leaves),))
@@ -1860,6 +1881,88 @@ def b6_edges(dev, gen, shapes):
     rel_err_control("flatten_gather_partial", f"{label}: span {span} of {spans} "
                     f"({hidden.numel()} tokens; the last one a live row sees) left out",
                     got[:, rows], want[:, rows], tol)
+    b6_wide_edges(dev, gen)
+
+
+def dump_poisoned(name, args):
+    """Kernel `name`'s arguments with pool row DUMP_SLOT (0), where a gather
+    plan's pads sit, NaN: K and V rows of bf16 pools, the scales of int8
+    pools (their codes hold no NaN)."""
+    import torch
+
+    a = named_args(name, args)
+    keys, dim = (("k_scale", "v_scale"), 2) if a.get("k_scale") is not None else \
+        (("k_pool", "v_pool"), 1)
+    zero = torch.zeros(1, dtype=torch.long, device=a["q"].device)
+    a.update((k, a[k].clone().index_fill_(dim, zero, float("nan"))) for k in keys)
+    return tuple(a.values())
+
+
+def b6_wide_edges(dev, gen):
+    """B6 and B11 over bf16 q at the wide heads (D 96 and 256: deft_flat_q's
+    zeroed half box, staged Q and two-stage ring) against their plain
+    versions, bf16, tolerance 2e-2, bf16 and int8 pools: a plan of at most
+    64 folded rows (4-warp blocks: the 12-leaf tree, qpk 4) and one of more
+    (8-warp blocks: the 16-token prompt's tree at width 50, qpk 4), each
+    with q_spans' count, 1 span and twice the rule's spans forced, and B11
+    on both dp windows of grid 2x1x1; DUMP_SLOT's row NaN in the kernel's
+    pools (the pads' row: it must never reach a product), the plain version
+    reading it finite; every output finite.  Fault controls through the
+    plain version, each D: span 0 of the 64-row plan's row tile hidden (1
+    span of 2 forced), the first leaf's own tokens hidden on the wider
+    plan."""
+    import torch
+    from deft_tpu_torch.ops import _cuda
+    from deft_tpu_torch.ops import paged_flatten_attn as pf
+    from deft_tpu_torch.parallel.mesh import Grid
+
+    tol = TOL["bfloat16"]
+    sms = _cuda.sm_count(dev.index)
+    small = grow_tree(16, 12, 6, 4096, np.random.default_rng(SEED + 7))
+    short = grow_tree(16, WIDTH, GEN_LEN // 2, 16384, np.random.default_rng(SEED))
+    for D in WIDE_HEADS:
+        B6, B11 = f"flatten_gather_d{D}", f"flatten_gather_partial_d{D}"
+        for tree, rows in ((small, 64), (short, 128)):
+            for kv in ("inherit", "int8"):
+                plan, clean = kernel_case(B6, tree, 4, 2, D, torch.bfloat16, dev, gen, 128,
+                                          kv=kv)
+                rq = plan.l_pad * 4
+                check(pf.q_block_rows(rq) == rows,
+                      f"{B6}: the plan's {rq} folded rows take blocks of "
+                      f"{pf.q_block_rows(rq)}, not {rows}")
+                args = dump_poisoned(B6, clean)
+                spans = flat_q_grid(B6, clean, sms)[3]
+                for s in (spans, 1, 2 * spans):
+                    with forced_spans(s):
+                        check_edge("b6", B6, f"{rq} folded rows ({rows // 16} warps a block), "
+                                   f"{kv}, D={D}, {s} spans{' (the rule)' if s == spans else ''}"
+                                   f", DUMP_SLOT NaN", args, plan.n_leaves, 4, tol, clean)
+                for r in range(2):
+                    grid = Grid((2, 1, 1), r, dev)
+                    wclean, leaves = window_case(B11, plan, clean, grid)
+                    wargs = dump_poisoned(B11, wclean)
+                    check_edge("b6", B11, f"{rq} folded rows, {kv}, D={D}, rank "
+                               f"{grid.coords} of (2, 1, 1), DUMP_SLOT NaN", wargs, leaves, 4,
+                               tol, wclean)
+        # controls, bf16 pools: span 0 of 2 of the 64-row plan hidden; the
+        # wider plan's leaf 0 without its own tokens
+        plan, args = kernel_case(B6, small, 4, 2, D, torch.bfloat16, dev, gen, 128)
+        named = named_args(B6, args)
+        with forced_spans(2):
+            got = wrappers()[B6][0](*args)
+        hidden = torch.from_numpy(b4_span_tokens(named, plan.l_pad, 4, 2, 0)).to(dev)
+        rel_err_control(B6, f"D={D} 64-row plan: span 0 of 2 ({hidden.numel()} tokens) "
+                        "hidden", got[:plan.n_leaves], wrappers()[B6][1](
+                            **hidden_plan(named, hidden, plan.l_pad))[:plan.n_leaves], tol)
+        plan, args = kernel_case(B6, short, 4, 2, D, torch.bfloat16, dev, gen, 128)
+        named = named_args(B6, args)
+        own = np.nonzero((plan.tok_lo == 0) & (plan.tok_hi == 1))[0]
+        got = wrappers()[B6][0](*args)
+        hidden = torch.from_numpy(own).to(dev)
+        rel_err_control(B6, f"D={D} {plan.l_pad * 4}-row plan: leaf 0's {own.size} own tokens "
+                        "hidden",
+                        got[:1], wrappers()[B6][1](**hidden_plan(named, hidden,
+                                                                 plan.l_pad))[:1], tol)
 
 
 def wide_edges(dev, gen):
@@ -3762,16 +3865,31 @@ FAMILIES = {
         "vocab_size": 256000, "rope_theta": 10000.0, "rms_norm_eps": 1e-06,
         "max_position_embeddings": 8192, "attention_bias": False, "hidden_act": "gelu",
         "hidden_activation": "gelu_pytorch_tanh", "torch_dtype": "bfloat16"}),
+    # Phi-3-mini's widths at D 96; both packages refuse its active window
+    "phi-3-mini": ("huggingface.co/microsoft/Phi-3-mini-4k-instruct config.json, not the "
+                   "published config: sliding_window 2047 set to null", {
+        "architectures": ["Phi3ForCausalLM"], "model_type": "phi3",
+        "hidden_size": 3072, "intermediate_size": 8192, "num_hidden_layers": 32,
+        "num_attention_heads": 32, "num_key_value_heads": 32, "vocab_size": 32064,
+        "rope_theta": 10000.0, "rms_norm_eps": 1e-05, "max_position_embeddings": 4096,
+        "original_max_position_embeddings": 4096, "rope_scaling": None,
+        "sliding_window": None, "attention_bias": False, "tie_word_embeddings": False,
+        "hidden_act": "silu", "torch_dtype": "bfloat16"}),
 }
 CHECKPOINT_LAYERS = 2
+# the families phase_families also writes and loads at CHECKPOINT_LAYERS
+# (the others are served only: the loader is covered, and the script keeps
+# inside its time limit)
+LOADED_FAMILIES = ("qwen2.5-7b", "qwen3-8b", "gemma-7b")
 # Each family's first-step limit (family_serve): the geometric mean of its
 # one-ulp noise control and its every-other-prompt-block fault on an H100
 # (PERF.md §4), rounded down.  Qwen2.5-7B: 1.597e-2 and 7.300e-2
 # (one dropped block only 2.260e-2: its random V bias is most of each
 # attention output); Qwen3-8B: 2.232e-2 and 6.427e-1; Gemma-7B: 8.997e-2
 # and 1.366 (its (1 + w) norms at w = 1 and sqrt(3072)-scaled embeddings
-# amplify one ulp of noise past the 8B path's LOGITS_LIMIT)
-FAMILY_LIMITS = {"qwen2.5-7b": 3e-2, "qwen3-8b": 1e-1, "gemma-7b": 3e-1}
+# amplify one ulp of noise past the 8B path's LOGITS_LIMIT); Phi-3-mini's
+# widths: 1.972e-2 and 5.375e-1
+FAMILY_LIMITS = {"qwen2.5-7b": 3e-2, "qwen3-8b": 1e-1, "gemma-7b": 3e-1, "phi-3-mini": 1e-1}
 
 
 def write_safetensors(path, tensors: dict) -> None:
@@ -3975,8 +4093,8 @@ def family_serve(name, source, hf_cfg, dev, smi) -> dict:
         check(paged or not moved.get(other[mode], 0), f"families {name} {mode}: "
               f"{other[mode]} launched at head_dim {cfg.head_dim}: {moved}")
     peak = torch.cuda.max_memory_allocated() / 1e9
-    if not paged:  # B7's share of a seq step (every step a gather plan)
-        seq_step_share(runner, prompt, name, smi)
+    if not paged:  # B6's and B7's share of a step (every step a gather plan)
+        step_share(runner, prompt, name, smi)
     f, s = runs["flatten"]["pm"], runs["seq"]["pm"]
     print(f"[families] {name} ({source}; {cfg.num_layers} layers, {cfg.num_q_heads}/"
           f"{cfg.num_kv_heads} heads of {cfg.head_dim}): TTFT {f.TTFT:.3f} / {s.TTFT:.3f} ms, "
@@ -3988,35 +4106,42 @@ def family_serve(name, source, hf_cfg, dev, smi) -> dict:
     return launches
 
 
-def seq_step_share(runner, prompt, name, smi, steps=4) -> None:
-    """torch.profiler over `steps` seq decode steps right after branching
-    (profile_decode): B7's device ms a step (the seq kernels of
-    csrc/seq_gather.cu, by name) against the step's device busy time and
-    its wall time."""
+def step_share(runner, prompt, name, smi, steps=4) -> None:
+    """torch.profiler over `steps` decode steps of each mode right after
+    branching (profile_decode): the attention kernels' device ms a step
+    (flatten: B6 and its merge kernel, csrc/flatten_gather.cu's
+    deft_flat_q; seq: B7, csrc/seq_gather.cu's deft_seq_q) against the
+    step's device busy time and its wall time."""
     from deft_tpu_torch.runtime import ForwardMode
 
-    kernels, wall = profile_decode(runner, ForwardMode.DECODE, prompt, WIDTH, steps)
-    b7 = sum(ms for key, ms in kernels.items() if "deft_seq" in key)
-    busy = sum(kernels.values())
-    check(b7 > 0, f"families {name}: no B7 kernel in the profiled seq steps")
-    print(f"[families] {name}: B7 {b7:.3f} ms of a seq step's {busy:.3f} device ms "
-          f"({b7 / busy:.1%}) and {wall:.3f} wall ms ({b7 / wall:.1%}; profiled, "
-          f"{steps} steps); {smi}", flush=True)
+    for mode, label, keys in ((ForwardMode.TREE_DECODE_FLATTEN, "flatten: B6 + merge",
+                               ("deft_flat_q", "flatten_merge_kernel")),
+                              (ForwardMode.DECODE, "seq: B7", ("deft_seq",))):
+        kernels, wall = profile_decode(runner, mode, prompt, WIDTH, steps)
+        attn = sum(ms for key, ms in kernels.items() if any(k in key for k in keys))
+        busy = sum(kernels.values())
+        check(attn > 0, f"families {name}: no {label} kernel in the profiled steps")
+        print(f"[families] {name} {label} {attn:.3f} ms of a step's {busy:.3f} device ms "
+              f"({attn / busy:.1%}) and {wall:.3f} wall ms ({attn / wall:.1%}; profiled, "
+              f"{steps} steps); {smi}", flush=True)
 
 
 def phase_families(dev, smi) -> dict:
     """Each of FAMILIES: written, loaded and checked at 2 layers
-    (family_load), then served at full width and depth (family_serve).
-    Returns the kernels line's launches of the wide heads' kernels: Gemma's
-    served runs' B3, B6 and B7 (D 256); the others 0 (no served path)."""
+    (family_load; LOADED_FAMILIES only), then served at full width and
+    depth (family_serve).
+    Returns the kernels line's launches of the wide heads' kernels: the
+    served runs' B3, B6 and B7 of Phi-3-mini's widths (D 96) and Gemma-7B
+    (D 256); the others 0 (no served path: a batch, a grid)."""
     launches = {}
     for name, (source, hf_cfg) in FAMILIES.items():
-        family_load(name, source, hf_cfg, dev)
+        if name in LOADED_FAMILIES:
+            family_load(name, source, hf_cfg, dev)
         launches[name] = family_serve(name, source, hf_cfg, dev, smi)
-    gemma = launches["gemma-7b"]
     out = {wide: 0 for wide in WIDE_OF}
-    out.update({f"{base}_d256": gemma[base]
-                for base in ("prefill", "flatten_gather", "seq_gather")})
+    for D, family in ((96, "phi-3-mini"), (256, "gemma-7b")):
+        out.update({f"{base}_d{D}": launches[family][base]
+                    for base in ("prefill", "flatten_gather", "seq_gather")})
     return out
 
 
@@ -4676,9 +4801,10 @@ def partial_visibility(name, args):
     return k, v, mask, tokens, int(mask.sum())
 
 
-def partial_timing_row(name, args, bound, flush):
+def partial_timing_row(name, args, bound, flush, key=None):
     """A partial entry at its path window: kernel, plain and library
-    callables and the bound.  Bytes: the window's live KV tokens read once
+    callables and the bound (its library line under ``key``, else
+    ``name``).  Bytes: the window's live KV tokens read once
     (int8: codes and fp32 scales), q and the plan read, the state (acc, m,
     l in fp32) written; operations: 4 D per visible (row, token) pair and
     query head.  Library: torch.ops.aten._scaled_dot_product_efficient_attention
@@ -4687,14 +4813,15 @@ def partial_timing_row(name, args, bound, flush):
     query heads ahead of time, untimed."""
     import torch
 
-    kind, kv = KERNELS[name][2:4]
+    kind = KERNELS[name][2]
+    int8 = args[1].dtype == torch.int8
     q = args[0]
     R, Hq, D = q.shape
     Hkv = args[1].shape[-1] // D
     qpk = Hq // Hkv
     t0 = time.perf_counter()
     k, v, mask, tokens, pairs = partial_visibility(name, args)
-    kv_bytes = Hkv * (2 * D + 8) if kv == "int8" else Hkv * D * 2 * q.element_size()
+    kv_bytes = Hkv * (2 * D + 8) if int8 else Hkv * D * 2 * q.element_size()
     plan_bytes = sum(a.numel() * 4 for a in args
                      if isinstance(a, torch.Tensor) and a.dtype == torch.int32)
     nbytes = (tokens * kv_bytes + q.numel() * q.element_size() + plan_bytes
@@ -4725,7 +4852,7 @@ def partial_timing_row(name, args, bound, flush):
             qq, kk, vv, bb, True, scale=D ** -0.5)
 
     desc = ("aten._scaled_dot_product_efficient_attention(compute_log_sumexp=True), "
-            "float mask, KV gathered" + (" and dequantised" if kv == "int8" else "")
+            "float mask, KV gathered" + (" and dequantised" if int8 else "")
             + " ahead of time")
     try:
         o = lib()[0]
@@ -4746,7 +4873,7 @@ def partial_timing_row(name, args, bound, flush):
     except RuntimeError as err:
         print(f"[timing] {name} library: {str(err)[:160]}", flush=True)
         lib, desc = None, "none: the efficient attention raised on this card"
-    LIBRARY[name] = desc
+    LIBRARY[key or name] = desc
     return (lambda: kern(*args), lambda: plain(*args), lib, *bnd)
 
 
@@ -4809,8 +4936,9 @@ def gmm_timing_rows(fns, shapes, bound):
 
 
 def flat_q_tile_cost(dev, shapes, flush):
-    """B1, B1p, B4, B4p, B6 (short and batch plans, bf16 pools) and B11 at
-    their path shapes with one span forced (a block walks every listed
+    """B1, B1p, B4, B4p, B6 (short and batch plans, bf16 pools; at the wide
+    heads the main tree, both pools) and B11 at their path shapes with one
+    span forced (a block walks every listed
     64-token tile of its row tile, so time over tiles is what a tile costs
     a block), and on the rule's grid with a warm L2 (what the cold reads
     cost)."""
@@ -4823,6 +4951,8 @@ def flat_q_tile_cost(dev, shapes, flush):
         "flatten_gather_partial")]
     cases += [("flatten_gather", label, args) for label, _, args in shapes["flatten_gather"]
               if label in ("inherit", "batch inherit")]
+    cases += [(name, label, args) for name in WIDE_FLAT[:len(WIDE_HEADS)] if name in shapes
+              for label, _, args in shapes[name] if " main " in label]
     for name, label, args in cases:
         tiles, _, _, spans, _ = flat_q_grid(name, args, sms)
         fn = fns[name][0]
@@ -4838,8 +4968,10 @@ SEQ_NAMES = ("paged_seq", "paged_seq_partial", "paged_seq_q", "paged_seq_q_parti
              "seq_gather")
 
 
-# B7 at the wide heads: its rows in the kernels line
+# B7 at the wide heads, and B6 and B11: their rows in the kernels line
 WIDE_SEQ = tuple(f"seq_gather_d{D}" for D in WIDE_HEADS)
+WIDE_FLAT = tuple(f"{base}_d{D}" for base in ("flatten_gather", "flatten_gather_partial")
+                  for D in WIDE_HEADS)
 
 
 def seq_grids(shapes, sms, tag):
@@ -4927,11 +5059,15 @@ def phase_timing(dev, shapes):
             attention_row(name, name, *cases[0][1:])
     # B6 also over int8 pools and at the batch plan (its other path shape),
     # B7 over int8 pools and at the main tree's gather plan; the wide heads'
-    # B6 and B7 at their other cases
+    # B6, B7 and B11 at their other cases
     for name in shapes:
         if WIDE_OF.get(name, name) in ("flatten_gather", "seq_gather"):
             for label, plan, args in shapes[name][1:]:
                 attention_row(name, f"{name} ({label})", plan, args)
+        elif WIDE_OF.get(name) == "flatten_gather_partial":
+            for label, _, args in shapes[name][1:]:
+                key = f"{name} ({label})"
+                rows[key] = partial_timing_row(name, args, bound, flush, key)
     # prefill: causal FLOPs 2 * 2 * Hq * N^2 * D / 2
     for name in shapes:
         if WIDE_OF.get(name, name) != "prefill":
@@ -4997,30 +5133,32 @@ def phase_timing(dev, shapes):
     return out
 
 
-def phase_flatten_only(dev, shapes, profile: bool):
+def phase_flatten_only(dev, shapes, profile: bool, edges: bool = True):
     """--flatten-only: the flatten kernels (B1, B1p, B4, B4p, B6 at the
-    short and batch plans over bf16 and int8 pools, B11) at their path
-    shapes against their plain versions, then their CUDA-event times; where
-    the package has B6's balanced span rule, also b6_edges, the B6/B11 tile
-    cost and sweeps of forced span counts (B6 at the batch plan, its
-    requests also admitted shortest prompt first, and at the short plan;
-    B11); with `profile`, the batch path's profiled flatten steps (8B,
-    bf16).  Runs
-    on the package of --root too, so a parent commit is timed in turns
-    with this one on one card."""
+    short and batch plans over bf16 and int8 pools, B11; B6 and B11 at the
+    wide heads, WIDE_FLAT: the main and short trees, bf16 and int8 pools)
+    at their path shapes against their plain versions, then their
+    CUDA-event times; with `edges` (this checkout's package), also
+    b6_edges (the wide heads' edges among them), the B6/B11 tile cost and
+    sweeps of forced span counts (B6 at the batch plan, its requests also
+    admitted shortest prompt first, and at the short plan; B11; B6 at the
+    wide heads' main tree, both pools); with `profile`, the batch path's profiled
+    flatten steps (8B, bf16).  Runs on the package of --root too, so a
+    parent commit is timed in turns with this one on one card."""
     import torch
     from deft_tpu_torch.ops import _cuda
     from deft_tpu_torch.ops import paged_flatten_attn as pf
 
     fns = wrappers()
     names = ("paged_flatten", "paged_flatten_partial", "paged_flatten_q",
-             "paged_flatten_q_partial", "flatten_gather", "flatten_gather_partial")
+             "paged_flatten_q_partial", "flatten_gather", "flatten_gather_partial") + WIDE_FLAT
     for name in names:
         for label, plan, args in shapes[name]:
             leaves = plan[1] if name in PARTIAL_OF else plan.n_leaves
-            check_edge("flatten", name, f"bf16 path shapes {label}", args, leaves, 4,
+            qpk = args[0].shape[1] // (args[1].shape[-1] // args[0].shape[-1])
+            check_edge("flatten", name, f"bf16 path shapes {label}", args, leaves, qpk,
                        TOL["bfloat16"])
-    rule = hasattr(pf, "balanced_spans")
+    rule = edges and hasattr(pf, "balanced_spans")
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 8)
     if rule:
@@ -5046,6 +5184,9 @@ def phase_flatten_only(dev, shapes, profile: bool):
                   ("flatten_gather", "inherit", gather["inherit"], (2, 4, 6, 8, 9, 10, 12, 16)),
                   ("flatten_gather_partial", shapes["flatten_gather_partial"][0][0],
                    shapes["flatten_gather_partial"][0][2], (4, 8, 12, 16, 20, 24, 28, 33))]
+        sweeps += [(f"flatten_gather_d{D}", label, args, (4, 6, 8, 12, 16))
+                   for D in WIDE_HEADS
+                   for label, _, args in shapes[f"flatten_gather_d{D}"] if " main " in label]
         for name, label, args, counts in sweeps:
             tiles, _, _, spans, _ = flat_q_grid(name, args, sms)
             for s in sorted(set(counts) | {spans}):  # the rule's count among them
@@ -5220,7 +5361,8 @@ def main(argv=None) -> int:
         shapes = path_shapes(dev)
         if args.flatten_only or args.seq_only:
             if args.flatten_only:
-                phase_flatten_only(dev, shapes, args.profile)
+                shapes.update({k: v for k, v in wide_shapes(dev).items() if k in WIDE_FLAT})
+                phase_flatten_only(dev, shapes, args.profile, edges=args.root is None)
             else:
                 shapes.update({k: v for k, v in wide_shapes(dev).items() if k in WIDE_SEQ})
                 phase_seq_only(dev, shapes, edges=args.root is None)

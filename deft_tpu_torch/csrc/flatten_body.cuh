@@ -1,13 +1,10 @@
 // The split-KV flatten tree-decode kernels over fp32 q (the exactness
 // checks), shared by paged_flatten.cu (B1, B4: tokens read through the plan's
 // segment table) and flatten_gather.cu (B6, B11: tokens read through one pool
-// index each), over fp32 pools or int8 pools with fp32 scales.  Over bf16 q
-// the flatten entries run flat_q_body.cuh's tensor-core body at head_dim 64
-// and 128, which shares the row sources, the pool view and the merge kernel
-// below; at 96 and 256 (Phi-3-mini, Gemma: gather plans only, B6 and B11)
-// they run this body over bf16 q and pools or int8 pools, its products on
-// mma.sync (flash_common.cuh), P rounded to bf16 for P V.  Simple and right
-// first; its time at those widths is in PERF.md.
+// index each, also at head_dim 96 and 256), over fp32 pools or int8 pools
+// with fp32 scales.  Over bf16 q every flatten entry runs flat_q_body.cuh's
+// tensor-core body, which shares the row sources, the pool view and the
+// merge kernel below.
 //
 // Folded row r (leaf r / qpk, query head h * qpk + r % qpk) sees plan token t
 // iff tok_lo[t] <= r / qpk < tok_hi[t].  Blocks with blk_lo >= blk_hi are
@@ -214,37 +211,36 @@ __global__ void flatten_merge_kernel(const float* __restrict__ acc,
   }
 }
 
-// m_o, l_o: null for the normalised output o (R, Hq, D) in T; else the partial
+// m_o, l_o: null for the normalised output o (R, Hq, D); else the partial
 // form of kernel 2, o then fp32 (Hkv, R*qpk, D).
-template <typename T, typename KV, int D, typename Rows>
+template <typename KV, int D, typename Rows>
 cudaError_t launch_flatten(const void* q, Pools<KV> pools, Rows rows, const int* tok_lo,
                            const int* tok_hi, const int* blk_lo, const int* blk_hi,
                            float* acc, float* m, float* l, void* o, float* m_o, float* l_o,
                            int R, int Hq, int Hkv, int nb, int block_len, int n_spans,
                            float scale, cudaStream_t stream) {
-  auto kernel = flatten_partial_kernel<T, KV, D, Rows>;
-  const size_t smem = sizeof(Smem<T, D, KV>);
+  auto kernel = flatten_partial_kernel<float, KV, D, Rows>;
+  const size_t smem = sizeof(Smem<float, D, KV>);
   static const cudaError_t attr = allow_smem(kernel, smem);
   if (attr != cudaSuccess) return attr;
   const int rq = R * (Hq / Hkv);
   const int bps = (nb + n_spans - 1) / n_spans;
   dim3 grid((rq + kBM - 1) / kBM, Hkv, n_spans);
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), pools, rows, tok_lo,
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const float*>(q), pools, rows, tok_lo,
                                            tok_hi, blk_lo, blk_hi, acc, m, l, R, Hq, Hkv,
                                            nb, block_len, bps, scale * kLog2e);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dim3 mgrid((rq + 3) / 4, Hkv);
-  flatten_merge_kernel<T><<<mgrid, 128, 0, stream>>>(acc, m, l, o, m_o, l_o, n_spans, R, Hq,
-                                                     Hkv, D);
+  flatten_merge_kernel<float><<<mgrid, 128, 0, stream>>>(acc, m, l, o, m_o, l_o, n_spans, R,
+                                                         Hq, Hkv, D);
   return cudaGetLastError();
 }
 
-// Check the sizes, then instantiate launch_flatten for q of type T and
-// head_dim over pools of KV (T, or int8 with scales): fp32 q at 64 and 128,
-// and with kWide (the gather entries) at 96 and 256; bf16 q at 96 and 256
-// only (64 and 128 run flat_q_body.cuh).  m_o, l_o: see launch_flatten.
-template <typename T, typename KV, bool kWide, typename Rows>
+// Check the sizes, then instantiate launch_flatten for fp32 q and head_dim
+// 64 or 128 (with kWide, the gather entries, also 96 and 256) over pools of
+// KV (float, or int8 with scales).  m_o, l_o: see launch_flatten.
+template <typename KV, bool kWide, typename Rows>
 cudaError_t dispatch_flatten(const void* q, const void* k, const void* v, const float* ks,
                              const float* vs, long long layer_off, long long scale_off,
                              int S, Rows rows, const int* tok_lo, const int* tok_hi,
@@ -260,13 +256,11 @@ cudaError_t dispatch_flatten(const void* q, const void* k, const void* v, const 
               scale_off, S};
 #define DEFT_FLATTEN_AT(DD)                                                              \
   if (D == DD)                                                                         \
-    return launch_flatten<T, KV, DD>(q, p, rows, tok_lo, tok_hi, blk_lo, blk_hi, acc, m, l, \
-                                     o, m_o, l_o, R, Hq, Hkv, nb, block_len, n_spans,    \
-                                     scale, st);
-  if constexpr (std::is_same<T, float>::value) {
-    DEFT_FLATTEN_AT(64)
-    DEFT_FLATTEN_AT(128)
-  }
+    return launch_flatten<KV, DD>(q, p, rows, tok_lo, tok_hi, blk_lo, blk_hi, acc, m, l,  \
+                                  o, m_o, l_o, R, Hq, Hkv, nb, block_len, n_spans, scale, \
+                                  st);
+  DEFT_FLATTEN_AT(64)
+  DEFT_FLATTEN_AT(128)
   if constexpr (kWide) {
     DEFT_FLATTEN_AT(96)
     DEFT_FLATTEN_AT(256)

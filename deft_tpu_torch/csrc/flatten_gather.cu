@@ -13,16 +13,18 @@
 //
 // Bound on this card: bytes.  T * Hkv * D * 2 * itemsize per layer (plus the
 // int8 scales, T * Hkv * 4 * 2) and 4 bytes of kv_idx a token, against
-// 3.35 TB/s.  Design: over bf16 q, the tensor-core body of flat_q_body.cuh
-// (B1's and B4's, deft_flat_q) with deft::IdxRows as its row source: 128
-// folded rows a block, warp 0 lists the plan blocks its row tile sees, the
-// spans split their 64-token tiles, and a 4-stage cp.async ring puts each
-// tile's 64 pool rows, read from kv_idx a tile ahead, into the boxes RS
-// wgmma reads (bf16 pools) or into rows the int8 codes are widened from in
-// registers for mma.sync (int8 pools); then the merge kernel.  The wrapper
-// picks the spans (ops/paged_flatten_attn.py).  Over fp32 q, and over bf16
-// q at head_dim 96 and 256 (Phi-3-mini, Gemma), the staged split-KV kernels
-// of flatten_body.cuh with the same row source (mma.sync products for bf16).
+// 3.35 TB/s.  Design: over bf16 q, at every head_dim (64, 96, 128, 256), the
+// tensor-core body of flat_q_body.cuh (B1's and B4's, deft_flat_q) with
+// deft::IdxRows as its row source: 64 or 128 folded rows a block, warp 0
+// lists the plan blocks its row tile sees, the spans split their 64-token
+// tiles, and a cp.async ring puts each tile's 64 pool rows, read from kv_idx
+// a tile ahead, into the boxes RS or SS wgmma reads (bf16 pools) or into rows
+// the int8 codes are widened from in registers for mma.sync (int8 pools);
+// then the merge kernel.  At Phi-3-mini's D 96 and Gemma-7B's D 256 the
+// body's Layout adds a zeroed half box (D 96) and a two-stage ring beside Q
+// staged in shared memory (D 256).  The wrapper picks the spans
+// (ops/paged_flatten_attn.py).  Over fp32 q, the staged split-KV kernels of
+// flatten_body.cuh with the same row source.
 #include "flat_q_body.cuh"
 
 namespace {
@@ -36,35 +38,25 @@ int gather_entry(const void* q, const void* k_pool, const void* v_pool,
   if (!k_scale != !v_scale || !acc || !m || !l || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
   const deft::IdxRows rows{kv_idx};
-  const bool wide = D == 96 || D == 256;  // flatten_body.cuh's body over bf16 q
-  if (dtype == 1 && k_scale && !wide)
-    return deft_flat_q::dispatch<int8_t>(
+  if (dtype == 1 && k_scale)
+    return deft_flat_q::dispatch<int8_t, true>(
         q, {static_cast<const int8_t*>(k_pool), static_cast<const int8_t*>(v_pool), k_scale,
             v_scale, layer_off, scale_off, S},
         rows, tok_lo, tok_hi, blk_lo, blk_hi, acc, m, l, o, m_o, l_o, R, Hq, Hkv, D, nb,
         block_len, n_spans, scale, stream);
-  if (dtype == 1 && !wide)
-    return deft_flat_q::dispatch<__nv_bfloat16>(
+  if (dtype == 1)
+    return deft_flat_q::dispatch<__nv_bfloat16, true>(
         q,
         {static_cast<const __nv_bfloat16*>(k_pool), static_cast<const __nv_bfloat16*>(v_pool),
          nullptr, nullptr, layer_off, 0, 0},
         rows, tok_lo, tok_hi, blk_lo, blk_hi, acc, m, l, o, m_o, l_o, R, Hq, Hkv, D, nb,
         block_len, n_spans, scale, stream);
-  if (dtype == 1 && k_scale)
-    return deft::dispatch_flatten<__nv_bfloat16, int8_t, true>(
-        q, k_pool, v_pool, k_scale, v_scale, layer_off, scale_off, S, rows, tok_lo, tok_hi,
-        blk_lo, blk_hi, acc, m, l, o, m_o, l_o, R, Hq, Hkv, D, nb, block_len, n_spans, scale,
-        stream);
-  if (dtype == 1)
-    return deft::dispatch_flatten<__nv_bfloat16, __nv_bfloat16, true>(
-        q, k_pool, v_pool, nullptr, nullptr, layer_off, 0, 0, rows, tok_lo, tok_hi, blk_lo,
-        blk_hi, acc, m, l, o, m_o, l_o, R, Hq, Hkv, D, nb, block_len, n_spans, scale, stream);
   if (k_scale)
-    return deft::dispatch_flatten<float, int8_t, true>(
+    return deft::dispatch_flatten<int8_t, true>(
         q, k_pool, v_pool, k_scale, v_scale, layer_off, scale_off, S, rows, tok_lo, tok_hi,
         blk_lo, blk_hi, acc, m, l, o, m_o, l_o, R, Hq, Hkv, D, nb, block_len, n_spans, scale,
         stream);
-  return deft::dispatch_flatten<float, float, true>(
+  return deft::dispatch_flatten<float, true>(
       q, k_pool, v_pool, nullptr, nullptr, layer_off, 0, 0, rows, tok_lo, tok_hi, blk_lo,
       blk_hi, acc, m, l, o, m_o, l_o, R, Hq, Hkv, D, nb, block_len, n_spans, scale, stream);
 }

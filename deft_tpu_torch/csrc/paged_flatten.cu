@@ -50,13 +50,13 @@ int paged_entry(bool int8, const void* q, const void* k_pool, const void* v_pool
     return cudaErrorInvalidValue;
   const deft::SegRows rows{seg_src, seg_len, block_len / seg_len};
   if (dtype == 1 && int8)
-    return deft_flat_q::dispatch<int8_t>(
+    return deft_flat_q::dispatch<int8_t, false>(
         q, {static_cast<const int8_t*>(k_pool), static_cast<const int8_t*>(v_pool), k_scale,
             v_scale, layer_off, scale_off, S},
         rows, tok_lo, tok_hi, blk_lo, blk_hi, acc, m, l, o, m_o, l_o, R, Hq, Hkv, D, nb,
         block_len, n_spans, scale, stream);
   if (dtype == 1)
-    return deft_flat_q::dispatch<__nv_bfloat16>(
+    return deft_flat_q::dispatch<__nv_bfloat16, false>(
         q,
         {static_cast<const __nv_bfloat16*>(k_pool), static_cast<const __nv_bfloat16*>(v_pool),
          nullptr, nullptr, layer_off, 0, 0},
@@ -64,11 +64,11 @@ int paged_entry(bool int8, const void* q, const void* k_pool, const void* v_pool
         block_len, n_spans, scale, stream);
   if (dtype != 0) return cudaErrorInvalidValue;
   if (int8)
-    return deft::dispatch_flatten<float, int8_t, false>(
+    return deft::dispatch_flatten<int8_t, false>(
         q, k_pool, v_pool, k_scale, v_scale, layer_off, scale_off, S, rows, tok_lo, tok_hi,
         blk_lo, blk_hi, acc, m, l, o, m_o, l_o, R, Hq, Hkv, D, nb, block_len, n_spans, scale,
         stream);
-  return deft::dispatch_flatten<float, float, false>(
+  return deft::dispatch_flatten<float, false>(
       q, k_pool, v_pool, nullptr, nullptr, layer_off, 0, 0, rows, tok_lo, tok_hi, blk_lo,
       blk_hi, acc, m, l, o, m_o, l_o, R, Hq, Hkv, D, nb, block_len, n_spans, scale, stream);
 }

@@ -6,12 +6,13 @@ the tree's KV through the plan's ``kv_idx`` in XLA first (dequantised for
 int8 pools) and runs the kernel over the contiguous copy; the Hopper kernel,
 csrc/flatten_gather.cu, reads row kv_idx[t] of the pool inside the kernel:
 over bf16 q on B1's and B4's tensor-core body (csrc/flat_q_body.cuh, one
-pool index a token as its row source), over fp32 q on the staged split-KV
-body.  It takes pools of q's dtype, or int8 pools with their (L, Hkv, S)
-fp32 scales.  A multi-tree plan's row tiles see unequal work, so the
-runner counts each row tile's tiles on the host (``row_tiles``, from the
-numpy plan) and the spans follow the busiest (``balanced_spans``); without
-them the spans fill the card (``q_spans``).  ``flatten_attention_plain`` is
+pool index a token as its row source) at every head width (64, 96, 128,
+256), over fp32 q on the staged split-KV body.  It takes pools of q's
+dtype, or int8 pools with their (L, Hkv, S) fp32 scales.  A multi-tree
+plan's row tiles see unequal work, so the runner counts each row tile's
+tiles on the host (``row_tiles``, from the numpy plan) and the spans follow
+the busiest (``balanced_spans``); without them the spans fill the card
+(``q_spans``).  ``flatten_attention_plain`` is
 the same function in plain torch, which the wrapper runs for CPU tensors
 only.
 

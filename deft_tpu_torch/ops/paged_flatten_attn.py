@@ -196,9 +196,25 @@ def balanced_spans(row_tiles, Hkv: int, sms: int) -> int:
 
 # head widths of the paged kernels (deft_tpu's paged plans need 128 % D ==
 # 0) and of the gather kernels B6, B7 and B11 (Phi-3-mini's 96 and Gemma's
-# 256 too, which only gather plans reach)
+# 256 too, which only gather plans reach); over bf16 q every width runs
+# deft_flat_q
 PAGED_WIDTHS = (64, 128)
 GATHER_WIDTHS = (64, 96, 128, 256)
+
+
+def span_count(dtype, Rq: int, Hkv: int, D: int, nb: int, block_len: int,
+               kv_bytes: int, sms: int, row_tiles: Optional[Sequence[int]] = None) -> int:
+    """The spans launch_flatten gives a flatten kernel: over bf16 q (the
+    tensor-core body, deft_flat_q, at every head width) ``q_spans``, or
+    ``balanced_spans`` where the caller gives the plan's ``row_tiles``;
+    over fp32 q (the staged body) ``num_spans`` from the KV bytes read."""
+    if dtype == torch.bfloat16:
+        if row_tiles is None:
+            return q_spans(Rq, Hkv, nb, block_len, sms)
+        _cuda.require(len(row_tiles) == -(-Rq // q_block_rows(Rq)),
+                      "row_tiles disagree with q's rows")
+        return balanced_spans(row_tiles, Hkv, sms)
+    return num_spans(nb, kv_bytes, Hkv * Rq * (D + 2) * 4)
 
 
 def check_pools(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
@@ -238,12 +254,11 @@ def launch_flatten(source: str, entry: str, q, k_pool, v_pool, k_scale,
     """Launch a flatten kernel of csrc/<source>.cu on q (R, Hq, D);
     ``rows`` is the segment table (paged plans, seg_len > 0) or one pool
     index a token (seg_len 0).  bf16 q runs the tensor-core body (B1, B4,
-    B6 and their partial entries) on ``q_spans`` spans, or on
-    ``balanced_spans`` where the caller gives the plan's ``row_tiles``
-    (``row_tile_tiles``, counted on the host); fp32 q runs the staged body
-    on ``num_spans`` spans; the merge kernel follows either.  Returns
-    (R, Hq, D), or for a ``partial`` entry the state (acc (Hkv, R*qpk, D),
-    m, l (Hkv, R*qpk)), fp32."""
+    B6 and their partial entries, at every head width) and fp32 q the
+    staged body, on ``span_count``'s spans (``row_tiles``: the plan's
+    ``row_tile_tiles``, counted on the host); the merge kernel follows
+    either.  Returns (R, Hq, D), or for a ``partial`` entry the state (acc
+    (Hkv, R*qpk, D), m, l (Hkv, R*qpk)), fp32."""
     R, Hq, D = q.shape
     L, S, HD = k_pool.shape
     Hkv = check_pools(q, k_pool, v_pool, k_scale, v_scale,
@@ -263,19 +278,11 @@ def launch_flatten(source: str, entry: str, q, k_pool, v_pool, k_scale,
                          blk_lo, blk_hi)
     q = q.contiguous()
     Rq = R * (Hq // Hkv)
-    if q.dtype == torch.bfloat16 and D in PAGED_WIDTHS:  # deft_flat_q's body
-        sms = _cuda.sm_count(q.device.index)
-        if row_tiles is None:
-            spans = q_spans(Rq, Hkv, nb, block_len, sms)
-        else:
-            _cuda.require(len(row_tiles) == -(-Rq // q_block_rows(Rq)),
-                          "row_tiles disagree with q's rows")
-            spans = balanced_spans(row_tiles, Hkv, sms)
-        # the ring copies the leaf intervals in 16-byte chunks
+    kv_bytes = T * HD * 2 * k_pool.element_size() + (T * Hkv * 8 if scales else 0)
+    spans = span_count(q.dtype, Rq, Hkv, D, nb, block_len, kv_bytes,
+                       _cuda.sm_count(q.device.index), row_tiles)
+    if q.dtype == torch.bfloat16:  # the ring copies the leaf intervals in 16-byte chunks
         tok_lo, tok_hi = _cuda.aligned16(tok_lo), _cuda.aligned16(tok_hi)
-    else:
-        kv_bytes = T * HD * 2 * k_pool.element_size() + (T * Hkv * 8 if scales else 0)
-        spans = num_spans(nb, kv_bytes, Hkv * Rq * (D + 2) * 4)
     acc = torch.empty((spans, Hkv, Rq, D), dtype=torch.float32, device=q.device)
     m = torch.empty((spans, Hkv, Rq), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)

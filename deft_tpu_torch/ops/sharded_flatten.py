@@ -7,8 +7,9 @@ segment-aligned (parallel/engine.py:178-215).  deft_tpu gathers the span's
 KV through ``kv_idx`` in XLA first (dequantised to q's dtype for int8
 pools) and runs the kernel over the contiguous copy; the Hopper kernel,
 csrc/flatten_gather.cu's entry deft_flatten_gather_partial (B11), reads
-pool row kv_idx[t] in the kernel, as B6 does and on B6's bodies (bf16 q:
-csrc/flat_q_body.cuh's tensor cores, spans from the SM count, ``q_spans``;
+pool row kv_idx[t] in the kernel, as B6 does and on B6's bodies (bf16 q at
+every head width: csrc/flat_q_body.cuh's tensor cores, spans from the SM
+count, ``q_spans``;
 fp32 q: the staged split-KV body), over bf16/fp32 pools or int8 pools with
 their (L, Hkv, S) fp32 scales, and writes the unnormalised state (acc, m,
 l) through the merge kernel's partial form.  Its spans follow the

@@ -31,6 +31,7 @@ import transformers
 from safetensors import safe_open
 from safetensors.torch import save_file
 
+import chip_smoke as cs
 from deft_tpu.config import EngineConfig as JEngineConfig
 from deft_tpu.models.config import LlamaConfig as JLlamaConfig
 from deft_tpu.models.loader import load_params as j_load_params
@@ -116,6 +117,25 @@ def test_config_matches_deft_tpu(hf_model):
     path, _ = hf_model
     cfg = json.loads((pathlib.Path(path) / "config.json").read_text())
     assert LlamaConfig.from_hf_config(cfg).__dict__ == JLlamaConfig.from_hf_config(cfg).__dict__
+
+
+@pytest.mark.parametrize("window", [None, 2047])
+def test_phi3_mini_widths_parse_alike_and_refuse_its_window(window):
+    """chip_smoke.py's served Phi-3-mini-widths family (Phi-3-mini-4k's
+    config.json with sliding_window null) parses to equal fields in both
+    packages, at D 96; with the published window, 2047 of 4096 positions,
+    both refuse it."""
+    cfg = dict(cs.FAMILIES["phi-3-mini"][1], sliding_window=window)
+    if window is None:
+        port = LlamaConfig.from_hf_config(cfg)
+        assert port.__dict__ == JLlamaConfig.from_hf_config(cfg).__dict__
+        assert (port.num_layers, port.num_q_heads, port.num_kv_heads, port.head_dim,
+                port.vocab_size) == (32, 32, 32, 96, 32064)
+        assert cs.PROMPT_LEN + cs.GEN_LEN <= port.max_position_embeddings
+    else:
+        for parse in (LlamaConfig.from_hf_config, JLlamaConfig.from_hf_config):
+            with pytest.raises(NotImplementedError, match="sliding_window=2047"):
+                parse(cfg)
 
 
 def test_load_params_matches_deft_tpu(hf_model):
