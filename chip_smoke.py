@@ -17,6 +17,8 @@
         # against its plain version, then its time beside its bound
     python3 chip_smoke.py --workloads-only [--profile]
         # the card, the build and the workloads phase (8 below) alone
+    python3 chip_smoke.py --chain-only [--profile]
+        # the card, the build and the chain phase (9 below) alone
 
 Phases, each fatal on failure (the script then exits non-zero and prints no
 result line):
@@ -68,7 +70,10 @@ result line):
   4. main:    the 8B model (random bf16 weights from a CUDA torch.Generator,
               all 32 layers) serves Simple_Tree few-shot, width 50, prompt
               4000, 64 generated tokens, block_len 256, in flatten then seq
-              mode; B1-B3's launch counters must move during this run, and
+              mode, its steps chained on the device and the runs under
+              set_sync_debug_mode("error") (phase 9 holds their tokens
+              against the per-step path); B1-B3's launch counters must move
+              during this run, and
               the first decode step's logits must agree between modes
               (relative L2 error below LOGITS_LIMIT), while two controls on
               the same step must land on either side of that limit: one ulp
@@ -106,7 +111,9 @@ result line):
               (merge copies read back equal to their sources, the root
               grown by the accept schedule, no lm_head after the prefill),
               W3 Beam_Search (50 live beams a step), W4 Random_Tree (the
-              same schedule in both modes), each flatten then seq with
+              same schedule in both modes; W1, W2 and W4 chained on the
+              device under set_sync_debug_mode("error"), their tokens held
+              against the per-step path in phase 9), each flatten then seq with
               each mode's own decode kernels only, and a mid-run step held
               in the flatten run (the first after the first branch, prune
               or merge, and the first gather-plan step after it): seq
@@ -120,13 +127,37 @@ result line):
               requests through BatchedEngine (B8 at admission, each
               request's merges by its schedule); B6's and B7's launches
               join the kernels line;
-  9. int8w:   the main path's workload over int8 weights made on the card
+  9. chain:   device-chained decode (runtime/generate.py, BatchedEngine's
+              all-greedy fast path) against the per-step path (each
+              workload wrapped in a plain function, which hides its
+              structural_iters, logits_free_iters and supports_deferred) on
+              the main path's settings: Simple_Tree, W1 Practical_Tree
+              (deferred selection), W2 Speculative_Decoding (pipelined
+              logits-free steps), W4 Random_Tree (deferred), flatten and
+              seq: the chained runs are phases 4's and 8's, made under
+              set_sync_debug_mode("error"), where only the runner's
+              host_wait (and the script's own checks inside the run) may
+              wait, and this phase runs the per-step side on a runner built
+              as theirs; then the main path over int8 KV (flatten) and the
+              batch path's four requests through BatchedEngine in both
+              modes, each per-step and chained here: equal branch token ids
+              in every pair (if not, the per-step path is rerun twice as a
+              control).  A .item() under the mode must raise first; the moe
+              path runs one such pair too.  Each run prints TPOT, e2e, the
+              sum of iter_time and its host waits; the main flatten path
+              runs in turns (per-step, chained, per-step: the host drifts
+              within a call); the top-K tie rule (one int64 topk, no host
+              read) is timed against the rule it replaced (fp32 topk, a host
+              read of the tie width) at 50 rows of the vocabulary, k 50 and
+              64; with --profile, 8 profiled main flatten steps of each path
+              in turns (per-step, chained, chained, per-step);
+ 10. int8w:   the main path's workload over int8 weights made on the card
               (weight_dtype "int8-pallas"), flatten then seq: B9 launches 129
               times a decode step (4 matmuls x 32 layers + lm_head) and never
               in prefill; the first decode step's logits against the same
               codes and scales under "int8" (the plain expression, 0 B9
               launches) below LOGITS_LIMIT;
- 10. moe:     Mixtral-8x7B widths at deft_tpu's 6 layers (PRESETS
+ 11. moe:     Mixtral-8x7B widths at deft_tpu's 6 layers (PRESETS
               ["mixtral-6l"], bf16 weights from a CUDA torch.Generator), the
               main path's workload over a prompt of ids below its 32000-token
               vocabulary: the prefill's MoE runs through B10 (gmm, 18
@@ -142,14 +173,14 @@ result line):
               layer) pairs whose top-2 experts differ between the routes.
               The first decode step, seq against flatten, with the main
               path's attention controls, below MOE_STEP_LIMIT;
- 11. moe-int8w: Mixtral-8x7B at all 32 layers over int8-pallas weights made
+ 12. moe-int8w: Mixtral-8x7B at all 32 layers over int8-pallas weights made
               on the card (about 47 GB): B10's scaled entry (gmm_scaled) 96
               launches a prefill, B9 65 a decode step (wqkv and wo x 32 +
               lm_head); the route check on the same codes and scales, the
               logits below MOE_INT8_LIMIT, the first
               step as above, TTFT and TPOT beside the moe path's, and the
               path's peak device memory;
- 12. sharded: the multi-device engine (parallel/), four ranks started on the
+ 13. sharded: the multi-device engine (parallel/), four ranks started on the
               one card over gloo (NCCL refuses two ranks on one card; that
               refusal is checked), grid 1x2x2 (tp 2, sp 2): the 8B model at
               32 layers from the main path's seed (each rank draws its
@@ -164,10 +195,10 @@ result line):
               on several cards' speed); then an int8 KV cache (B4p, B5p; 8
               decode tokens, its first step against the int8 path's); then
               grid 2x1x2 over the 16-token prompt (B11 with dp 2);
- 13. sharded-moe: mixtral-6l on grid 1x2x2 (4 experts a rank): B10 on every
+ 14. sharded-moe: mixtral-6l on grid 1x2x2 (4 experts a rank): B10 on every
               rank's prefill, its last-token logits against the moe path's
               below MOE_LIMIT, then 8 decode tokens;
- 14. families: Qwen2.5-7B (qkv bias, 7 q heads a KV head), Qwen3-8B
+ 15. families: Qwen2.5-7B (qkv bias, 7 q heads a KV head), Qwen3-8B
               (qk-norm), Gemma-7B (Gemma norms, GeGLU, tied lm_head,
               head_dim 256) and Phi-3-mini's widths (head_dim 96; its
               published sliding window set to null, which both packages
@@ -187,9 +218,9 @@ result line):
               and wall time; Phi-3-mini's and Gemma's B3,
               B6 and B7 launches join the kernels line's _d96 and _d256
               rows;
- 15. tracing: one short CLI run under --trace-dir: the Chrome trace holds
+ 16. tracing: one short CLI run under --trace-dir: the Chrome trace holds
               the decode_step spans and kernels of the port;
- 16. timing:  CUDA-event times of each kernel, its plain version and, where
+ 17. timing:  CUDA-event times of each kernel, its plain version and, where
               one PyTorch call computes the same function, that call, at its
               path's shapes, beside the least time the card could take
               (B6 at both its plans, B7 at the short tree and the main
@@ -2227,18 +2258,68 @@ def make_runner(cfg, params, dev, kv_dtype="inherit", prompt_len=PROMPT_LEN,
                        use_tree_index=use_tree_index)
 
 
+def per_step(fn):
+    """`fn` with its declarations (structural_iters, logits_free_iters,
+    supports_deferred) hidden: tree_generate and BatchedEngine then run
+    every step with host logits, the per-step path."""
+    def wrapped(*a, **k):
+        k.pop("deferred", None)
+        return fn(*a, **k)
+    return wrapped
+
+
+@contextlib.contextmanager
+def sync_mode(mode):
+    """torch.cuda.set_sync_debug_mode(mode) while it is open, the mode
+    before it restored after."""
+    import torch
+
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(mode)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+
+
+def sync_allowed():
+    """The script's own reads of the card inside a sync_checked run
+    (midrun_hold's controls, merge_watch's read-backs)."""
+    return sync_mode(0)
+
+
+@contextlib.contextmanager
+def sync_checked(tag, on=True):
+    """With `on`, the block runs under set_sync_debug_mode("error"), where
+    any call that waits for the card raises except the runner's host_wait
+    (which lowers the mode around its wait) and the script's checks inside
+    the run (sync_allowed); such a wait fails the script, naming `tag`."""
+    if not on:
+        yield
+        return
+    try:
+        with sync_mode("error"):
+            yield
+    except RuntimeError as e:
+        if "synchroniz" not in str(e):
+            raise
+        check(False, f"{tag}: a call outside the runner's host_wait waited for the "
+              f"card: {e}")
+
+
 def generate_run(runner, mode, prompt, fn=None, template=None, rng=None):
     """One generation through tree_generate, of the workload `fn` (default
     Simple_Tree) at WIDTH; returns {"pm", "seqs", "paged", "leaves",
-    "launches", "lm_head"}: the finished branches' token ids, each step's
-    plan layout and live leaves, and the kernels launched and the lm_head
-    products taken during the run."""
+    "launches", "lm_head", "waits"}: the finished branches' token ids, each
+    step's plan layout and live leaves, the kernels launched and the lm_head
+    products taken during the run, and the runner's host waits."""
     from unittest import mock
 
     from deft_tpu_torch.control import Branch_Controller, workloads
     from deft_tpu_torch.models import llama
     from deft_tpu_torch.obs import PerfMetrics
     from deft_tpu_torch.runtime import tree_generate
+    from deft_tpu_torch.runtime.runner import host_wait
 
     paged, leaves = [], []
     build, lm_head = runner.build_plan, llama.lm_head
@@ -2253,7 +2334,7 @@ def generate_run(runner, mode, prompt, fn=None, template=None, rng=None):
         LM_HEADS[0] += 1
         return lm_head(*a, **k)
 
-    before, heads = read_counts(), LM_HEADS[0]
+    before, heads, waits = read_counts(), LM_HEADS[0], host_wait.waits
     with (mock.patch.object(runner, "build_plan", recording_build),
           mock.patch.object(llama, "lm_head", counting_lm_head)):
         pm = tree_generate(runner, mode, None, prompt,
@@ -2264,19 +2345,22 @@ def generate_run(runner, mode, prompt, fn=None, template=None, rng=None):
                            rng=rng)
     return {"pm": pm, "seqs": [list(s.token_ids) for s in runner.tree.all_finished_seqs],
             "paged": paged, "leaves": leaves, "lm_head": LM_HEADS[0] - heads,
+            "waits": host_wait.waits - waits,
             "launches": {k: v - before[k] for k, v in read_counts().items()
                          if v > before[k]}}
 
 
-def generate_both(runner, prompt, tag, count_plans=False):
-    """Flatten then seq through tree_generate; checks each run finishes its
-    branches and returns {mode: generate_run's dict}."""
+def generate_both(runner, prompt, tag, count_plans=False, sync_check=False):
+    """Flatten then seq through tree_generate (under sync_checked with
+    `sync_check`); checks each run finishes its branches and returns {mode:
+    generate_run's dict}."""
     from deft_tpu_torch.runtime import ForwardMode
 
     out = {}
     for mode_name, mode in (("flatten", ForwardMode.TREE_DECODE_FLATTEN),
                             ("seq", ForwardMode.DECODE)):
-        run = out[mode_name] = generate_run(runner, mode, prompt)
+        with sync_checked(f"{tag} {mode_name}", sync_check):
+            run = out[mode_name] = generate_run(runner, mode, prompt)
         pm, seqs, paged, moved = run["pm"], run["seqs"], run["paged"], run["launches"]
         check(len(seqs) == WIDTH and all(len(s) == GEN_LEN - 1 for s in seqs),
               f"{tag} {mode_name}: expected {WIDTH} branches of {GEN_LEN - 1} tokens")
@@ -2353,7 +2437,7 @@ def phase_main(dev, params, profile: bool = False):
     runner.retain_full_logits = False
 
     reset_counts()
-    runs = generate_both(runner, prompt, "main")
+    runs = generate_both(runner, prompt, "main", sync_check=True)
     launches = read_counts()
     print(f"[main] launches during the main path: {launches}", flush=True)
     for name in ("prefill", "paged_flatten", "paged_seq"):
@@ -2652,13 +2736,14 @@ def midrun_hold(runner, held):
     since the step before), and the first step after it whose flatten plan
     is a gather plan if that comes later, with logits_controls(midrun=True):
     seq against flatten on the same tree and pools, beside the noise and
-    dropped-block controls.  The holds' launches and lm_head products are
-    taken back out of the run's counts.  Appends one dict a hold to
+    dropped-block controls.  The holds' launches, lm_head products and host
+    waits are taken back out of the run's counts, and the holds may wait
+    for the card inside a sync_checked run.  Appends one dict a hold to
     `held`."""
     import functools
     from unittest import mock
 
-    from deft_tpu_torch.runtime.runner import ModelRunner
+    from deft_tpu_torch.runtime.runner import ModelRunner, host_wait
 
     forward = runner.forward_tree_decode
     last = {"sig": None, "event": False, "step": 0}
@@ -2675,18 +2760,21 @@ def midrun_hold(runner, held):
         gather_held = any(not h["paged"] for h in held)
         if last["event"] and (not held or (not plan.paged and not gather_held)):
             saved, heads, retain = read_counts(), LM_HEADS[0], runner.retain_full_logits
+            waits = host_wait.waits
             runner.retain_full_logits = True
             try:
                 with (mock.patch.object(runner, "build_plan", functools.partial(
                           ModelRunner.build_plan, runner)),
-                      mock.patch.object(runner, "forward_tree_decode", forward)):
+                      mock.patch.object(runner, "forward_tree_decode", forward),
+                      sync_allowed()):
                     lf, ls, readings = logits_controls(runner, plan.n_leaves,
                                                        midrun=True)
+                    top1 = float((lf.argmax(-1) == ls.argmax(-1)).float().mean())
             finally:
                 runner.retain_full_logits = retain
                 restore_counts(saved)
                 LM_HEADS[0] = heads
-            top1 = float((lf.argmax(-1) == ls.argmax(-1)).float().mean())
+                host_wait.waits = waits
             held.append({"step": last["step"], "paged": plan.paged,
                          "leaves": plan.n_leaves, "readings": readings, "top1": top1})
         return forward(mode, plan, **kw)
@@ -2700,7 +2788,9 @@ def merge_watch(runner, records):
     """While it is open, each apply_kv_copies that has queued merge copies
     (speculative decoding's accepts) appends (tree, the root's KV length,
     copies, rows equal): the copied K and V rows of every layer read back
-    from the pools equal their sources as they were before the copy."""
+    from the pools equal their sources as they were before the copy (these
+    reads may wait for the card inside a sync_checked run; the copy may
+    not)."""
     from unittest import mock
 
     import torch
@@ -2711,12 +2801,14 @@ def merge_watch(runner, records):
         t = tree if tree is not None else runner.tree
         if not t.pending_kv_copies:
             return apply(tree)
-        src, dst = (torch.from_numpy(np.concatenate(a).astype(np.int64)).to(runner.device)
-                    for a in zip(*t.pending_kv_copies))
-        want = [p.data.index_select(1, src) for p in (runner.k_pool, runner.v_pool)]
+        with sync_allowed():
+            src, dst = (torch.from_numpy(np.concatenate(a).astype(np.int64))
+                        .to(runner.device) for a in zip(*t.pending_kv_copies))
+            want = [p.data.index_select(1, src) for p in (runner.k_pool, runner.v_pool)]
         apply(tree)
-        same = all(torch.equal(p.data.index_select(1, dst), w)
-                   for p, w in zip((runner.k_pool, runner.v_pool), want))
+        with sync_allowed():
+            same = all(torch.equal(p.data.index_select(1, dst), w)
+                       for p, w in zip((runner.k_pool, runner.v_pool), want))
         records.append((t, t.root.kv_len, len(src), same))
 
     with mock.patch.object(runner, "apply_kv_copies", watched):
@@ -2797,11 +2889,13 @@ def peak_run(runner, *args, **kw):
     return run
 
 
-def workload_pair(runner, prompt, tag, fn, template, smi, watch=False):
-    """Workload `fn` in flatten (with midrun_hold) then seq mode; each run
-    launches its own side's decode kernels only.  Returns {mode:
-    generate_run's dict, with "peak_gb", the holds ("held") and, with
-    watch=True, merge_watch's records ("merges")}."""
+def workload_pair(runner, prompt, tag, fn, template, smi, watch=False,
+                  sync_check=False):
+    """Workload `fn` in flatten (with midrun_hold) then seq mode (under
+    sync_checked with `sync_check`); each run launches its own side's
+    decode kernels only.  Returns {mode: generate_run's dict, with
+    "peak_gb", the holds ("held") and, with watch=True, merge_watch's
+    records ("merges")}."""
     from deft_tpu_torch.runtime import ForwardMode
 
     out = {}
@@ -2810,7 +2904,8 @@ def workload_pair(runner, prompt, tag, fn, template, smi, watch=False):
         held, merges = [], []
         with (midrun_hold(runner, held) if mode_name == "flatten"
               else contextlib.nullcontext()), \
-             (merge_watch(runner, merges) if watch else contextlib.nullcontext()):
+             (merge_watch(runner, merges) if watch else contextlib.nullcontext()), \
+             sync_checked(f"{tag} {mode_name}", sync_check):
             run = out[mode_name] = peak_run(runner, mode, prompt, fn, template)
         run["held"], run["merges"] = held, merges
         workload_line(f"{tag} {mode_name}", run, smi)
@@ -2860,11 +2955,13 @@ def phase_workloads(dev, params, prompt, smi, profile: bool = False):
     W1 Practical_Tree on the CLI's synthetic ToT template, W2
     Speculative_Decoding on its synthetic token tree, W3 Beam_Search, W4
     Random_Tree, each flatten then seq, with a mid-run step held (seq
-    against flatten, with controls); W5 sampled Simple_Tree twice from one
-    seed; W6 Simple_Tree in node, node_chunk, tree_index and the unpaged
-    modes, Medusa among them, then node over int8 KV; W7 four
+    against flatten, with controls); W1, W2 and W4, which chain their
+    steps on the device, under sync_checked; W5 sampled Simple_Tree twice
+    from one seed; W6 Simple_Tree in node, node_chunk, tree_index and the
+    unpaged modes, Medusa among them, then node over int8 KV; W7 four
     Speculative_Decoding requests through BatchedEngine.  Returns the
-    launches of every run, summed."""
+    launches of every run, summed, and {tag: workload_pair's dict} of W1,
+    W2 and W4 (the chain phase's chained runs)."""
     import functools
 
     from deft_tpu_torch.control import workloads
@@ -2876,7 +2973,7 @@ def phase_workloads(dev, params, prompt, smi, profile: bool = False):
 
     cfg = PRESETS["8b"]
     flatten = ForwardMode.TREE_DECODE_FLATTEN
-    total = {}
+    total, chained = {}, {}
 
     def add(run):
         for k, n in run["launches"].items():
@@ -2888,7 +2985,9 @@ def phase_workloads(dev, params, prompt, smi, profile: bool = False):
 
     # W1: the CLI's synthetic ToT template at --max_width 50
     tot = synth_tot_tree(seed=SEED, width=4, max_leaves=WIDTH, total_iters=GEN_LEN - 1)
-    runs = workload_pair(runner, prompt, "W1 tot", workloads.practical_tree, tot, smi)
+    runs = chained["W1 tot"] = workload_pair(runner, prompt, "W1 tot",
+                                             workloads.practical_tree, tot, smi,
+                                             sync_check=True)
     for r in runs.values():
         add(r)
     lens = {m: sorted(len(x) for x in r["seqs"]) for m, r in runs.items()}
@@ -2899,8 +2998,9 @@ def phase_workloads(dev, params, prompt, smi, profile: bool = False):
     spec = synth_spec_tree(token_tree_size=WIDTH, gen_len=GEN_LEN - 1, seed=SEED)
     generate_accepted_len_list(GEN_LEN, spec, seed=SEED)
     acc = spec.accepted_len_list
-    runs = workload_pair(runner, prompt, "W2 spec", workloads.speculative_decoding,
-                         spec, smi, watch=True)
+    runs = chained["W2 spec"] = workload_pair(runner, prompt, "W2 spec",
+                                              workloads.speculative_decoding, spec,
+                                              smi, watch=True, sync_check=True)
     for m, r in runs.items():
         add(r)
         check_accepts(f"W2 spec {m}", r["merges"], acc, len(prompt))
@@ -2922,7 +3022,9 @@ def phase_workloads(dev, params, prompt, smi, profile: bool = False):
               f"{len(r['seqs'])} finished")
 
     # W4: random tree, seed 0
-    runs = workload_pair(runner, prompt, "W4 random", workloads.random_tree, None, smi)
+    runs = chained["W4 random"] = workload_pair(runner, prompt, "W4 random",
+                                                workloads.random_tree, None, smi,
+                                                sync_check=True)
     for r in runs.values():
         add(r)
     lens = {m: sorted(len(x) for x in r["seqs"]) for m, r in runs.items()}
@@ -3012,7 +3114,7 @@ def phase_workloads(dev, params, prompt, smi, profile: bool = False):
     add({"launches": phase_batch_spec(dev, params, spec, smi)})
     print(f"[workloads] launches during the workloads phase (every run): {total}",
           flush=True)
-    return total
+    return total, chained
 
 
 def phase_batch_spec(dev, params, spec, smi):
@@ -3072,6 +3174,258 @@ def phase_batch_spec(dev, params, spec, smi):
     del runner, eng
     release()
     return counts
+
+
+# -- the chain phase: per-step against device-chained decode ------------------------
+
+def chain_line(tag, path, run, smi, extra=""):
+    pm = run["pm"]
+    print(f"[chain] {tag} {path}: TPOT {pm.TPOT:.4f} ms, e2e {pm.e2e_latency:.1f} ms, "
+          f"sum of iter_time {sum(pm.iter_time):.1f} ms, decode {pm.decode_latency:.1f} "
+          f"ms, {len(pm.iter_time)} steps, {run['waits']} host waits{extra}; {smi}",
+          flush=True)
+
+
+def chain_pair(runner, mode, prompt, tag, fn, template, smi, chained=None, origin=""):
+    """`fn` through tree_generate on the per-step path, against its chained
+    run: `chained`, generate_run's dict of a run that the script made
+    under sync_checked on a runner built as `runner` is (`origin` says
+    which, printed beside its numbers), or if None a run made here, under
+    sync_checked.  The branches' token ids must be equal.
+    If they are not, the per-step path is rerun twice first, as a control
+    of the card's determinism, and what it shows is printed.  Returns
+    {"per-step": run, "chained": run}."""
+    out = {"per-step": generate_run(runner, mode, prompt, per_step(fn), template)}
+    if chained is None:
+        with sync_checked(f"{tag} chained"):
+            chained = generate_run(runner, mode, prompt, fn, template)
+    out["chained"] = chained
+    for path, run in out.items():
+        chain_line(tag, path, run, smi, f", under set_sync_debug_mode('error'){origin}"
+                   if path == "chained" else "")
+    same = out["per-step"]["seqs"] == out["chained"]["seqs"]
+    if not same:
+        reruns = [generate_run(runner, mode, prompt, per_step(fn), template)["seqs"]
+                  for _ in range(2)]
+        print(f"[chain] {tag}: chained tokens differ from per-step; the per-step "
+              f"path rerun twice gives {[r == out['per-step']['seqs'] for r in reruns]} "
+              "(equal to its first run)", flush=True)
+    n = sum(len(x) for x in out["chained"]["seqs"])
+    print(f"[chain] {tag}: per-step and chained branch tokens "
+          f"{'equal' if same else 'DIFFER'} ({len(out['chained']['seqs'])} branches, "
+          f"{n} tokens); launches chained {out['chained']['launches']}", flush=True)
+    check(same and n > 0, f"{tag}: chained branch tokens differ from per-step")
+    return out
+
+
+def batch_chain_pair(runner, prompts, mode, tag, smi):
+    """The batch path's four requests through BatchedEngine, per-step then
+    on the all-greedy fast path (under sync_checked); each request's
+    branches must be equal."""
+    import torch
+    from deft_tpu_torch.control import Branch_Controller, workloads
+    from deft_tpu_torch.runtime.batched import BatchedEngine, Request
+    from deft_tpu_torch.runtime.runner import host_wait
+
+    out = {}
+    for path in ("per-step", "chained"):
+        fn = per_step(workloads.simple_tree) if path == "per-step" else workloads.simple_tree
+        runner.reset_state()
+        eng = BatchedEngine(runner, mode)
+        reqs = [Request(p, Branch_Controller(fn), len(p) + GEN_LEN, width=WIDTH, depth=1)
+                for p in prompts]
+        w0 = host_wait.waits
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with sync_checked(f"{tag} chained", path == "chained"):
+            eng.add_requests(reqs)
+            steps = eng.run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        out[path] = [[list(s.token_ids) for s in r.finished_seqs] for r in reqs]
+        tok = sum(len(x) for b in out[path] for x in b)
+        note = ", under set_sync_debug_mode('error')" if path == "chained" else ""
+        print(f"[chain] {tag} {path}: {steps} steps, {tok} tokens in {wall:.1f} ms "
+              f"(admission included), {wall / steps:.3f} ms/step, "
+              f"{host_wait.waits - w0} host waits{note}; launches "
+              f"{ {k: n for k, n in read_counts().items() if n} }; {smi}", flush=True)
+    same = out["per-step"] == out["chained"]
+    print(f"[chain] {tag}: per-step and chained branch tokens "
+          f"{'equal' if same else 'DIFFER'} in every request", flush=True)
+    check(same and all(len(b) == WIDTH for b in out["chained"]),
+          f"{tag}: chained branch tokens differ from per-step")
+
+
+def main_turns(runner, prompt, per_step_run, smi):
+    """The host's speed drifts within a call: chain_pair's per-step run of
+    the main flatten path, then a chained and a per-step run right after
+    it, make turns (per-step, chained, per-step), printed together."""
+    from deft_tpu_torch.control import workloads
+    from deft_tpu_torch.runtime import ForwardMode
+
+    turns = [("per-step", per_step_run["pm"])]
+    for path in ("chained", "per-step"):
+        fn = per_step(workloads.simple_tree) if path == "per-step" else workloads.simple_tree
+        turns.append((path, generate_run(runner, ForwardMode.TREE_DECODE_FLATTEN,
+                                         prompt, fn)["pm"]))
+    print("[chain] main flatten in turns: " + "; ".join(
+        f"{path} TPOT {pm.TPOT:.4f} ms, e2e {pm.e2e_latency:.1f} ms, sum of iter_time "
+        f"{sum(pm.iter_time):.1f} ms" for path, pm in turns) + f"; {smi}", flush=True)
+
+
+def topk_widened(probs, k):
+    """The runner's top-K tie rule before the chain (topk_lowest_index as
+    it was): torch.topk widened to every entry tied with a row's k-th
+    value, the width read on the host, then sorted by (value descending,
+    index ascending).  Timed beside the device rule, used nowhere else."""
+    import torch
+
+    vals, ids = torch.topk(probs, k, dim=-1)
+    m = int((probs >= vals[:, -1:]).sum(dim=-1).max())
+    if m > k:
+        vals, ids = torch.topk(probs, m, dim=-1)
+    ids, perm = ids.sort(dim=-1)
+    vals, perm2 = vals.gather(-1, perm).sort(dim=-1, descending=True, stable=True)
+    return vals[:, :k], ids.gather(-1, perm2)[:, :k]
+
+
+def topk_rule_timing(dev, vocab, smi):
+    """The decode step's top-K, ties lowest index first, over WIDTH rows of
+    the vocabulary at k = WIDTH and the runner's 64: the device rule
+    (runner.topk_lowest_index, one int64 topk of packed keys) against the
+    one it replaced (topk_widened), on softmax + 1e-6 of bf16 logits
+    widened to fp32, as the runner's _logits_view takes them.  Both must
+    give the same ids and values.  Prints each one's CUDA-event time
+    (primed: the device's time; topk_widened's host read empties the
+    queue, so its time also holds the host's launches after the read) and
+    the host's wall time of a call and its synchronize."""
+    import torch
+    from deft_tpu_torch.runtime.runner import topk_lowest_index
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    logits = (3 * torch.randn(WIDTH, vocab, generator=gen, device=dev)).bfloat16().float()
+    probs = torch.softmax(logits, dim=-1) + 1e-6
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    for k in (WIDTH, 64):
+        (nv, ni), (ov, oi) = topk_lowest_index(probs, k), topk_widened(probs, k)
+        check(torch.equal(ni, oi) and torch.equal(nv, ov),
+              f"top-{k}: the device tie rule and the widened one disagree")
+        tied = int((probs >= nv[:, -1:]).sum(dim=-1).max())
+        times = []
+        for fn in (lambda: topk_lowest_index(probs, k), lambda: topk_widened(probs, k)):
+            ev = time_ms(fn, 20, flush)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                fn()
+                torch.cuda.synchronize()
+            times.append((ev, (time.perf_counter() - t0) / 20 * 1e3))
+        (dn, dw), (wn, ww) = times
+        print(f"[chain] top-{k} of {WIDTH} x {vocab} fp32 probabilities (up to {tied} "
+              f"entries at or above a row's k-th value; both rules give the same ids "
+              f"and values): device rule {dn:.4f} ms device, {dw:.4f} ms host call + "
+              f"sync; widened rule with its host read {wn:.4f} ms device, {ww:.4f} ms "
+              f"host call + sync; {smi}", flush=True)
+
+
+def phase_chain(dev, params, prompt, smi, chained=None, profile: bool = False):
+    """Device-chained decode (runtime/generate.py, BatchedEngine's
+    all-greedy fast path) against the per-step path, on the main path's
+    settings (8B bf16, prompt 4000, width 50, 64 tokens): Simple_Tree, W1
+    Practical_Tree (deferred selection), W2 Speculative_Decoding (pipelined
+    logits-free steps) and W4 Random_Tree (deferred), each flatten and seq,
+    the main path over int8 KV in flatten, and the batch path's four
+    requests through BatchedEngine: equal branch token ids in every pair.
+    `chained`: {tag: {mode: run}}, the chained runs that phase_main
+    ("main") and phase_workloads ("W1 tot", "W2 spec", "W4 random") made
+    under sync_checked; the per-step runs here take runners built as
+    theirs were.  Without them (--chain-only), the chained runs are made
+    here.  Every chained run goes under set_sync_debug_mode("error"),
+    after a control that the mode raises on a .item().  Prints TPOT, e2e,
+    the sum of iter_time and the host waits of each run, the main flatten
+    path in turns, and the top-K tie rule's time against the rule it
+    replaced; with `profile`, 8 profiled main flatten steps of each path in
+    turns."""
+    import torch
+    from deft_tpu_torch.control import workloads
+    from deft_tpu_torch.data import generate_accepted_len_list
+    from deft_tpu_torch.data.synthetic import synth_spec_tree, synth_tot_tree
+    from deft_tpu_torch.models import PRESETS
+    from deft_tpu_torch.runtime import ForwardMode
+
+    t_phase = time.perf_counter()
+    chained = chained or {}
+    cfg = PRESETS["8b"]
+    flatten = ForwardMode.TREE_DECODE_FLATTEN
+    modes = (("flatten", flatten), ("seq", ForwardMode.DECODE))
+    try:
+        with sync_mode("error"):
+            torch.zeros(1, device=dev).item()
+        raised = False
+    except RuntimeError:
+        raised = True
+    print(f"[chain] control: .item() under set_sync_debug_mode('error') "
+          f"{'raises' if raised else 'does not raise'}", flush=True)
+    check(raised, "set_sync_debug_mode('error') lets a .item() through: the sync "
+          "check cannot see a hidden wait")
+    topk_rule_timing(dev, cfg.vocab_size, smi)
+
+    runner = make_runner(cfg, params, dev)  # phase_main's
+    runner.retain_full_logits = False
+    for mode_name, mode in modes:
+        pair = chain_pair(runner, mode, prompt, f"main {mode_name}", workloads.simple_tree,
+                          None, smi, chained.get("main", {}).get(mode_name),
+                          ", the main phase's run")
+        if mode is flatten:
+            main_turns(runner, prompt, pair["per-step"], smi)
+    if profile:
+        for path in ("per-step", "chained", "chained", "per-step"):
+            fn = (per_step(workloads.simple_tree) if path == "per-step"
+                  else workloads.simple_tree)
+            profile_generate(runner, flatten, prompt, fn, None, 8, 8,
+                             f"main {path}, TREE_DECODE_FLATTEN, steps 8-15, prompt "
+                             f"4000, bf16 KV")
+    del runner
+    release()
+
+    # phase_workloads' runner
+    runner = make_runner(cfg, params, dev, slots=BATCH_SLOTS, max_requests=WL_REQUESTS,
+                         use_tree_index=True)
+    runner.retain_full_logits = False
+    tot = synth_tot_tree(seed=SEED, width=4, max_leaves=WIDTH, total_iters=GEN_LEN - 1)
+    spec = synth_spec_tree(token_tree_size=WIDTH, gen_len=GEN_LEN - 1, seed=SEED)
+    generate_accepted_len_list(GEN_LEN, spec, seed=SEED)
+    for tag, fn, template in (("W1 tot", workloads.practical_tree, tot),
+                              ("W2 spec", workloads.speculative_decoding, spec),
+                              ("W4 random", workloads.random_tree, None)):
+        for mode_name, mode in modes:
+            chain_pair(runner, mode, prompt, f"{tag} {mode_name}", fn, template, smi,
+                       chained.get(tag, {}).get(mode_name),
+                       ", the workloads phase's run (the time of its mid-run hold or "
+                       "merge read-backs included)")
+    del runner
+    release()
+
+    runner = make_runner(cfg, params, dev, kv_dtype="int8")
+    runner.retain_full_logits = False
+    chain_pair(runner, flatten, prompt, "main flatten, int8 KV", workloads.simple_tree,
+               None, smi)
+    del runner
+    release()
+
+    rng = np.random.default_rng(SEED + 3)  # phase_batch's prompts
+    prompts = [[int(t) for t in rng.integers(4, cfg.vocab_size - 4, n)]
+               for n in BATCH_LENS]
+    runner = make_runner(cfg, params, dev, prompt_len=max(BATCH_LENS),
+                         slots=BATCH_SLOTS, max_requests=4 * (WIDTH + 2))
+    runner.retain_full_logits = False
+    for mode_name, mode in modes:
+        batch_chain_pair(runner, prompts, mode, f"batch {mode_name}", smi)
+    del runner
+    release()
+    print(f"[chain] the phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def phase_int8w(dev, prompt, ids, main_runs):
@@ -3350,10 +3704,13 @@ def generate_counting_prefills(runner, prompt, tag):
     return runs, prefills, launches
 
 
-def phase_moe(dev, profile: bool = False):
+def phase_moe(dev, smi, profile: bool = False):
     """Mixtral-8x7B widths at 6 layers, bf16 weights: B10 (gmm) takes every
-    prefill's MoE, 3 launches a layer, and no decode step's."""
+    prefill's MoE, 3 launches a layer, and no decode step's; then the
+    flatten run per-step against chained (chain_pair: the dense MoE decode
+    route under set_sync_debug_mode("error"))."""
     import torch
+    from deft_tpu_torch.control import workloads
     from deft_tpu_torch.models import PRESETS
     from deft_tpu_torch.models.loader import random_params
     from deft_tpu_torch.runtime import ForwardMode
@@ -3386,6 +3743,8 @@ def phase_moe(dev, profile: bool = False):
           and runs["seq"]["launches"].get("paged_seq", 0)
           + runs["seq"]["launches"].get("seq_gather", 0) > 0,
           f"moe: attention kernels did not launch: {launches}")
+    chain_pair(runner, ForwardMode.TREE_DECODE_FLATTEN, prompt, "moe flatten",
+               workloads.simple_tree, None, smi)
     if profile:
         for mode in (ForwardMode.TREE_DECODE_FLATTEN, ForwardMode.DECODE):
             profile_decode(runner, mode, prompt, WIDTH, steps=8)
@@ -3745,7 +4104,8 @@ def grow_greedy(runner, prompt, steps):
         child.append_token(int(ids[c]))
     for _ in range(steps):
         tree.alloc()
-        view, _ = runner.forward_tree_decode(flatten, runner.build_plan(flatten), "greedy")
+        view, _ = runner.forward_tree_decode(flatten, runner.build_plan(flatten),
+                                             logits_kind="greedy")
         tok, _ = view.argmax()
         for leaf in list(tree.leaves.values()):
             leaf.append_token(int(tok[tree.leaf_to_q[leaf.id]]))
@@ -4460,6 +4820,14 @@ def profile_report(label, prof, steps, wall_ms, ranges=RANGES):
     for e in sorted(evs, key=dev_us, reverse=True)[:12]:
         print(f"[profile]   {dev_us(e) / 1e3 / steps:8.3f} ms/step "
               f"{e.count // steps:5d}/step  {e.key[:90]}")
+    # the CUDA runtime calls the host made (launches, copies, host
+    # allocations, waits), by host time
+    api = [e for e in avgs if e.key.startswith("cuda")
+           and str(getattr(e, "device_type", "")).endswith("CPU")]
+    print(f"[profile]   host, CUDA runtime calls: " + ", ".join(
+        f"{e.key} {e.count / steps:.1f}/step {e.cpu_time_total / 1e3 / steps:.3f} ms/step"
+        for e in sorted(api, key=lambda e: e.cpu_time_total, reverse=True)[:6]),
+        flush=True)
     return {e.key: dev_us(e) / 1e3 / steps for e in evs}
 
 
@@ -5301,8 +5669,10 @@ def main(argv=None) -> int:
                          "(the 4000-token prompt over bf16 and int8 KV, the "
                          "16-token prompt over bf16 KV, the two MoE paths), "
                          "8 batched flatten steps of the batch path's four "
-                         "requests, and 8 flatten steps each of the workloads "
-                         "phase's ToT and speculative runs (W1, W2)")
+                         "requests, 8 flatten steps each of the workloads "
+                         "phase's ToT and speculative runs (W1, W2), and 8 main "
+                         "flatten steps per-step and chained in turns (the chain "
+                         "phase)")
     ap.add_argument("--flatten-only", action="store_true",
                     help="only the card, the build and the flatten kernels' checks and "
                          "times (phase_flatten_only); prints no result line")
@@ -5316,15 +5686,20 @@ def main(argv=None) -> int:
     ap.add_argument("--workloads-only", action="store_true",
                     help="only the card, the build and the workloads phase "
                          "(phase_workloads); prints no result line")
+    ap.add_argument("--chain-only", action="store_true",
+                    help="only the card, the build and the chain phase (per-step "
+                         "against device-chained decode, phase_chain); prints no "
+                         "result line")
     ap.add_argument("--root", default=None,
                     help="with --flatten-only, --seq-only or --prefill-only: import "
                          "deft_tpu_torch from this checkout (a parent commit timed in "
                          "turns with this one)")
     args = ap.parse_args(argv)
-    only = args.flatten_only + args.seq_only + args.prefill_only + args.workloads_only
+    only = (args.flatten_only + args.seq_only + args.prefill_only + args.workloads_only
+            + args.chain_only)
     if only > 1:
-        ap.error("--flatten-only, --seq-only, --prefill-only and --workloads-only are "
-                 "separate runs")
+        ap.error("--flatten-only, --seq-only, --prefill-only, --workloads-only and "
+                 "--chain-only are separate runs")
     if args.root is not None:
         if not (args.flatten_only or args.seq_only or args.prefill_only):
             ap.error("--root goes with --flatten-only, --seq-only or --prefill-only")
@@ -5368,7 +5743,7 @@ def main(argv=None) -> int:
                 phase_seq_only(dev, shapes, edges=args.root is None)
             print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}", flush=True)
             return 0
-        if not args.workloads_only:
+        if not (args.workloads_only or args.chain_only):
             shapes.update(wide_shapes(dev))
             errs = phase_kernels(dev, shapes)
         t0 = time.perf_counter()
@@ -5376,8 +5751,9 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         print(f"[main] 8b random bf16 weights made on the card in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-        if args.workloads_only:
-            phase_workloads(dev, params, main_prompt(), smi, args.profile)
+        if args.workloads_only or args.chain_only:
+            phase = phase_workloads if args.workloads_only else phase_chain
+            phase(dev, params, main_prompt(), smi, profile=args.profile)
             print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}", flush=True)
             return 0
         launches, prompt, ids, lf, main_runs = phase_main(dev, params, args.profile)
@@ -5391,13 +5767,15 @@ def main(argv=None) -> int:
         batch = phase_batch(dev, params, args.profile)
         launches["ragged_prefill"] = batch["ragged_prefill"]
         launches["flatten_gather"] += batch["flatten_gather"]  # its multi-tree gather steps
-        wl = phase_workloads(dev, params, prompt, smi, args.profile)
+        wl, wl_chained = phase_workloads(dev, params, prompt, smi, args.profile)
         for k in ("flatten_gather", "seq_gather"):  # their driven gather plans
             launches[k] += wl.get(k, 0)
+        phase_chain(dev, params, prompt, smi, {"main": main_runs, **wl_chained},
+                    args.profile)
         del params
         release()
         launches["int8_matmul"] = phase_int8w(dev, prompt, ids, main_runs)["int8_matmul"]
-        moe_launches, moe_runs, moe_logits = phase_moe(dev, args.profile)
+        moe_launches, moe_runs, moe_logits = phase_moe(dev, smi, args.profile)
         launches["gmm"] = moe_launches["gmm"]
         launches["gmm_scaled"] = phase_moe_int8w(dev, moe_runs, args.profile)["gmm_scaled"]
         launches.update({k: v for k, v in phase_sharded(prompt, ids, lf, lq,

@@ -8,12 +8,13 @@ _path_logprob :202), random_tree (:255), their ``structural_iters``,
 reference-name aliases (:320-323).  Policies consume a LogitsView whose rows
 are ordered by the tree's current leaf_to_q.
 
-deft_tpu's device-chained token selection (``deferred``, its
-runtime/generate.py DeferredSelect) is not ported: the port reads every
-step's logits on the host, so practical_tree and random_tree take
-``deferred=None`` only.  ``supports_deferred`` is kept because the
-generation loop reads it to choose how much of the logits head a step
-computes (runtime/generate.py), as deft_tpu's does.
+practical_tree and random_tree decide on the host which leaf branches or is
+pruned; only the tokens come from the step.  Given ``deferred`` (a
+runtime/generate.py DeferredSelect), they record each appended token as
+(row, top-K column) of the view instead of reading it, so the generation
+loop gathers the next step's q tokens on the device and backfills the
+values later (deft_tpu workloads.py:60-148, :255-316).  Their output
+iterations copy token values and never take ``deferred``.
 """
 
 from __future__ import annotations
@@ -24,12 +25,6 @@ import numpy as np
 
 from deft_tpu_torch.data.loader import ExecuteTree
 from deft_tpu_torch.runtime.sampling import sample_token
-
-
-def _host_only(deferred) -> None:
-    if deferred is not None:
-        raise NotImplementedError("device-chained token selection (deferred) "
-                                  "is not ported (ROADMAP A3)")
 
 
 def simple_tree(model, iter, max_gen_len, width, depth, logits,
@@ -74,8 +69,9 @@ def practical_tree(model, iter, max_gen_len, width, depth, logits,
                    execution_graph: Optional[ExecuteTree] = None,
                    deferred=None, **kw) -> bool:
     """Multi-step (ToT) reasoning: replay an ExecuteTree's branch/prune
-    schedule; greedy generation on untouched leaves."""
-    _host_only(deferred)
+    schedule; greedy generation on untouched leaves.  With ``deferred``,
+    each appended token is recorded as (row, top-K column) and read by
+    nothing on the host."""
     assert execution_graph is not None
     tree = model.tree
     branch_pairs = execution_graph.branch_record.get(iter, {})
@@ -83,6 +79,8 @@ def practical_tree(model, iter, max_gen_len, width, depth, logits,
     stop = False
     ROOT_ID = 0
     if ROOT_ID in prune_nodes:
+        # output iterations copy token values: never deferred
+        assert deferred is None, "output iteration must not be deferred"
         stop = True
         for leaf in list(tree.leaves.values()):
             tree.output_branch(leaf)
@@ -97,6 +95,10 @@ def practical_tree(model, iter, max_gen_len, width, depth, logits,
             assert w > 0
             q_idx = 0 if iter == 0 else tree.leaf_to_q[l_id]
             children = tree.branch(tree.nodes[l_id], w)
+            if deferred is not None:
+                for c, child in enumerate(children):
+                    deferred.append(child, q_idx, c)
+                continue
             probs, ids = logits.topk(q_idx, w)
             for c, child in enumerate(children):
                 child.append_token(int(ids[c]), logprob=float(np.log(probs[c])))
@@ -106,12 +108,16 @@ def practical_tree(model, iter, max_gen_len, width, depth, logits,
             # iter 0 == prefill: one logits row for the root, leaf_to_q not
             # built yet (templates may run the root greedily before branching)
             q = 0 if iter == 0 else tree.leaf_to_q[leaf.id]
+            if deferred is not None:
+                deferred.append(leaf, q, 0)
+                continue
             if greedy_ids is None:
                 greedy_ids, greedy_probs = logits.argmax()
             leaf.append_token(
                 int(greedy_ids[q]), logprob=float(np.log(greedy_probs[q]))
             )
     if iter == max_gen_len - 1:
+        assert deferred is None, "output iteration must not be deferred"
         for leaf in list(tree.leaves.values()):
             tree.output_branch(leaf)
         stop = True
@@ -128,7 +134,8 @@ def _practical_tree_structural(template, max_gen_len):
 def _practical_tree_logits_free(template, max_gen_len):
     """Every replay iteration except the ones that copy token values
     (output_branch at root-prune / final iter): which leaf branches or
-    prunes is fixed by the template, only the tokens come from the step."""
+    prunes is fixed by the template, only the tokens come from the step, so
+    their selection is deferred to the device."""
     out_iters = {max_gen_len - 1}
     if template is not None:
         for it, nodes in template.prune_record.items():
@@ -254,12 +261,14 @@ def random_tree(model, iter, max_gen_len, width, depth, logits,
     Reproducible by construction: with no explicit ``rng`` the stream is
     derived from (seed, iter), so a rerun with the same seed replays the
     same branch/prune schedule.  Pass a shared np.random.RandomState to
-    correlate decisions across iterations instead."""
-    _host_only(deferred)
+    correlate decisions across iterations instead.  The decisions are the
+    rng's, known on the host, so with ``deferred`` the tokens are recorded
+    as (row, top-K column) as in practical_tree."""
     if rng is None:
         rng = np.random.RandomState((seed * 1_000_003 + iter) & 0x7FFFFFFF)
     tree = model.tree
     if iter + 1 == max_gen_len:
+        assert deferred is None, "output iteration must not be deferred"
         for leaf in list(tree.leaves.values()):
             tree.output_branch(leaf)
         return True
@@ -268,19 +277,26 @@ def random_tree(model, iter, max_gen_len, width, depth, logits,
         for c, child in enumerate(tree.branch(tree.root, width)):
             child.append_token(int(ids[c]), logprob=float(np.log(probs[c])))
         return False
-    ids, probs = logits.argmax()
+    if deferred is None:
+        ids, probs = logits.argmax()
     for leaf in list(tree.leaves.values()):
         q = tree.leaf_to_q[leaf.id]
         r = rng.rand()
         if r < 0.08 and len(tree.leaves) < width * 4:
             k = int(rng.randint(2, 4))
             children = tree.branch(leaf, k)
+            if deferred is not None:
+                for c, child in enumerate(children):
+                    deferred.append(child, q, c)
+                continue
             probs_k, ids_k = logits.topk(q, k)
             for c, child in enumerate(children):
                 child.append_token(int(ids_k[c]),
                                    logprob=float(np.log(probs_k[c])))
         elif r > 0.96 and len(tree.leaves) > 2:
             tree.cut(leaf, record_deleted=True)
+        elif deferred is not None:
+            deferred.append(leaf, q, 0)
         else:
             leaf.append_token(int(ids[q]), logprob=float(np.log(probs[q])))
     return False

@@ -9,13 +9,16 @@ all trees with one multi-tree plan (plan/multi.py) through the decode
 kernels; each request's branch controller sees its own row window of the
 logits.  Requests join (feed) and finish between steps.
 
-deft_tpu's device-chained fast path for all-greedy steps (placeholder
-tokens, backfilled later; batched.py:186-244) was built for its remote TPU
-link and is not ported: every step here reads its logits on the host, the
-top-1 only when no request makes a structural decision in it.  Each tree's
-queued merge copies (speculative decoding) land before its alloc
-(batched.py:190).  Node mode runs on the multi-tree flatten plan, as in
-deft_tpu (:101, :209-212); node-aligned multi-tree plans are ROADMAP A6.
+A step in which no request makes a structural decision takes deft_tpu's
+all-greedy fast path (batched.py:170-250): it computes the top-1 only, is
+enqueued without waiting, takes the previous all-greedy step's device ids
+as its q tokens, and gives every leaf a placeholder token, backfilled from
+the step's host copy at the next admission or structural step
+(runtime/generate.py resolve_backfills); the host waits every 8 such steps.
+Other steps read their logits on the host.  Each tree's queued merge copies
+(speculative decoding) land before its alloc (batched.py:190).  Node mode
+runs on the multi-tree flatten plan, as in deft_tpu (:101, :209-212);
+node-aligned multi-tree plans are ROADMAP A6.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import List, Optional
 
 from deft_tpu_torch.core.tree import TreeCache
 from deft_tpu_torch.plan.multi import build_multi_flatten_plan, build_multi_seq_plan
+from deft_tpu_torch.runtime.generate import SYNC_PERIOD, resolve_backfills
 from deft_tpu_torch.runtime.modes import ForwardMode
 from deft_tpu_torch.runtime.runner import LogitsView, ModelRunner, packs_heads
 
@@ -105,6 +109,12 @@ class BatchedEngine:
         self.mode = mode
         self.active: List[Request] = []
         self.waiting: List[Request] = []  # feed() queue, admitted between steps
+        # the all-greedy fast path: placeholders waiting for their values,
+        # the last all-greedy step's view (the next step's q tokens) and
+        # the steps enqueued since the host last waited
+        self._pending: list = []  # (view, [(node, token_index, row, col)])
+        self._chain = None
+        self._steps_since_wait = 0
 
     def add_request(self, req: Request) -> None:
         """Admit one request (see add_requests)."""
@@ -121,6 +131,10 @@ class BatchedEngine:
         branches on its own row of the batched logits."""
         if not reqs:
             return
+        # the placeholders land and the chain ends: admission changes the
+        # rows of the next step
+        resolve_backfills(self._pending)
+        self._chain = None
         r = self.runner
         for req in reqs:
             req.tree = TreeCache(r.token_to_kv_pool, r.req_to_token_pool,
@@ -165,7 +179,8 @@ class BatchedEngine:
 
     def step(self) -> None:
         """One global decode step across every active tree (admitting the
-        feed() queue first)."""
+        feed() queue first).  When no active request's iteration is
+        structural, the step only enqueues (the all-greedy fast path)."""
         if self.waiting:
             reqs, self.waiting = self.waiting, []
             self.add_requests(reqs)
@@ -173,14 +188,39 @@ class BatchedEngine:
                 return
         if not self.active:
             raise RuntimeError("step() with no active or waiting request")
+        r = self.runner
+        all_greedy = not any(req.is_structural(req.iter) for req in self.active)
         trees = [req.tree for req in self.active]
         for t in trees:
-            self.runner.apply_kv_copies(t)  # merge compactions (spec decode)
+            r.apply_kv_copies(t)  # merge compactions (spec decode)
             t.alloc()
         plan = self.build_plan(trees)
-        structural = any(req.is_structural(req.iter) for req in self.active)
-        view, _ = self.runner.forward_tree_decode(
-            self.mode, plan, logits_kind="topk" if structural else "greedy")
+        override = (self._chain.greedy_ids_device if self._chain is not None
+                    else None)
+        view, _ = r.forward_tree_decode(
+            self.mode, plan, q_tokens_override=override, block=not all_greedy,
+            logits_kind="greedy" if all_greedy else "topk")
+        if all_greedy:
+            backfills = []
+            for tree, off in zip(trees, plan.leaf_offsets):
+                for leaf in tree.leaves.values():
+                    leaf.append_token(0)
+                    backfills.append((leaf, len(leaf.token_ids) - 1,
+                                      off + tree.leaf_to_q[leaf.id], 0))
+            view.fetch_async()
+            self._pending.append((view, backfills))
+            self._chain = view
+            for req in self.active:
+                req.iter += 1
+            self._steps_since_wait += 1
+            if self._steps_since_wait >= SYNC_PERIOD:
+                view.wait()
+                self._steps_since_wait = 0
+            return
+        # a structural step: the placeholders land before any controller
+        # reads its window or changes its tree
+        resolve_backfills(self._pending)
+        self._chain = None
         still = []
         for req, off in zip(self.active, plan.leaf_offsets):
             sub = _RowWindowView(view, off, len(req.tree.leaves))
@@ -203,6 +243,7 @@ class BatchedEngine:
         while (self.active or self.waiting) and steps < max_steps:
             self.step()
             steps += 1
+        resolve_backfills(self._pending)
         return steps
 
 

@@ -1,19 +1,36 @@
-"""The tree-decoding generation loop, per-step path.
+"""The tree-decoding generation loop, with deft_tpu's device chains.
 
 Port of deft_tpu/runtime/generate.py:68 (tree_generate) on its per-step path
 (:526-731): prefill, then per iteration alloc one KV slot per leaf, build the
 attention plan, run one decode step, apply the branch controller and record
-PerfMetrics; stop on the controller's signal or at max_gen_len.  The device
-chains, decode windows and replay slabs of deft_tpu were built for its remote
-TPU link and are not ported: every step here reads its logits on the host.
+PerfMetrics; stop on the controller's signal or at max_gen_len.  deft_tpu's
+decode windows and replay slabs (:189-525), built for its remote TPU link,
+are not ported.
 
-How much of the logits head a step computes follows deft_tpu's per-step rule
-(:559-574), from the workload's ``structural_iters``, ``logits_free_iters``
-and ``supports_deferred``: "greedy" (top-1) on iterations that only append
-each leaf's greedy token, "skip" (no lm_head) on structural iterations that
-read no logits (a speculative accept schedule), "topk" otherwise.  A
-workload that supports deferred selection reads its tokens on the host here,
-so its logits-free iterations take "topk".
+Steps whose tokens the host need not read are chained on the device, as
+deft_tpu chains them (DeferredSelect :23, resolve_backfills :51, the chain
+:526-717), on torch's current stream:
+
+- iterations outside the workload's ``structural_iters`` append each leaf's
+  greedy token: the step computes the top-1 only ("greedy"), is enqueued
+  without waiting, and its device ids are the next step's q tokens; the
+  leaves take placeholder tokens whose values (and logprobs) are backfilled
+  from the step's copy to pinned host memory later;
+- structural iterations in ``logits_free_iters`` read no logits values.  A
+  workload with ``supports_deferred`` (ToT replay, the random tree) records
+  each appended token as (row, top-K column) of the step's view
+  (DeferredSelect), the step computes the top-K, and the next step gathers
+  its q tokens from those device ids; without it (speculative decoding's
+  accept schedule) the step skips the lm_head ("skip");
+- the other iterations read logits on the host ("topk"): the step waits,
+  and outstanding backfills land before the workload runs.
+
+The host waits for the device every ``SYNC_PERIOD`` (8) chained steps and
+once at the end (the drain), each wait charged to the forward time of the
+step that waits: a chained step's forward time is its enqueue time, so
+``decode_latency`` and TPOT sum enqueue times and waits on chained runs, as
+in deft_tpu.  A workload that declares none of the three attributes runs
+every step with host logits (the per-step path).
 
 A ``tracer`` (obs/tracing.py) brackets the prefill, each step's alloc and
 plan build, and each decode step with the spans deft_tpu names
@@ -26,9 +43,60 @@ from __future__ import annotations
 import time
 from typing import Optional
 
+import numpy as np
+
 from deft_tpu_torch.obs import GlobalTimer, PerfMetrics, Tracer
 from deft_tpu_torch.runtime.modes import ForwardMode
 from deft_tpu_torch.runtime.runner import ModelRunner
+
+# chained steps between two host waits (deft_tpu generate.py:186)
+SYNC_PERIOD = 8
+
+
+class DeferredSelect:
+    """A structural step's token selections, made without reading logits
+    values (deft_tpu generate.py:23): each appended token is recorded as
+    (row, top-K column) of the step's LogitsView.  The loop turns the
+    records into the next step's q tokens, gathered on the device
+    (forward_tree_decode's q_select), and into backfills of the
+    placeholders from the view's host copy later.  A workload that opts in
+    (``supports_deferred``) copies no token values in the iterations it
+    defers (branch and cut are fine; merge_nodes and output_branch copy, so
+    those iterations stay out of its ``logits_free_iters``)."""
+
+    def __init__(self, k: int):
+        self.k = k
+        self.backfills = []  # (node, token_index, row, col) records
+        self.qsrc = {}       # leaf id -> (row, col)
+
+    def append(self, leaf, row: int, col: int) -> None:
+        """leaf.append_token(ids[row, col]), deferred."""
+        assert col < self.k, f"column {col} >= step top-K {self.k}"
+        leaf.append_token(0)
+        self.backfills.append((leaf, len(leaf.token_ids) - 1, row, col))
+        self.qsrc[leaf.id] = (row, col)
+
+
+def resolve_backfills(pending) -> None:
+    """Write the token ids and logprobs of queued steps into their
+    placeholders (deft_tpu generate.py:51).  ``pending`` is a list of
+    (LogitsView, [(node, token_index, row, col)]): records, since two
+    leaves may select the same (row, column) of one view.  Shared by
+    tree_generate and BatchedEngine."""
+    for view, fills in pending:
+        ids, vals = view.ids, view.vals
+        for node, ti, q, col in fills:
+            node.token_ids[ti] = int(ids[q, col])
+            node.cumulative_logprob += float(np.log(vals[q, col]))
+    pending.clear()
+
+
+def timed_wait(view) -> float:
+    """Wait for ``view``'s host copy (runner.host_wait); returns the
+    seconds waited, which the caller charges to a step's forward time."""
+    t0 = time.perf_counter()
+    view.wait()
+    return time.perf_counter() - t0
 
 
 def tree_generate(
@@ -84,9 +152,9 @@ def tree_generate(
     )
     perf_metrics.TTFT = (time.perf_counter() - start_time) * 1000
 
-    # iterations that branch or prune need the top-K; the others append
-    # each leaf's greedy token and need the top-1 only; structural
-    # iterations that read no logits values need none
+    # iterations outside structural_iters append each leaf's greedy token
+    # and chain on the device; structural ones in logits_free_iters read no
+    # logits values (deferred selection, or no lm_head at all)
     fn = branch_controller.branching_function
     template = branch_controller.tree_templates
     structural_fn = getattr(fn, "structural_iters", None)
@@ -97,12 +165,27 @@ def tree_generate(
                    if logits_free_fn is not None else frozenset())
     supports_deferred = getattr(fn, "supports_deferred", False)
 
+    pending = []  # (LogitsView, [(node, token_index, row, col)])
+    # where the next step's q tokens come from: None, the plan (host token
+    # values); ("ids", view), view's greedy ids in the same row order;
+    # ("sel", view, qsrc), view's top-K ids gathered by leaf -> (row, col)
+    chain = None
     it = 0
     while not stop and it + 1 < max_gen_len:
         it += 1
         for name in ("prepare", "branch", "alloc", "tree_metadata"):
             GlobalTimer.reset(name)
         step_start = time.perf_counter()
+        if chain is None and pending:
+            # the plan carries host token values: the placeholders land first
+            resolve_backfills(pending)
+        if chain is not None and chain[0] == "sel" and any(
+                leaf_id not in chain[2] for leaf_id in model.tree.leaves):
+            # a live leaf made no deferred selection last step (deft_tpu
+            # generate.py:531-537): its token comes from the host
+            resolve_backfills(pending)
+            chain = None
+
         GlobalTimer.start("prepare")
         with tracer.span("plan_build"):
             GlobalTimer.start("alloc")
@@ -113,15 +196,28 @@ def tree_generate(
             GlobalTimer.stop("tree_metadata")
         GlobalTimer.stop("prepare")
 
-        if structural is not None and it not in structural:
+        is_struct = structural is None or it in structural
+        needs_logits = is_struct and it not in logits_free
+        if not is_struct:
             logits_kind = "greedy"
-        elif it in logits_free and not supports_deferred:
+        elif not needs_logits and not supports_deferred:
             logits_kind = "skip"
         else:
             logits_kind = "topk"
+        override = select = None
+        if chain is not None and chain[0] == "ids":
+            override = chain[1].greedy_ids_device
+        elif chain is not None:
+            _, prev, qsrc = chain
+            rows = np.zeros(plan.l_pad, np.int32)  # pad rows take (0, 0)
+            cols = np.zeros(plan.l_pad, np.int32)
+            for leaf_id, q in model.tree.leaf_to_q.items():
+                rows[q], cols[q] = qsrc[leaf_id]
+            select = (prev.ids_device, rows, cols)
         with tracer.span("decode_step"):
-            logits, fwd_t = model.forward_tree_decode(mode, plan,
-                                                      logits_kind=logits_kind)
+            logits, fwd_t = model.forward_tree_decode(
+                mode, plan, q_tokens_override=override, q_select=select,
+                block=needs_logits, logits_kind=logits_kind)
 
         # analytic KV / mask IO accounting (per layer x layers)
         if mode.is_sequential:
@@ -139,11 +235,40 @@ def tree_generate(
             perf_metrics.Mask_IO += plan.n_tokens * 8 * model.cfg.num_layers
 
         GlobalTimer.start("branch")
-        stop = branch_controller.apply_branching(
-            model=model, iter=it, max_gen_len=max_gen_len, width=width,
-            depth=depth, logits=logits,
-            execution_graph=branch_controller.tree_templates, **extra,
-        )
+        if is_struct:
+            deferred = (DeferredSelect(logits.k)
+                        if not needs_logits and supports_deferred else None)
+            if needs_logits or (pending and deferred is None):
+                # backfills land before the tree changes (speculative
+                # decoding queues none, so its steps never wait here)
+                resolve_backfills(pending)
+            stop = branch_controller.apply_branching(
+                model=model, iter=it, max_gen_len=max_gen_len, width=width,
+                depth=depth, logits=logits,
+                execution_graph=branch_controller.tree_templates,
+                deferred=deferred, **extra,
+            )
+            if deferred is not None and deferred.qsrc:
+                logits.fetch_async()
+                pending.append((logits, deferred.backfills))
+                chain = ("sel", logits, deferred.qsrc)
+            else:
+                chain = None
+            if not needs_logits and it % SYNC_PERIOD == 0:
+                fwd_t += timed_wait(logits)
+        else:
+            # greedy append: placeholders now, values from the copy later
+            tree = model.tree
+            backfills = []
+            for leaf in tree.leaves.values():
+                leaf.append_token(0)
+                backfills.append((leaf, len(leaf.token_ids) - 1,
+                                  tree.leaf_to_q[leaf.id], 0))
+            logits.fetch_async()
+            pending.append((logits, backfills))
+            chain = ("ids", logits)
+            if it % SYNC_PERIOD == 0:
+                fwd_t += timed_wait(logits)
         GlobalTimer.stop("branch")
         perf_metrics.update(
             iter_time=(time.perf_counter() - step_start) * 1000,
@@ -153,6 +278,13 @@ def tree_generate(
             alloc=GlobalTimer.get("alloc"),
             tree_metadata=GlobalTimer.get("tree_metadata"),
         )
+
+    if it:
+        # the drain: the last enqueued steps' device time, charged to the
+        # last step's forward time before the e2e clock stops
+        waited = timed_wait(logits)
+        perf_metrics.forward_per_iter[-1] += waited * 1000
+        resolve_backfills(pending)
 
     perf_metrics.update_e2e_latency((time.perf_counter() - start_time) * 1000)
     perf_metrics.prompt_len = prompt_len

@@ -9,15 +9,23 @@ forward_prefill (:1125), forward_prefill_batch (:1154), build_plan
 (:1205-1273: flatten, node, node_chunk and tree_index plans, seq plans
 asking for the paged layout where the head width allows it, and the int8
 segment rules), _use_paged (:1275) and
-forward_tree_decode (:2004; logits kinds "topk", "greedy" and "skip"),
-which takes single-tree and multi-tree plans (plan/multi.py) alike, after
-draining the tree's queued merge copies (apply_kv_copies :1727); MoE
-layers take the grouped-matmul route wherever the token count allows it
-(deft_tpu's single-chip dispatch, :302-317; models/llama.py's
-_moe_gmm_ok).  PyTorch
+forward_tree_decode (:2004; logits kinds "topk", "greedy" and "skip"; q
+tokens from the plan, from a previous step's greedy ids or gathered from
+its top-K, and ``block=False`` to enqueue without waiting), which takes
+single-tree and multi-tree plans (plan/multi.py) alike, after draining the
+tree's queued merge copies (apply_kv_copies :1727); MoE layers take the
+grouped-matmul route wherever the token count allows it (deft_tpu's
+single-chip dispatch, :302-317; models/llama.py's _moe_gmm_ok).  PyTorch
 runs eagerly, so there are no jitted steps, shape-bucket floors, plan
-patches or replay slabs: each step uploads its plan arrays in one
-host-to-device copy and runs the forward.
+patches or replay slabs: each step stages its plan arrays in pinned host
+memory, uploads them in one copy that does not wait, and runs the forward
+on torch's current stream.
+
+The host waits for the device only where it means to: a step run with
+``block=True``, and the first read of a LogitsView's values (``host_wait``,
+which counts them).  Nothing else on the decode step synchronises, so the
+generation loop (runtime/generate.py) can build the next plan while the
+device runs the step before it.
 
 Every plan runs through a kernel: segment-aligned (paged) plans through the
 paged kernels, the others through the gather kernels, over bf16/fp32 or
@@ -55,7 +63,6 @@ from deft_tpu_torch.models.llama import (KVPool, RaggedPrefillBatch,
 from deft_tpu_torch.models.loader import load_params, random_params
 from deft_tpu_torch.models.rope import rope_table
 from deft_tpu_torch.obs import create_logger
-from deft_tpu_torch.obs.timers import synchronize
 from deft_tpu_torch.ops import attn_impls
 from deft_tpu_torch.ops.paged_flatten_attn import row_tile_tiles
 from deft_tpu_torch.plan import (build_flatten_plan, build_node_plan,
@@ -80,17 +87,50 @@ def resolve_device(device) -> torch.device:
 
 
 def topk_lowest_index(probs: torch.Tensor, k: int) -> tuple:
-    """Top-k of each row of (R, V) ``probs`` with ties lowest index first,
-    the order of ``jax.lax.top_k`` (and of ``max``), which ``torch.topk``
-    does not keep.  The top-k is widened to every entry that ties with a
-    row's k-th value, then sorted by (value descending, index ascending)."""
-    vals, ids = torch.topk(probs, k, dim=-1)
-    m = int((probs >= vals[:, -1:]).sum(dim=-1).max())
-    if m > k:  # a tie crosses the k-th place: take every tied entry
-        vals, ids = torch.topk(probs, m, dim=-1)
-    ids, perm = ids.sort(dim=-1)
-    vals, perm2 = vals.gather(-1, perm).sort(dim=-1, descending=True, stable=True)
-    return vals[:, :k], ids.gather(-1, perm2)[:, :k]
+    """Top-k of each row of (R, V) fp32 ``probs`` with ties lowest index
+    first, the order of ``jax.lax.top_k`` (and of ``max``), which
+    ``torch.topk`` does not keep.  Exact, and on the device with no host
+    read: each entry's int64 key holds its value's order-preserving int32
+    image (the bits of a non-negative float; a negative one's with its
+    magnitude bits flipped) in the high half and 2**31 - 1 - index in the
+    low half, so the largest keys are the largest values, ties lowest index
+    first.  One topk of the keys, then the values gathered."""
+    bits = probs.float().contiguous().view(torch.int32)
+    bits = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    low = (1 << 31) - 1 - torch.arange(probs.shape[-1], device=probs.device)
+    keys = (bits.to(torch.int64) << 32) | low
+    ids = low[0] - (torch.topk(keys, k, dim=-1).values & 0xFFFFFFFF)
+    return probs.gather(-1, ids), ids
+
+
+def host_wait(event: Optional[torch.cuda.Event]) -> None:
+    """Every deliberate host wait of the decode path goes through here: it
+    counts them (``host_wait.waits``, as the ops wrappers count launches)
+    and waits for ``event`` (None: a CPU copy, landed already) with torch's
+    sync debug mode lowered, so that a run under
+    ``torch.cuda.set_sync_debug_mode("error")`` fails on any other wait."""
+    host_wait.waits += 1
+    if event is None:
+        return
+    debug = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        event.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(debug)
+
+
+host_wait.waits = 0
+
+
+class CopyOrder:
+    """The device-to-host copies of a runner's LogitsViews, numbered in the
+    order they were enqueued on its stream: once the host has waited for
+    copy n, every copy before it has landed too."""
+
+    def __init__(self):
+        self.enqueued = 0
+        self.landed = 0
 
 
 def packs_heads(head_dim: int) -> bool:
@@ -110,18 +150,86 @@ def check_grid_mode(mode: ForwardMode) -> None:
 
 
 class LogitsView:
-    """Per-leaf next-token distribution, top-K copied to the host.  Row
-    order == DFS leaf_to_q (deft_tpu runner.py:66)."""
+    """Per-leaf next-token distribution; row order == DFS leaf_to_q
+    (deft_tpu runner.py:66).  The top-K stays on the step's device
+    (``_vals`` probabilities, softmax + 1e-6, descending; ``_ids`` int32)
+    until it is read: ``fetch_async`` enqueues its copy into pinned host
+    memory behind the step and records an event, and the first read of
+    ``vals`` or ``ids`` waits for that copy (``host_wait``) unless a wait for
+    a later copy of the same ``CopyOrder`` (the runner's) has seen it land.  ``greedy_ids_device`` and
+    ``ids_device`` feed a next step's q tokens on the device
+    (runtime/generate.py's chains) with no read at all.  On the CPU the
+    same code runs with plain copies; numpy arrays are taken as they are."""
 
-    def __init__(self, vals: np.ndarray, ids: np.ndarray,
-                 full: Optional[torch.Tensor] = None):
-        self.vals = vals  # (R, K) probabilities (softmax + 1e-6), descending
-        self.ids = ids    # (R, K) int token ids
+    def __init__(self, vals, ids, full: Optional[torch.Tensor] = None,
+                 order: Optional[CopyOrder] = None):
+        self._vals = vals  # (R, K) probabilities, a tensor or numpy
+        self._ids = ids    # (R, K) int32 token ids
         self._full = full  # optional (R, V) fp32 logits
+        self._order = order if order is not None else CopyOrder()
+        self._copy = None  # (vals, ids) host tensors, their event, their number
+        self._host = None  # (vals, ids) numpy, once landed
+
+    def fetch_async(self) -> None:
+        """Enqueue the copy of the top-K to the host (once)."""
+        if self._copy is not None or isinstance(self._vals, np.ndarray):
+            return
+        cuda = self._vals.device.type == "cuda"
+        host = []
+        for t in (self._vals, self._ids):
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=cuda)
+            h.copy_(t, non_blocking=cuda)
+            host.append(h)
+        event = None
+        if cuda:
+            event = torch.cuda.Event()
+            event.record()
+        self._order.enqueued += 1
+        self._copy = (host, event, self._order.enqueued)
+
+    def wait(self) -> None:
+        """Return once the host copy has landed (a counted host_wait, unless
+        a wait for this or a later copy has passed already)."""
+        if isinstance(self._vals, np.ndarray):
+            return
+        self.fetch_async()
+        _, event, n = self._copy
+        if n > self._order.landed:
+            host_wait(event)
+            self._order.landed = n
+
+    def _landed(self) -> tuple:
+        if self._host is None:
+            if isinstance(self._vals, np.ndarray):
+                self._host = (self._vals, self._ids)
+            else:
+                self.wait()
+                self._host = tuple(h.numpy() for h in self._copy[0])
+        return self._host
+
+    @property
+    def vals(self) -> np.ndarray:
+        return self._landed()[0]
+
+    @property
+    def ids(self) -> np.ndarray:
+        return self._landed()[1]
+
+    @property
+    def greedy_ids_device(self) -> torch.Tensor:
+        """(R,) top-1 ids on the device: the next step's q tokens when the
+        rows keep their order (a greedy chain)."""
+        return self._ids[:, 0]
+
+    @property
+    def ids_device(self) -> torch.Tensor:
+        """(R, K) top-K ids on the device: the next step gathers its q
+        tokens from them (forward_tree_decode's q_select)."""
+        return self._ids
 
     @property
     def k(self) -> int:
-        return self.vals.shape[-1]
+        return self._vals.shape[-1]
 
     def topk(self, row: int, k: int):
         """Top-k (probs, token_ids) for one leaf row."""
@@ -160,6 +268,7 @@ class ModelRunner:
         self.device = resolve_device(device if self.mesh is None else mesh.device)
         self.topk_k = min(topk_k, model_config.vocab_size)
         self.retain_full_logits = retain_full_logits
+        self._copies = CopyOrder()  # the order of its views' host copies
         self.dtype = (torch.bfloat16 if engine_config.dtype == "bfloat16"
                       else torch.float32)
         self._tp = tp = 1 if self.mesh is None else self.mesh.axis_size("tp")
@@ -303,9 +412,15 @@ class ModelRunner:
 
     def _upload(self, parts: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """One host-to-device copy of the concatenated int32 arrays; returns
-        views by name."""
+        views by name.  On a GPU the arrays are staged in a fresh block of
+        torch's pinned allocator and copied without waiting: the allocator
+        hands the block out again only once its copy has run."""
         arrs = [np.asarray(a, dtype=np.int32).reshape(-1) for a in parts.values()]
-        buf = torch.from_numpy(np.concatenate(arrs)).to(self.device)
+        cuda = self.device.type == "cuda"
+        host = torch.empty(sum(a.size for a in arrs), dtype=torch.int32,
+                           pin_memory=cuda)
+        np.concatenate(arrs, out=host.numpy())
+        buf = host.to(self.device, non_blocking=cuda)
         out, o = {}, 0
         for name, a in zip(parts, arrs):
             out[name] = buf[o:o + a.size]
@@ -314,7 +429,7 @@ class ModelRunner:
 
     def _logits_view(self, logits: torch.Tensor, kind: str) -> LogitsView:
         """Softmax + 1e-6 top-K ("topk") or top-1 ("greedy") of (R, V)
-        logits, copied to the host (deft_tpu runner.py:731-744)."""
+        logits, left on the device (deft_tpu runner.py:731-744)."""
         if kind == "greedy":
             m, ids = logits.max(dim=-1, keepdim=True)
             lse = torch.logsumexp(logits, dim=-1, keepdim=True)
@@ -323,8 +438,7 @@ class ModelRunner:
             probs = torch.softmax(logits, dim=-1) + 1e-6
             vals, ids = topk_lowest_index(probs, self.topk_k)
         full = logits if self.retain_full_logits else None
-        return LogitsView(vals.cpu().numpy(), ids.to(torch.int32).cpu().numpy(),
-                          full)
+        return LogitsView(vals, ids.to(torch.int32), full, self._copies)
 
     # -- public API ----------------------------------------------------------------
     def reset_state(self) -> None:
@@ -350,7 +464,9 @@ class ModelRunner:
                                  self.k_pool, self.v_pool, dev["tokens"],
                                  dev["out_loc"].long(), attn_impls.prefill_attn,
                                  self._shard)
-        return self._logits_view(logits[None, :], "topk")
+        view = self._logits_view(logits[None, :], "topk")
+        view.fetch_async()
+        return view
 
     def forward_prefill_batch(self, prompts, trees) -> LogitsView:
         """Prefill B prompts, each into its own tree, in ONE forward: the
@@ -384,7 +500,9 @@ class ModelRunner:
         logits = ragged_prefill_forward(self.cfg, self.params, self._rope_tbl,
                                         self.k_pool, self.v_pool, batch,
                                         attn_impls.ragged_prefill_attn)
-        return self._logits_view(logits, "topk")
+        view = self._logits_view(logits, "topk")
+        view.fetch_async()
+        return view
 
     def apply_kv_copies(self, tree: Optional[TreeCache] = None) -> None:
         """Drain a tree's queued merge compactions (TreeCache.merge_nodes)
@@ -395,8 +513,8 @@ class ModelRunner:
         pairs = tree.drain_kv_copies()
         if pairs is None:
             return
-        src, dst = (torch.from_numpy(np.asarray(a, dtype=np.int64)).to(self.device)
-                    for a in pairs)
+        src, dst = (t.long() for t in self._upload(
+            {"src": pairs[0], "dst": pairs[1]}).values())
         for pool in (self.k_pool, self.v_pool):
             pool.data.index_copy_(1, dst, pool.data.index_select(1, src))
             if pool.scale is not None:
@@ -440,14 +558,21 @@ class ModelRunner:
                 and mode is not ForwardMode.UNPAGED_MEDUSA
                 and packs_heads(self.cfg.head_dim))
 
-    def _step_batch(self, plan, paged: Optional[bool] = None) -> SimpleNamespace:
+    def _step_batch(self, plan, paged: Optional[bool] = None,
+                    q_tokens_override: Optional[torch.Tensor] = None,
+                    q_select=None) -> SimpleNamespace:
         """The step's plan arrays on the device, as the AttnFn batch: the
         segment tables of a paged plan, else the gather plan's kv_idx (flatten)
         or paths and seq_lens (seq).  ``paged=False`` asks for kv_idx of a
-        flatten plan that is segment-aligned (UNPAGED_MEDUSA)."""
+        flatten plan that is segment-aligned (UNPAGED_MEDUSA).  The q tokens
+        are the plan's, or ``q_tokens_override``, or gathered as
+        prev_ids[rows, cols] from ``q_select``, whose rows and cols ride the
+        same upload (forward_tree_decode)."""
         paged = plan.paged if paged is None else paged
         parts = {"q_tokens": plan.q_tokens, "q_pos": plan.q_pos,
                  "out_loc": plan.out_loc}
+        if q_select is not None:
+            parts.update(q_rows=q_select[1], q_cols=q_select[2])
         block_len = None
         if isinstance(plan, SeqPlan) and plan.paged:
             parts.update(seg_src=plan.seg_src, seg_off=plan.seg_off,
@@ -463,6 +588,14 @@ class ModelRunner:
             block_len = plan.block_len
         dev = self._upload(parts)
         dev["out_loc"] = dev["out_loc"].long()
+        if q_select is not None:
+            rows, cols = dev.pop("q_rows").long(), dev.pop("q_cols").long()
+            dev["q_tokens"] = q_select[0][rows, cols]
+        elif q_tokens_override is not None:
+            if q_tokens_override.shape[0] != plan.l_pad:
+                raise ValueError(f"{q_tokens_override.shape[0]} chained q tokens "
+                                 f"for a plan of {plan.l_pad} rows")
+            dev["q_tokens"] = q_tokens_override
         if "paths" in dev:
             dev["paths"] = dev["paths"].view(plan.paths.shape)
         if isinstance(plan, FlattenPlan) and not paged:
@@ -479,9 +612,22 @@ class ModelRunner:
         return SimpleNamespace(**dev, block_len=block_len, seg_len=plan.seg_len)
 
     def forward_tree_decode(self, mode: ForwardMode, plan,
+                            q_tokens_override: Optional[torch.Tensor] = None,
+                            q_select=None, block: bool = True,
                             logits_kind: str = "topk") -> tuple:
-        """Run one tree-decode step.  Returns (LogitsView, forward_seconds);
-        the time includes the plan upload and ends after the device is done.
+        """Run one tree-decode step (deft_tpu runner.py:2004).  Returns
+        (LogitsView, forward_seconds).
+
+        q_tokens_override: (R,) token ids on the device, a previous step's
+        greedy ids in the same row order: chains steps with no host read.
+        q_select: (prev_ids (R_prev, K) on the device, rows (R,), cols (R,)):
+        q_tokens = prev_ids[rows, cols], gathered on the device, so steps
+        chain across branches and prunes (row order changes, branch children
+        take column c > 0 of their parent's top-K); rows and cols ride the
+        plan's upload.  block=True waits for the step and its top-K's copy
+        to the host (one host_wait), and the time runs from the plan upload
+        to then; block=False returns once the step is enqueued, and the
+        time is the enqueue time.
         logits_kind: "topk" (softmax + top-K), "greedy" (top-1 only) or
         "skip" (no lm_head product; an (R, 1) view of zeros, for steps that
         read no logits).  retain_full_logits turns "skip" into "topk"
@@ -492,14 +638,16 @@ class ModelRunner:
             logits_kind = "topk"
         self.apply_kv_copies()  # merge compactions land before the step
         t0 = time.perf_counter()
-        batch = self._step_batch(plan, paged)
+        batch = self._step_batch(plan, paged, q_tokens_override, q_select)
         out = decode_forward(self.cfg, self.params, self._rope_tbl, self.k_pool,
                              self.v_pool, batch, attn, self._shard,
                              compute_logits=logits_kind != "skip")
         if logits_kind == "skip":
-            view = LogitsView(np.zeros((out.shape[0], 1), np.float32),
-                              np.zeros((out.shape[0], 1), np.int32))
+            zeros = torch.zeros((out.shape[0], 1), device=out.device)
+            view = LogitsView(zeros, zeros.to(torch.int32), order=self._copies)
         else:
             view = self._logits_view(out, logits_kind)
-        synchronize(self.device)
+        if block:
+            view.fetch_async()
+            view.wait()
         return view, time.perf_counter() - t0

@@ -154,9 +154,9 @@ def test_speculative_skip_matches_retained_logits(port_params, case):
         kinds, ks = [], []
         forward = runner.forward_tree_decode
 
-        def recording(mode, plan, logits_kind="topk", _f=forward):
+        def recording(mode, plan, logits_kind="topk", _f=forward, **kw):
             kinds.append(logits_kind)
-            view, t = _f(mode, plan, logits_kind=logits_kind)
+            view, t = _f(mode, plan, logits_kind=logits_kind, **kw)
             ks.append(view.k)
             return view, t
 
@@ -202,5 +202,3 @@ def test_workload_attributes_match_deft_tpu():
                   "example_branch_Func4_SpeculativeDecoding"):
         assert (getattr(workloads, alias).__name__
                 == getattr(jworkloads, alias).__name__)
-    with pytest.raises(NotImplementedError, match="A3"):
-        workloads.random_tree(None, 1, 8, 2, 1, None, deferred=object())
