@@ -192,12 +192,20 @@ result line):
               merge); the live plan tokens of each sp rank, each at least a
               quarter of them; greedy ids against the main path's,
               TTFT and TPOT (four processes sharing one card: no statement
-              on several cards' speed); then an int8 KV cache (B4p, B5p; 8
-              decode tokens, its first step against the int8 path's); then
-              grid 2x1x2 over the 16-token prompt (B11 with dp 2);
+              on several cards' speed); then the batch path's four requests
+              through BatchedEngine, flatten then seq: B8 on every rank's
+              heads at admission, its last-token logits against the batch
+              path's admission below LOGITS_LIMIT (the vocab join left out
+              above it), B1p or B11 and B2p on every rank, no single-device
+              decode kernel; then an int8 KV cache (B4p, B5p; 8 decode
+              tokens, its first step against the int8 path's); then grid
+              2x1x2 over the 16-token prompt: flatten (B11 with dp 2),
+              node, tree_index and Medusa; every grid run, admission and
+              prefill included, under set_sync_debug_mode("error");
  14. sharded-moe: mixtral-6l on grid 1x2x2 (4 experts a rank): B10 on every
               rank's prefill, its last-token logits against the moe path's
-              below MOE_LIMIT, then 8 decode tokens;
+              below MOE_LIMIT, then 8 decode tokens under
+              set_sync_debug_mode("error");
  15. families: Qwen2.5-7B (qkv bias, 7 q heads a KV head), Qwen3-8B
               (qk-norm), Gemma-7B (Gemma norms, GeGLU, tied lm_head,
               head_dim 256) and Phi-3-mini's widths (head_dim 96; its
@@ -540,7 +548,17 @@ def kernel_case(name, tree, qpk, Hkv, D, dtype, dev, gen, block_len, kv=None,
                               min_token_bucket=1024, **kw)
     check(plan.paged == (layout == "paged"),
           f"{name}: expected a {layout} plan, got paged={plan.paged}")
-    pools, scales = random_pools(kv, tree.token_to_kv_pool.size, Hkv, D, dtype, dev, gen)
+    return plan, plan_args(name, plan, tree.token_to_kv_pool.size, qpk, Hkv, D, dtype,
+                           dev, gen, kv)
+
+
+def plan_args(name, plan, S, qpk, Hkv, D, dtype, dev, gen, kv):
+    """Kernel `name`'s arguments on `plan` (kernel_case), with random q and
+    pools of S slots (random_pools; `kv` "inherit" or "int8")."""
+    import torch
+
+    _, _, kind, _, layout = KERNELS[name]
+    pools, scales = random_pools(kv, S, Hkv, D, dtype, dev, gen)
     q = torch.randn((plan.l_pad, qpk * Hkv, D), generator=gen, device=dev).to(dtype)
     scale = D ** -0.5
     if kind == "flatten" and layout == "paged":
@@ -548,16 +566,16 @@ def kernel_case(name, tree, qpk, Hkv, D, dtype, dev, gen, block_len, kv=None,
                        plan.blk_hi], dev)
         tail = (scale, plan.block_len, plan.seg_len)
     elif kind == "flatten":
-        return plan, gather_args(plan, q, pools, scales, dev)
+        return gather_args(plan, q, pools, scales, dev)
     elif layout == "paged":
         arrs = to_dev([plan.seg_src, plan.seg_off, plan.seg_live, plan.blk_live], dev)
         tail = (scale, plan.seg_len)
     else:
         arrs = to_dev([plan.paths, plan.seq_lens], dev)
-        return plan, (q, *pools, 0, *arrs, scale, *scales)
+        return (q, *pools, 0, *arrs, scale, *scales)
     if kv == "int8":
-        return plan, (q, *pools, *scales, 0, *arrs, *tail)
-    return plan, (q, *pools, 0, *arrs, *tail)
+        return (q, *pools, *scales, 0, *arrs, *tail)
+    return (q, *pools, 0, *arrs, *tail)
 
 
 def random_pools(kv, S, Hkv, D, dtype, dev, gen):
@@ -640,6 +658,50 @@ def batch_case(trees, kv, dev, gen, qpk=4, Hkv=8, D=128):
     return plan, gather_args(plan, q, pools, scales, dev)
 
 
+def b11_batch_spans(plan, grid, dev) -> None:
+    """Print the spans B11's rule gives on `grid`'s rank window of the batch
+    plan (parallel/engine.py host_window's row tiles, 4 KV heads) beside
+    q_spans, the rule of the paged windows."""
+    from deft_tpu_torch.ops import _cuda
+    from deft_tpu_torch.ops import paged_flatten_attn as pf
+    from deft_tpu_torch.parallel.engine import host_window
+
+    qpk, Hkv = 4, 4
+    sms = _cuda.sm_count(dev.index)
+    h = host_window(grid, plan.blk_lo, plan.blk_hi, plan.l_pad, plan.block_len, qpk)
+    spans = pf.balanced_spans(h.row_tiles, Hkv, sms)
+    qs = pf.q_spans(h.rows * qpk, Hkv, h.span, plan.block_len, sms)
+    print(f"[kernels] B11 spans at rank {grid.coords} of grid {tuple(grid.shape.values())} "
+          f"on the batch plan halfway ({plan.n_leaves} leaves, offsets "
+          f"{list(plan.leaf_offsets)}; window rows {h.r0}..{h.r0 + h.rows}, blocks "
+          f"{h.b0}..{h.b0 + h.span} of {h.B}): row tiles' 64-token tiles {h.row_tiles}, "
+          f"balanced_spans {spans} (q_spans would give {qs}), {sms} SMs", flush=True)
+    check(1 <= spans <= max(1, max(h.row_tiles)),
+          f"B11's span rule gives {spans} spans for row tiles {h.row_tiles}")
+
+
+def batch_partial_case(name, trees, dev, gen, grid):
+    """The paged partial entry `name` (B1p or B2p) at `grid`'s rank window
+    of the trees' multi-tree plan, built with the batch engine's rules for
+    bf16 pools (runtime/batched.py build_plan: block_len 256,
+    min_token_bucket 1024, seq plans asked paged), which must come out
+    paged; 4 KV heads (8 over tp 2).  Returns path_shapes' (label, (plan,
+    live leaves), args)."""
+    import torch
+    from deft_tpu_torch.plan.multi import build_multi_flatten_plan, build_multi_seq_plan
+
+    base = PARTIAL_OF[name]
+    kw = dict(q_per_kv=4, block_len=256, min_token_bucket=1024)
+    plan = (build_multi_flatten_plan(trees, **kw) if KERNELS[base][2] == "flatten"
+            else build_multi_seq_plan(trees, want_paged=True, **kw))
+    check(plan.paged, f"{name}: the batch plan is not paged")
+    args = plan_args(base, plan, trees[0].token_to_kv_pool.size, 4, 4, 128,
+                     torch.bfloat16, dev, gen, "inherit")
+    wargs, live = window_case(name, plan, args, grid)
+    return (f"batch plan, rank {grid.rank} of grid {tuple(grid.shape.values())}",
+            (plan, live), wargs)
+
+
 def named_args(name, args) -> dict:
     """Kernel `name`'s arguments by the names of its wrapper's parameters,
     so that only the ops modules know their order."""
@@ -659,7 +721,10 @@ def window_case(name, plan, args, grid):
     params = inspect.signature(wrappers()[name][0]).parameters
     a = {k: v for k, v in named_args(PARTIAL_OF[name], args).items() if k in params}
     R = a["q"].shape[0]
-    b = SimpleNamespace(**a)
+    # the plan's block arrays on the host, as the runner's batch carries them
+    b = SimpleNamespace(**a, blk_host=tuple(a[n].cpu().numpy() for n in ("blk_lo", "blk_hi"))
+                        if kind == "flatten" else None,
+                        live_host=a["blk_live"].cpu().numpy() if kind != "flatten" else None)
     if kind == "flatten":
         # the window's row tiles, counted on the host as the engine counts
         # them for B11 (a parent commit's engine may not take qpk)
@@ -757,7 +822,10 @@ def path_shapes(dev):
     under --kernels xla); the partial entries at rank 0's window of their grid
     (B1p, B2p, B4p, B5p on the main tree, B11 on the short one); B6 also
     on the batch path's four trees halfway (their multi-tree gather plan,
-    ``batch_case``); prefill of the 4000-token prompt; B8 over the batch
+    ``batch_case``), B11 at rank 0's window of that plan on SHARDED_GRID,
+    and B1p and B2p at that window of the batch plan eight steps later
+    (paged multi-tree plans, ``batch_partial_case``); prefill of the
+    4000-token prompt; B8 over the batch
     path's four prompts; B9 at R = 64 (one width-50 tree) and 256 (the batch
     path's 200 leaves) for each of the 8B matmul weights; B10 at Mixtral's
     prefill of the 4000-token prompt (top-2 of random router logits over 8
@@ -805,6 +873,25 @@ def path_shapes(dev):
                               for kv in ("inherit", "int8")]
     out["ragged_prefill"] = [("", None, ragged_case(BATCH_LENS, 32, 8, 128, bf16, dev,
                                                     gen)[0])]
+    # B8 as a rank of the sharded batch path runs it: tp 2 leaves 16 query
+    # and 4 KV heads (qpk 4, the single card's body)
+    out["ragged_prefill"].append((f"rank heads 16/4 of grid {SHARDED_GRID}", None,
+                                  ragged_case(BATCH_LENS, 16, 4, 128, bf16, dev, gen)[0]))
+    # B11 at rank 0's window of the batch plan on the sharded batch path's
+    # grid (sp 2 over its blocks, 4 KV heads): its very unequal row tiles
+    # go through balanced_spans
+    plan, args = batch_case(batch, "inherit", dev, gen, Hkv=4)
+    grid0 = Grid(SHARDED_GRID, 0, dev)
+    wargs, live = window_case("flatten_gather_partial", plan, args, grid0)
+    out["flatten_gather_partial"].append(
+        (f"batch plan, rank 0 of grid {SHARDED_GRID}", (plan, live), wargs))
+    b11_batch_spans(plan, grid0, dev)
+    # B1p and B2p at the same rank window of the batch plan eight steps
+    # later, where its flatten plan comes out paged (the sharded batch
+    # path's flatten steps run B1p at 45 of 63 steps, its seq steps B2p)
+    paged = batch_trees(GEN_LEN // 2 + 8, np.random.default_rng(SEED + 3))
+    for name in ("paged_flatten_partial", "paged_seq_partial"):
+        out[name].append(batch_partial_case(name, paged, dev, gen, grid0))
     out["int8_matmul"] = []
     for name, (H, I) in INT8_SHAPES.items():
         w = s = None
@@ -2566,12 +2653,25 @@ def phase_short(dev, params, profile: bool = False):
     return launches
 
 
+def batch_prompts() -> list:
+    """The batch path's four prompts of BATCH_LENS random token ids (seed
+    SEED + 3)."""
+    from deft_tpu_torch.models import PRESETS
+
+    rng = np.random.default_rng(SEED + 3)
+    return [[int(t) for t in rng.integers(4, PRESETS["8b"].vocab_size - 4, n)]
+            for n in BATCH_LENS]
+
+
 def phase_batch(dev, params, profile: bool = False):
     """Four requests with distinct prompts (BATCH_LENS), each a width-50
     Simple_Tree: each alone, then all four through one ragged prefill (B8)
     and one multi-tree step on the same branch tokens, held against the
     alone runs; then BatchedEngine.add_requests + run() in flatten and in
-    seq.  Returns the launch counts of the two engine runs, summed."""
+    seq.  Returns the launch counts of the two engine runs, summed, and
+    {mode: (each request's branches, KV tokens read)} of those runs, with
+    "admission": the ragged prefill's last-token logits, (4, V) fp32 on the
+    host."""
     import torch
     from deft_tpu_torch.control import Branch_Controller, workloads
     from deft_tpu_torch.core import TreeCache
@@ -2581,9 +2681,7 @@ def phase_batch(dev, params, profile: bool = False):
     from deft_tpu_torch.runtime.batched import BatchedEngine, Request
 
     cfg = PRESETS["8b"]
-    rng = np.random.default_rng(SEED + 3)
-    prompts = [[int(t) for t in rng.integers(4, cfg.vocab_size - 4, n)]
-               for n in BATCH_LENS]
+    prompts = batch_prompts()
     runner = make_runner(cfg, params, dev, prompt_len=max(BATCH_LENS),
                          slots=BATCH_SLOTS, max_requests=4 * (WIDTH + 2))
     flatten = ForwardMode.TREE_DECODE_FLATTEN
@@ -2632,12 +2730,12 @@ def phase_batch(dev, params, profile: bool = False):
               f"prefill top-1 {int(view.ids[i, 0]) == int(lp.argmax())}", flush=True)
         check(e_pre < LOGITS_LIMIT, f"request {i}: ragged prefill logits {e_pre}")
         check(e_dec < LOGITS_LIMIT, f"request {i}: first batched step logits {e_dec}")
+    launches, out = {}, {"admission": view.full_logits().float().cpu()}
     for t in trees:
         t.free()
     runner.reset_state()
     runner.retain_full_logits = False
 
-    launches, out = {}, {}
     for mode_name, mode in (("flatten", flatten), ("seq", ForwardMode.DECODE)):
         # a fresh pool for each mode: the slots the previous run's requests
         # freed come back scattered, and prompts laid on them are not
@@ -2716,7 +2814,7 @@ def phase_batch(dev, params, profile: bool = False):
         profile_batch(runner, prompts, WIDTH, steps=8)
     del runner
     release()
-    return launches
+    return launches, out
 
 
 # -- the workloads phase: every workload and decode mode on the card ------------------
@@ -3129,9 +3227,7 @@ def phase_batch_spec(dev, params, spec, smi):
     from deft_tpu_torch.runtime.batched import BatchedEngine, Request
 
     cfg = PRESETS["8b"]
-    rng = np.random.default_rng(SEED + 3)
-    prompts = [[int(t) for t in rng.integers(4, cfg.vocab_size - 4, n)]
-               for n in BATCH_LENS]
+    prompts = batch_prompts()
     runner = make_runner(cfg, params, dev, prompt_len=max(BATCH_LENS),
                          slots=BATCH_SLOTS, max_requests=4 * (WIDTH + 2))
     runner.retain_full_logits = False
@@ -3415,9 +3511,7 @@ def phase_chain(dev, params, prompt, smi, chained=None, profile: bool = False):
     del runner
     release()
 
-    rng = np.random.default_rng(SEED + 3)  # phase_batch's prompts
-    prompts = [[int(t) for t in rng.integers(4, cfg.vocab_size - 4, n)]
-               for n in BATCH_LENS]
+    prompts = batch_prompts()
     runner = make_runner(cfg, params, dev, prompt_len=max(BATCH_LENS),
                          slots=BATCH_SLOTS, max_requests=4 * (WIDTH + 2))
     runner.retain_full_logits = False
@@ -3827,24 +3921,32 @@ def phase_moe_int8w(dev, moe_runs, profile: bool = False):
 
 def rank_counts(grid) -> list:
     """Every rank's launch counts, gathered to each rank."""
+    return rank_counts_of(grid, read_counts())
+
+
+def rank_counts_of(grid, counts: dict) -> list:
+    """Every rank's `counts`, gathered to each rank."""
     import torch.distributed as dist
 
     out = [None] * grid.size
-    dist.all_gather_object(out, read_counts())
+    dist.all_gather_object(out, counts)
     return out
 
 
 def rank_generate(grid, runner, prompt, gen_len, modes):
-    """tree_generate in each mode on a rank's runner, counts set to 0 just
-    before each run and gathered just after; branch tokens, TTFT, TPOT and
-    each step's plan.paged of each run."""
+    """tree_generate in each mode on a rank's runner, under sync_checked,
+    counts set to 0 just before each run and gathered just after; branch
+    tokens, TTFT, TPOT and each step's plan.paged of each run.  A mode is
+    the CLI's --mode name, or a (--mode, --mem) pair, keyed "mem mode" in
+    the result."""
     from deft_tpu_torch.control import Branch_Controller, workloads
     from deft_tpu_torch.obs import PerfMetrics
     from deft_tpu_torch.runtime import mode_from_cli, tree_generate
 
     build = runner.build_plan
     out = {}
-    for name in modes:
+    for spec in modes:
+        name, mem = spec if isinstance(spec, tuple) else (spec, "paged")
         paged = []
 
         def recording_build(m):
@@ -3853,26 +3955,113 @@ def rank_generate(grid, runner, prompt, gen_len, modes):
             return plan
 
         runner.build_plan = recording_build
+        key = name if mem == "paged" else f"{mem} {name}"
         reset_counts()
         try:
-            pm = tree_generate(runner, mode_from_cli(name), None, prompt,
-                               max_seq_len=len(prompt) + gen_len, width=WIDTH, depth=1,
-                               branch_controller=Branch_Controller(workloads.simple_tree),
-                               perf_metrics=PerfMetrics())
+            with sync_checked(f"sharded {key}"):
+                pm = tree_generate(runner, mode_from_cli(name, mem), None, prompt,
+                                   max_seq_len=len(prompt) + gen_len, width=WIDTH, depth=1,
+                                   branch_controller=Branch_Controller(workloads.simple_tree),
+                                   perf_metrics=PerfMetrics())
         finally:
             del runner.build_plan
-        out[name] = dict(seqs=[list(s.token_ids) for s in runner.tree.all_finished_seqs],
-                         TTFT=pm.TTFT, TPOT=pm.TPOT, paged=paged, counts=rank_counts(grid))
+        out[key] = dict(seqs=[list(s.token_ids) for s in runner.tree.all_finished_seqs],
+                        TTFT=pm.TTFT, TPOT=pm.TPOT, e2e=pm.e2e_latency, paged=paged,
+                        counts=rank_counts(grid))
     return out
 
 
-def sharded_rank(grid, prompt, ids):
+def rank_batch(grid, cfg, prompts):
+    """The batch path on a rank: its four requests through BatchedEngine on
+    a runner of the batch path's pools, flatten then seq, the all-greedy
+    steps chained on the card, each run (admission included) under
+    sync_checked.  Counts set to 0 before the admission and gathered after
+    it (B8) and after the run; each request's branches, the admission's
+    last-token logits (joined over tp; the runner retains them for the
+    admission only), its time, the run's wall time and steps, each step's
+    plan.paged, the collectives gloo staged through the host (count and
+    seconds, in the admission and in all) and the runner's host waits.
+    Controls first: a
+    .item() under the check must raise; whether a plain gloo all_reduce of a
+    CUDA tensor does too (its staging waits in gloo's thread) is reported."""
+    import torch
+    import torch.distributed as dist
+    from deft_tpu_torch.control import Branch_Controller, workloads
+    from deft_tpu_torch.runtime import ForwardMode
+    from deft_tpu_torch.runtime.batched import BatchedEngine, Request
+    from deft_tpu_torch.runtime.runner import host_wait
+
+    with sync_mode("error"):  # the check must see a wait in this process
+        try:
+            torch.ones(1, device=grid.device).item()
+            raise Failure("a .item() under set_sync_debug_mode('error') did not raise")
+        except RuntimeError:
+            pass
+        try:
+            dist.all_reduce(torch.ones(4, device=grid.device))
+            raw_gloo = "passes"
+        except RuntimeError:
+            raw_gloo = "raises"
+    runner = make_runner(cfg, None, grid.device, prompt_len=max(BATCH_LENS),
+                         slots=BATCH_SLOTS, max_requests=4 * (WIDTH + 2), mesh=grid)
+    runner.retain_full_logits = False
+    prefill, admitted = runner.forward_prefill_batch, []
+
+    def retaining_prefill(*a, **k):
+        runner.retain_full_logits = True
+        try:
+            admitted.append(prefill(*a, **k))
+        finally:
+            runner.retain_full_logits = False
+        return admitted[-1]
+
+    runner.forward_prefill_batch = retaining_prefill
+    out = {"raw gloo": raw_gloo}
+    for mode_name, mode in (("flatten", ForwardMode.TREE_DECODE_FLATTEN),
+                            ("seq", ForwardMode.DECODE)):
+        runner.reset_state()
+        eng = BatchedEngine(runner, mode)
+        paged = []
+
+        def recording_build(trees, build=eng.build_plan):
+            plan = build(trees)
+            paged.append(plan.paged)
+            return plan
+
+        eng.build_plan = recording_build
+        reqs = [Request(p, Branch_Controller(workloads.simple_tree), len(p) + GEN_LEN,
+                        width=WIDTH, depth=1) for p in prompts]
+        reset_counts()
+        torch.cuda.synchronize()
+        staged, staged_s, waits = grid.staged, grid.staged_s, host_wait.waits
+        t0 = time.perf_counter()
+        with sync_checked(f"sharded batch {mode_name}"):
+            eng.add_requests(reqs)
+            t_adm = time.perf_counter() - t0
+            adm_staged_s = grid.staged_s - staged_s
+            admission = read_counts()
+            steps = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[mode_name] = dict(
+            seqs=[[list(s.token_ids) for s in r.finished_seqs] for r in reqs],
+            admission_ms=t_adm * 1e3, wall_ms=wall * 1e3, steps=steps, paged=paged,
+            staged=grid.staged - staged, staged_ms=(grid.staged_s - staged_s) * 1e3,
+            admission_staged_ms=adm_staged_s * 1e3, waits=host_wait.waits - waits,
+            admission=rank_counts_of(grid, admission), counts=rank_counts(grid),
+            logits=admitted.pop().full_logits().float().cpu())
+    del runner.forward_prefill_batch
+    return out
+
+
+def sharded_rank(grid, prompt, ids, prompts):
     """The sharded path on one rank: the 8B model's slices from the main
     path's seed, the first decode step on the main path's tree (and with
     sp rank 1's state left out of every layer's merge: the span that holds
     the prompt's end and the leaves' tokens), flatten then seq over 64
-    tokens; then an int8 KV cache: its first step and 8 decode tokens a
-    mode."""
+    tokens; then the batch path's four `prompts` through BatchedEngine
+    (rank_batch); then an int8 KV cache: its first step and 8 decode tokens
+    a mode."""
     import contextlib
     from unittest import mock
 
@@ -3925,12 +4114,20 @@ def sharded_rank(grid, prompt, ids):
         out[f"{kv} peak GB"] = torch.cuda.max_memory_allocated(grid.device) / 1e9
         del runner
         release()
+        if kv == "inherit":
+            out["batch"] = rank_batch(grid, cfg, prompts)
+            out["batch peak GB"] = torch.cuda.max_memory_allocated(grid.device) / 1e9
+            # the batch runner sits in a cycle (its engine's recording
+            # build_plan): freed once rank_batch has returned
+            release()
     return out
 
 
 def sharded_short_rank(grid):
-    """The 16-token prompt on one rank of a grid with dp 2, flatten, bf16:
-    its plans are not segment-aligned at the first steps (B11)."""
+    """The 16-token prompt on one rank of a grid with dp 2, bf16: flatten
+    (its plans are not segment-aligned at the first steps: B11), then node,
+    tree_index (on a runner with the tree-index pool) and Medusa (--mem
+    unpaged --mode tree: the dense baseline on the rank's heads)."""
     import torch
     from deft_tpu_torch.cli.run import make_prompt
     from deft_tpu_torch.models import PRESETS
@@ -3938,9 +4135,16 @@ def sharded_short_rank(grid):
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = PRESETS["8b"]
     prompt = make_prompt(None, 16 + GEN_LEN, cfg.vocab_size, SEED)
-    runner = make_runner(cfg, None, grid.device, prompt_len=len(prompt), mesh=grid)
-    runner.retain_full_logits = False
-    return rank_generate(grid, runner, prompt, GEN_LEN, ("flatten",))
+    out = {}
+    for modes, index in ((("flatten", "node", ("tree", "unpaged")), False),
+                         (("tree_index",), True)):
+        runner = make_runner(cfg, None, grid.device, prompt_len=len(prompt), mesh=grid,
+                             use_tree_index=index)
+        runner.retain_full_logits = False
+        out.update(rank_generate(grid, runner, prompt, GEN_LEN, modes))
+        del runner
+        release()
+    return out
 
 
 def sharded_moe_rank(grid):
@@ -3975,14 +4179,21 @@ def run_grid(fn, shape, args=()):
         raise Failure(f"grid {shape}: {e}") from e
 
 
-def phase_sharded(prompt, ids, lf, lq, main_runs):
+def phase_sharded(prompt, ids, lf, lq, main_runs, batch_runs):
     """Four ranks on the one card over gloo, grid 1x2x2 (tp 2 over heads
     and Megatron columns, sp 2 over the plan's blocks): the 8B model at 32
     layers from the main path's seed.  B3 prefill, B1p flatten and B2p seq
     decode on each rank, B1 and B2 never; the first step's logits against
     the single-card main path's below LOGITS_LIMIT, the dropped-span fault
-    above it; then the int8 KV cache (B4p, B5p), its first step against the
-    int8 path's; then a 2x1x2 grid over the 16-token prompt (B11, dp 2).
+    above it; then the batch path's four requests through BatchedEngine,
+    flatten then seq, chained under set_sync_debug_mode("error"): B8 on
+    every rank's admission, B1p or B11 (flatten) and B2p or B7 (seq) on
+    every rank, no single-device decode kernel, the admission's logits
+    against the single-card batch path's below LOGITS_LIMIT (the vocab join
+    left out above it), greedy ids against its runs (`batch_runs`); then
+    the int8 KV cache (B4p,
+    B5p), its first step against the int8 path's; then a 2x1x2 grid over
+    the 16-token prompt: flatten (B11, dp 2), node, tree_index and Medusa.
     Times are those of four processes sharing one card."""
     from deft_tpu_torch.parallel.multihost import check_backend
 
@@ -3992,7 +4203,7 @@ def phase_sharded(prompt, ids, lf, lq, main_runs):
     except ValueError as e:
         check("gloo" in str(e), f"the nccl refusal does not name gloo: {e}")
     t0 = time.perf_counter()
-    out = run_grid(sharded_rank, SHARDED_GRID, (prompt, ids))
+    out = run_grid(sharded_rank, SHARDED_GRID, (prompt, ids, batch_prompts()))
     wall = time.perf_counter() - t0
     readings = {name: rel_l2(out[f"inherit {name}"], lf)
                 for name in ("first", "first, sp rank 1 dropped")}
@@ -4046,8 +4257,10 @@ def phase_sharded(prompt, ids, lf, lq, main_runs):
                         ("int8", "flatten"): "paged_flatten_q_partial",
                         ("int8", "seq"): "paged_seq_q_partial"}[kv, mode]
                 check(c[want] > 0, f"sharded {kv} {mode}: {want} did not launch: {c}")
+    sharded_batch(out, batch_runs, launches)
     t0 = time.perf_counter()
-    short = run_grid(sharded_short_rank, SHORT_GRID)["flatten"]
+    short_runs = run_grid(sharded_short_rank, SHORT_GRID)
+    short = short_runs["flatten"]
     c0 = short["counts"][0]
     print(f"[sharded] 16-token prompt, grid {SHORT_GRID}, flatten:TTFT {short['TTFT']:.3f} ms, "
           f"TPOT {short['TPOT']:.4f} ms (four ranks sharing one card), plans paged at "
@@ -4058,8 +4271,120 @@ def phase_sharded(prompt, ids, lf, lq, main_runs):
     for c in short["counts"]:
         check(c["flatten_gather_partial"] > 0 and c["flatten_gather"] == 0,
               f"sharded short: B11 did not launch on every rank (dp 2): {c}")
-    launches["flatten_gather_partial"] = c0["flatten_gather_partial"]
+    launches["flatten_gather_partial"] += c0["flatten_gather_partial"]
+    sharded_modes(short_runs, launches)
     return launches
+
+
+SINGLE_DECODE = ("paged_flatten", "paged_seq", "paged_flatten_q", "paged_seq_q",
+                 "flatten_gather")
+
+
+def sharded_batch(out, batch_runs, launches) -> None:
+    """Check and print the sharded batch path (rank_batch): the admission's
+    last-token logits on rank 0 (joined over tp) against the single-card
+    batch path's admission (`batch_runs["admission"]`) below LOGITS_LIMIT
+    for every request, and above it with the vocab join left out (rank 0's
+    own vocab block, zeros elsewhere: what rank 0 holds without the join);
+    on every rank B8 once a layer at admission and B3 never, the mode's
+    partial kernels (B1p or B11; B2p or B7 on the rank's heads) launched,
+    the single-device decode kernels never; the greedy ids' share equal to
+    the single-card batch path's, printed (branches sorted, as phase_batch
+    compares them; bf16 near-ties flip tokens, PERF.md); rank 0's launches
+    of the partial entries and B8 join `launches`."""
+    from deft_tpu_torch.models import PRESETS
+
+    L = PRESETS["8b"].num_layers
+    pairs = {"flatten": ("paged_flatten_partial", "flatten_gather_partial"),
+             "seq": ("paged_seq_partial", "seq_gather")}
+    runs = {m: r for m, r in out["batch"].items() if m != "raw gloo"}
+    print(f"[sharded-batch] grid {SHARDED_GRID}, the batch path's {len(BATCH_LENS)} "
+          f"requests ({'/'.join(map(str, BATCH_LENS))} tokens, width {WIDTH}) through "
+          f"BatchedEngine, peak {out['batch peak GB']:.2f} GB a rank (rank 0); a plain "
+          f"gloo all_reduce of a CUDA tensor under set_sync_debug_mode('error') "
+          f"{out['batch']['raw gloo']} (Grid.all_reduce lowers the check around gloo's "
+          f"staging and counts it)", flush=True)
+    want = batch_runs["admission"]
+    for mode, r in runs.items():
+        got = r["logits"]
+        block = got.shape[-1] // SHARDED_GRID[2]
+        unjoined = got.clone()
+        unjoined[:, block:] = 0
+        err = max(rel_l2(got[i], want[i]) for i in range(len(want)))
+        err_fault = min(rel_l2(unjoined[i], want[i]) for i in range(len(want)))
+        print(f"[sharded-batch] {mode}: admission's last-token logits against the "
+              f"single-card batch path's, relative L2 at most {err:.3e} over the "
+              f"{len(want)} requests, with the vocab join left out at least "
+              f"{err_fault:.3e} (limit {LOGITS_LIMIT:.0e})", flush=True)
+        check(tuple(got.shape) == tuple(want.shape) and bool(got.isfinite().all()),
+              f"sharded batch {mode}: admission logits {tuple(got.shape)}, not finite "
+              f"or not {tuple(want.shape)}")
+        check(err < LOGITS_LIMIT,
+              f"sharded batch {mode}: admission logits stray from the single card's: {err}")
+        check(err_fault > LOGITS_LIMIT,
+              f"sharded batch {mode}: the vocab join left out stays under the limit")
+        seqs = r["seqs"]
+        check(all(len(b) == WIDTH and all(len(x) == GEN_LEN - 1 for x in b) for b in seqs),
+              f"sharded batch {mode}: expected {WIDTH} branches of {GEN_LEN - 1} tokens "
+              "per request")
+        tok = sum(len(x) for b in seqs for x in b)
+        same = [a == b for got, want in zip(seqs, batch_runs[mode][0])
+                for x, y in zip(sorted(got), sorted(want)) for a, b in zip(x, y)]
+        print(f"[sharded-batch] {mode}: admission (one ragged prefill, B8 on each rank's "
+              f"16 query / 4 KV heads) {r['admission_ms']:.3f} ms, {r['steps']} steps, "
+              f"{tok} generated tokens in {r['wall_ms']:.1f} ms, "
+              f"{r['wall_ms'] / tok:.4f} ms/token aggregate (four ranks sharing one "
+              f"card), plans paged at {sum(r['paged'])} of {len(r['paged'])} steps; "
+              f"rank 0's host waits {r['waits']}, collectives gloo staged through the "
+              f"host {r['staged']} taking {r['staged_ms']:.1f} ms "
+              f"({r['admission_staged_ms']:.1f} of them in the admission); greedy ids "
+              f"equal to the single-card batch path's at "
+              f"{np.mean(same):.4f} of positions (branches sorted); chained under "
+              f"set_sync_debug_mode('error'); admission launches by rank "
+              f"{[{k: n for k, n in c.items() if n} for c in r['admission']]}; run "
+              f"launches by rank {[{k: n for k, n in c.items() if n} for c in r['counts']]}",
+              flush=True)
+        for a, c in zip(r["admission"], r["counts"]):
+            check(a["ragged_prefill"] == L and a["prefill"] == 0,
+                  f"sharded batch {mode}: admission launched {a}, not B8 once a layer")
+            check(c[pairs[mode][0]] + c[pairs[mode][1]] > 0,
+                  f"sharded batch {mode}: neither {' nor '.join(pairs[mode])} launched: {c}")
+            check(all(c[k] == 0 for k in SINGLE_DECODE),
+                  f"sharded batch {mode}: a single-device decode kernel launched: {c}")
+        for k, n in r["counts"][0].items():
+            if k in PARTIAL_OF or k == "ragged_prefill":
+                launches[k] = launches.get(k, 0) + n
+
+
+def sharded_modes(runs, launches) -> None:
+    """Check and print the short grid's node, tree_index and Medusa runs:
+    WIDTH branches of GEN_LEN - 1 tokens each, as the short path checks its
+    runs; node and tree_index through B1p or B11 on every rank, Medusa
+    through no decode kernel (the dense baseline); no single-device decode
+    kernel; greedy ids against the grid's flatten run.  Rank 0's partial
+    launches join `launches`."""
+    flat = runs["flatten"]["seqs"]
+    for mode in ("node", "tree_index", "unpaged tree"):
+        r = runs[mode]
+        same = np.mean([a == b for x, y in zip(r["seqs"], flat) for a, b in zip(x, y)])
+        print(f"[sharded] 16-token prompt, grid {SHORT_GRID}, {mode}: TTFT "
+              f"{r['TTFT']:.3f} ms, TPOT {r['TPOT']:.4f} ms, e2e {r['e2e']:.1f} ms (four "
+              f"ranks sharing one card), "
+              f"plans paged at {sum(r['paged'])} of {len(r['paged'])} steps, greedy ids "
+              f"equal to flatten's at {same:.4f} of positions; launches by rank "
+              f"{[{k: n for k, n in c.items() if n} for c in r['counts']]}", flush=True)
+        check(len(r["seqs"]) == WIDTH and all(len(x) == GEN_LEN - 1 for x in r["seqs"]),
+              f"sharded short {mode}: expected {WIDTH} branches of {GEN_LEN - 1} tokens")
+        for c in r["counts"]:
+            check(all(c[k] == 0 for k in SINGLE_DECODE + ("seq_gather",)),
+                  f"sharded short {mode}: a single-device decode kernel launched: {c}")
+            partial = c["paged_flatten_partial"] + c["flatten_gather_partial"]
+            check(c["prefill"] > 0 and (partial == 0 if mode == "unpaged tree"
+                                        else partial > 0),
+                  f"sharded short {mode}: launches by rank {c}")
+        for k, n in r["counts"][0].items():
+            if k in PARTIAL_OF:
+                launches[k] = launches.get(k, 0) + n
 
 
 def phase_sharded_moe(moe_logits):
@@ -4335,21 +4660,18 @@ def family_checkpoint(cfg, dev, gen) -> tuple:
     return hf, want
 
 
-def family_load(name, source, hf_cfg, dev) -> None:
+def family_write(name, hf_cfg, dev) -> dict:
     """(a) The family at full width and CHECKPOINT_LAYERS layers: its
     config.json and random bf16 weights written in two ``.safetensors``
-    files, loaded through ``python3 -m deft_tpu_torch.cli.run --model DIR
-    --device cuda`` (a short run that must finish its branches), then
-    through the loader in this process, every tensor bit-equal to what was
-    written."""
+    files under build/families/<name>; returns the directory, the config,
+    the port's parameters the files must load as, the tensor count and the
+    files' bytes."""
     import shutil
 
     import torch
     from deft_tpu_torch.models.config import LlamaConfig
-    from deft_tpu_torch.models.loader import load_params
     from deft_tpu_torch.ops import _cuda
 
-    t0 = time.perf_counter()
     d = _cuda.BUILD / "families" / name
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)
@@ -4364,34 +4686,61 @@ def family_load(name, source, hf_cfg, dev) -> None:
     write_safetensors(d / "model-00002-of-00002.safetensors",
                       {n: t for n, t in hf.items() if n not in layer_names})
     size = sum(f.stat().st_size for f in d.glob("*.safetensors"))
-    t1 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m", "deft_tpu_torch.cli.run", "--model", str(d),
-                          "--device", "cuda", "--max_width", "4", "--max_seq_len", "40",
-                          "--kv_pool_slots", "4096", "--print-branches"],
-                         capture_output=True, text=True, timeout=600,
-                         cwd=str(_cuda.BUILD.parent))
-    t_cli = time.perf_counter() - t1
-    tail = "\n".join((res.stdout + res.stderr).splitlines()[-6:])
-    check(res.returncode == 0 and "TPOT (ms/token)" in res.stdout
-          and res.stdout.count("Branch ID") == 4,
+    return dict(dir=d, cfg=cfg, want=want, tensors=len(hf), size=size)
+
+
+def family_cli(written: dict) -> subprocess.Popen:
+    """Start ``python3 -m deft_tpu_torch.cli.run --model DIR --device cuda``
+    (a short run that must finish its branches) over a written checkpoint;
+    the loaded families' runs go together, each in its own process."""
+    from deft_tpu_torch.ops import _cuda
+
+    return subprocess.Popen([sys.executable, "-m", "deft_tpu_torch.cli.run", "--model",
+                             str(written["dir"]), "--device", "cuda", "--max_width", "4",
+                             "--max_seq_len", "40", "--kv_pool_slots", "4096",
+                             "--print-branches"],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=str(_cuda.BUILD.parent))
+
+
+def family_load(name, source, written: dict, proc, t_start, dev) -> None:
+    """(a, continued) The CLI run over the checkpoint (started at `t_start`)
+    must finish its branches; then the checkpoint loads through the loader
+    in this process, every tensor bit-equal to what was written."""
+    import shutil
+
+    import torch
+    from deft_tpu_torch.models.loader import load_params
+
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise Failure(f"families {name}: the CLI run over the checkpoint did not end "
+                      "within 600 s")
+    t_cli = time.perf_counter() - t_start
+    tail = "\n".join((stdout + stderr).splitlines()[-6:])
+    check(proc.returncode == 0 and "TPOT (ms/token)" in stdout
+          and stdout.count("Branch ID") == 4,
           f"families {name}: the CLI run over the checkpoint failed (rc "
-          f"{res.returncode}):\n{tail}")
-    for line in (res.stdout + res.stderr).splitlines():  # the run's own clock
+          f"{proc.returncode}):\n{tail}")
+    for line in (stdout + stderr).splitlines():  # the run's own clock
         if "INFO" in line or "TTFT" in line or "TPOT" in line:
             print(f"[families] {name} CLI: {line.strip()}", flush=True)
-    params = load_params(str(d), cfg, dev, torch.bfloat16)
+    d, want = written["dir"], written["want"]
+    params = load_params(str(d), written["cfg"], dev, torch.bfloat16)
     check(sorted(params) == sorted(want),
           f"families {name}: loaded {sorted(params)}, expected {sorted(want)}")
     for k, t in want.items():
         check(torch.equal(params[k], t), f"families {name}: {k} loads unlike the file")
-    print(f"[families] {name} ({source}): config.json and {len(hf)} bf16 tensors at full "
-          f"width, {CHECKPOINT_LAYERS} layers, {size / 1e9:.2f} GB in two safetensors files; "
-          f"python3 -m deft_tpu_torch.cli.run --model {d.name} --device cuda ran in "
-          f"{t_cli:.1f} s; load_params bit-equal on {len(want)} parameters; "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    del params, hf, want
+    print(f"[families] {name} ({source}): config.json and {written['tensors']} bf16 tensors "
+          f"at full width, {CHECKPOINT_LAYERS} layers, {written['size'] / 1e9:.2f} GB in two "
+          f"safetensors files; python3 -m deft_tpu_torch.cli.run --model {d.name} --device "
+          f"cuda ran in {t_cli:.1f} s (the {len(LOADED_FAMILIES)} families' runs at once); "
+          f"load_params bit-equal on {len(want)} parameters", flush=True)
+    del params
     shutil.rmtree(d)
-    release()
 
 
 def family_serve(name, source, hf_cfg, dev, smi) -> dict:
@@ -4487,16 +4836,27 @@ def step_share(runner, prompt, name, smi, steps=4) -> None:
 
 
 def phase_families(dev, smi) -> dict:
-    """Each of FAMILIES: written, loaded and checked at 2 layers
-    (family_load; LOADED_FAMILIES only), then served at full width and
-    depth (family_serve).
+    """LOADED_FAMILIES written at 2 layers (family_write), each loaded by a
+    CLI run, the runs at once (family_cli), and checked (family_load); then
+    each of FAMILIES served at full width and depth (family_serve).
     Returns the kernels line's launches of the wide heads' kernels: the
     served runs' B3, B6 and B7 of Phi-3-mini's widths (D 96) and Gemma-7B
     (D 256); the others 0 (no served path: a batch, a grid)."""
+    written = {name: family_write(name, FAMILIES[name][1], dev) for name in LOADED_FAMILIES}
+    t0 = time.perf_counter()
+    procs = {name: family_cli(w) for name, w in written.items()}
+    try:
+        for name, w in written.items():
+            family_load(name, FAMILIES[name][0], w, procs[name], t0, dev)
+    finally:
+        for proc in procs.values():  # a failed check leaves no process behind
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    del written
+    release()
     launches = {}
     for name, (source, hf_cfg) in FAMILIES.items():
-        if name in LOADED_FAMILIES:
-            family_load(name, source, hf_cfg, dev)
         launches[name] = family_serve(name, source, hf_cfg, dev, smi)
     out = {wide: 0 for wide in WIDE_OF}
     for D, family in ((96, "phi-3-mini"), (256, "gemma-7b")):
@@ -5572,9 +5932,7 @@ def phase_flatten_only(dev, shapes, profile: bool, edges: bool = True):
         runner = make_runner(cfg, params, dev, prompt_len=max(BATCH_LENS), slots=BATCH_SLOTS,
                              max_requests=4 * (WIDTH + 2))
         runner.retain_full_logits = False
-        rng = np.random.default_rng(SEED + 3)
-        prompts = [[int(t) for t in rng.integers(4, cfg.vocab_size - 4, n)]
-                   for n in BATCH_LENS]
+        prompts = batch_prompts()
         profile_batch(runner, prompts, WIDTH, steps=8)
         del runner, params
         release()
@@ -5662,6 +6020,14 @@ def phase_prefill_only(dev):
                   f"{bound:.4f} ms (operations), {bound / ms:.1%} of the bound", flush=True)
 
 
+@contextlib.contextmanager
+def timed_phase(name):
+    """Print the seconds the block took, as "[time] name: s"."""
+    t0 = time.perf_counter()
+    yield
+    print(f"[time] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -5745,7 +6111,8 @@ def main(argv=None) -> int:
             return 0
         if not (args.workloads_only or args.chain_only):
             shapes.update(wide_shapes(dev))
-            errs = phase_kernels(dev, shapes)
+            with timed_phase("kernels"):
+                errs = phase_kernels(dev, shapes)
         t0 = time.perf_counter()
         params = random_params(PRESETS["8b"], SEED, dev, torch.bfloat16)
         torch.cuda.synchronize()
@@ -5756,37 +6123,54 @@ def main(argv=None) -> int:
             phase(dev, params, main_prompt(), smi, profile=args.profile)
             print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}", flush=True)
             return 0
-        launches, prompt, ids, lf, main_runs = phase_main(dev, params, args.profile)
-        phase_checkpoint(dev, params, prompt)
-        int8_launches, lq = phase_int8(dev, params, prompt, ids, lf, args.profile)
+        with timed_phase("main"):
+            launches, prompt, ids, lf, main_runs = phase_main(dev, params, args.profile)
+        with timed_phase("checkpoint"):
+            phase_checkpoint(dev, params, prompt)
+        with timed_phase("int8"):
+            int8_launches, lq = phase_int8(dev, params, prompt, ids, lf, args.profile)
         launches.update({k: v for k, v in int8_launches.items()
                          if k in ("paged_flatten_q", "paged_seq_q")})
         lf = lf.cpu()
-        launches.update({k: v for k, v in phase_short(dev, params, args.profile).items()
-                         if k in ("flatten_gather", "seq_gather")})
-        batch = phase_batch(dev, params, args.profile)
+        with timed_phase("short"):
+            launches.update({k: v for k, v in phase_short(dev, params, args.profile).items()
+                             if k in ("flatten_gather", "seq_gather")})
+        with timed_phase("batch"):
+            batch, batch_runs = phase_batch(dev, params, args.profile)
         launches["ragged_prefill"] = batch["ragged_prefill"]
         launches["flatten_gather"] += batch["flatten_gather"]  # its multi-tree gather steps
-        wl, wl_chained = phase_workloads(dev, params, prompt, smi, args.profile)
+        with timed_phase("workloads"):
+            wl, wl_chained = phase_workloads(dev, params, prompt, smi, args.profile)
         for k in ("flatten_gather", "seq_gather"):  # their driven gather plans
             launches[k] += wl.get(k, 0)
-        phase_chain(dev, params, prompt, smi, {"main": main_runs, **wl_chained},
-                    args.profile)
+        with timed_phase("chain"):
+            phase_chain(dev, params, prompt, smi, {"main": main_runs, **wl_chained},
+                        args.profile)
         del params
         release()
-        launches["int8_matmul"] = phase_int8w(dev, prompt, ids, main_runs)["int8_matmul"]
-        moe_launches, moe_runs, moe_logits = phase_moe(dev, smi, args.profile)
+        with timed_phase("int8w"):
+            launches["int8_matmul"] = phase_int8w(dev, prompt, ids,
+                                                  main_runs)["int8_matmul"]
+        with timed_phase("moe"):
+            moe_launches, moe_runs, moe_logits = phase_moe(dev, smi, args.profile)
         launches["gmm"] = moe_launches["gmm"]
-        launches["gmm_scaled"] = phase_moe_int8w(dev, moe_runs, args.profile)["gmm_scaled"]
-        launches.update({k: v for k, v in phase_sharded(prompt, ids, lf, lq,
-                                                        main_runs).items()
-                         if k in PARTIAL_OF})
-        phase_sharded_moe(moe_logits)
-        launches.update(phase_families(dev, smi))
-        phase_tracing(dev)
+        with timed_phase("moe-int8w"):
+            launches["gmm_scaled"] = phase_moe_int8w(dev, moe_runs,
+                                                     args.profile)["gmm_scaled"]
+        with timed_phase("sharded"):
+            sharded = phase_sharded(prompt, ids, lf, lq, main_runs, batch_runs)
+        launches.update({k: v for k, v in sharded.items() if k in PARTIAL_OF})
+        launches["ragged_prefill"] += sharded["ragged_prefill"]  # rank 0's, on its heads
+        with timed_phase("sharded-moe"):
+            phase_sharded_moe(moe_logits)
+        with timed_phase("families"):
+            launches.update(phase_families(dev, smi))
+        with timed_phase("tracing"):
+            phase_tracing(dev)
         if args.profile:
             profile_kv_store(dev)
-        timing = phase_timing(dev, shapes)
+        with timed_phase("timing"):
+            timing = phase_timing(dev, shapes)
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -18,8 +18,8 @@ data/synthetic.py, deft_tpu :216-245), --traversal (accepted for parity),
 continuous-batching engine, deft_tpu :270-296), --device cuda|cpu (default
 cuda; a missing GPU raises), and the multi-device engine (deft_tpu :84-90,
 :141-167, :213-216): --mesh DPxSPxTP|auto starts dp*sp*tp ranks on this host
-(parallel/launch.py) and runs the generation on the grid (--mode flatten and
-seq, paged; the other modes raise, ROADMAP A7), --multihost makes this
+(parallel/launch.py) and runs the generation on the grid (every --mode and
+--mem, and --batch N), --multihost makes this
 process one rank of a torchrun job (its environment names the group),
 --dist-backend nccl|gloo (default nccl on cuda, gloo on cpu; nccl refuses
 two ranks on one card); --trace-dir DIR writes a torch.profiler Chrome
@@ -235,11 +235,6 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.prompt_len is not None and args.prompt_len <= 0:
         args.prompt_len = None
-    from deft_tpu_torch.runtime import mode_from_cli
-    from deft_tpu_torch.runtime.runner import check_grid_mode
-
-    if args.mesh or args.multihost:
-        check_grid_mode(mode_from_cli(args.mode, args.mem))
     cfg = model_config(args)
     if args.multihost:
         import torch.distributed as dist
@@ -325,7 +320,7 @@ def run(grid, args) -> int:
     with tracer.session():
         if args.batch > 1:
             return run_batch(args, runner, mode, prompt_ids, fn, template,
-                             tokenizer)
+                             tokenizer, primary)
         pm = tree_generate(
             model=runner,
             mode=mode,
@@ -347,9 +342,11 @@ def run(grid, args) -> int:
     return 0
 
 
-def run_batch(args, runner, mode, prompt_ids, fn, template, tokenizer) -> int:
+def run_batch(args, runner, mode, prompt_ids, fn, template, tokenizer,
+              primary: bool = True) -> int:
     """--batch N: N requests of the same prompt and workload, admitted by one
-    ragged prefill and decoded together (deft_tpu cli/run.py:270-296)."""
+    ragged prefill and decoded together (deft_tpu cli/run.py:270-296); on a
+    grid every rank runs the engine and only rank 0 (``primary``) prints."""
     from deft_tpu_torch.control import Branch_Controller
     from deft_tpu_torch.obs.timers import synchronize
     from deft_tpu_torch.runtime.batched import BatchedEngine, Request
@@ -363,6 +360,8 @@ def run_batch(args, runner, mode, prompt_ids, fn, template, tokenizer) -> int:
     eng.run()
     synchronize(runner.device)
     wall = time.perf_counter() - t0
+    if not primary:
+        return 0
     tok = sum(len(s.token_ids) for r in reqs for s in r.finished_seqs)
     print(f"batched: {args.batch} requests, {tok} generated tokens, "
           f"{wall * 1000:.1f} ms wall, "

@@ -406,10 +406,10 @@ def prefill_forward(cfg: LlamaConfig, params, rope_tbl, k_pool: KVPool,
 
 def ragged_prefill_forward(cfg: LlamaConfig, params, rope_tbl, k_pool: KVPool,
                            v_pool: KVPool, batch: RaggedPrefillBatch,
-                           attn: AttnFn) -> torch.Tensor:
+                           attn: AttnFn, shard=None) -> torch.Tensor:
     """Prefill B prompts joined on the token axis in one forward; returns
     each prompt's last-token logits, (B, V) fp32.  ``attn`` masks pairs of
     tokens from different prompts through batch.seg_ids."""
     x = forward_layers(cfg, params, rope_tbl, k_pool, v_pool, batch.tokens,
-                       batch.positions, batch.out_loc, attn, batch)
-    return mm(x[batch.last_idx], params, "lm_head").float()
+                       batch.positions, batch.out_loc, attn, batch, shard)
+    return lm_head(params, x[batch.last_idx], shard)

@@ -3,10 +3,13 @@
 Port of deft_tpu/obs/timers.py:17 (GlobalTimer).  ``stop(name, sync=device)``
 waits for the device's queued work first: ``torch.cuda.synchronize`` where
 the device is a GPU, nothing on the CPU (PyTorch's CPU ops are synchronous).
+``sync_check_lowered`` lets a deliberate wait pass a run under torch's sync
+debug mode.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Dict, Optional
 
@@ -17,6 +20,20 @@ def synchronize(device) -> None:
     """Wait for every kernel queued on ``device`` (no-op on the CPU)."""
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def sync_check_lowered():
+    """torch.cuda's sync debug mode off while the block runs, restored
+    after: the decode path's deliberate waits (runtime/runner.py host_wait,
+    gloo's staging of CUDA tensors in parallel/mesh.py) pass a run under
+    ``torch.cuda.set_sync_debug_mode("error")``, which fails on any other."""
+    debug = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(debug)
 
 
 class GlobalTimer:

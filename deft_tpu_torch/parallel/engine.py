@@ -82,10 +82,10 @@ def shift_window(r0: int, rows: int, blo: torch.Tensor, bhi: torch.Tensor):
     return torch.where(live, blo, EMPTY_LO), torch.where(live, bhi, 0)
 
 
-def last_live(live: torch.Tensor) -> int:
-    """1 + the index of the last True of a 1-D mask (1 when there is none):
-    the blocks a rank window must cover.  Reads the mask on the host."""
-    idx = live.nonzero()
+def last_live(live) -> int:
+    """1 + the index of the last True of a 1-D host mask (1 when there is
+    none): the blocks a rank window must cover."""
+    idx = np.flatnonzero(np.asarray(live))
     return int(idx[-1]) + 1 if len(idx) else 1
 
 
@@ -100,8 +100,7 @@ def host_window(grid: Grid, blk_lo: np.ndarray, blk_hi: np.ndarray, R: int, bloc
     rule takes.  Nothing is read from the device."""
     sp = grid.axis_size("sp")
     blk_lo, blk_hi = np.asarray(blk_lo), np.asarray(blk_hi)
-    live = np.flatnonzero((blk_lo < blk_hi) | (blk_lo < -(1 << 20)))
-    B = int(live[-1]) + 1 if len(live) else 1
+    B = last_live((blk_lo < blk_hi) | (blk_lo < -(1 << 20)))
     B_pad = -(-B // sp) * sp
     span = B_pad // sp
     b0 = grid.index("sp") * span
@@ -126,16 +125,17 @@ def flatten_window(grid: Grid, batch, R: int, paged: bool,
     reads, so the plan's bucket padding at its end falls to no rank and
     every span holds a share of the live KV (deft_tpu splits the padded
     plan: its last spans may hold nothing live).  The cut is counted on the
-    host (``host_window``) from the numpy plan the runner puts on the batch
-    (``blk_host``; else from the batch's blk_lo / blk_hi copied to the
-    host).  Returns rows, r0, the span's arrays (seg_src or kv_idx, tok_lo,
-    tok_hi, blk_lo, blk_hi) and, for a gather plan with ``qpk``, the
-    window's row tiles (``row_tiles``; else None)."""
+    host (``host_window``) from the numpy plan's blk_lo / blk_hi, which the
+    batch carries as ``blk_host`` (the runner's _step_batch puts them
+    there), so nothing is read from the device.  Single-tree, multi-tree
+    (plan/multi.py: each tree's leaf intervals shifted by its leaf offset)
+    and node-aligned (node, node_chunk, tree_index) plans take the same
+    cut: a dp window may start inside any tree's leaves.  Returns rows, r0,
+    the span's arrays (seg_src or kv_idx, tok_lo, tok_hi, blk_lo, blk_hi)
+    and, for a gather plan with ``qpk``, the window's row tiles
+    (``row_tiles``; else None)."""
     block_len = batch.tok_lo.shape[0] // batch.blk_lo.shape[0]
-    host = getattr(batch, "blk_host", None)
-    if host is None:
-        host = (batch.blk_lo.cpu().numpy(), batch.blk_hi.cpu().numpy())
-    h = host_window(grid, *host, R, block_len, None if paged else qpk)
+    h = host_window(grid, *batch.blk_host, R, block_len, None if paged else qpk)
     B, B_pad, span, b0, rows, r0 = h.B, h.B_pad, h.span, h.b0, h.rows, h.r0
 
     def cut(x, per_block, value=0):

@@ -10,9 +10,9 @@ any rank raises in the caller with that rank's traceback, and the other
 ranks are stopped.
 
 ``fn`` must be importable by a spawned child, so worker functions live in
-this package (``run_all``, ``generate_tokens``, ``first_step``,
-``pool_slots``), never in a
-test file or a module that imports jax.
+this package (``run_all``, ``generate_tokens`` in any decode mode,
+``batched_tokens``, ``greedy_waits``, ``first_step``, ``pool_slots``),
+never in a test file or a module that imports jax.
 """
 
 from __future__ import annotations
@@ -122,23 +122,25 @@ def run_all(grid: Grid, calls: Sequence[Tuple[Callable, dict]]) -> list:
     return [fn(grid, **kwargs) for fn, kwargs in calls]
 
 
-def _runner(grid: Grid, cfg, ecfg, seed: int, model_path=None):
+def _runner(grid: Grid, cfg, ecfg, seed: int, model_path=None,
+            use_tree_index: bool = False):
     from deft_tpu_torch.runtime import ModelRunner
 
     return ModelRunner(cfg, ecfg, device=grid.device, seed=seed, mesh=grid,
-                       model_path=model_path)
+                       model_path=model_path, use_tree_index=use_tree_index)
 
 
 def generate_tokens(grid: Grid, cfg, ecfg, prompt, mode: str = "flatten",
                     width: int = 3, max_seq_len: int = 32, depth: int = 0,
-                    seed: int = 0):
+                    seed: int = 0, mem: str = "paged"):
     """Worker: one Simple_Tree tree_generate on the grid (random weights
-    from ``seed``); returns the branches' token ids and each decode step's
-    plan.paged."""
+    from ``seed``) in the CLI's ``--mode`` / ``--mem`` (tree_index takes
+    the runner's tree-index pool; node_chunk its chunk from ``ecfg``);
+    returns the branches' token ids and each decode step's plan.paged."""
     from deft_tpu_torch.control import Branch_Controller, workloads
     from deft_tpu_torch.runtime import mode_from_cli, tree_generate
 
-    runner = _runner(grid, cfg, ecfg, seed)
+    runner = _runner(grid, cfg, ecfg, seed, use_tree_index=mode == "tree_index")
     paged = []
     build = runner.build_plan
 
@@ -148,10 +150,72 @@ def generate_tokens(grid: Grid, cfg, ecfg, prompt, mode: str = "flatten",
         return plan
 
     runner.build_plan = recording_build
-    tree_generate(runner, mode_from_cli(mode), None, prompt, max_seq_len=max_seq_len,
-                  width=width, depth=depth,
+    tree_generate(runner, mode_from_cli(mode, mem), None, prompt,
+                  max_seq_len=max_seq_len, width=width, depth=depth,
                   branch_controller=Branch_Controller(workloads.simple_tree))
     return [tuple(s.token_ids) for s in runner.tree.all_finished_seqs], paged
+
+
+def batched_tokens(grid: Grid, cfg, ecfg, prompts, mode: str = "flatten",
+                   width: int = 2, gen: int = 10, seed: int = 0):
+    """Worker: each prompt a Simple_Tree request of ``gen`` tokens through
+    BatchedEngine on the grid (one ragged prefill, then multi-tree steps,
+    the all-greedy ones chained); returns each request's branches' token
+    ids, sorted, and each step's (block, plan.paged)."""
+    from deft_tpu_torch.control import Branch_Controller, workloads
+    from deft_tpu_torch.runtime import mode_from_cli
+    from deft_tpu_torch.runtime.batched import BatchedEngine, Request
+
+    runner = _runner(grid, cfg, ecfg, seed)
+    eng = BatchedEngine(runner, mode_from_cli(mode))
+    steps = []
+    forward = runner.forward_tree_decode
+
+    def recording_forward(m, plan, **kw):
+        steps.append((kw.get("block", True), plan.paged))
+        return forward(m, plan, **kw)
+
+    runner.forward_tree_decode = recording_forward
+    reqs = [Request(p, Branch_Controller(workloads.simple_tree), len(p) + gen,
+                    width=width) for p in prompts]
+    eng.add_requests(reqs)
+    eng.run()
+    return [sorted(tuple(s.token_ids) for s in r.finished_seqs) for r in reqs], steps
+
+
+def greedy_waits(grid: Grid, cfg, ecfg, prompt, gen: int, width: int = 3,
+                 chained: bool = True, seed: int = 0):
+    """Worker: a greedy Simple_Tree tree_generate of ``gen`` tokens in
+    flatten mode, chained, or (``chained=False``) with the workload's
+    declarations hidden so that every step reads host logits; returns the
+    branches' token ids, the runner's host waits after the prefill, and each
+    decode step's (block, host waits during the call)."""
+    from deft_tpu_torch.control import Branch_Controller, workloads
+    from deft_tpu_torch.runtime import mode_from_cli, tree_generate
+    from deft_tpu_torch.runtime.runner import host_wait
+
+    runner = _runner(grid, cfg, ecfg, seed)
+    forward = runner.forward_tree_decode
+    calls, start = [], []
+
+    def recording_forward(m, plan, **kw):
+        before = host_wait.waits
+        if not start:
+            start.append(before)  # the prefill's read is behind us
+        out = forward(m, plan, **kw)
+        calls.append((kw.get("block", True), host_wait.waits - before))
+        return out
+
+    def per_step(*a, deferred=None, **k):
+        return workloads.simple_tree(*a, **k)
+
+    runner.forward_tree_decode = recording_forward
+    tree_generate(runner, mode_from_cli("flatten"), None, prompt,
+                  max_seq_len=len(prompt) + gen, width=width, depth=1,
+                  branch_controller=Branch_Controller(
+                      workloads.simple_tree if chained else per_step))
+    return ([tuple(s.token_ids) for s in runner.tree.all_finished_seqs],
+            host_wait.waits - start[0], calls)
 
 
 def first_step(grid: Grid, cfg, ecfg, prompt, mode: str = "flatten",

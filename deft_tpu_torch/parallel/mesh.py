@@ -21,10 +21,13 @@ ranks on one card (gloo moves CUDA tensors through the host).
 from __future__ import annotations
 
 import math
+import time
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
+
+from deft_tpu_torch.obs.timers import sync_check_lowered
 
 AXES = ("dp", "sp", "tp")
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
@@ -73,6 +76,11 @@ class Grid:
         self.coords = {"dp": rank // (sp * tp), "sp": rank // tp % sp, "tp": rank % tp}
         self.device = device
         self._groups = groups or {}
+        # collectives gloo staged through the host, and the seconds they
+        # took: CUDA tensors over gloo (several ranks on one card), which
+        # NCCL with a card per rank runs on the device
+        self.staged = 0
+        self.staged_s = 0.0
 
     def __repr__(self) -> str:
         return (f"Grid(shape={self.shape}, rank={self.rank}, coords={self.coords}, "
@@ -89,9 +97,20 @@ class Grid:
         """All-reduce ``t`` in place over the ranks that share this rank's
         coordinates off ``axes`` (one axis name or a tuple); returns t."""
         names = (axes,) if isinstance(axes, str) else tuple(axes)
-        if self.axis_size(*names) > 1:
-            dist.all_reduce(t, op=_OPS[op], group=self._groups[names if len(names) > 1
-                                                               else names[0]])
+        if self.axis_size(*names) == 1:
+            return t
+        group = self._groups[names if len(names) > 1 else names[0]]
+        if t.is_cuda and dist.get_backend(group) == "gloo":
+            # gloo copies a CUDA tensor to the host and waits for that copy
+            # in its own thread: the backend's wait, not the port's, so it
+            # runs with torch's sync debug mode lowered, and is counted
+            self.staged += 1
+            t0 = time.perf_counter()
+            with sync_check_lowered():
+                dist.all_reduce(t, op=_OPS[op], group=group)
+            self.staged_s += time.perf_counter() - t0
+            return t
+        dist.all_reduce(t, op=_OPS[op], group=group)
         return t
 
 

@@ -11,13 +11,16 @@ flatten path's LSE merge; the dp row windows are joined after it.  Pads
 carry blk_live = 0, so no read is issued for them, and no rank copies a
 gathered path.  Seq plans that are not segment-aligned take B7 on the
 rank's heads over every leaf (replicated over sp and dp; deft_tpu's mesh
-path runs XLA attention there, runner.py:438-447).
+path runs XLA attention there, runner.py:438-447): the runner's route for
+unpaged seq modes (UNPAGED_FD) and for seq plans at head widths that do not
+pack.
 """
 
 from __future__ import annotations
 
 from types import SimpleNamespace
 
+import numpy as np
 import torch.nn.functional as F
 
 from deft_tpu_torch.ops.paged_seq_attn import (paged_seq_attention_partial,
@@ -30,10 +33,14 @@ from deft_tpu_torch.parallel.mesh import Grid
 def seq_window(grid: Grid, batch, R: int) -> SimpleNamespace:
     """This rank's part of a paged seq plan: its dp rows and sp block
     window of the (R, nb, spb) segment tables, contiguous and flat.  As in
-    flatten, sp splits the path blocks up to the last one a leaf reads."""
+    flatten, sp splits the path blocks up to the last one a leaf reads,
+    counted on the host from the numpy plan's blk_live, which the batch
+    carries as ``live_host`` (the runner's _step_batch puts it there), so
+    nothing is read from the device.  Multi-tree seq plans (plan/multi.py)
+    are per-leaf tables too and take the same cut."""
     sp = grid.axis_size("sp")
     nb_all = batch.blk_live.shape[0] // R
-    nb = last_live(batch.blk_live.view(R, nb_all).gt(0).any(dim=0))
+    nb = last_live((np.asarray(batch.live_host).reshape(R, nb_all) > 0).any(axis=0))
     nb_pad = -(-nb // sp) * sp
     span = nb_pad // sp
     b0 = grid.index("sp") * span

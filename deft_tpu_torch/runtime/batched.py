@@ -19,6 +19,13 @@ Other steps read their logits on the host.  Each tree's queued merge copies
 (speculative decoding) land before its alloc (batched.py:190).  Node mode
 runs on the multi-tree flatten plan, as in deft_tpu (:101, :209-212);
 node-aligned multi-tree plans are ROADMAP A6.
+
+On a (dp, sp, tp) grid (``ModelRunner(mesh=...)``) every rank runs this
+same engine: it admits the same requests in the same order and branches
+on the same joined logits, so the ranks' allocators, trees and plans stay
+in step; the admission's ragged prefill runs B8 on the rank's heads and
+each step the runner's sharded AttnFns (parallel/engine.py,
+parallel/seq_engine.py), as deft_tpu's engine runs under its mesh.
 """
 
 from __future__ import annotations
@@ -101,10 +108,6 @@ class BatchedEngine:
         if mode.plan_kind not in ("flatten", "node", "seq"):
             raise ValueError(f"batched {mode.name}: the engine takes flatten, "
                              "node or seq modes (deft_tpu batched.py:101)")
-        if runner.mesh is not None:
-            raise NotImplementedError("the batched engine on a grid is not ported "
-                                      "yet (ROADMAP A6, batching; A5 in older "
-                                      "roadmaps)")
         self.runner = runner
         self.mode = mode
         self.active: List[Request] = []

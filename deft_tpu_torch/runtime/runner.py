@@ -39,9 +39,11 @@ baseline, plain attention over the plan's kv_idx in both packages
 one rank of a (dp, sp, tp) grid (parallel/): the params and pools are the
 rank's slices, made once; decode attention takes the sharded AttnFns of
 parallel/engine.py and parallel/seq_engine.py (B1p, B4p, B11; B2p, B5p; B7
-on the rank's heads for seq plans that are not segment-aligned), prefill B3
-on the rank's heads, and the forwards take the grid's collectives
-(ShardedModel).  A grid of size 1 counts as no mesh.
+on the rank's heads for seq plans that are not segment-aligned; Medusa's
+dense baseline on the rank's heads, every row), prefill B3 and batched
+prefill B8 on the rank's heads, and the forwards take the grid's collectives
+(ShardedModel).  Every decode mode runs on a grid, and so does the batched
+engine.  A grid of size 1 counts as no mesh.
 """
 
 from __future__ import annotations
@@ -63,6 +65,7 @@ from deft_tpu_torch.models.llama import (KVPool, RaggedPrefillBatch,
 from deft_tpu_torch.models.loader import load_params, random_params
 from deft_tpu_torch.models.rope import rope_table
 from deft_tpu_torch.obs import create_logger
+from deft_tpu_torch.obs.timers import sync_check_lowered
 from deft_tpu_torch.ops import attn_impls
 from deft_tpu_torch.ops.paged_flatten_attn import row_tile_tiles
 from deft_tpu_torch.plan import (build_flatten_plan, build_node_plan,
@@ -112,12 +115,8 @@ def host_wait(event: Optional[torch.cuda.Event]) -> None:
     host_wait.waits += 1
     if event is None:
         return
-    debug = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode(0)
-    try:
+    with sync_check_lowered():
         event.synchronize()
-    finally:
-        torch.cuda.set_sync_debug_mode(debug)
 
 
 host_wait.waits = 0
@@ -139,14 +138,6 @@ def packs_heads(head_dim: int) -> bool:
     96, Gemma's 256) take gather plans and the gather kernels B6 and B7 in
     both packages, so the port builds deft_tpu's plans at every width."""
     return 128 % head_dim == 0
-
-
-def check_grid_mode(mode: ForwardMode) -> None:
-    """A (dp, sp, tp) grid runs the flatten and seq modes; the others raise."""
-    if mode not in (ForwardMode.TREE_DECODE_FLATTEN, ForwardMode.DECODE):
-        raise NotImplementedError(
-            f"{mode.name} on a grid is not ported (ROADMAP A7): the grid runs "
-            "--mode flatten and --mode seq over the paged memory")
 
 
 class LogitsView:
@@ -382,11 +373,10 @@ class ModelRunner:
         tree_index plans take the flatten kernels, UNPAGED_MEDUSA the dense
         masked attention over kv_idx."""
         kind = mode.plan_kind
-        if self.mesh is not None:
-            check_grid_mode(mode)
-            return self._sharded_attn_fn(kind, paged)
         if mode is ForwardMode.UNPAGED_MEDUSA:
             return attn_impls.flatten_attn_xla
+        if self.mesh is not None:
+            return self._sharded_attn_fn(kind, paged)
         if kind == "seq":
             if not paged:
                 return attn_impls.seq_gather_attn
@@ -398,14 +388,17 @@ class ModelRunner:
                 else attn_impls.flatten_attn)
 
     def _sharded_attn_fn(self, kind: str, paged: bool):
-        """The grid's AttnFn (deft_tpu runner.py:420-447): flatten plans
-        through B1p / B4p (paged) or B11 (gather plans, either pool type);
-        paged seq plans through B2p / B5p; other seq plans through B7 on the
-        rank's heads, every row (deft_tpu runs XLA attention there)."""
+        """The grid's AttnFn (deft_tpu runner.py:420-447): flatten, node and
+        tree_index plans (node_chunk and the unpaged flatten and node modes
+        among them) through B1p / B4p (paged) or B11 (gather plans, either
+        pool type); paged seq plans through B2p / B5p; other seq plans
+        (UNPAGED_FD among them) through B7 on the rank's heads, every row
+        (deft_tpu runs XLA attention there).  UNPAGED_MEDUSA takes the dense
+        baseline on the rank's heads, every row, as on one card (_attn_fn)."""
         from deft_tpu_torch.parallel.engine import make_sharded_tree_attn
         from deft_tpu_torch.parallel.seq_engine import make_sharded_seq_attn
 
-        if kind == "flatten":
+        if kind != "seq":
             return make_sharded_tree_attn(self.mesh, paged)
         return (make_sharded_seq_attn(self.mesh) if paged
                 else attn_impls.seq_gather_attn)
@@ -473,10 +466,10 @@ class ModelRunner:
         prompts are joined on the token axis and told apart by per-token
         segment ids (ragged attention, kernel B8).  Row i of the returned
         view is prompt i's last-token distribution.  The forward runs
-        eagerly at the true token count, so no bucket padding."""
-        if self.mesh is not None:
-            raise NotImplementedError("batched prefill on a grid is not ported "
-                                      "yet (ROADMAP A6)")
+        eagerly at the true token count, so no bucket padding.  On a grid
+        B8 runs on the rank's tp heads with no collective inside attention
+        (every rank holds the same pool slots), and the last-token logits'
+        vocab blocks are joined."""
         if not prompts or len(prompts) != len(trees):
             raise ValueError(f"{len(prompts)} prompts for {len(trees)} trees")
         tokens, positions, out_loc, seg, last = [], [], [], [], []
@@ -499,7 +492,7 @@ class ModelRunner:
             last_idx=dev["last_idx"].long())
         logits = ragged_prefill_forward(self.cfg, self.params, self._rope_tbl,
                                         self.k_pool, self.v_pool, batch,
-                                        attn_impls.ragged_prefill_attn)
+                                        attn_impls.ragged_prefill_attn, self._shard)
         view = self._logits_view(logits, "topk")
         view.fetch_async()
         return view
@@ -609,6 +602,9 @@ class ModelRunner:
             # (parallel/engine.py host_window): B11's row tiles and the sp
             # span's blocks, with nothing read back from the device
             dev["blk_host"] = (plan.blk_lo, plan.blk_hi)
+        elif isinstance(plan, SeqPlan) and plan.paged:
+            # and a paged seq plan's sp span (parallel/seq_engine.py seq_window)
+            dev["live_host"] = plan.blk_live
         return SimpleNamespace(**dev, block_len=block_len, seg_len=plan.seg_len)
 
     def forward_tree_decode(self, mode: ForwardMode, plan,

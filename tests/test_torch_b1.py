@@ -179,7 +179,8 @@ def rank_window(plan, rank, grid=cs.SHARDED_GRID):
     """The plan arrays of a rank of the sharded path's grid (its sp span of
     blocks, parallel/engine.py) and its rows."""
     batch = type("Batch", (), {n: torch.from_numpy(getattr(plan, n))
-                               for n in ("seg_src", "tok_lo", "tok_hi", "blk_lo", "blk_hi")})
+                               for n in ("seg_src", "tok_lo", "tok_hi", "blk_lo", "blk_hi")}
+                 | {"blk_host": (plan.blk_lo, plan.blk_hi)})
     w = engine.flatten_window(Grid(grid, rank, torch.device("cpu")), batch, plan.l_pad, True)
     return tuple(t.numpy() for t in (w.seg_src, w.tok_lo, w.tok_hi, w.blk_lo, w.blk_hi))
 

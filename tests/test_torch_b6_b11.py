@@ -73,7 +73,8 @@ def batch_plan():
 def short_window(plan, rank):
     """The plan arrays, rows and live leaves of a rank of grid 2x1x2 (B11's
     path: its dp row window, intervals shifted into it; sp 1)."""
-    batch = SimpleNamespace(**{n: torch.from_numpy(getattr(plan, n)) for n in ARRS})
+    batch = SimpleNamespace(**{n: torch.from_numpy(getattr(plan, n)) for n in ARRS},
+                            blk_host=(plan.blk_lo, plan.blk_hi))
     w = engine.flatten_window(Grid(cs.SHORT_GRID, rank, torch.device("cpu")), batch,
                               plan.l_pad, paged=False)
     arrs = tuple(getattr(w, n).numpy() for n in ARRS)

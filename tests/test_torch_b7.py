@@ -19,8 +19,8 @@ so these tests hold what surrounds it to deft_tpu:
   64/128 (fp32 2e-5, bf16 2e-2, live rows);
 - B11: the rank windows' row tiles counted on the host from the numpy plan
   (parallel/engine.py ``host_window``) equal those recounted from the
-  window's arrays as the engine cuts them, and its block count equals the
-  one ``last_live`` reads from the device; the span rule they give at the
+  window's arrays as the engine cuts them, and its block count equals
+  ``last_live`` of the batch tensors' mask; the span rule they give at the
   short tree's window; the engine hands B11 those row tiles and reads
   nothing back from the device.
 """
@@ -238,10 +238,11 @@ def gather_plans():
 @pytest.mark.parametrize("shape", [(2, 1, 2), (1, 2, 1), (2, 2, 1)])
 def test_b11_host_row_tiles_equal_the_window(gather_plans, shape):
     """Every rank window of the grid: host_window's block count equals
-    last_live's read of the device mask, and its row tiles equal
+    last_live of the batch tensors' mask, and its row tiles equal
     row_tile_tiles recounted from the arrays flatten_window cuts."""
     for plan in gather_plans:
-        batch = SimpleNamespace(**{n: torch.from_numpy(getattr(plan, n)) for n in ARRS})
+        batch = SimpleNamespace(**{n: torch.from_numpy(getattr(plan, n)) for n in ARRS},
+                                blk_host=(plan.blk_lo, plan.blk_hi))
         mask = (batch.blk_lo < batch.blk_hi) | (batch.blk_lo < -(1 << 20))
         for rank in range(int(np.prod(shape))):
             grid = Grid(shape, rank, torch.device("cpu"))
@@ -253,8 +254,7 @@ def test_b11_host_row_tiles_equal_the_window(gather_plans, shape):
             recount = tpf.row_tile_tiles(w.blk_lo.numpy(), w.blk_hi.numpy(), w.rows * QPK,
                                          QPK, plan.block_len)
             assert h.row_tiles == recount
-            w = engine.flatten_window(grid, SimpleNamespace(**vars(batch), blk_host=(
-                plan.blk_lo, plan.blk_hi)), plan.l_pad, paged=False, qpk=QPK)
+            w = engine.flatten_window(grid, batch, plan.l_pad, paged=False, qpk=QPK)
             assert w.row_tiles == recount
 
 

@@ -12,7 +12,8 @@ Both must give the same branches: token ids equal, logprobs equal rounded
 to 4 places (tests/test_e2e.py:527-530), and equal to deft_tpu's
 tree_generate on the same weights (its replay path) and its BatchedEngine.
 Also: the device top-k tie rule against ``jax.lax.top_k``, a gloo grid
-1x1x2 against the single device, and the runner's count of its host waits.
+1x1x2 against the single device, and the runner's count of its host waits,
+on one device and on each rank of a gloo grid 1x2x1.
 """
 
 import math
@@ -39,7 +40,7 @@ from deft_tpu_torch.control import Branch_Controller, workloads
 from deft_tpu_torch.models import PRESETS
 from deft_tpu_torch.models.loader import params_from_numpy
 from deft_tpu_torch.parallel import launch
-from deft_tpu_torch.parallel.launch import generate_tokens, run_all
+from deft_tpu_torch.parallel.launch import generate_tokens, greedy_waits, run_all
 from deft_tpu_torch.runtime import ModelRunner, mode_from_cli, tree_generate
 from deft_tpu_torch.runtime.batched import BatchedEngine, Request
 from deft_tpu_torch.runtime.generate import SYNC_PERIOD
@@ -268,12 +269,28 @@ def test_grid_chain_matches_single_device(reference):
     assert sorted(got) == sorted(tuple(s.token_ids) for s in jr.tree.all_finished_seqs)
 
 
+WAITS_GEN = 2 * SYNC_PERIOD + 3
+
+
+@pytest.fixture(scope="module")
+def grid_waits():
+    """test_host_waits_counted's runs on a gloo grid 1x2x1 (sp 2: each
+    step's plan cut into the ranks' block spans on the host), chained and
+    per-step, in one launch; rank 0's tokens, waits and steps."""
+    calls = [(greedy_waits, dict(cfg=PRESETS["tiny"], ecfg=EngineConfig(**ECFG),
+                                 prompt=PROMPT, gen=WAITS_GEN, width=3, chained=c,
+                                 seed=0)) for c in (True, False)]
+    return dict(zip((True, False), launch(run_all, (1, 2, 1), "cpu", args=(calls,),
+                                          timeout=300)))
+
+
 @pytest.mark.parametrize("chained", [True, False], ids=["chained", "per-step"])
-def test_host_waits_counted(reference, chained):
+def test_host_waits_counted(reference, grid_waits, chained):
     """A greedy Simple_Tree run of G decode steps waits at most
     ceil(G / 8) + 2 times after its prefill (the 8-step waits, the last,
     structural, step and the drain); the per-step path waits once a step.
-    A step enqueued with block=False waits not at all."""
+    A step enqueued with block=False waits not at all.  The same holds on
+    a gloo grid 1x2x1, whose branches equal the one device's."""
     _, params = reference
     runner = port_runner(params)
     forward = runner.forward_tree_decode
@@ -290,13 +307,16 @@ def test_host_waits_counted(reference, chained):
 
     runner.forward_tree_decode = recording
     fn = workloads.simple_tree if chained else per_step(workloads.simple_tree)
-    gen = 2 * SYNC_PERIOD + 3
     tree_generate(runner, mode_from_cli("flatten"), None, PROMPT,
-                  max_seq_len=len(PROMPT) + gen, width=3, depth=1,
+                  max_seq_len=len(PROMPT) + WAITS_GEN, width=3, depth=1,
                   branch_controller=Branch_Controller(fn))
-    G = gen - 1
-    waits = host_wait.waits - seen[0]
-    if chained:
-        assert waits <= math.ceil(G / SYNC_PERIOD) + 2
-    else:
-        assert waits == G
+    G = WAITS_GEN - 1
+    tokens, grid_total, grid_steps = grid_waits[chained]
+    assert sorted(tokens) == sorted(tuple(s.token_ids) for s in runner.tree.all_finished_seqs)
+    assert len(grid_steps) == G
+    assert all(waits == 0 for block, waits in grid_steps if not block)
+    for waits in (host_wait.waits - seen[0], grid_total):
+        if chained:
+            assert waits <= math.ceil(G / SYNC_PERIOD) + 2
+        else:
+            assert waits == G

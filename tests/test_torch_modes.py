@@ -11,8 +11,8 @@
   and decode-window paths, which the port does not have, count the flatten
   mask.  So its Medusa run here takes the per-step path: retained logits
   turn replay off, DEFT_PLAN_PATCH=0 the windows;
-- the runner routes each mode to its attention entry, and a grid refuses
-  the modes it does not run.
+- the runner routes each mode to its attention entry, on one device and on
+  a grid, which runs every decode mode.
 """
 
 import numpy as np
@@ -191,18 +191,34 @@ def test_attention_routes():
 
 
 def test_grid_refuses_other_modes():
-    """A (dp, sp, tp) grid runs flatten and seq over the paged memory; the
-    other modes raise, naming ROADMAP A7 (runner and CLI)."""
-    from deft_tpu_torch.cli import run
-    from deft_tpu_torch.runtime.runner import check_grid_mode
+    """A (dp, sp, tp) grid runs every decode mode (deft_tpu runner.py
+    :420-447): the flatten-family modes through the sharded flatten
+    AttnFn (B1p / B4p / B11 on the rank windows), paged seq through the
+    sharded seq AttnFn (B2p / B5p), unpaged seq through B7 on the rank's
+    heads and Medusa through the dense baseline on the rank's heads, every
+    row, as on one card.  PREFILL is no decode mode: it has no plan and
+    still raises."""
+    from deft_tpu_torch.parallel.mesh import Grid
 
-    for mode in (ForwardMode.TREE_DECODE_FLATTEN, ForwardMode.DECODE):
-        check_grid_mode(mode)
+    runner = ModelRunner(PRESETS["tiny"], EngineConfig(**ECFG), device="cpu",
+                         mesh=Grid((1, 2, 2), 0, torch.device("cpu")))
+    assert runner.mesh is not None
+
+    def route(mode, paged):
+        fn = runner._attn_fn(mode, paged)
+        plain = (attn_impls.seq_gather_attn, attn_impls.flatten_attn_xla)
+        return fn if fn in plain else fn.__qualname__.split(".")[0]
+
     for mode in ForwardMode:
-        if mode not in (ForwardMode.TREE_DECODE_FLATTEN, ForwardMode.DECODE,
-                        ForwardMode.PREFILL):
-            with pytest.raises(NotImplementedError, match="A7"):
-                check_grid_mode(mode)
-    with pytest.raises(NotImplementedError, match="A7"):
-        run.main(["--device", "cpu", "--random-model", "tiny", "--mode", "node",
-                  "--mesh", "1x2x1"])
+        if mode is ForwardMode.PREFILL:
+            with pytest.raises(ValueError):
+                runner._attn_fn(mode, True)
+            continue
+        for paged in (True, False):
+            if mode is ForwardMode.UNPAGED_MEDUSA:
+                want = attn_impls.flatten_attn_xla
+            elif mode.plan_kind != "seq":
+                want = "make_sharded_tree_attn"
+            else:
+                want = "make_sharded_seq_attn" if paged else attn_impls.seq_gather_attn
+            assert route(mode, paged) == want, (mode, paged)

@@ -7,6 +7,10 @@
   column 0) at 2e-5 on live rows, m where the row saw a token;
 - the LSE merge over sp shards against deft_tpu's flatten_attention_sharded
   on the 8-device CPU mesh;
+- multi-tree plans (the batched engine's, plan/multi.py) cut into every
+  rank window of (dp, sp) grids: each visible (leaf, pool row) pair lands
+  in exactly one window, and the cut reads nothing back from the device
+  (the block counts come from the numpy plan the batch carries);
 - the grid factoring, the sharding rules and the rank slices of the fused
   tensors against deft_tpu's unfused shards; int8 row-parallel scales whole.
 
@@ -16,6 +20,7 @@ process group; tests/test_torch_parallel.py runs real ranks.
 """
 
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -46,6 +51,8 @@ from deft_tpu_torch.ops import sharded_flatten as tsf
 from deft_tpu_torch.parallel import engine, seq_engine, sharding
 from deft_tpu_torch.parallel.mesh import Grid, _factor
 from deft_tpu_torch.plan import build_flatten_plan, build_seq_plan
+from deft_tpu_torch.plan.multi import build_multi_flatten_plan, build_multi_seq_plan
+from test_torch_b7 import DeviceOnly
 
 Hq, Hkv, D = 8, 2, 64
 QPK = Hq // Hkv
@@ -132,7 +139,8 @@ def test_flatten_partial_plain_matches_deft_tpu(kind, dp, sp):
     (kp, vp), (ks, vs) = pools(rng, S, int8)
     q = rng.standard_normal((plan.l_pad, Hq, D)).astype(np.float32)
     names = ["tok_lo", "tok_hi", "blk_lo", "blk_hi"] + (["seg_src"] if paged else ["kv_idx"])
-    batch = type("Batch", (), {n: torch.from_numpy(getattr(plan, n)) for n in names})
+    batch = type("Batch", (), {n: torch.from_numpy(getattr(plan, n)) for n in names}
+                 | {"blk_host": (plan.blk_lo, plan.blk_hi)})
     scale = D ** -0.5
     checked = 0
     for grid in grid_ranks(dp, sp):
@@ -189,7 +197,8 @@ def test_seq_partial_plain_matches_deft_tpu(int8, dp, sp):
     R = plan.l_pad
     q = rng.standard_normal((R, Hq, D)).astype(np.float32)
     batch = type("Batch", (), {n: torch.from_numpy(getattr(plan, n)) for n in
-                               ("seg_src", "seg_off", "seg_live", "blk_live")})
+                               ("seg_src", "seg_off", "seg_live", "blk_live")}
+                 | {"live_host": plan.blk_live})
     block_len = plan.c_pad // (len(plan.blk_live) // R)
     scale = D ** -0.5
     for grid in grid_ranks(dp, sp):
@@ -256,7 +265,8 @@ def test_sp_merge_matches_deft_tpu_sharded():
     batch = type("Batch", (), dict(kv_idx=torch.arange(T, dtype=torch.int32),
                                    tok_lo=torch.from_numpy(lo), tok_hi=torch.from_numpy(hi),
                                    blk_lo=torch.from_numpy(blk_lo),
-                                   blk_hi=torch.from_numpy(blk_hi)))
+                                   blk_hi=torch.from_numpy(blk_hi),
+                                   blk_host=(blk_lo, blk_hi)))
     kp, vp = (torch.from_numpy(x.reshape(1, T, hkv * d)) for x in (k, v))
     states = []
     for grid in grid_ranks(1, 2):
@@ -287,7 +297,9 @@ def test_sp_spans_hold_each_live_token_once(kind, sp):
         names = ("seg_src", "seg_off", "seg_live", "blk_live")
     assert plan.paged
     R = plan.l_pad
-    batch = type("Batch", (), {n: torch.from_numpy(getattr(plan, n)) for n in names})
+    batch = type("Batch", (), {n: torch.from_numpy(getattr(plan, n)) for n in names}
+                 | ({"blk_host": (plan.blk_lo, plan.blk_hi)} if kind == "flatten"
+                    else {"live_host": plan.blk_live}))
 
     def pairs(b, seg_len):
         """The sorted (leaf, pool row) pairs a plan or window makes visible."""
@@ -318,6 +330,89 @@ def test_sp_spans_hold_each_live_token_once(kind, sp):
     whole = plan.blk_lo.shape[0] if kind == "flatten" else len(plan.blk_live) // R
     assert blocks < whole  # the trailing pad blocks fell to no rank
     assert sorted(got) == pairs(batch, plan.seg_len)
+
+
+def multi_trees(rng, steps):
+    """Three trees in one pool, as the batched engine holds them: prompts of
+    700, 300 and 130 tokens, 5, 4 and 3 leaves, ``steps`` tokens appended
+    (at 20 their multi-tree flatten plan is segment-aligned, at 3 not)."""
+    pool, rtp = TokenKVPool(8192), ReqToTokenPool(64, 2048)
+    trees = []
+    for n, width in ((700, 5), (300, 4), (130, 3)):
+        t = TreeCache(pool, rtp)
+        t.init_prompt(rng.integers(4, 400, n).tolist())
+        for i, c in enumerate(t.branch(t.root, width)):
+            c.append_token(50 + i)
+        trees.append(t)
+    for _ in range(steps):
+        for t in trees:
+            t.alloc()
+            for leaf in list(t.leaves.values()):
+                leaf.append_token(int(rng.integers(1, 400)))
+    for t in trees:
+        t.alloc()
+    return trees
+
+
+def visible_pairs(kind, b, R, r0, seg_len, n_leaves):
+    """The sorted (global leaf, pool row) pairs the plan or window ``b`` of
+    R rows starting at row r0 makes visible, live leaves only."""
+    b = SimpleNamespace(**{k: v.as_subclass(torch.Tensor) if isinstance(v, torch.Tensor)
+                           else v for k, v in vars(b).items()})
+    if kind == "seq":
+        rows, mask = tps.segment_paths(b.seg_src, b.seg_off, b.seg_live, b.blk_live, R,
+                                       seg_len)
+    else:
+        block_len = b.tok_lo.shape[0] // b.blk_lo.shape[0]
+        lo, hi = tpf.leaf_intervals(b.tok_lo, b.tok_hi, b.blk_lo, b.blk_hi, block_len, R)
+        r = torch.arange(R)[:, None]
+        mask = (lo[None, :] <= r) & (r < hi[None, :])
+        src = (tpf.segment_rows(b.seg_src, seg_len) if kind == "paged"
+               else b.kv_idx.long())
+        rows = src[None].expand(R, -1)
+    leaf = r0 + torch.arange(R)[:, None].expand_as(mask)
+    mask = mask & (leaf < n_leaves)
+    return sorted(zip(leaf[mask].tolist(), rows[mask].tolist()))
+
+
+@pytest.mark.parametrize("dp,sp", GRIDS + [(2, 1)])
+@pytest.mark.parametrize("kind", ["paged", "gather", "seq"])
+def test_multi_tree_windows_cover_each_pair_once_and_read_nothing(kind, dp, sp):
+    """The batched engine's multi-tree plans on every rank of the grid:
+    dp windows start inside a tree's leaves (12 leaves, offsets 0, 5, 9),
+    the sp spans split blocks of different trees; the windows together
+    make each visible (leaf, pool row) pair visible once, and cutting them
+    reads no plan array back (DeviceOnly raises on a read)."""
+    trees = multi_trees(np.random.default_rng(11), 20 if kind == "paged" else 3)
+    if kind == "seq":
+        plan = build_multi_seq_plan(trees, q_per_kv=QPK, block_len=128,
+                                    min_token_bucket=256)
+        names = ("seg_src", "seg_off", "seg_live", "blk_live")
+        host = {"live_host": plan.blk_live}
+    else:
+        plan = build_multi_flatten_plan(trees, q_per_kv=QPK, block_len=128,
+                                        min_token_bucket=1024,
+                                        **({} if kind == "paged" else {"seg_len": ()}))
+        names = ("tok_lo", "tok_hi", "blk_lo", "blk_hi",
+                 "seg_src" if kind == "paged" else "kv_idx")
+        host = {"blk_host": (plan.blk_lo, plan.blk_hi)}
+    assert plan.paged == (kind != "gather")
+    assert list(plan.leaf_offsets) == [0, 5, 9] and plan.n_leaves == 12
+    R = plan.l_pad
+    batch = SimpleNamespace(**{n: torch.from_numpy(getattr(plan, n)).as_subclass(DeviceOnly)
+                               for n in names}, **host)
+    got, starts = [], set()
+    for grid in grid_ranks(dp, sp):
+        if kind == "seq":
+            w = seq_engine.seq_window(grid, batch, R)
+        else:
+            w = engine.flatten_window(grid, batch, R, paged=kind == "paged")
+        assert all(isinstance(getattr(w, n), DeviceOnly) for n in names)
+        starts.add(w.r0)
+        got += visible_pairs(kind, w, w.rows, w.r0, plan.seg_len, plan.n_leaves)
+    assert sorted(got) == visible_pairs(kind, batch, R, 0, plan.seg_len, plan.n_leaves)
+    if dp > 1:
+        assert starts - {0, 5, 9}  # a window starts inside a tree's leaves
 
 
 def test_grid_factor_matches_deft_tpu():
