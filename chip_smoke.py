@@ -19,6 +19,8 @@
         # the card, the build and the workloads phase (8 below) alone
     python3 chip_smoke.py --chain-only [--profile]
         # the card, the build and the chain phase (9 below) alone
+    python3 chip_smoke.py --attention-only
+        # the card, the build and the attention phase (4a below) alone
 
 Phases, each fatal on failure (the script then exits non-zero and prints no
 result line):
@@ -86,6 +88,23 @@ result line):
               LOGITS_LIMIT (a dropped block above), greedy ids compared; the
               same at the 8B widths, 4 layers, fp32, where every leaf's
               greedy id must be equal;
+ 4a. attention: the runner's attention estimate (measure_attention's
+              default, on for the card): the main path's workload, flatten
+              and seq, each chained (under set_sync_debug_mode("error"),
+              where the microbench's one wait a bucket goes through
+              runner.bench_wait) then per-step: every step's attn_mem and
+              attn_comp printed (by runs of equal steps: one bucket each),
+              attention_latency and the seq / flatten attention speedup
+              (bench.py's attn_speedup); every attn_comp > 0, attn_mem below
+              STORE_LIMIT_MS, the chained flatten run's host waits those of
+              the main phase's run (no estimate); each mode's attn_comp
+              against torch.profiler's device time of its attention kernels
+              in 4 profiled steps at the same bucket, within ESTIMATE_BAND;
+              then
+              bench.py's shape: the 3b preset at block_len 1024 (prompt
+              4000, width 50): B1 and B2 at that plan against their plain
+              versions (2e-2, live rows), and its flatten and seq runs'
+              estimates and speedup, the paged kernels launched;
   5. int8:    the same weights and workload over an int8 KV cache, flatten
               then seq: B4 and B5 must launch and B1 and B2 must not; the
               first decode step's logits are compared with the bf16 cache's;
@@ -296,6 +315,19 @@ MOE_LAYER_LIMIT = 3e-2
 # (4.018e-1), rounded down
 MOE_STEP_LIMIT = 0.25
 WIDTH, PROMPT_LEN, GEN_LEN = 50, 4000, 64
+# bench.py's BLOCK_LEN (bench.py:51): the block length of the attention
+# phase's 3b plans
+BENCH_BLOCK_LEN = 1024
+# the attention phase: each mode's estimate (attn_comp, the runner's
+# microbench) against torch.profiler's device time of its attention kernels
+# at the same bucket, relative.  Readings on an H100 (PERF.md): 1.060-1.080
+# (flatten), 0.970-0.984 (seq); the band leaves room for the gaps between
+# launches, which the events see and the kernel sums do not, while timing
+# at the host's launch pace (6.4x the device time of a flatten step's
+# attention in the same profile) lands far outside it.  And the most a
+# bf16 step's KV stores (attn_mem) may take, ms
+ESTIMATE_BAND = 0.3
+STORE_LIMIT_MS = 1.0
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # the batch path: four prompts; 40960 KV slots (5.4 GB), because each of the
 # 200 leaves reserves a 128-slot chunk (core/kv_pool.py alloc_for), so the
@@ -2332,17 +2364,21 @@ def phase_merge(dev, shapes):
 
 def make_runner(cfg, params, dev, kv_dtype="inherit", prompt_len=PROMPT_LEN,
                 slots=16384, max_requests=2 * WIDTH, mesh=None, use_tree_index=False,
-                dtype="bfloat16"):
+                dtype="bfloat16", block_len=256, measure_attention=False):
+    """A runner of the main path's settings.  measure_attention is off but
+    in the attention phase (None: the runner's default), so that the other
+    phases' times and profiles stay as they were."""
     from deft_tpu_torch.config import AttentionConfig, EngineConfig
     from deft_tpu_torch.runtime import ModelRunner
 
-    ecfg = EngineConfig(attention=AttentionConfig(block_len=256),
+    ecfg = EngineConfig(attention=AttentionConfig(block_len=block_len),
                         kv_pool_slots=slots, max_requests=max_requests,
                         max_context_len=prompt_len + GEN_LEN + 64, kv_dtype=kv_dtype,
                         dtype=dtype)
     return ModelRunner(cfg, ecfg, device=dev, params=params,
                        topk_k=max(64, WIDTH), retain_full_logits=True, mesh=mesh,
-                       use_tree_index=use_tree_index)
+                       use_tree_index=use_tree_index,
+                       measure_attention=measure_attention)
 
 
 def per_step(fn):
@@ -2535,6 +2571,196 @@ def phase_main(dev, params, profile: bool = False):
     del runner
     release()
     return launches, prompt, ids, lf, runs
+
+
+def estimate_line(tag, run, smi) -> None:
+    """Print a run's attention estimate: attn_mem and attn_comp of every
+    step, by runs of equal steps (each one bucket), and attention_latency."""
+    pm = run["pm"]
+    groups = []
+    for i, mc in enumerate(zip(pm.attn_mem_per_iter, pm.attn_comp_per_iter), 1):
+        if groups and groups[-1][2] == mc:
+            groups[-1][1] = i
+        else:
+            groups.append([i, i, mc])
+    print(f"[attention] {tag}: attention_latency {pm.attention_latency:.3f} ms over "
+          f"{len(pm.attn_comp_per_iter)} steps (attn_is_estimate "
+          f"{pm.attn_is_estimate}), TPOT {pm.TPOT:.4f} ms, e2e {pm.e2e_latency:.1f} ms, "
+          f"host waits {run['waits']}; attn_mem / attn_comp ms a step: "
+          + "; ".join(f"steps {a}-{b} {m:.4f} / {c:.4f}" for a, b, (m, c) in groups)
+          + f"; {smi}", flush=True)
+
+
+def estimate_runs(runner, prompt, tag, smi, paths=("chained", "per-step")):
+    """The main path's workload through tree_generate on `runner`
+    (measure_attention on), flatten then seq, each along `paths`: chained
+    (under set_sync_debug_mode("error"); first, so that each bucket's
+    microbench runs inside it) and per-step.  Checks each run's branches
+    and estimate (attn_is_estimate, every attn_comp > 0, attn_mem below
+    STORE_LIMIT_MS); prints them and the seq / flatten attention speedup.
+    Returns {mode: {path: generate_run's dict}}."""
+    from deft_tpu_torch.control import workloads
+    from deft_tpu_torch.runtime import ForwardMode
+    from deft_tpu_torch.runtime.runner import bench_wait
+
+    out = {}
+    for mode_name, mode in (("flatten", ForwardMode.TREE_DECODE_FLATTEN),
+                            ("seq", ForwardMode.DECODE)):
+        for path in paths:
+            fn = (workloads.simple_tree if path == "chained"
+                  else per_step(workloads.simple_tree))
+            benched = bench_wait.waits
+            with sync_checked(f"{tag} {mode_name} {path}", path == "chained"):
+                run = generate_run(runner, mode, prompt, fn)
+            out.setdefault(mode_name, {})[path] = run
+            pm, seqs = run["pm"], run["seqs"]
+            check(len(seqs) == WIDTH and all(len(x) == GEN_LEN - 1 for x in seqs),
+                  f"{tag} {mode_name} {path}: expected {WIDTH} branches of "
+                  f"{GEN_LEN - 1} tokens")
+            estimate_line(f"{tag} {mode_name} {path} (microbench waits "
+                          f"{bench_wait.waits - benched}, launches {run['launches']})",
+                          run, smi)
+            check(pm.attn_is_estimate and pm.attention_latency > 0
+                  and all(c > 0 for c in pm.attn_comp_per_iter),
+                  f"{tag} {mode_name} {path}: a step without an attention estimate")
+            check(pm.attention_latency <= pm.e2e_latency,
+                  f"{tag} {mode_name} {path}: attention latency above e2e")
+            if runner.k_pool.scale is None:
+                check(max(pm.attn_mem_per_iter) < STORE_LIMIT_MS,
+                      f"{tag} {mode_name} {path}: attn_mem "
+                      f"{max(pm.attn_mem_per_iter):.4f} ms a step, limit {STORE_LIMIT_MS}")
+    for path in paths:
+        f, q = out["flatten"][path]["pm"], out["seq"][path]["pm"]
+        comp = sum(q.attn_comp_per_iter) / sum(f.attn_comp_per_iter)
+        print(f"[attention] {tag} {path}: attention speedup (seq / flatten "
+              f"attention_latency) {q.attention_latency / f.attention_latency:.4f}x "
+              f"({q.attention_latency:.3f} / {f.attention_latency:.3f} ms; attn_comp "
+              f"alone {comp:.4f}x); {smi}", flush=True)
+    return out
+
+
+def estimate_against_profile(runner, mode, prompt, tag, smi, steps=4) -> None:
+    """torch.profiler over `steps` greedy decode steps right after branching
+    (profile_decode), the microbench off: the device ms a step of the
+    mode's attention kernels (the port's, in the deft namespaces: a bf16
+    decode step launches no other) against the runner's estimate at the
+    profiled steps' buckets (attn_comp, measured now where not cached yet),
+    within ESTIMATE_BAND."""
+    from unittest import mock
+
+    from deft_tpu_torch.runtime.runner import plan_sizes
+
+    build = runner.build_plan
+    plans = []
+
+    def recording(m):
+        plans.append(build(m))
+        return plans[-1]
+
+    with (mock.patch.object(runner, "build_plan", recording),
+          mock.patch.object(runner, "measure_attention", False)):
+        kernels, _ = profile_decode(runner, mode, prompt, WIDTH, steps)
+    attn = {k: ms for k, ms in kernels.items() if "deft" in k}
+    est, keys = [], []
+    for plan in plans:
+        paged = runner._use_paged(plan, mode)
+        keys.append((paged, plan_sizes(plan, paged)))
+        est.append(runner._measure_attention_bucket(mode, plan, paged)[1] * 1e3)
+    est_ms, prof_ms = float(np.mean(est)), sum(attn.values())
+    check(prof_ms > 0, f"{tag}: the profiler saw no attention kernel")
+    ratio = est_ms / prof_ms if prof_ms > 0 else float("inf")
+    print(f"[attention] {tag}: estimate attn_comp {est_ms:.4f} ms a step against "
+          f"torch.profiler's attention kernels {prof_ms:.4f} ms a step ("
+          + ", ".join(f"{k.split('(')[0][:60]} {ms:.4f}" for k, ms in attn.items())
+          + f"; {steps} steps, buckets {sorted(set(keys))}): ratio {ratio:.4f} (band 1 +- "
+          f"{ESTIMATE_BAND}); {smi}", flush=True)
+    check(abs(ratio - 1) <= ESTIMATE_BAND,
+          f"{tag}: the estimate {est_ms:.4f} ms is off the profiler's {prof_ms:.4f} ms "
+          f"by more than {ESTIMATE_BAND:.0%}")
+
+
+def bench_shape(dev, smi) -> None:
+    """bench.py's shape (MODEL 3b, BLOCK_LEN 1024, prompt 4000, width 50):
+    B1 and B2 at the plan the runner builds at that block length, on a
+    Simple_Tree tree halfway, against their plain versions (live rows,
+    bf16 tolerance; these launches leave the counts as they were); then the
+    3b runner's flatten and seq runs (chained) with their estimates, the
+    paged kernels launched at every step's paged plan."""
+    import torch
+    from deft_tpu_torch.models import PRESETS
+    from deft_tpu_torch.models.loader import random_params
+    from deft_tpu_torch.runtime.runner import plan_sizes
+
+    cfg = PRESETS["3b"]
+    fns = wrappers()
+    counts = read_counts()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 19)
+    tree = grow_tree(PROMPT_LEN, WIDTH, GEN_LEN // 2, 16384,
+                     np.random.default_rng(SEED + 19))
+    for name in ("paged_flatten", "paged_seq"):
+        plan, args = kernel_case(name, tree, cfg.q_per_kv, cfg.num_kv_heads, cfg.head_dim,
+                                 torch.bfloat16, dev, gen, BENCH_BLOCK_LEN)
+        fn, plain = fns[name]
+        got = fn(*args)
+        torch.cuda.synchronize()
+        want = plain(*args)
+        rows = slice(0, plan.n_leaves)
+        e = rel_err(got[rows], want[rows])
+        print(f"[attention] {name} at block_len {BENCH_BLOCK_LEN} (3b: {cfg.num_q_heads}/"
+              f"{cfg.num_kv_heads} heads x D {cfg.head_dim}, {plan.n_leaves} leaves, "
+              f"plan {plan_sizes(plan, plan.paged)}): rel err {e:.3e}, "
+              f"tol {TOL['bfloat16']:.0e}", flush=True)
+        check(e < TOL["bfloat16"] and bool(torch.isfinite(got[rows]).all()),
+              f"{name} at block_len {BENCH_BLOCK_LEN} disagrees with its plain version: {e}")
+    del tree, args, got, want
+    restore_counts(counts)
+
+    params = random_params(cfg, SEED, dev, torch.bfloat16)
+    runner = make_runner(cfg, params, dev, block_len=BENCH_BLOCK_LEN,
+                         measure_attention=None)
+    runner.retain_full_logits = False
+    runs = estimate_runs(runner, main_prompt(), f"3b block_len {BENCH_BLOCK_LEN}", smi,
+                         paths=("chained",))
+    for mode_name, kernel in (("flatten", "paged_flatten"), ("seq", "paged_seq")):
+        run = runs[mode_name]["chained"]
+        check(run["launches"].get(kernel, 0) > 0 and sum(run["paged"]) > 0,
+              f"3b block_len {BENCH_BLOCK_LEN} {mode_name}: {kernel} never launched "
+              f"(paged at {sum(run['paged'])} of {len(run['paged'])} steps)")
+    del runner, params
+    release()
+
+
+def phase_attention(dev, params, prompt, smi, main_runs=None) -> None:
+    """The runner's attention estimate on the card (phase 4a in the
+    module's notes).  `main_runs`: phase_main's chained runs (no estimate),
+    whose flatten run's host waits the estimated chained run must equal;
+    without them (--attention-only) that run is made here."""
+    from deft_tpu_torch.models import PRESETS
+    from deft_tpu_torch.runtime import ForwardMode
+
+    cfg = PRESETS["8b"]
+    runner = make_runner(cfg, params, dev, measure_attention=None)
+    runner.retain_full_logits = False
+    check(runner.measure_attention, "measure_attention's default is off on the card")
+    if main_runs is None:
+        runner.measure_attention = False
+        with sync_checked("attention control flatten"):
+            main_runs = {"flatten": generate_run(runner, ForwardMode.TREE_DECODE_FLATTEN,
+                                                 prompt)}
+        runner.measure_attention = True
+    runs = estimate_runs(runner, prompt, "main", smi)
+    waits, want = runs["flatten"]["chained"]["waits"], main_runs["flatten"]["waits"]
+    print(f"[attention] main flatten chained: {waits} host waits with the estimate, "
+          f"{want} without (the main phase's run)", flush=True)
+    check(waits == want, f"the estimate changed the chained run's host waits: {waits} "
+          f"against {want}")
+    for mode_name, mode in (("flatten", ForwardMode.TREE_DECODE_FLATTEN),
+                            ("seq", ForwardMode.DECODE)):
+        estimate_against_profile(runner, mode, prompt, f"main {mode_name}", smi)
+    del runner
+    release()
+    bench_shape(dev, smi)
 
 
 def phase_int8(dev, params, prompt, ids, lf_bf16, profile: bool = False):
@@ -6056,16 +6282,19 @@ def main(argv=None) -> int:
                     help="only the card, the build and the chain phase (per-step "
                          "against device-chained decode, phase_chain); prints no "
                          "result line")
+    ap.add_argument("--attention-only", action="store_true",
+                    help="only the card, the build and the attention phase "
+                         "(phase_attention); prints no result line")
     ap.add_argument("--root", default=None,
                     help="with --flatten-only, --seq-only or --prefill-only: import "
                          "deft_tpu_torch from this checkout (a parent commit timed in "
                          "turns with this one)")
     args = ap.parse_args(argv)
     only = (args.flatten_only + args.seq_only + args.prefill_only + args.workloads_only
-            + args.chain_only)
+            + args.chain_only + args.attention_only)
     if only > 1:
-        ap.error("--flatten-only, --seq-only, --prefill-only, --workloads-only and "
-                 "--chain-only are separate runs")
+        ap.error("--flatten-only, --seq-only, --prefill-only, --workloads-only, "
+                 "--chain-only and --attention-only are separate runs")
     if args.root is not None:
         if not (args.flatten_only or args.seq_only or args.prefill_only):
             ap.error("--root goes with --flatten-only, --seq-only or --prefill-only")
@@ -6109,7 +6338,7 @@ def main(argv=None) -> int:
                 phase_seq_only(dev, shapes, edges=args.root is None)
             print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}", flush=True)
             return 0
-        if not (args.workloads_only or args.chain_only):
+        if not (args.workloads_only or args.chain_only or args.attention_only):
             shapes.update(wide_shapes(dev))
             with timed_phase("kernels"):
                 errs = phase_kernels(dev, shapes)
@@ -6118,6 +6347,10 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         print(f"[main] 8b random bf16 weights made on the card in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if args.attention_only:
+            phase_attention(dev, params, main_prompt(), smi)
+            print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}", flush=True)
+            return 0
         if args.workloads_only or args.chain_only:
             phase = phase_workloads if args.workloads_only else phase_chain
             phase(dev, params, main_prompt(), smi, profile=args.profile)
@@ -6125,6 +6358,8 @@ def main(argv=None) -> int:
             return 0
         with timed_phase("main"):
             launches, prompt, ids, lf, main_runs = phase_main(dev, params, args.profile)
+        with timed_phase("attention"):
+            phase_attention(dev, params, prompt, smi, main_runs)
         with timed_phase("checkpoint"):
             phase_checkpoint(dev, params, prompt)
         with timed_phase("int8"):

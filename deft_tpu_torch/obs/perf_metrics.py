@@ -1,7 +1,8 @@
 """Per-iteration latency and analytic IO-byte accounting.
 
 Port of deft_tpu/obs/perf_metrics.py:16 (PerfMetrics), trimmed to what the
-port calls (update_dense_tree_attn_IO :94 among it), with the same JSON
+port calls (update_dense_tree_attn_IO :94 and dump_partial :173 among it),
+with the same JSON
 schema: the dump keeps the reference
 PerfMetrics's keys (DeFT's deft/tree_decoding/perf_metrics.py:62-92), so
 dumps of deft_tpu, of the port and of the reference compare directly.
@@ -11,6 +12,7 @@ Counters are per instance (no class-level state shared across runs).
 from __future__ import annotations
 
 import json
+import os
 from typing import List, Optional
 
 
@@ -24,8 +26,8 @@ class PerfMetrics:
         self.generated_len: int = 0
         self.TTFT: float = 0.0
         self.TPOT: float = 0.0
-        # True when attn_mem/attn_comp are estimates, not per-iteration
-        # timings (deft_tpu's TPU bucket microbench); the port never sets it
+        # True when attn_mem/attn_comp are the runner's per-bucket
+        # microbench estimates (runtime/runner.py), not per-iteration timings
         self.attn_is_estimate: bool = False
         # Analytic IO counters (bytes), same semantics as the reference:
         # KV_IO counts K+V bytes read by attention; Mask_IO counts mask
@@ -156,6 +158,21 @@ class PerfMetrics:
         if self.output_file is not None:
             with open(self.output_file, "w") as f:
                 json.dump(self.as_dict(), f)
+
+    def dump_partial(self) -> None:
+        """The aggregates so far, with ``"partial": true``, written to
+        ``output_file + ".partial"`` atomically (a temporary file, then a
+        rename), so that a run killed mid-write leaves no truncated JSON
+        (deft_tpu perf_metrics.py:173-184).  dump() still writes the
+        output file itself."""
+        if self.output_file is None:
+            return
+        d = self.as_dict()
+        d["partial"] = True
+        tmp = self.output_file + ".partial.tmp"
+        with open(tmp, "w") as f:
+            json.dump(d, f)
+        os.replace(tmp, self.output_file + ".partial")
 
     def print_latency(self) -> str:
         """Human-readable latency summary (reference: tabulated table,

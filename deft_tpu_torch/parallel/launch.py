@@ -11,7 +11,8 @@ ranks are stopped.
 
 ``fn`` must be importable by a spawned child, so worker functions live in
 this package (``run_all``, ``generate_tokens`` in any decode mode,
-``batched_tokens``, ``greedy_waits``, ``first_step``, ``pool_slots``),
+``batched_tokens``, ``greedy_waits``, ``attn_estimates``, ``first_step``,
+``pool_slots``),
 never in a test file or a module that imports jax.
 """
 
@@ -216,6 +217,27 @@ def greedy_waits(grid: Grid, cfg, ecfg, prompt, gen: int, width: int = 3,
                       workloads.simple_tree if chained else per_step))
     return ([tuple(s.token_ids) for s in runner.tree.all_finished_seqs],
             host_wait.waits - start[0], calls)
+
+
+def attn_estimates(grid: Grid, cfg, ecfg, prompt, gen: int, width: int = 3,
+                   mode: str = "flatten", measure_attention=None, seed: int = 0):
+    """Worker: a Simple_Tree tree_generate of ``gen`` tokens with the
+    runner's ``measure_attention``; returns the branches' token ids and, of
+    every rank in rank order, (the bucket keys it measured, its
+    attn_comp_per_iter, attn_mem_per_iter, attn_is_estimate)."""
+    from deft_tpu_torch.control import Branch_Controller, workloads
+    from deft_tpu_torch.runtime import ModelRunner, mode_from_cli, tree_generate
+
+    runner = ModelRunner(cfg, ecfg, device=grid.device, seed=seed, mesh=grid,
+                         measure_attention=measure_attention)
+    pm = tree_generate(runner, mode_from_cli(mode), None, prompt,
+                       max_seq_len=len(prompt) + gen, width=width, depth=1,
+                       branch_controller=Branch_Controller(workloads.simple_tree))
+    mine = (list(runner._attn_bench_cache), pm.attn_comp_per_iter,
+            pm.attn_mem_per_iter, pm.attn_is_estimate)
+    ranks = [None] * grid.size
+    dist.all_gather_object(ranks, mine)
+    return [tuple(s.token_ids) for s in runner.tree.all_finished_seqs], ranks
 
 
 def first_step(grid: Grid, cfg, ecfg, prompt, mode: str = "flatten",

@@ -89,6 +89,13 @@ class Grid:
     def axis_size(self, *axes: str) -> int:
         return math.prod(self.shape[a] for a in axes)
 
+    @property
+    def host_staged(self) -> bool:
+        """True where the grid's collectives on its device's tensors go
+        through the host: CUDA tensors over gloo."""
+        return (self.device.type == "cuda" and dist.is_initialized()
+                and dist.get_backend() == "gloo")
+
     def index(self, axis: str) -> int:
         return self.coords[axis]
 

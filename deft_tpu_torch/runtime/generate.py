@@ -32,6 +32,16 @@ step that waits: a chained step's forward time is its enqueue time, so
 in deft_tpu.  A workload that declares none of the three attributes runs
 every step with host logits (the per-step path).
 
+Each step charges the runner's attention estimate (``last_attn_estimate``,
+runner.py's per-bucket microbench; deft_tpu :676-697) to ``attn_mem`` and
+``attn_comp`` and marks the metrics ``attn_is_estimate``; without one the
+fields take GlobalTimer's ``attn_mem`` / ``attn_comp``, which nothing
+starts, so 0 as in deft_tpu.  On a chained run the microbench runs only
+at a bucket change, and waits there once.
+
+Every 60 s of a long run a progress line goes to stderr and, where the
+metrics have an output file, a ``.partial`` dump (deft_tpu :270-296).
+
 A ``tracer`` (obs/tracing.py) brackets the prefill, each step's alloc and
 plan build, and each decode step with the spans deft_tpu names
 (generate.py:81-88, :106, :540, :587): ``prefill``, ``plan_build`` and
@@ -40,6 +50,7 @@ plan build, and each decode step with the spans deft_tpu names
 
 from __future__ import annotations
 
+import sys
 import time
 from typing import Optional
 
@@ -51,6 +62,8 @@ from deft_tpu_torch.runtime.runner import ModelRunner
 
 # chained steps between two host waits (deft_tpu generate.py:186)
 SYNC_PERIOD = 8
+# seconds between two progress beats (deft_tpu generate.py:278)
+HEARTBEAT_S = 60.0
 
 
 class DeferredSelect:
@@ -171,9 +184,24 @@ def tree_generate(
     # ("sel", view, qsrc), view's top-K ids gathered by leaf -> (row, col)
     chain = None
     it = 0
+    beat = time.perf_counter()
     while not stop and it + 1 < max_gen_len:
         it += 1
-        for name in ("prepare", "branch", "alloc", "tree_metadata"):
+        now = time.perf_counter()
+        if now - beat > HEARTBEAT_S:
+            beat = now
+            print(f"[tree_generate] iter {it}/{max_gen_len} "
+                  f"tokens={model.tree.get_tree_token_number()}",
+                  file=sys.stderr, flush=True)
+            if perf_metrics.output_file is not None:
+                perf_metrics.generated_len = (
+                    model.tree.get_tree_token_number() - prompt_len)
+                perf_metrics.update_decode_latency()
+                perf_metrics.update_attention_latency()
+                perf_metrics.compute_tpot()
+                perf_metrics.dump_partial()
+        for name in ("prepare", "branch", "attn_mem", "attn_comp", "alloc",
+                     "tree_metadata"):
             GlobalTimer.reset(name)
         step_start = time.perf_counter()
         if chain is None and pending:
@@ -270,11 +298,18 @@ def tree_generate(
             if it % SYNC_PERIOD == 0:
                 fwd_t += timed_wait(logits)
         GlobalTimer.stop("branch")
+        attn_est = model.last_attn_estimate
+        if attn_est:
+            perf_metrics.attn_is_estimate = True
         perf_metrics.update(
             iter_time=(time.perf_counter() - step_start) * 1000,
             prepare=GlobalTimer.get("prepare"),
             forward=fwd_t * 1000,
             branch=GlobalTimer.get("branch"),
+            attn_mem=(attn_est[0] * 1000 if attn_est
+                      else GlobalTimer.get("attn_mem")),
+            attn_comp=(attn_est[1] * 1000 if attn_est
+                       else GlobalTimer.get("attn_comp")),
             alloc=GlobalTimer.get("alloc"),
             tree_metadata=GlobalTimer.get("tree_metadata"),
         )

@@ -35,6 +35,14 @@ one exception is deft_tpu's: UNPAGED_MEDUSA is the dense masked-attention
 baseline, plain attention over the plan's kv_idx in both packages
 (deft_tpu runner.py:448-453, its _use_paged excludes the mode at :1293).
 
+``measure_attention`` (deft_tpu runner.py:365-379, :1895-2002): before a
+decode step, outside its timed span, the runner times the step's AttnFn
+and its KV stores alone, once per shape bucket, and keeps the estimate in
+``last_attn_estimate``; tree_generate charges it to the step's
+``attn_mem`` / ``attn_comp``.  On a GPU the estimate is device time (CUDA
+events, a sleep kernel keeping the queue ahead of the device), on the CPU
+host time.
+
 ``ModelRunner(mesh=grid)`` (deft_tpu runner.py:206-317, :420-447, :482) runs
 one rank of a (dp, sp, tp) grid (parallel/): the params and pools are the
 rank's slices, made once; decode attention takes the sharded AttnFns of
@@ -58,9 +66,11 @@ import torch
 from deft_tpu_torch.config import EngineConfig
 from deft_tpu_torch.core import (ReqToTokenPool, TokenKVPool, TreeCache,
                                  TreeIndexPool)
+from deft_tpu_torch.core.kv_pool import DUMP_SLOT
 from deft_tpu_torch.models.config import LlamaConfig
 from deft_tpu_torch.models.llama import (KVPool, RaggedPrefillBatch,
-                                         decode_forward, prefill_forward,
+                                         decode_forward, kv_store,
+                                         prefill_forward,
                                          ragged_prefill_forward)
 from deft_tpu_torch.models.loader import load_params, random_params
 from deft_tpu_torch.models.rope import rope_table
@@ -120,6 +130,107 @@ def host_wait(event: Optional[torch.cuda.Event]) -> None:
 
 
 host_wait.waits = 0
+
+
+def bench_wait(event: torch.cuda.Event) -> None:
+    """The attention microbench's wait for its last event, once a shape
+    bucket: like host_wait, with torch's sync debug mode lowered, but
+    counted apart (``bench_wait.waits``), so that ``host_wait.waits`` keeps
+    counting the decode path's own waits."""
+    bench_wait.waits += 1
+    with sync_check_lowered():
+        event.synchronize()
+
+
+bench_wait.waits = 0
+
+# the microbench's rep counts (deft_tpu runner.py:1939): a quantity's cost
+# a step is (t(REPS_HI) - t(REPS_LO)) / (REPS_HI - REPS_LO), each t the best
+# of two, so the constant cost of a timed call cancels
+REPS_LO, REPS_HI = 4, 36
+# clock cycles a second that the sleep kernel ahead of a timed rep assumes:
+# the H100's 1.98 GHz boost clock rounded up (a slower clock sleeps longer)
+SLEEP_HZ = 2e9
+# the longest sleep ahead of one rep (0.1 s): a rep whose enqueueing
+# outlasts it is timed as it is
+MAX_SLEEP_CYCLES = int(0.1 * SLEEP_HZ)
+
+
+def rep_seconds(quantities, device: torch.device, retry: bool = True) -> list:
+    """Seconds that one call of each function in ``quantities`` (one decode
+    step's worth of a quantity) costs, by deft_tpu's two-point difference,
+    after REPS_LO calls of each to warm up.  On the CPU each rep count is
+    timed on the host clock, as deft_tpu times it there.  On a GPU every
+    rep is timed alone by CUDA events behind a sleep kernel twice as long
+    as the host's quickest enqueueing of a rep so far, so that the device
+    finds the whole rep queued when it starts it, and the events time its
+    work and not the host's launch pace (an eager 8B step leaves the
+    device idle most of the time).  A rep whose start event had passed
+    before the host finished enqueueing it is timed again, and every later
+    rep sleeps twice as long; ``retry=False`` (a grid's ranks, whose
+    collectives need the same calls on every rank) times it as it is.
+    The host waits once, for the last event (bench_wait)."""
+    counts = (REPS_LO, REPS_LO, REPS_HI, REPS_HI)
+    quickest = []  # per quantity: the host's quickest enqueueing of a rep
+    for run_rep in quantities:  # warm-up, as deft_tpu's compile call
+        best = float("inf")
+        for _ in range(REPS_LO):
+            t0 = time.perf_counter()
+            run_rep()
+            best = min(best, time.perf_counter() - t0)
+        quickest.append(best)
+    if device.type != "cuda":
+        totals = []
+        for run_rep in quantities:
+            t = []
+            for n in counts:
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    run_rep()
+                t.append(time.perf_counter() - t0)
+            totals.append(t)
+    else:
+        events = []  # per quantity and count: its reps' (start, end) events
+        for run_rep, best in zip(quantities, quickest):
+            boost = 2.0
+            for n in counts:
+                reps = []
+                while len(reps) < n:
+                    cycles = min(int(boost * best * SLEEP_HZ) + 1, MAX_SLEEP_CYCLES)
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    torch.cuda._sleep(cycles)
+                    start.record()
+                    t0 = time.perf_counter()
+                    run_rep()
+                    best = min(best, time.perf_counter() - t0)
+                    end.record()
+                    if retry and start.query() and cycles < MAX_SLEEP_CYCLES:
+                        boost *= 2  # the device caught up: time it again
+                        continue
+                    reps.append((start, end))
+                events.append(reps)
+        bench_wait(events[-1][-1][1])
+        with sync_check_lowered():
+            ms = [sum(a.elapsed_time(b) for a, b in reps) for reps in events]
+        totals = [[x / 1e3 for x in ms[i:i + len(counts)]]
+                  for i in range(0, len(ms), len(counts))]
+    return [max(min(t[2], t[3]) - min(t[0], t[1]), 0.0) / (REPS_HI - REPS_LO)
+            for t in totals]
+
+
+def plan_sizes(plan, paged: bool) -> tuple:
+    """The shape of a step's plan arrays, as deft_tpu's _pack_plan builds
+    it in its non-compact form (runner.py:1745-1795): the attention
+    microbench's bucket key, with the plan kind and the layout."""
+    if isinstance(plan, SeqPlan):
+        if paged:
+            nb = len(plan.blk_live) // plan.l_pad
+            return (plan.l_pad, len(plan.seg_src) // plan.l_pad, nb,
+                    plan.c_pad // nb, plan.seg_len)
+        return (plan.l_pad, plan.c_pad)
+    tail = plan.seg_src if paged else plan.kv_idx
+    return (plan.l_pad, plan.t_pad, plan.num_blocks, len(tail))
 
 
 class CopyOrder:
@@ -249,10 +360,15 @@ class ModelRunner:
         retain_full_logits: bool = False,
         mesh=None,
         use_tree_index: bool = False,
+        measure_attention: Optional[bool] = None,
     ):
         """``params``: the port's parameter dict; else ``model_path``: a
         local HF checkpoint (models/loader.py load_params); else random
-        weights from ``seed``."""
+        weights from ``seed``.  ``measure_attention``: time each shape
+        bucket's attention (see the module's notes); None is on for a GPU
+        and off on the CPU, as deft_tpu is on for its TPU only, and off on
+        a grid whose collectives gloo stages through the host (several
+        ranks on one card), where the reps would time the staging."""
         self.cfg = model_config
         self.ecfg = engine_config
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
@@ -332,6 +448,15 @@ class ModelRunner:
             if use_tree_index else None)
         self.tree = TreeCache(self.token_to_kv_pool, self.req_to_token_pool,
                               self.tree_index_pool)
+
+        if measure_attention is None:
+            measure_attention = self.device.type == "cuda" and not (
+                self.mesh is not None and self.mesh.host_staged)
+        self.measure_attention = measure_attention
+        # (plan kind, paged, plan_sizes) -> (store_s, attn_s)
+        self._attn_bench_cache: Dict[tuple, tuple] = {}
+        # (store_s, attn_s) of the last decode step's bucket; None unmeasured
+        self.last_attn_estimate: Optional[tuple] = None
 
     # -- sizing ------------------------------------------------------------------
     def _kv_cell_bytes(self) -> int:
@@ -607,6 +732,54 @@ class ModelRunner:
             dev["live_host"] = plan.blk_live
         return SimpleNamespace(**dev, block_len=block_len, seg_len=plan.seg_len)
 
+    def _measure_attention_bucket(self, mode: ForwardMode, plan,
+                                  paged: bool) -> tuple:
+        """(store_s, attn_s) a decode step for this plan's shape bucket
+        (deft_tpu runner.py:1895-2002), cached by (plan kind, paged,
+        plan_sizes): the step's AttnFn over every layer, on the step's plan
+        arrays and deft_tpu's deterministic filler q / k_new / v_new, and
+        the K and V kv_store of every layer into DUMP_SLOT (over int8 pools
+        its scale too, which is reserved as well), so no live row or scale
+        changes.  A grid's AttnFn runs with its collectives, on the rank's
+        heads.  Both are timed by rep_seconds, which waits once."""
+        key = (mode.plan_kind, paged, plan_sizes(plan, paged))
+        hit = self._attn_bench_cache.get(key)
+        if hit is not None:
+            return hit
+        attn = self._attn_fn(mode, paged)
+        batch = self._step_batch(plan, paged)
+        R, D, dev = plan.l_pad, self.cfg.head_dim, self.device
+        hq = self.params["wo"].shape[-2] // D  # the rank's heads on a grid
+        hkv = self.k_pool.data.shape[-1] // D
+
+        def filler(*shape):  # deft_tpu's arange % 7 / 7, made on the device
+            n = int(np.prod(shape))
+            x = torch.arange(n, dtype=torch.float64, device=dev) % 7 / 7.0
+            return x.reshape(shape).to(self.dtype)
+
+        q, k_new, v_new = filler(R, hq, D), filler(R, hkv, D), filler(R, hkv, D)
+        dump = torch.full((R,), DUMP_SLOT, dtype=torch.long, device=dev)
+        scale = D ** -0.5
+        layers = range(self.cfg.num_layers)
+
+        def attn_rep():
+            for li in layers:
+                attn(q, k_new, v_new, self.k_pool, self.v_pool, li, batch, scale)
+
+        def store_rep():
+            for li in layers:
+                kv_store(self.k_pool, li, dump, k_new)
+                kv_store(self.v_pool, li, dump, v_new)
+
+        t0 = time.perf_counter()
+        attn_s, store_s = rep_seconds((attn_rep, store_rep), dev,
+                                      retry=self.mesh is None)
+        self._attn_bench_cache[key] = result = (store_s, attn_s)
+        logger.info("attn microbench %s: store %.3f ms, attn %.3f ms a step "
+                    "(measured in %.2f s)", key, store_s * 1e3, attn_s * 1e3,
+                    time.perf_counter() - t0)
+        return result
+
     def forward_tree_decode(self, mode: ForwardMode, plan,
                             q_tokens_override: Optional[torch.Tensor] = None,
                             q_select=None, block: bool = True,
@@ -627,12 +800,16 @@ class ModelRunner:
         logits_kind: "topk" (softmax + top-K), "greedy" (top-1 only) or
         "skip" (no lm_head product; an (R, 1) view of zeros, for steps that
         read no logits).  retain_full_logits turns "skip" into "topk"
-        (deft_tpu runner.py:2033-2036)."""
+        (deft_tpu runner.py:2033-2036).  With measure_attention, the plan's
+        bucket is measured before the timed span (last_attn_estimate)."""
         paged = self._use_paged(plan, mode)
         attn = self._attn_fn(mode, paged)
         if logits_kind == "skip" and self.retain_full_logits:
             logits_kind = "topk"
         self.apply_kv_copies()  # merge compactions land before the step
+        self.last_attn_estimate = (
+            self._measure_attention_bucket(mode, plan, paged)
+            if self.measure_attention else None)
         t0 = time.perf_counter()
         batch = self._step_batch(plan, paged, q_tokens_override, q_select)
         out = decode_forward(self.cfg, self.params, self._rope_tbl, self.k_pool,
