@@ -209,18 +209,39 @@ result line):
               a fault control above it (in every layer sp rank 1's state,
               the prompt's end and the leaves' tokens, left out of the
               merge); the live plan tokens of each sp rank, each at least a
-              quarter of them; greedy ids against the main path's,
-              TTFT and TPOT (four processes sharing one card: no statement
-              on several cards' speed); then the batch path's four requests
+              quarter of them; 16 decode tokens a mode (SHARDED_GEN; the
+              main path runs 63), their greedy ids against the main path's
+              first 16, TTFT and TPOT (four processes sharing one card: no
+              statement on several cards' speed); the prefill's 4000 tokens
+              split over sp; then the batch path's four requests
               through BatchedEngine, flatten then seq: B8 on every rank's
               heads at admission, its last-token logits against the batch
               path's admission below LOGITS_LIMIT (the vocab join left out
               above it), B1p or B11 and B2p on every rank, no single-device
               decode kernel; then an int8 KV cache (B4p, B5p; 8 decode
               tokens, its first step against the int8 path's); then grid
-              2x1x2 over the 16-token prompt: flatten (B11 with dp 2),
-              node, tree_index and Medusa; every grid run, admission and
+              2x1x2 over the 16-token prompt, 16 decode tokens a mode:
+              flatten (B11 with dp 2), node, tree_index and Medusa; every
+              grid run, admission and
               prefill included, under set_sync_debug_mode("error");
+ 13a. sharded-dp: the 8B at 32 layers on grid 2x1x2 (DP_GRID: dp 2, tp
+              2), the main prompt at width 50, each rank running its dp
+              window of the plan's 64 rows (32: the 50 leaves and 14 pad
+              rows, as deft_tpu's specs cut the padded batch) through
+              every layer: the
+              rows each rank sends through wqkv and wgu at the prefill and
+              a decode step, the collectives a step and a prefill
+              (Grid.staged) against the count the code gives for this
+              layout and for the replicated one it replaced, the first
+              step's ms and logits against the main path's below
+              LOGITS_LIMIT (the dp join of the logits left out above it),
+              then 8 decode tokens flatten then seq under
+              set_sync_debug_mode("error"): B1p / B2p on every rank, no
+              single-card decode kernel, greedy ids against the main
+              path's, peak memory a rank; then the same grid over
+              int8-pallas weights, flatten: B9 129 times a decode step on
+              every rank at 32 rows, the first step against the int8w
+              path's below LOGITS_LIMIT;
  14. sharded-moe: mixtral-6l on grid 1x2x2 (4 experts a rank): B10 on every
               rank's prefill, its last-token logits against the moe path's
               below MOE_LIMIT, then 8 decode tokens under
@@ -379,6 +400,12 @@ PARTIAL_OF = {"paged_flatten_partial": "paged_flatten",
 # the 16-token prompt's (B11) has dp 2
 SHARDED_GRID = (1, 2, 2)
 SHORT_GRID = (2, 1, 2)
+# the 8B's main workload with its rows over dp (dp 2, tp 2)
+DP_GRID = (2, 1, 2)
+# tokens a branch of grid 1x2x2's main runs and of SHORT_GRID's runs (16
+# decode steps, where the single card's paths run 63: the grids share the
+# script's time with DP_GRID's path)
+SHARDED_GEN = 17
 # the wgmma bodies, whose C entries encode TMA tensor maps on the host per call
 TMA_KERNELS = ("prefill", "ragged_prefill", "gmm", "gmm_scaled")
 # the launch counter of a wrapper that counts two kernels (ops/gmm.py)
@@ -747,6 +774,7 @@ def window_case(name, plan, args, grid):
     parallel/seq_engine.py).  Returns (args, live leaves of the window)."""
     from types import SimpleNamespace
 
+    import torch
     from deft_tpu_torch.parallel import engine, seq_engine
 
     kind, _, layout = KERNELS[name][2:]
@@ -768,7 +796,10 @@ def window_case(name, plan, args, grid):
         w = seq_engine.seq_window(grid, b, R)
     a.update((k, v) for k, v in vars(w).items()
              if k in a or (k == "row_tiles" and k in params and v is not None))
-    a["q"] = engine.window_rows(a["q"], w.rows * grid.axis_size("dp"), w.r0, w.rows)
+    q = a["q"]  # the rank's dp window of the rows, zero rows past the last
+    q = torch.cat([q, q.new_zeros((w.rows * grid.axis_size("dp") - q.shape[0],)
+                                  + q.shape[1:])])
+    a["q"] = q[w.r0:w.r0 + w.rows]
     return tuple(a.values()), max(0, min(w.rows, plan.n_leaves - w.r0))
 
 
@@ -2364,7 +2395,8 @@ def phase_merge(dev, shapes):
 
 def make_runner(cfg, params, dev, kv_dtype="inherit", prompt_len=PROMPT_LEN,
                 slots=16384, max_requests=2 * WIDTH, mesh=None, use_tree_index=False,
-                dtype="bfloat16", block_len=256, measure_attention=False):
+                dtype="bfloat16", block_len=256, measure_attention=False,
+                weight_dtype="inherit"):
     """A runner of the main path's settings.  measure_attention is off but
     in the attention phase (None: the runner's default), so that the other
     phases' times and profiles stay as they were."""
@@ -2374,7 +2406,7 @@ def make_runner(cfg, params, dev, kv_dtype="inherit", prompt_len=PROMPT_LEN,
     ecfg = EngineConfig(attention=AttentionConfig(block_len=block_len),
                         kv_pool_slots=slots, max_requests=max_requests,
                         max_context_len=prompt_len + GEN_LEN + 64, kv_dtype=kv_dtype,
-                        dtype=dtype)
+                        dtype=dtype, weight_dtype=weight_dtype)
     return ModelRunner(cfg, ecfg, device=dev, params=params,
                        topk_k=max(64, WIDTH), retain_full_logits=True, mesh=mesh,
                        use_tree_index=use_tree_index,
@@ -3285,8 +3317,13 @@ def phase_workloads(dev, params, prompt, smi, profile: bool = False):
     unpaged modes, Medusa among them, then node over int8 KV; W7 four
     Speculative_Decoding requests through BatchedEngine.  Returns the
     launches of every run, summed, and {tag: workload_pair's dict} of W1,
-    W2 and W4 (the chain phase's chained runs)."""
+    W2 and W4 (the chain phase's chained runs), and of W3 and W4 the
+    flatten run's gather plan halfway through its gather steps, beside its
+    slots, gather steps and B6 launches (workload_gather_cases)."""
     import functools
+    from unittest import mock
+
+    from deft_tpu_torch.plan.flatten import FlattenPlan
 
     from deft_tpu_torch.control import workloads
     from deft_tpu_torch.data import generate_accepted_len_list
@@ -3302,6 +3339,30 @@ def phase_workloads(dev, params, prompt, smi, profile: bool = False):
     def add(run):
         for k, n in run["launches"].items():
             total[k] = total.get(k, 0) + n
+
+    gathers, plans = {}, []
+
+    def keeping_gathers():
+        """runner.build_plan keeping each flatten gather plan, by step."""
+        build, step = runner.build_plan, [0]
+        plans.clear()
+
+        def keep(m):
+            plan = build(m)
+            step[0] += 1
+            if m is flatten and isinstance(plan, FlattenPlan) and not plan.paged:
+                plans.append((step[0], plan))
+            return plan
+        return mock.patch.object(runner, "build_plan", keep)
+
+    def gather_case(tag, runs):
+        b6 = runs["flatten"]["launches"].get("flatten_gather", 0)
+        if not plans:  # a workload whose plans all came out segment-aligned
+            print(f"[workloads] {tag} flatten: no gather plan, {b6} B6 launches",
+                  flush=True)
+            return
+        step, plan = plans[len(plans) // 2]
+        gathers[tag] = (step, plan, runner.token_to_kv_pool.size, len(plans), b6)
 
     runner = make_runner(cfg, params, dev, slots=BATCH_SLOTS, max_requests=WL_REQUESTS,
                          use_tree_index=True)
@@ -3338,7 +3399,9 @@ def phase_workloads(dev, params, prompt, smi, profile: bool = False):
               "expected the prefill's alone")
 
     # W3: beam search, width 50
-    runs = workload_pair(runner, prompt, "W3 beam", workloads.beam_search, None, smi)
+    with keeping_gathers():
+        runs = workload_pair(runner, prompt, "W3 beam", workloads.beam_search, None, smi)
+    gather_case("W3 beam", runs)
     for m, r in runs.items():
         add(r)
         check(all(n == WIDTH for n in r["leaves"]) and len(r["seqs"]) == WIDTH,
@@ -3346,9 +3409,11 @@ def phase_workloads(dev, params, prompt, smi, profile: bool = False):
               f"{len(r['seqs'])} finished")
 
     # W4: random tree, seed 0
-    runs = chained["W4 random"] = workload_pair(runner, prompt, "W4 random",
-                                                workloads.random_tree, None, smi,
-                                                sync_check=True)
+    with keeping_gathers():
+        runs = chained["W4 random"] = workload_pair(runner, prompt, "W4 random",
+                                                    workloads.random_tree, None, smi,
+                                                    sync_check=True)
+    gather_case("W4 random", runs)
     for r in runs.values():
         add(r)
     lens = {m: sorted(len(x) for x in r["seqs"]) for m, r in runs.items()}
@@ -3438,7 +3503,35 @@ def phase_workloads(dev, params, prompt, smi, profile: bool = False):
     add({"launches": phase_batch_spec(dev, params, spec, smi)})
     print(f"[workloads] launches during the workloads phase (every run): {total}",
           flush=True)
-    return total, chained
+    return total, chained, gathers
+
+
+def workload_gather_cases(dev, gathers, shapes) -> None:
+    """B6 (flatten_gather, bf16 pools) at the W3 and W4 gather plans that
+    phase_workloads kept, the 8B's heads (Hq 32, Hkv 8, D 128), random q and
+    pools of the runner's slots: checked against its plain version on the
+    live rows, then added to `shapes` for the timing phase's rows."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    fn, plain = wrappers()["flatten_gather"]
+    for tag, (step, plan, slots, steps, b6) in gathers.items():
+        args = plan_args("flatten_gather", plan, slots, 4, 8, 128, torch.bfloat16, dev,
+                         gen, "inherit")
+        got = fn(*args)
+        torch.cuda.synchronize()
+        want = plain(*args)
+        live = slice(0, plan.n_leaves)
+        e = rel_err(got[live], want[live])
+        label = f"{tag}, step {step} of prompt {PROMPT_LEN}"
+        print(f"[kernels] flatten_gather {label} ({plan.n_leaves} leaves, {plan.n_tokens} "
+              f"plan tokens, {plan.num_blocks} blocks; the flatten run's {steps} gather "
+              f"steps launched B6 {b6} times): rel err {e:.3e}, tol "
+              f"{TOL['bfloat16']:.0e}", flush=True)
+        check(e < TOL["bfloat16"] and bool(torch.isfinite(got[live]).all()),
+              f"flatten_gather {label} disagrees with its plain version: {e}")
+        shapes["flatten_gather"].append((label, plan, args))
 
 
 def phase_batch_spec(dev, params, spec, smi):
@@ -3751,7 +3844,9 @@ def phase_chain(dev, params, prompt, smi, chained=None, profile: bool = False):
 def phase_int8w(dev, prompt, ids, main_runs):
     """The main path's workload over int8 weights made on the card
     (weight_dtype "int8-pallas"): B9 launches 129 times a decode step, and
-    the first step agrees with the same codes and scales under "int8"."""
+    the first step agrees with the same codes and scales under "int8".
+    Returns the path's launches and its first step's logits (B9's), for
+    the 2x1x2 grid's int8-weight run."""
     import torch
     from deft_tpu_torch.models import PRESETS
     from deft_tpu_torch.models.loader import random_params
@@ -3810,9 +3905,10 @@ def phase_int8w(dev, prompt, ids, main_runs):
               f"weights' {m.TTFT:.3f} / {m.TPOT:.4f} ms (main path, this run)",
               flush=True)
     print(f"[int8w] launches during the int8-weight path: {launches}", flush=True)
-    del runner, params, expr
+    first = logits["int8-pallas"].cpu()
+    del runner, params, expr, logits
     release()
-    return launches
+    return launches, first
 
 
 def dense_sum_scaled(cfg, lp, h):
@@ -4287,7 +4383,8 @@ def sharded_rank(grid, prompt, ids, prompts):
     the prompt's end and the leaves' tokens), flatten then seq over 64
     tokens; then the batch path's four `prompts` through BatchedEngine
     (rank_batch); then an int8 KV cache: its first step and 8 decode tokens
-    a mode."""
+    a mode.  The collectives gloo staged in the bf16 prefill and first step
+    are gathered from every rank."""
     import contextlib
     from unittest import mock
 
@@ -4315,7 +4412,9 @@ def sharded_rank(grid, prompt, ids, prompts):
         out[f"{kv} setup s"] = time.perf_counter() - t0
         out[f"{kv} weights GB"] = sum(t.numel() * t.element_size()
                                       for t in runner.params.values()) / 1e9
+        staged = grid.staged
         first_step(runner, prompt, ids)
+        prefill_staged = grid.staged - staged
         plan = runner.build_plan(flatten)
         out[f"{kv} first paged"] = plan.paged
         # live plan tokens in each sp rank's window, cut by the engine
@@ -4328,14 +4427,18 @@ def sharded_rank(grid, prompt, ids, prompts):
         for name, fault in (("first", None), ("first, sp rank 1 dropped", drop_sp_rank_1)):
             if kv == "int8" and fault is not None:
                 continue
+            staged = grid.staged
             with (mock.patch.object(engine, "lse_merge", fault) if fault
                   else contextlib.nullcontext()):
                 v, _ = runner.forward_tree_decode(flatten, plan)
             out[f"{kv} {name}"] = v.full_logits()[:WIDTH].float().cpu()
+            if fault is None and kv == "inherit":
+                out["collectives"] = rank_counts_of(
+                    grid, {"prefill": prefill_staged, "decode": grid.staged - staged})
         runner.reset_state()
         runner.retain_full_logits = False
         out[f"{kv} runs"] = rank_generate(grid, runner, prompt,
-                                          GEN_LEN if kv == "inherit" else 9,
+                                          SHARDED_GEN if kv == "inherit" else 9,
                                           ("flatten", "seq"))
         out[f"{kv} peak GB"] = torch.cuda.max_memory_allocated(grid.device) / 1e9
         del runner
@@ -4367,7 +4470,7 @@ def sharded_short_rank(grid):
         runner = make_runner(cfg, None, grid.device, prompt_len=len(prompt), mesh=grid,
                              use_tree_index=index)
         runner.retain_full_logits = False
-        out.update(rank_generate(grid, runner, prompt, GEN_LEN, modes))
+        out.update(rank_generate(grid, runner, prompt, SHARDED_GEN, modes))
         del runner
         release()
     return out
@@ -4392,6 +4495,64 @@ def sharded_moe_rank(grid):
     runner.retain_full_logits = False
     return dict(logits=logits, prefill=counts,
                 runs=rank_generate(grid, runner, prompt, 9, ("flatten",)))
+
+
+def layout_collectives(shape, step: str, layers: int, dp_rows: bool = True) -> int:
+    """The collectives one forward of a rank makes on a (dp, sp, tp) grid,
+    counted from the code: the tp sums after wo and wdown (2 a layer), at a
+    decode step the sp merge (a MAX and a SUM a layer) and the dp join (of
+    the new K/V rows a layer, and of the top-K once, with the rows over dp;
+    of o a layer in the parent's layout, dp_rows=False), at a prefill with
+    the tokens over sp the q/k/v join a layer and the last-token logits'
+    sum over sp; the vocab join of the lm_head over tp once."""
+    dp, sp, tp = shape
+    n = 2 * layers * (tp > 1) + (tp > 1)
+    if step == "decode":
+        return n + 2 * layers * (sp > 1) + (layers + dp_rows) * (dp > 1)
+    return n + (layers + 1) * (sp > 1 and dp_rows)
+
+
+def sharded_dp_rank(grid, prompt, ids, weight_dtype, modes):
+    """The 8B at 32 layers on one rank of DP_GRID, weights `weight_dtype`:
+    the main prompt's prefill and first decode step (the rank's rows through
+    the dense layers, models/llama.py forward_layers.last_rows, and the
+    collectives gloo staged, each counted around that forward; the step's
+    launches and ms; its logits, every row joined over dp), then 8 decode
+    tokens in each of `modes` (rank_generate, under sync_checked).  Every
+    rank's readings are gathered."""
+    import torch
+    from deft_tpu_torch.models import PRESETS
+    from deft_tpu_torch.models.llama import forward_layers
+    from deft_tpu_torch.runtime import ForwardMode
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, flatten = PRESETS["8b"], ForwardMode.TREE_DECODE_FLATTEN
+    t0 = time.perf_counter()
+    runner = make_runner(cfg, None, grid.device, mesh=grid, weight_dtype=weight_dtype)
+    torch.cuda.synchronize()
+    mine = {"setup s": time.perf_counter() - t0,
+            "weights GB": sum(t.numel() * t.element_size()
+                              for t in runner.params.values()) / 1e9}
+    staged = grid.staged
+    first_step(runner, prompt, ids)
+    mine.update({"prefill rows": forward_layers.last_rows,
+                 "prefill collectives": grid.staged - staged})
+    plan = runner.build_plan(flatten)
+    staged = grid.staged
+    reset_counts()
+    view, secs = runner.forward_tree_decode(flatten, plan)
+    mine.update({"step rows": forward_layers.last_rows, "step ms": secs * 1e3,
+                 "step collectives": grid.staged - staged, "step launches": read_counts(),
+                 "leaves": plan.n_leaves, "l_pad": plan.l_pad})
+    out = {"first": view.full_logits()[:WIDTH].float().cpu()}
+    runner.reset_state()
+    runner.retain_full_logits = False
+    out["runs"] = rank_generate(grid, runner, prompt, 9, modes)
+    mine["peak GB"] = torch.cuda.max_memory_allocated(grid.device) / 1e9
+    out["ranks"] = rank_counts_of(grid, mine)
+    del runner
+    release()
+    return out
 
 
 def run_grid(fn, shape, args=()):
@@ -4446,6 +4607,17 @@ def phase_sharded(prompt, ids, lf, lq, main_runs, batch_runs):
           f"span left out of every merge {readings['first, sp rank 1 dropped']:.3e} "
           f"(limit {LOGITS_LIMIT:.0e}); int8 KV against the int8 path's "
           f"{readings['int8 first']:.3e}", flush=True)
+    from deft_tpu_torch.models import PRESETS
+
+    L = PRESETS["8b"].num_layers
+    print(f"[sharded] collectives gloo staged by rank: the prefill (its 4000 tokens "
+          f"over sp) {[c['prefill'] for c in out['collectives']]}, the first decode step "
+          f"{[c['decode'] for c in out['collectives']]} (the code's count: prefill "
+          f"{layout_collectives(SHARDED_GRID, 'prefill', L)} on the ranks holding the "
+          f"last token, one fewer on the others, decode "
+          f"{layout_collectives(SHARDED_GRID, 'decode', L)}; the parent's replicated "
+          f"rows: {layout_collectives(SHARDED_GRID, 'prefill', L, dp_rows=False)} / "
+          f"{layout_collectives(SHARDED_GRID, 'decode', L, dp_rows=False)})", flush=True)
     # the check covers every span only if every span holds a real share
     check(min(by_sp) >= 0.25 * sum(by_sp),
           f"an sp span holds under a quarter of the live tokens: {by_sp}")
@@ -4456,7 +4628,7 @@ def phase_sharded(prompt, ids, lf, lq, main_runs, batch_runs):
     check(readings["int8 first"] < LOGITS_LIMIT,
           f"sharded int8 first-step logits stray: {readings['int8 first']}")
     launches = {}
-    for kv, gen in (("inherit", GEN_LEN - 1), ("int8", 8)):
+    for kv, gen in (("inherit", SHARDED_GEN - 1), ("int8", 8)):
         for mode, r in out[f"{kv} runs"].items():
             check(len(r["seqs"]) == WIDTH and all(len(x) == gen for x in r["seqs"]),
                   f"sharded {kv} {mode}: expected {WIDTH} branches of {gen} tokens")
@@ -4584,7 +4756,7 @@ def sharded_batch(out, batch_runs, launches) -> None:
 
 def sharded_modes(runs, launches) -> None:
     """Check and print the short grid's node, tree_index and Medusa runs:
-    WIDTH branches of GEN_LEN - 1 tokens each, as the short path checks its
+    WIDTH branches of SHARDED_GEN - 1 tokens each, as the short path checks its
     runs; node and tree_index through B1p or B11 on every rank, Medusa
     through no decode kernel (the dense baseline); no single-device decode
     kernel; greedy ids against the grid's flatten run.  Rank 0's partial
@@ -4599,8 +4771,9 @@ def sharded_modes(runs, launches) -> None:
               f"plans paged at {sum(r['paged'])} of {len(r['paged'])} steps, greedy ids "
               f"equal to flatten's at {same:.4f} of positions; launches by rank "
               f"{[{k: n for k, n in c.items() if n} for c in r['counts']]}", flush=True)
-        check(len(r["seqs"]) == WIDTH and all(len(x) == GEN_LEN - 1 for x in r["seqs"]),
-              f"sharded short {mode}: expected {WIDTH} branches of {GEN_LEN - 1} tokens")
+        check(len(r["seqs"]) == WIDTH and all(len(x) == SHARDED_GEN - 1 for x in r["seqs"]),
+              f"sharded short {mode}: expected {WIDTH} branches of {SHARDED_GEN - 1} "
+              "tokens")
         for c in r["counts"]:
             check(all(c[k] == 0 for k in SINGLE_DECODE + ("seq_gather",)),
                   f"sharded short {mode}: a single-device decode kernel launched: {c}")
@@ -4638,6 +4811,101 @@ def phase_sharded_moe(moe_logits):
     check(len(run["seqs"]) == WIDTH and all(len(x) == 8 for x in run["seqs"]),
           "sharded-moe: expected 50 branches of 8 tokens")
     return out["prefill"][0]
+
+
+def phase_sharded_dp(prompt, ids, lf, lw, main_runs):
+    """The 8B on DP_GRID, four ranks on the one card over gloo: each dp rank
+    runs its window of the plan's rows (64 for the 50 leaves: 32 a rank)
+    through every layer, as deft_tpu's batch specs lay a decode step out
+    (parallel/sharding.py).
+    bf16 weights: the rows at the prefill and a decode step, the
+    collectives against layout_collectives' counts (this layout's, and the
+    replicated one's of the parent), the first step's logits against the
+    main path's `lf` below LOGITS_LIMIT and, with the other dp window's rows
+    left out (what rank 0 holds without the join), above it; 8 tokens
+    flatten then seq: B1p / B2p and B3 on every rank, no single-card decode
+    kernel, greedy ids against `main_runs`.  int8-pallas weights, flatten:
+    B9 129 times a decode step on every rank, the first step against the
+    int8w path's `lw`.  Returns rank 0's launches of the runs."""
+    from deft_tpu_torch.models import PRESETS
+
+    L = PRESETS["8b"].num_layers
+    dp = DP_GRID[0]
+    launches = {}
+    for wdt, modes, want_first in (("inherit", ("flatten", "seq"), lf),
+                                   ("int8-pallas", ("flatten",), lw)):
+        t0 = time.perf_counter()
+        out = run_grid(sharded_dp_rank, DP_GRID, (prompt, ids, wdt, modes))
+        wall = time.perf_counter() - t0
+        tag = f"[sharded-dp] grid {DP_GRID}, {wdt} weights"
+        ranks = out["ranks"]
+        got = out["first"]
+        unjoined = got.clone()
+        unjoined[ranks[0]["l_pad"] // dp:] = 0  # what rank 0 holds without the dp join
+        err, err_fault = rel_l2(got, want_first), rel_l2(unjoined, want_first)
+        want = {step: layout_collectives(DP_GRID, step, L) for step in ("prefill", "decode")}
+        parent = {step: layout_collectives(DP_GRID, step, L, dp_rows=False)
+                  for step in ("prefill", "decode")}
+        r0 = ranks[0]
+        rows = r0["l_pad"] // dp  # the plan's rows (the leaves and its pad rows) over dp
+        print(f"{tag}: {r0['weights GB']:.2f} GB of weights a rank, set-up "
+              f"{r0['setup s']:.1f} s, peak {[round(r['peak GB'], 2) for r in ranks]} GB by "
+              f"rank; whole launch {wall:.1f} s", flush=True)
+        print(f"{tag}: rows through wqkv and wgu by rank: prefill "
+              f"{[r['prefill rows'] for r in ranks]}, a decode step "
+              f"{[r['step rows'] for r in ranks]} ({r0['leaves']} leaves, plan "
+              f"{r0['l_pad']} rows); collectives gloo staged by rank: prefill "
+              f"{[r['prefill collectives'] for r in ranks]}, the first decode step "
+              f"{[r['step collectives'] for r in ranks]} (the code's count: {want['prefill']} "
+              f"/ {want['decode']}; the parent's replicated rows: {parent['prefill']} / "
+              f"{parent['decode']}); first step {[round(r['step ms'], 3) for r in ranks]} ms "
+              f"by rank (four ranks sharing one card); its launches by rank "
+              f"{[{k: n for k, n in r['step launches'].items() if n} for r in ranks]}",
+              flush=True)
+        print(f"{tag}: first decode step's logits against the single card's "
+              f"({'main' if wdt == 'inherit' else 'int8w'} path), relative L2 {err:.3e}, "
+              f"with the other dp window's rows left out {err_fault:.3e} (limit "
+              f"{LOGITS_LIMIT:.0e})", flush=True)
+        check(tuple(got.shape) == tuple(want_first.shape) and bool(got.isfinite().all()),
+              f"{tag}: first-step logits {tuple(got.shape)} not finite or not "
+              f"{tuple(want_first.shape)}")
+        check(err < LOGITS_LIMIT, f"{tag}: first-step logits stray: {err}")
+        check(err_fault > LOGITS_LIMIT,
+              f"{tag}: the dp join left out stays under the limit: {err_fault}")
+        for r in ranks:
+            check(r["step rows"] == rows and r["prefill rows"] == PROMPT_LEN,
+                  f"{tag}: a rank ran {r['prefill rows']} prefill rows and "
+                  f"{r['step rows']} decode rows, not {PROMPT_LEN} and {rows}")
+            check(r["prefill collectives"] == want["prefill"]
+                  and r["step collectives"] == want["decode"],
+                  f"{tag}: collectives {r['prefill collectives']} / "
+                  f"{r['step collectives']}, the code says {want}")
+            if wdt != "inherit":
+                per_step = 4 * L + 1
+                check(r["step launches"].get("int8_matmul", 0) == per_step,
+                      f"{tag}: B9 launched {r['step launches'].get('int8_matmul', 0)} "
+                      f"times in a decode step, not {per_step}")
+        for mode, run in out["runs"].items():
+            check(len(run["seqs"]) == WIDTH and all(len(x) == 8 for x in run["seqs"]),
+                  f"{tag} {mode}: expected {WIDTH} branches of 8 tokens")
+            share = np.mean([a == b for x, y in zip(run["seqs"], main_runs[mode]["seqs"])
+                             for a, b in zip(x, y)])
+            print(f"{tag} {mode}: TTFT {run['TTFT']:.3f} ms, TPOT {run['TPOT']:.4f} ms "
+                  f"(four ranks sharing one card), plans paged at {sum(run['paged'])} of "
+                  f"{len(run['paged'])} steps, greedy ids equal to the main path's at "
+                  f"{share:.4f} of positions; under set_sync_debug_mode('error'); "
+                  f"launches by rank "
+                  f"{[{k: n for k, n in c.items() if n} for c in run['counts']]}", flush=True)
+            want_k = "paged_flatten_partial" if mode == "flatten" else "paged_seq_partial"
+            for c in run["counts"]:
+                check(all(c[k] == 0 for k in SINGLE_DECODE + ("seq_gather",)),
+                      f"{tag} {mode}: a single-card decode kernel launched: {c}")
+                check(c["prefill"] > 0 and c[want_k] > 0,
+                      f"{tag} {mode}: B3 or {want_k} did not launch: {c}")
+            for k, n in run["counts"][0].items():
+                if k in PARTIAL_OF or k == "int8_matmul":
+                    launches[k] = launches.get(k, 0) + n
+    return launches
 
 
 # -- checkpoint and restore, model families, tracing ---------------------------------
@@ -6375,7 +6643,9 @@ def main(argv=None) -> int:
         launches["ragged_prefill"] = batch["ragged_prefill"]
         launches["flatten_gather"] += batch["flatten_gather"]  # its multi-tree gather steps
         with timed_phase("workloads"):
-            wl, wl_chained = phase_workloads(dev, params, prompt, smi, args.profile)
+            wl, wl_chained, wl_gathers = phase_workloads(dev, params, prompt, smi,
+                                                         args.profile)
+            workload_gather_cases(dev, wl_gathers, shapes)
         for k in ("flatten_gather", "seq_gather"):  # their driven gather plans
             launches[k] += wl.get(k, 0)
         with timed_phase("chain"):
@@ -6384,8 +6654,8 @@ def main(argv=None) -> int:
         del params
         release()
         with timed_phase("int8w"):
-            launches["int8_matmul"] = phase_int8w(dev, prompt, ids,
-                                                  main_runs)["int8_matmul"]
+            int8w_launches, lw = phase_int8w(dev, prompt, ids, main_runs)
+        launches["int8_matmul"] = int8w_launches["int8_matmul"]
         with timed_phase("moe"):
             moe_launches, moe_runs, moe_logits = phase_moe(dev, smi, args.profile)
         launches["gmm"] = moe_launches["gmm"]
@@ -6396,6 +6666,10 @@ def main(argv=None) -> int:
             sharded = phase_sharded(prompt, ids, lf, lq, main_runs, batch_runs)
         launches.update({k: v for k, v in sharded.items() if k in PARTIAL_OF})
         launches["ragged_prefill"] += sharded["ragged_prefill"]  # rank 0's, on its heads
+        with timed_phase("sharded-dp"):
+            dp_launches = phase_sharded_dp(prompt, ids, lf, lw, main_runs)
+        for k, n in dp_launches.items():
+            launches[k] = launches.get(k, 0) + n
         with timed_phase("sharded-moe"):
             phase_sharded_moe(moe_logits)
         with timed_phase("families"):

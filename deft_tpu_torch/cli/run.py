@@ -19,7 +19,8 @@ continuous-batching engine, deft_tpu :270-296), --device cuda|cpu (default
 cuda; a missing GPU raises), and the multi-device engine (deft_tpu :84-90,
 :141-167, :213-216): --mesh DPxSPxTP|auto starts dp*sp*tp ranks on this host
 (parallel/launch.py) and runs the generation on the grid (every --mode and
---mem, and --batch N), --multihost makes this
+--mem, and --batch N; a decode step's rows over dp, a prefill's tokens over
+sp, as deft_tpu's batch specs lay them out), --multihost makes this
 process one rank of a torchrun job (its environment names the group),
 --dist-backend nccl|gloo (default nccl on cuda, gloo on cpu; nccl refuses
 two ranks on one card); --trace-dir DIR writes a torch.profiler Chrome

@@ -9,9 +9,10 @@ decode_forward (:420), prefill_forward (:456) and ragged_prefill_forward
 (:488), with every family deft_tpu runs: Gemma's (1 + w) norms in fp32
 (gemma_rms_norm :167), its embedding scale and GeGLU (_act_fn :177), the
 Qwen2 qkv bias and the Qwen3 per-head q/k norms (:332-375).  The forwards
-take a
-``shard`` (parallel/engine.py ShardedModel) to run one rank of a (dp, sp,
-tp) grid on its slices of the parameters; the MoE routes' pieces
+take a ``shard`` (parallel/engine.py ShardedModel) to run one rank of a
+(dp, sp, tp) grid on its slices of the parameters and its window of the
+step's rows (a decode step's leaves over dp, a prefill's tokens over sp:
+deft_tpu parallel/sharding.py:121-162); the MoE routes' pieces
 (routing_weights, moe_dense_sum, top_k_routes, moe_grouped_sum) serve the
 grid's expert-parallel block (parallel/moe.py) too.
 
@@ -302,7 +303,7 @@ def forward_layers(cfg: LlamaConfig, params: Dict[str, torch.Tensor],
                    rope_tbl: torch.Tensor, k_pool: KVPool, v_pool: KVPool,
                    tokens: torch.Tensor, positions: torch.Tensor,
                    out_loc: torch.Tensor, attn: AttnFn, batch,
-                   shard=None) -> torch.Tensor:
+                   shard=None, rows=None) -> torch.Tensor:
     """Embed, run every decoder layer (writing each layer's new K/V into the
     pools before its attention reads them), final norm; returns (n, E).
     A MoE layer takes the grouped-matmul route when the token count passes
@@ -313,7 +314,15 @@ def forward_layers(cfg: LlamaConfig, params: Dict[str, torch.Tensor],
     params hold the rank's slices, so its head and MLP widths are read off
     ``wo`` and ``wqkv``; the row-parallel ``wo`` and ``wdown`` products are
     summed over tp (``shard.reduce_tp``) and a MoE layer runs
-    ``shard.moe``.
+    ``shard.moe``.  ``rows`` (parallel/sharding.py RowWindow) is the
+    rank's window of the step's rows: ``tokens`` and ``positions`` are that
+    window's, ``out_loc`` every row's, and the result the window's rows.
+    Over dp (a decode step) each layer joins the windows' new K/V rows
+    before the store, and attention takes and returns the rank's q rows;
+    over sp (a prefill) it joins q, k and v, attention runs over every
+    token, and the rank keeps its rows of o.  Without ``rows`` every rank
+    runs every row.  ``forward_layers.last_rows`` keeps the rows of the
+    last call.
 
     Families (deft_tpu llama.py:331-375): Gemma scales the embedding by
     sqrt(hidden) rounded to the model dtype and takes gemma_rms_norm; the
@@ -333,6 +342,7 @@ def forward_layers(cfg: LlamaConfig, params: Dict[str, torch.Tensor],
     scale = D ** -0.5
     eps = cfg.rms_norm_eps
     reduce = shard.reduce_tp if shard is not None else (lambda y: y)
+    forward_layers.last_rows = n
     for li in range(cfg.num_layers):
         lp = layer_params(params, li)
         h = norm(x, lp["ln1"], eps)
@@ -347,14 +357,22 @@ def forward_layers(cfg: LlamaConfig, params: Dict[str, torch.Tensor],
             k = rms_norm(k, lp["ln_k"], eps)
         qk = apply_rope(torch.cat([q, k], dim=1), positions, rope_tbl)
         q, k = qk[:, :hq], qk[:, hq:]
+        if rows is not None and rows.axis == "dp":
+            kv = rows.join(torch.cat([k, v], dim=1))
+            k, v = kv[:, :hkv], kv[:, hkv:]
+        elif rows is not None:
+            qkv = rows.join(torch.cat([q, k, v], dim=1))
+            q, k, v = qkv[:, :hq], qkv[:, hq:hq + hkv], qkv[:, hq + hkv:]
         kv_store(k_pool, li, out_loc, k)
         kv_store(v_pool, li, out_loc, v)
         o = attn(q, k, v, k_pool, v_pool, li, batch, scale)
+        if rows is not None and rows.axis == "sp":
+            o = rows.take(o)
         x = x + reduce(mm(o.reshape(n, -1).to(x.dtype), lp, "wo"))
         h = norm(x, lp["ln2"], eps)
         if cfg.num_experts > 0:
             if shard is not None:
-                x = x + shard.moe(cfg, lp, h)
+                x = x + shard.moe(cfg, lp, h, rows)
             elif _moe_gmm_ok(cfg, n):
                 x = x + _moe_mlp_gmm(cfg, lp, h)
             else:
@@ -365,6 +383,11 @@ def forward_layers(cfg: LlamaConfig, params: Dict[str, torch.Tensor],
         g, u = gu[:, :I], gu[:, I:]
         x = x + reduce(mm(act(g.float()).to(x.dtype) * u, lp, "wdown"))
     return norm(x, params["ln_f"], eps)
+
+
+# the rows the last forward ran through each layer's dense products (wqkv,
+# wo, the MLP's wgu and wdown): a grid rank's window, or every row
+forward_layers.last_rows = 0
 
 
 def lm_head(params, x: torch.Tensor, shard=None) -> torch.Tensor:
@@ -379,14 +402,18 @@ def decode_forward(cfg: LlamaConfig, params, rope_tbl, k_pool: KVPool,
                    v_pool: KVPool, batch, attn: AttnFn, shard=None,
                    compute_logits: bool = True) -> torch.Tensor:
     """One tree-decode step over ``batch`` (q_tokens, q_pos, out_loc and the
-    attention plan's arrays); returns (R, V) fp32 logits.
+    attention plan's arrays); returns (R, V) fp32 logits.  On a grid the
+    batch's ``dp_rows`` is the rank's window of the R rows, q_tokens and
+    q_pos are its rows, and the logits are its rows' (the runner joins
+    their top-K).
 
     compute_logits=False (deft_tpu llama.py:433-452) skips the lm_head
     product and returns the final hidden state (R, E): steps whose tokens
     are fixed ahead (a speculative accept schedule) need only the KV the
     step writes."""
     x = forward_layers(cfg, params, rope_tbl, k_pool, v_pool, batch.q_tokens,
-                       batch.q_pos, batch.out_loc, attn, batch, shard)
+                       batch.q_pos, batch.out_loc, attn, batch, shard,
+                       getattr(batch, "dp_rows", None))
     if not compute_logits:
         return x
     return lm_head(params, x, shard)
@@ -397,11 +424,25 @@ def prefill_forward(cfg: LlamaConfig, params, rope_tbl, k_pool: KVPool,
                     attn: AttnFn, shard=None) -> torch.Tensor:
     """Prefill one prompt (positions 0..n-1); returns the last token's (V,)
     fp32 logits.  ``attn`` is causal attention over the in-flight
-    projections (the pool rows are written, not re-read)."""
-    positions = torch.arange(tokens.shape[0], device=tokens.device)
-    x = forward_layers(cfg, params, rope_tbl, k_pool, v_pool, tokens,
-                       positions, out_loc, attn, None, shard)
-    return lm_head(params, x[-1:], shard)[0]
+    projections (the pool rows are written, not re-read).  On a grid a
+    rank runs its sp window of the tokens (``shard.prefill_rows``); the
+    ranks holding the last token make its logits, and the others' zeros
+    are summed with them over sp."""
+    N = tokens.shape[0]
+    positions = torch.arange(N, device=tokens.device)
+    if shard is None:
+        x = forward_layers(cfg, params, rope_tbl, k_pool, v_pool, tokens,
+                           positions, out_loc, attn, None)
+        return lm_head(params, x[-1:])[0]
+    rows = shard.prefill_rows(N)
+    x = forward_layers(cfg, params, rope_tbl, k_pool, v_pool, rows.take(tokens),
+                       rows.take(positions), out_loc, attn, None, shard, rows)
+    last = N - 1 - rows.r0  # the last token's row in this window
+    if 0 <= last < rows.rows:
+        logits = lm_head(params, x[last:last + 1], shard)
+    else:
+        logits = torch.zeros((1, cfg.vocab_size), dtype=torch.float32, device=x.device)
+    return rows.reduce(logits)[0]
 
 
 def ragged_prefill_forward(cfg: LlamaConfig, params, rope_tbl, k_pool: KVPool,

@@ -27,6 +27,12 @@ dequantised in fp32) behind the AttnFn interface, and
 ``flatten_attn_xla``: UNPAGED_MEDUSA, the dense masked-attention baseline,
 which is this same plain attention in deft_tpu (runner.py:448-453), not a
 kernel's stand-in.
+
+On a grid (a batch with ``dp_rows``, the rank's window of the step's rows)
+q holds the window's rows and the entries return them: the runner cuts a
+gather seq plan's paths and seq_lens to the window, so ``seq_gather_attn``
+runs B7 on it as it is, and ``flatten_attn_xla`` shifts the plan's leaf
+intervals into it.
 """
 
 from __future__ import annotations
@@ -93,11 +99,15 @@ def seq_gather_attn(q, k_new, v_new, k_pool, v_pool, li, batch, scale):
 def flatten_attn_xla(q, k_new, v_new, k_pool, v_pool, li, batch, scale):
     """deft_tpu attn_impls.py:24: the tree KV gathered through kv_idx, then
     dense masked attention; B6's plain version behind the AttnFn
-    interface."""
-    return flatten_attention_plain(
-        q, k_pool.data, v_pool.data, li, batch.kv_idx, batch.tok_lo,
-        batch.tok_hi, batch.blk_lo, batch.blk_hi, scale, k_pool.scale,
-        v_pool.scale)
+    interface.  On a dp window the leaf intervals are shifted by its first
+    row: row r of q is leaf r0 + r (the FULL sentinel stays far below the
+    kernels' threshold, and no leaf of a pad row exists)."""
+    ivs = (batch.tok_lo, batch.tok_hi, batch.blk_lo, batch.blk_hi)
+    rows = getattr(batch, "dp_rows", None)
+    if rows is not None and rows.r0:
+        ivs = tuple(x - rows.r0 for x in ivs)
+    return flatten_attention_plain(q, k_pool.data, v_pool.data, li, batch.kv_idx,
+                                   *ivs, scale, k_pool.scale, v_pool.scale)
 
 
 def seq_attn_xla(q, k_new, v_new, k_pool, v_pool, li, batch, scale):

@@ -1,16 +1,22 @@
 """The multi-device engine: one tree over a (dp, sp, tp) grid of ranks.
 
 Port of deft_tpu/parallel/ over torch.distributed (mesh, multihost,
-sharding, engine, seq_engine, moe), plus ``launch``, which starts the
+sharding, engine, seq_engine, moe; the exports of deft_tpu/parallel/
+__init__.py:9-27 under the port's names), plus ``launch``, which starts the
 ranks of a grid on one host, and ``dryrun_multichip``, the analogue of
 deft_tpu's __graft_entry__.py:76-122.
 """
 
 from __future__ import annotations
 
+from deft_tpu_torch.parallel.engine import make_sharded_tree_attn
 from deft_tpu_torch.parallel.launch import generate_tokens, launch
 from deft_tpu_torch.parallel.mesh import Grid, _factor, make_mesh
 from deft_tpu_torch.parallel.multihost import init_runtime, is_primary, make_pod_mesh
+from deft_tpu_torch.parallel.seq_engine import make_sharded_seq_attn
+from deft_tpu_torch.parallel.sharding import (RowWindow, batch_shardings, param_shardings,
+                                              pool_specs, row_window, shard_batch,
+                                              shard_decode_args, shard_params, shard_pool)
 
 def dryrun_multichip(n_devices: int, device: str = "cuda", backend=None) -> None:
     """Full multi-device generation dryrun: an n-rank (dp, sp, tp) grid
@@ -36,5 +42,7 @@ def dryrun_multichip(n_devices: int, device: str = "cuda", backend=None) -> None
     assert all(paged), "the dryrun's plans were not segment-aligned (no paged kernel)"
 
 
-__all__ = ["Grid", "dryrun_multichip", "init_runtime", "is_primary", "launch",
-           "make_mesh", "make_pod_mesh"]
+__all__ = ["Grid", "RowWindow", "batch_shardings", "dryrun_multichip", "init_runtime",
+           "is_primary", "launch", "make_mesh", "make_pod_mesh", "make_sharded_seq_attn",
+           "make_sharded_tree_attn", "param_shardings", "pool_specs", "row_window",
+           "shard_batch", "shard_decode_args", "shard_params", "shard_pool"]

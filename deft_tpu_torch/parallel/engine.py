@@ -15,10 +15,11 @@ window, run the rank's partial kernel and merge the ranks' states:
   stay exactly-once) and computes the partial (acc, m, l); ``lse_merge``
   recovers the exact softmax over the sp group;
 - ``dp``: the query rows (leaves) are padded to a multiple of dp and each
-  rank takes one window; leaf intervals are global leaf indices, so they
-  are shifted into the window (``shift_window``), and blocks outside it are
-  marked empty so the kernel skips them before any read.  The row windows
-  are joined after the merge.
+  rank holds one window of them through the whole step (parallel/
+  sharding.py ``RowWindow``, the batch's ``dp_rows``): its q rows come in,
+  and only its rows of o go out; leaf intervals are global leaf indices,
+  so they are shifted into the window (``shift_window``), and blocks
+  outside it are marked empty so the kernel skips them before any read.
 
 Per rank the kernels are the partial entries: B1p (paged plans) or B4p
 (paged plans over int8 pools), and B11 where the plan is not
@@ -29,14 +30,17 @@ heads, with no collective.
 
 Every collective is an all_reduce, so gloo with several ranks on one card
 runs the code NCCL runs with a card per rank: the sp merge is one MAX and
-one SUM over a packed [l, acc] buffer; row windows (dp) and vocab blocks
-(tp) are joined exactly by summing zero-padded buffers in which each rank
+one SUM over a packed [l, acc] buffer; row windows and vocab blocks (tp)
+are joined exactly by summing zero-padded buffers in which each rank
 wrote its own block.
 
-``ShardedModel`` holds the model's own collectives (tp sums after ``wo``
+``ShardedModel`` holds the model's own collectives: tp sums after ``wo``
 and ``wdown``, the vocab join of ``lm_head``, the MoE block of
-parallel/moe.py); the dense compute outside attention runs every row on
-every rank, which is exact (dp splits rows inside attention only).
+parallel/moe.py, and the join of each window's top-K (or, where the
+runner keeps them, its logits) over dp, so that every rank branches the
+same way.  A rank runs its row window through every dense layer
+(models/llama.py ``forward_layers``): the K/V rows of all windows are
+joined before the store, as every rank's pools hold every slot.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ from deft_tpu_torch.ops.paged_flatten_attn import (paged_flatten_attention_parti
 from deft_tpu_torch.ops.paged_quant import paged_flatten_attention_q_partial
 from deft_tpu_torch.ops.sharded_flatten import flatten_attention_partial
 from deft_tpu_torch.parallel.mesh import Grid
+from deft_tpu_torch.parallel.sharding import RowWindow, row_window
 
 EMPTY_LO = 2 ** 30  # an empty leaf interval is [EMPTY_LO, 0)
 
@@ -62,14 +67,6 @@ def _pad_to(x: torch.Tensor, n: int, value: int = 0) -> torch.Tensor:
     pad = torch.full((n - x.shape[0],) + x.shape[1:], value, dtype=x.dtype,
                      device=x.device)
     return torch.cat([x, pad])
-
-
-def row_window(grid: Grid, R: int):
-    """(R_pad, rows a dp window, first row of this rank's window)."""
-    dp = grid.axis_size("dp")
-    R_pad = -(-R // dp) * dp
-    rows = R_pad // dp
-    return R_pad, rows, grid.index("dp") * rows
 
 
 def shift_window(r0: int, rows: int, blo: torch.Tensor, bhi: torch.Tensor):
@@ -104,7 +101,8 @@ def host_window(grid: Grid, blk_lo: np.ndarray, blk_hi: np.ndarray, R: int, bloc
     B_pad = -(-B // sp) * sp
     span = B_pad // sp
     b0 = grid.index("sp") * span
-    _, rows, r0 = row_window(grid, R)
+    w = row_window(grid, "dp", R)
+    rows, r0 = w.rows, w.r0
     win = SimpleNamespace(B=B, B_pad=B_pad, span=span, b0=b0, rows=rows, r0=r0,
                           row_tiles=None)
     if qpk is not None:
@@ -158,11 +156,6 @@ def flatten_window(grid: Grid, batch, R: int, paged: bool,
     return win
 
 
-def window_rows(x: torch.Tensor, R_pad: int, r0: int, rows: int) -> torch.Tensor:
-    """Rows [r0, r0 + rows) of x padded with zero rows to R_pad."""
-    return _pad_to(x, R_pad)[r0:r0 + rows]
-
-
 def lse_merge(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
               reduce: Callable) -> torch.Tensor:
     """The exact softmax from the ranks' unnormalised states (acc (..., D);
@@ -183,18 +176,6 @@ def sp_reduce(grid: Grid) -> Callable:
     return lambda t, op: grid.all_reduce(t, "sp", op)
 
 
-def join_rows(grid: Grid, o: torch.Tensor, R: int, r0: int) -> torch.Tensor:
-    """The (R, ...) rows from every rank's window o (rows, ...): each rank
-    writes its window into a zero buffer, summed over dp (exact)."""
-    if grid.axis_size("dp") == 1:
-        return o[:R]
-    rows = o.shape[0]
-    buf = torch.zeros((rows * grid.axis_size("dp"),) + o.shape[1:], dtype=o.dtype,
-                      device=o.device)
-    buf[r0:r0 + rows] = o
-    return grid.all_reduce(buf, "dp")[:R]
-
-
 def _cached(fn: Callable) -> Callable:
     """fn(batch, *args) computed once a step: the layers of one step share
     the batch, and the window of its plan."""
@@ -208,52 +189,66 @@ def _cached(fn: Callable) -> Callable:
 
 
 def make_sharded_tree_attn(grid: Grid, paged: bool):
-    """AttnFn for flatten plans on the grid: the rank's partial kernel over
-    its window (B1p / B4p for paged plans, B11 otherwise), the LSE merge
-    over sp, the dp row windows joined.  B11 takes its window's row tiles,
-    counted on the host (``host_window``), for its span rule; paged windows
-    keep q_spans.  Matches the single-device flatten AttnFns exactly
+    """AttnFn for flatten plans on the grid: q holds the rank's dp window of
+    rows (batch.dp_rows); the rank's partial kernel over its window (B1p /
+    B4p for paged plans, B11 otherwise), the LSE merge over sp; returns the
+    window's rows.  B11 takes its window's row tiles, counted on the host
+    (``host_window``), for its span rule; paged windows keep q_spans.
+    Matches the single-device flatten AttnFns exactly
     (tests/test_torch_parallel.py)."""
     window = _cached(lambda batch, R, qpk: flatten_window(grid, batch, R, paged, qpk))
 
     def attn(q, k_new, v_new, k_pool, v_pool, li, batch, scale):
-        R = q.shape[0]
-        w = window(batch, R, q.shape[1] // (k_pool.data.shape[-1] // q.shape[-1]))
-        R_pad = w.rows * grid.axis_size("dp")
-        ql = window_rows(q, R_pad, w.r0, w.rows)
+        w = window(batch, batch.dp_rows.n,
+                   q.shape[1] // (k_pool.data.shape[-1] // q.shape[-1]))
         if paged and k_pool.quantized:
             acc, m, l = paged_flatten_attention_q_partial(
-                ql, k_pool.data, v_pool.data, k_pool.scale, v_pool.scale, li,
+                q, k_pool.data, v_pool.data, k_pool.scale, v_pool.scale, li,
                 w.seg_src, w.tok_lo, w.tok_hi, w.blk_lo, w.blk_hi, scale,
                 w.block_len, w.seg_len)
         elif paged:
             acc, m, l = paged_flatten_attention_partial(
-                ql, k_pool.data, v_pool.data, li, w.seg_src, w.tok_lo, w.tok_hi,
+                q, k_pool.data, v_pool.data, li, w.seg_src, w.tok_lo, w.tok_hi,
                 w.blk_lo, w.blk_hi, scale, w.block_len, w.seg_len)
         else:
             acc, m, l = flatten_attention_partial(
-                ql, k_pool.data, v_pool.data, li, w.kv_idx, w.tok_lo, w.tok_hi,
+                q, k_pool.data, v_pool.data, li, w.kv_idx, w.tok_lo, w.tok_hi,
                 w.blk_lo, w.blk_hi, scale, k_pool.scale, v_pool.scale,
                 row_tiles=w.row_tiles)
-        o = unfold_rows(lse_merge(acc, m, l, sp_reduce(grid)), w.rows)
-        return join_rows(grid, o.to(q.dtype), R, w.r0)
+        return unfold_rows(lse_merge(acc, m, l, sp_reduce(grid)), w.rows).to(q.dtype)
 
     return attn
 
 
 class ShardedModel:
     """The model's collectives on a grid, which models/llama.py's forwards
-    call where a rank holds a slice: ``reduce_tp`` after the row-parallel
-    ``wo`` and ``wdown`` (summed in fp32, then cast), ``join_vocab`` for
-    the vocab-sharded ``lm_head`` (every rank then holds the same logits,
-    so every rank branches the same way), and ``moe`` for a MoE layer
-    (parallel/moe.py)."""
+    and the runner call where a rank holds a slice: ``reduce_tp`` after the
+    row-parallel ``wo`` and ``wdown`` (summed in fp32, then cast),
+    ``join_vocab`` for the vocab-sharded ``lm_head``, ``moe`` for a MoE
+    layer (parallel/moe.py), ``prefill_rows`` for the rank's window of a
+    prefill's tokens, and ``join_topk`` for a decode step's windows'
+    top-K, after which every rank holds the same top-K of every row, so
+    every rank branches the same way."""
 
     def __init__(self, grid: Grid):
         from deft_tpu_torch.parallel.moe import make_sharded_moe
 
         self.grid = grid
         self.moe = make_sharded_moe(grid)
+
+    def prefill_rows(self, N: int) -> RowWindow:
+        """The rank's window of a prefill's N tokens (sp)."""
+        return row_window(self.grid, "sp", N)
+
+    @staticmethod
+    def join_topk(rows: RowWindow, vals: torch.Tensor, ids: torch.Tensor) -> tuple:
+        """Every row's (vals fp32, ids int32) top-K from the windows' (rows,
+        K) ones, in one int32 join: vals travel as their bits, and an
+        integer sum of one value and zeros is that value."""
+        K = vals.shape[-1]
+        packed = rows.join(torch.cat([vals.float().contiguous().view(torch.int32),
+                                      ids.to(torch.int32)], dim=-1))
+        return packed[:, :K].contiguous().view(torch.float32), packed[:, K:]
 
     def reduce_tp(self, y: torch.Tensor) -> torch.Tensor:
         if self.grid.axis_size("tp") == 1:

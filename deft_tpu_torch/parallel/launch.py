@@ -12,7 +12,7 @@ ranks are stopped.
 ``fn`` must be importable by a spawned child, so worker functions live in
 this package (``run_all``, ``generate_tokens`` in any decode mode,
 ``batched_tokens``, ``greedy_waits``, ``attn_estimates``, ``first_step``,
-``pool_slots``),
+``pool_slots``, ``spec_step``, ``counted_rows``),
 never in a test file or a module that imports jax.
 """
 
@@ -27,6 +27,7 @@ import time
 import traceback
 from typing import Callable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
@@ -267,4 +268,81 @@ def pool_slots(grid: Grid, cfg, ecfgs, seed: int = 0) -> list:
     runner = _runner(grid, cfg, ecfgs[grid.rank], seed)
     out = [None] * grid.size
     dist.all_gather_object(out, runner.token_to_kv_pool.size)
+    return out
+
+
+def spec_step(grid: Grid, cfg, params, pools, parts, n: int, route: str,
+              seg_len: int = 0):
+    """Worker: one decode step laid out by deft_tpu's batch specs: the whole
+    numpy ``params`` (the port's fused names) and ``pools`` ((k, v), (L, S,
+    Hkv*D) fp32) and a step's numpy plan ``parts`` over n rows (``seg_len``
+    its segment length), placed on the rank by parallel/sharding.py
+    shard_decode_args, then models/llama.py
+    decode_forward through the route's AttnFn: "flatten" (a paged flatten
+    plan: B1p), "seq" (a paged seq plan: B2p) or "seq gather" (B7 on the
+    rank's rows).  Returns the step's fp32 logits (the windows joined over
+    dp) and, of every rank in rank order, its rows through the dense
+    layers and its (k, v) pool slices after the step."""
+    from types import SimpleNamespace
+
+    from deft_tpu_torch.models.llama import KVPool, decode_forward, forward_layers
+    from deft_tpu_torch.models.rope import rope_table
+    from deft_tpu_torch.ops import attn_impls
+    from deft_tpu_torch.parallel.engine import ShardedModel, make_sharded_tree_attn
+    from deft_tpu_torch.parallel.seq_engine import make_sharded_seq_attn
+    from deft_tpu_torch.parallel.sharding import shard_decode_args
+
+    whole = {k: torch.from_numpy(v) for k, v in params.items()}
+    p, k_pool, v_pool, local, rows = shard_decode_args(
+        grid, whole, KVPool(torch.from_numpy(pools[0])), KVPool(torch.from_numpy(pools[1])),
+        parts, cfg, n)
+    batch = SimpleNamespace(**{k: torch.from_numpy(np.asarray(v, np.int32))
+                               for k, v in local.items()}, dp_rows=rows, seg_len=seg_len)
+    batch.out_loc = batch.out_loc.long()
+    if route == "flatten":
+        attn = make_sharded_tree_attn(grid, paged=True)
+        batch.blk_host = (parts["blk_lo"], parts["blk_hi"])
+        batch.block_len = len(parts["tok_lo"]) // len(parts["blk_lo"])
+    elif route == "seq":
+        attn = make_sharded_seq_attn(grid)
+        batch.live_host = parts["blk_live"]
+    else:
+        attn = attn_impls.seq_gather_attn
+    rope = torch.from_numpy(rope_table(cfg.head_dim, 2048, cfg.rope_theta, cfg.rope_scaling,
+                                       orig_max_pos=cfg.max_position_embeddings))
+    logits = decode_forward(cfg, p, rope, k_pool, v_pool, batch, attn, ShardedModel(grid))
+    mine = (forward_layers.last_rows, k_pool.data.numpy(), v_pool.data.numpy())
+    ranks = [None] * grid.size
+    dist.all_gather_object(ranks, mine)
+    return rows.join(logits).numpy(), ranks
+
+
+def counted_rows(grid: Grid, cfg, ecfg, prompts, width: int = 5, seed: int = 0):
+    """Worker: the rows this runner's rank sends through the dense layers
+    (models/llama.py forward_layers.last_rows) at the prefill of
+    prompts[0], at the first decode step of ``width`` leaves after it, and
+    at the ragged prefill of all ``prompts``; every rank's, in rank order,
+    with the decode step's plan.l_pad."""
+    from deft_tpu_torch.models.llama import forward_layers
+    from deft_tpu_torch.runtime import ForwardMode
+
+    runner = _runner(grid, cfg, ecfg, seed)
+    runner.forward_prefill(prompts[0])
+    prefill = forward_layers.last_rows
+    tree = runner.tree
+    for i, c in enumerate(tree.branch(tree.root, width)):
+        c.append_token(100 + i)
+    tree.alloc()
+    plan = runner.build_plan(ForwardMode.TREE_DECODE_FLATTEN)
+    runner.forward_tree_decode(ForwardMode.TREE_DECODE_FLATTEN, plan)
+    decode = forward_layers.last_rows
+    runner.reset_state()
+    from deft_tpu_torch.core import TreeCache
+
+    trees = [TreeCache(runner.token_to_kv_pool, runner.req_to_token_pool) for _ in prompts]
+    runner.forward_prefill_batch(prompts, trees)
+    mine = dict(prefill=prefill, decode=decode, ragged=forward_layers.last_rows,
+                l_pad=plan.l_pad)
+    out = [None] * grid.size
+    dist.all_gather_object(out, mine)
     return out

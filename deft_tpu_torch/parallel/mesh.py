@@ -11,7 +11,8 @@ deft_tpu, so tensor-parallel collectives join neighbouring ranks), plus the
 - ``tp`` shards attention heads and the Megatron columns and rows;
 - ``sp`` shards the flattened tree-KV blocks (flatten) or each leaf's path
   blocks (seq), and the experts of a MoE layer;
-- ``dp`` shards the query rows (leaves) inside attention.
+- ``dp`` shards a decode step's query rows (leaves) through every layer;
+  ``sp`` also shards a prefill's tokens (parallel/sharding.py).
 
 Every collective of the port is an ``all_reduce`` (or a broadcast), so the
 same code runs over NCCL with a card per rank and over gloo with several

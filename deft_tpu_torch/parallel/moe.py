@@ -5,8 +5,12 @@ slices (parallel/sharding.py): the expert axis over sp when sp divides the
 expert count (expert parallelism), each expert's inner dims cut over tp
 (wg, wu column-parallel on I, wdown row-parallel).  Each rank
 
-- routes every row with the replicated router (the routing math of
-  models/llama.py, so every rank picks the same experts);
+- routes its own dp window of rows (deft_tpu's in_specs ``P("dp", None)``)
+  with the replicated router (the routing math of models/llama.py): at
+  decode the rows the rank holds; at prefill, whose tokens are cut over sp
+  (and not over dp), the sp windows' h is joined first, so that every
+  rank of the sum over sp holds the same tokens, and the rank's rows are
+  taken back after it;
 - at prefill-scale token counts (``sharded_gmm_ok``): groups the routed
   slots of its own ne_local = NE / sp experts into the tile-aligned layout
   (``moe_dispatch_local``; slots owned by other ranks go to a drop bucket,
@@ -16,14 +20,13 @@ expert count (expert parallelism), each expert's inner dims cut over tp
   its columns of the routing weights;
 
 then the fp32 partial sums are all-reduced over sp and tp together (over tp
-alone when the experts are replicated).  deft_tpu's dp shards the tokens
-here; the port runs every row on every rank, as its dense layers do, so
-the block needs no dp collective (ROADMAP queues the dp row split).
+alone when the experts are replicated).  The block makes no dp
+collective: each dp window is routed on its own ranks.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -33,6 +36,7 @@ from deft_tpu_torch.models.llama import (_GMM_TILE_M, _act_fn, moe_dense_sum,
                                          top_k_routes)
 from deft_tpu_torch.ops.gmm import gmm_eligible
 from deft_tpu_torch.parallel.mesh import Grid
+from deft_tpu_torch.parallel.sharding import RowWindow
 
 
 def _axes(grid: Grid):
@@ -40,18 +44,19 @@ def _axes(grid: Grid):
 
 
 def sharded_gmm_ok(grid: Grid, cfg: LlamaConfig, n: int) -> bool:
-    """Eligibility of the expert-parallel grouped route for a token count n
-    (deft_tpu moe.py:49-69, a copy)."""
-    dp, sp, tp = _axes(grid)
+    """Eligibility of the expert-parallel grouped route for the n rows a
+    rank routes, its dp window (deft_tpu moe.py:49-69, which takes the
+    whole token count and divides it by dp)."""
+    _, sp, tp = _axes(grid)
     NE, K = cfg.num_experts, cfg.experts_per_tok
     tm = _GMM_TILE_M
-    if NE % sp or n % dp:
+    if NE % sp:
         return False
     ne_local = NE // sp
     cap = min(K, ne_local)
     # engage when the tile-padded local layout wastes <= ~50% rows
     # (mirrors the single-chip _moe_gmm_ok threshold)
-    if (n // dp) * cap < 2 * ne_local * tm:
+    if n * cap < 2 * ne_local * tm:
         return False
     E, I = cfg.hidden_size, cfg.intermediate_size
     if I % tp:
@@ -105,12 +110,17 @@ def make_sharded_moe(grid: Grid):
     """The MoE block of a rank, for ModelRunner(mesh=grid): the grouped
     route on the rank's experts where sharded_gmm_ok passes, the dense
     route on them otherwise, then the sum over the ranks holding the
-    other experts and column blocks.  moe_fn(cfg, lp, h) -> (n, E) in h's
-    dtype."""
+    other experts and column blocks.  moe_fn(cfg, lp, h, rows) -> (n, E) in
+    h's dtype, for the n rows of h the rank holds: with ``rows``, an sp
+    window of a prefill's tokens (parallel/sharding.py RowWindow), the
+    windows are joined before the block and the rank's rows taken after
+    it."""
     _, sp, _ = _axes(grid)
 
-    def moe_fn(cfg: LlamaConfig, lp: Dict[str, torch.Tensor],
-               h: torch.Tensor) -> torch.Tensor:
+    def moe_fn(cfg: LlamaConfig, lp: Dict[str, torch.Tensor], h: torch.Tensor,
+               rows: Optional[RowWindow] = None) -> torch.Tensor:
+        if rows is not None and rows.axis == "sp":
+            return rows.take(moe_fn(cfg, lp, rows.join(h)))
         NE = cfg.num_experts
         ep = sp > 1 and NE % sp == 0
         ne_local = NE // sp if ep else NE

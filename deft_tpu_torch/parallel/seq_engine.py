@@ -7,11 +7,13 @@ leaf's path blocks — the per-leaf segment tables viewed (R, nb, spb), leaves
 padded to a multiple of dp and the blocks up to the last live one to a
 multiple of sp, the rank's dp
 rows and sp block window taken — and the softmax is recovered with the
-flatten path's LSE merge; the dp row windows are joined after it.  Pads
+flatten path's LSE merge; q comes in, and o goes out, as the rank's dp
+window of rows (batch.dp_rows).  Pads
 carry blk_live = 0, so no read is issued for them, and no rank copies a
 gathered path.  Seq plans that are not segment-aligned take B7 on the
-rank's heads over every leaf (replicated over sp and dp; deft_tpu's mesh
-path runs XLA attention there, runner.py:438-447): the runner's route for
+rank's heads over its dp window of leaves (the runner cuts the paths and
+seq_lens to it; replicated over sp; deft_tpu's mesh path runs XLA
+attention there, runner.py:438-447): the runner's route for
 unpaged seq modes (UNPAGED_FD) and for seq plans at head widths that do not
 pack.
 """
@@ -25,9 +27,9 @@ import torch.nn.functional as F
 
 from deft_tpu_torch.ops.paged_seq_attn import (paged_seq_attention_partial,
                                                paged_seq_attention_q_partial)
-from deft_tpu_torch.parallel.engine import (_cached, join_rows, last_live, lse_merge,
-                                            row_window, sp_reduce, window_rows)
+from deft_tpu_torch.parallel.engine import _cached, last_live, lse_merge, sp_reduce
 from deft_tpu_torch.parallel.mesh import Grid
+from deft_tpu_torch.parallel.sharding import row_window
 
 
 def seq_window(grid: Grid, batch, R: int) -> SimpleNamespace:
@@ -44,7 +46,8 @@ def seq_window(grid: Grid, batch, R: int) -> SimpleNamespace:
     nb_pad = -(-nb // sp) * sp
     span = nb_pad // sp
     b0 = grid.index("sp") * span
-    R_pad, rows, r0 = row_window(grid, R)
+    w = row_window(grid, "dp", R)
+    R_pad, rows, r0 = w.n_pad, w.rows, w.r0
 
     def cut(x):
         x = x.view(R, nb_all, -1)[:, :nb]
@@ -61,18 +64,15 @@ def make_sharded_seq_attn(grid: Grid):
     window = _cached(lambda batch, R: seq_window(grid, batch, R))
 
     def attn(q, k_new, v_new, k_pool, v_pool, li, batch, scale):
-        R = q.shape[0]
-        w = window(batch, R)
-        ql = window_rows(q, w.rows * grid.axis_size("dp"), w.r0, w.rows)
+        w = window(batch, batch.dp_rows.n)
         tables = (w.seg_src, w.seg_off, w.seg_live, w.blk_live)
         if k_pool.quantized:
             acc, m, l = paged_seq_attention_q_partial(
-                ql, k_pool.data, v_pool.data, k_pool.scale, v_pool.scale, li,
+                q, k_pool.data, v_pool.data, k_pool.scale, v_pool.scale, li,
                 *tables, scale, batch.seg_len)
         else:
             acc, m, l = paged_seq_attention_partial(
-                ql, k_pool.data, v_pool.data, li, *tables, scale, batch.seg_len)
-        o = lse_merge(acc, m, l, sp_reduce(grid))
-        return join_rows(grid, o.to(q.dtype), R, w.r0)
+                q, k_pool.data, v_pool.data, li, *tables, scale, batch.seg_len)
+        return lse_merge(acc, m, l, sp_reduce(grid)).to(q.dtype)
 
     return attn

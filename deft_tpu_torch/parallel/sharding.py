@@ -22,6 +22,13 @@ the same specs (one entry an axis: None, "tp" or "sp"):
   slots on every sp and dp rank; int8 scale pools (L, Hkv, S) their head
   axis.
 
+A step's batch (``batch_shardings``, deft_tpu sharding.py:121-162): a
+decode step's query rows (leaves) over dp, a prefill's tokens over sp.  A
+rank runs its ``RowWindow`` of them through every dense layer; the rows
+padded to a multiple of the axis and cut into equal windows
+(``row_window``); ``shard_decode_args`` cuts a step's numpy plan into a
+rank's windows, as deft_tpu's places a batch with those specs.
+
 The port keeps q/k/v and gate/up fused (``wqkv``, ``wgu``; models/llama.py)
 where deft_tpu unfuses them before sharding (sharding.py:101-103): a fused
 tensor is cut block by block, the q, k and v column blocks (g and u) each
@@ -31,8 +38,10 @@ heads], the columns deft_tpu's unfused shards hold.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from deft_tpu_torch.models.config import LlamaConfig
@@ -177,3 +186,114 @@ def shard_pool(grid: Grid, pool: KVPool) -> KVPool:
     return KVPool(slice_tensor(grid, pool.data, specs["data"]).to(grid.device),
                   None if pool.scale is None else
                   slice_tensor(grid, pool.scale, specs["scale"]).to(grid.device))
+
+
+@dataclasses.dataclass(frozen=True)
+class RowWindow:
+    """This rank's window of a step's ``n`` rows over grid ``axis``: the rows
+    padded to ``n_pad``, a multiple of the axis size, and cut into equal
+    windows of ``rows``, this rank's starting at ``r0``."""
+
+    grid: Grid
+    axis: str
+    n: int
+    n_pad: int
+    rows: int
+    r0: int
+
+    @property
+    def size(self) -> int:
+        return self.grid.axis_size(self.axis)
+
+    def take(self, x):
+        """Rows [r0, r0 + rows) of x (a tensor or a numpy array over the n
+        rows), zero rows past its end."""
+        part = x[self.r0:self.r0 + self.rows]
+        if part.shape[0] == self.rows:
+            return part
+        if isinstance(x, np.ndarray):
+            out = np.zeros((self.rows,) + x.shape[1:], x.dtype)
+            out[:len(part)] = part
+            return out
+        pad = torch.zeros((self.rows - part.shape[0],) + x.shape[1:], dtype=x.dtype,
+                          device=x.device)
+        return torch.cat([part, pad])
+
+    def join(self, x: torch.Tensor) -> torch.Tensor:
+        """The n rows from every rank's window x (rows, ...): each rank writes
+        its window into a zero buffer of n_pad rows, summed over the axis
+        (exact: one term of each sum is not zero); the pad rows dropped."""
+        if self.size == 1:
+            return x[:self.n]
+        buf = torch.zeros((self.n_pad,) + x.shape[1:], dtype=x.dtype, device=x.device)
+        buf[self.r0:self.r0 + self.rows] = x
+        return self.grid.all_reduce(buf, self.axis)[:self.n]
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """x summed over the axis (a value one window holds, zeros on the
+        others)."""
+        return self.grid.all_reduce(x, self.axis)
+
+
+def row_window(grid: Grid, axis: str, n: int) -> RowWindow:
+    """This rank's window of n rows over ``axis``."""
+    size = grid.axis_size(axis)
+    rows = -(-n // size)
+    return RowWindow(grid, axis, n, rows * size, rows, grid.index(axis) * rows)
+
+
+def batch_shardings(kind: str) -> Dict[str, Spec]:
+    """deft_tpu's specs of a step's batch, by its kind (sharding.py:121-162):
+    a decode step's query rows on dp and its flatten plan's tokens on sp
+    ("DecodeBatch"), a seq plan's leaves on dp and their paths on (dp, sp)
+    ("SeqBatch"), a prefill's tokens on sp ("PrefillBatch"); the paged
+    segment tables replicated.  A RaggedPrefillBatch has none (TypeError),
+    so the batched prefill runs every token on every rank.
+
+    How the port lays them out: ``shard_decode_args`` and the runner cut
+    the dp and sp row arrays into the rank's windows; every rank keeps
+    ``out_loc`` whole as well, since the pools hold every slot on every
+    rank and the K/V rows of all windows are joined before the store (the
+    gather GSPMD puts before deft_tpu's scatter); the sp cut of a plan's
+    tokens and blocks is taken inside the grid's AttnFns
+    (parallel/engine.py, seq_engine.py), which count their spans on the
+    host; B7's paths (a seq plan that is not segment-aligned) keep every
+    block on every sp rank."""
+    dp, sp, rep = ("dp",), ("sp",), (None,)
+    if kind == "DecodeBatch":
+        return {"q_tokens": dp, "q_pos": dp, "out_loc": dp, "kv_idx": sp, "tok_lo": sp,
+                "tok_hi": sp, "blk_lo": rep, "blk_hi": rep, "seg_src": rep}
+    if kind == "SeqBatch":
+        return {"q_tokens": dp, "q_pos": dp, "out_loc": dp, "paths": ("dp", "sp"),
+                "seq_lens": dp, "seg_src": rep, "seg_off": rep, "seg_live": rep,
+                "blk_live": rep}
+    if kind == "PrefillBatch":
+        return {"tokens": sp, "positions": sp, "out_loc": sp, "length": ()}
+    raise TypeError(kind)
+
+
+# the per-row arrays of a decode step that a rank holds as its dp window of
+# the rows (B7's paths and seq_lens among them, and a chain's q_select)
+DP_ROWS = ("q_tokens", "q_pos", "q_rows", "q_cols", "paths", "seq_lens")
+
+
+def shard_batch(grid: Grid, parts: Dict[str, np.ndarray], n: int
+                ) -> Tuple[Dict[str, np.ndarray], RowWindow]:
+    """A decode step's numpy plan arrays over n rows cut to this rank: the
+    ``DP_ROWS`` arrays to its dp window of the rows, zero rows past n (their
+    K/V rows are dropped at the join, and no row reads them); every other
+    array whole.  Returns the parts and the window."""
+    rows = row_window(grid, "dp", n)
+    return {k: rows.take(np.asarray(v)) if k in DP_ROWS else v
+            for k, v in parts.items()}, rows
+
+
+def shard_decode_args(grid: Grid, params: Dict[str, torch.Tensor], k_pool: KVPool,
+                      v_pool: KVPool, parts: Dict[str, np.ndarray], cfg: LlamaConfig,
+                      n: int):
+    """Place (params, pools, batch) on this rank (deft_tpu sharding.py:
+    175-182): the rank's slices of the whole params and pools, and its
+    windows of a decode step's n-row numpy plan arrays (``shard_batch``).
+    Returns (params, k_pool, v_pool, parts, rows)."""
+    return (shard_params(grid, params, cfg), shard_pool(grid, k_pool),
+            shard_pool(grid, v_pool), *shard_batch(grid, parts, n))

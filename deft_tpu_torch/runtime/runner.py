@@ -45,13 +45,21 @@ host time.
 
 ``ModelRunner(mesh=grid)`` (deft_tpu runner.py:206-317, :420-447, :482) runs
 one rank of a (dp, sp, tp) grid (parallel/): the params and pools are the
-rank's slices, made once; decode attention takes the sharded AttnFns of
+rank's slices, made once.  A step is laid out as deft_tpu's batch specs
+state (parallel/sharding.py ``batch_shardings``): a decode step's rows
+over dp, the rank running its window of them through every layer (its q
+tokens and positions, cut on the host in ``_step_batch``, or on the
+device from a chain's ids), the windows' top-K joined over dp in
+``_logits_view``; a prefill's tokens over sp (models/llama.py
+``prefill_forward``).  Decode attention takes the sharded AttnFns of
 parallel/engine.py and parallel/seq_engine.py (B1p, B4p, B11; B2p, B5p; B7
-on the rank's heads for seq plans that are not segment-aligned; Medusa's
-dense baseline on the rank's heads, every row), prefill B3 and batched
-prefill B8 on the rank's heads, and the forwards take the grid's collectives
-(ShardedModel).  Every decode mode runs on a grid, and so does the batched
-engine.  A grid of size 1 counts as no mesh.
+on the rank's heads and rows for seq plans that are not segment-aligned;
+Medusa's dense baseline on the rank's heads and rows), prefill B3 on the
+rank's heads over every token, and batched prefill B8 on the rank's heads,
+every token on every rank (deft_tpu has no spec for a ragged batch), and
+the forwards take the grid's collectives (ShardedModel).  Every decode mode
+runs on a grid, and so does the batched engine.  A grid of size 1 counts
+as no mesh.
 """
 
 from __future__ import annotations
@@ -545,9 +553,15 @@ class ModelRunner:
             o += a.size
         return out
 
-    def _logits_view(self, logits: torch.Tensor, kind: str) -> LogitsView:
+    def _logits_view(self, logits: torch.Tensor, kind: str,
+                     rows=None) -> LogitsView:
         """Softmax + 1e-6 top-K ("topk") or top-1 ("greedy") of (R, V)
-        logits, left on the device (deft_tpu runner.py:731-744)."""
+        logits, left on the device (deft_tpu runner.py:731-744).  ``rows``,
+        a grid's dp window (parallel/sharding.py RowWindow), says that the
+        logits are the window's rows: their top-K is joined over dp, or,
+        where the runner keeps full logits, the logits are joined first."""
+        if rows is not None and self.retain_full_logits:
+            logits, rows = rows.join(logits), None
         if kind == "greedy":
             m, ids = logits.max(dim=-1, keepdim=True)
             lse = torch.logsumexp(logits, dim=-1, keepdim=True)
@@ -555,6 +569,8 @@ class ModelRunner:
         else:
             probs = torch.softmax(logits, dim=-1) + 1e-6
             vals, ids = topk_lowest_index(probs, self.topk_k)
+        if rows is not None:
+            vals, ids = self._shard.join_topk(rows, vals, ids)
         full = logits if self.retain_full_logits else None
         return LogitsView(vals, ids.to(torch.int32), full, self._copies)
 
@@ -685,7 +701,9 @@ class ModelRunner:
         flatten plan that is segment-aligned (UNPAGED_MEDUSA).  The q tokens
         are the plan's, or ``q_tokens_override``, or gathered as
         prev_ids[rows, cols] from ``q_select``, whose rows and cols ride the
-        same upload (forward_tree_decode)."""
+        same upload (forward_tree_decode).  On a grid the batch is the
+        rank's (parallel/sharding.py shard_batch): its dp window of the
+        plan's rows (``dp_rows``), out_loc and the plan's tables whole."""
         paged = plan.paged if paged is None else paged
         parts = {"q_tokens": plan.q_tokens, "q_pos": plan.q_pos,
                  "out_loc": plan.out_loc}
@@ -704,6 +722,11 @@ class ModelRunner:
             parts.update({"seg_src": plan.seg_src} if paged
                          else {"kv_idx": plan.kv_idx})
             block_len = plan.block_len
+        window = None
+        if self.mesh is not None:
+            from deft_tpu_torch.parallel.sharding import shard_batch
+
+            parts, window = shard_batch(self.mesh, parts, plan.l_pad)
         dev = self._upload(parts)
         dev["out_loc"] = dev["out_loc"].long()
         if q_select is not None:
@@ -713,9 +736,10 @@ class ModelRunner:
             if q_tokens_override.shape[0] != plan.l_pad:
                 raise ValueError(f"{q_tokens_override.shape[0]} chained q tokens "
                                  f"for a plan of {plan.l_pad} rows")
-            dev["q_tokens"] = q_tokens_override
+            dev["q_tokens"] = (q_tokens_override if window is None
+                               else window.take(q_tokens_override))
         if "paths" in dev:
-            dev["paths"] = dev["paths"].view(plan.paths.shape)
+            dev["paths"] = dev["paths"].view(-1, plan.paths.shape[1])
         if isinstance(plan, FlattenPlan) and not paged:
             # B6's span rule reads the row tiles' work from the numpy plan,
             # so the wrapper reads nothing back from the device
@@ -730,7 +754,8 @@ class ModelRunner:
         elif isinstance(plan, SeqPlan) and plan.paged:
             # and a paged seq plan's sp span (parallel/seq_engine.py seq_window)
             dev["live_host"] = plan.blk_live
-        return SimpleNamespace(**dev, block_len=block_len, seg_len=plan.seg_len)
+        return SimpleNamespace(**dev, block_len=block_len, seg_len=plan.seg_len,
+                               dp_rows=window)
 
     def _measure_attention_bucket(self, mode: ForwardMode, plan,
                                   paged: bool) -> tuple:
@@ -751,13 +776,14 @@ class ModelRunner:
         R, D, dev = plan.l_pad, self.cfg.head_dim, self.device
         hq = self.params["wo"].shape[-2] // D  # the rank's heads on a grid
         hkv = self.k_pool.data.shape[-1] // D
+        rows = batch.q_tokens.shape[0]  # the rank's dp window on a grid
 
         def filler(*shape):  # deft_tpu's arange % 7 / 7, made on the device
             n = int(np.prod(shape))
             x = torch.arange(n, dtype=torch.float64, device=dev) % 7 / 7.0
             return x.reshape(shape).to(self.dtype)
 
-        q, k_new, v_new = filler(R, hq, D), filler(R, hkv, D), filler(R, hkv, D)
+        q, k_new, v_new = filler(rows, hq, D), filler(R, hkv, D), filler(R, hkv, D)
         dump = torch.full((R,), DUMP_SLOT, dtype=torch.long, device=dev)
         scale = D ** -0.5
         layers = range(self.cfg.num_layers)
@@ -816,10 +842,10 @@ class ModelRunner:
                              self.v_pool, batch, attn, self._shard,
                              compute_logits=logits_kind != "skip")
         if logits_kind == "skip":
-            zeros = torch.zeros((out.shape[0], 1), device=out.device)
+            zeros = torch.zeros((plan.l_pad, 1), device=out.device)
             view = LogitsView(zeros, zeros.to(torch.int32), order=self._copies)
         else:
-            view = self._logits_view(out, logits_kind)
+            view = self._logits_view(out, logits_kind, batch.dp_rows)
         if block:
             view.fetch_async()
             view.wait()

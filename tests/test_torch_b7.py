@@ -43,6 +43,7 @@ from deft_tpu_torch.ops import paged_seq_attn as tps
 from deft_tpu_torch.ops import seq_attn as tsa
 from deft_tpu_torch.parallel import engine
 from deft_tpu_torch.parallel.mesh import Grid
+from deft_tpu_torch.parallel.sharding import row_window
 from deft_tpu_torch.plan import build_flatten_plan, build_seq_plan
 from deft_tpu_torch.plan.multi import build_multi_flatten_plan
 
@@ -282,9 +283,9 @@ class DeviceOnly(torch.Tensor):
 
 
 def test_b11_engine_hands_row_tiles_and_reads_nothing(gather_plans, monkeypatch):
-    """make_sharded_tree_attn over a gather plan, rank 0 of grid 2x1x2: the
-    batch's plan arrays read nothing back to the host while the window is
-    cut, and B11 gets the host's row tiles."""
+    """make_sharded_tree_attn over a gather plan, rank 0 of grid 2x1x2 (q its
+    dp window of the rows): the batch's plan arrays read nothing back to the
+    host while the window is cut, and B11 gets the host's row tiles."""
     plan = gather_plans[0]
     grid = Grid(cs.SHORT_GRID, 0, torch.device("cpu"))
     monkeypatch.setattr(grid, "all_reduce", lambda t, axes, op="sum": t)
@@ -297,11 +298,13 @@ def test_b11_engine_hands_row_tiles_and_reads_nothing(gather_plans, monkeypatch)
         return (torch.zeros(Hkv, rq, D), torch.zeros(Hkv, rq), torch.ones(Hkv, rq))
 
     monkeypatch.setattr(engine, "flatten_attention_partial", b11)
+    rows = row_window(grid, "dp", plan.l_pad)
     batch = SimpleNamespace(**{n: torch.from_numpy(getattr(plan, n)).as_subclass(DeviceOnly)
-                               for n in ARRS}, blk_host=(plan.blk_lo, plan.blk_hi))
+                               for n in ARRS}, blk_host=(plan.blk_lo, plan.blk_hi),
+                            dp_rows=rows)
     Hkv, D = 4, 64
     pool = SimpleNamespace(data=torch.zeros(1, 16384, Hkv * D), scale=None, quantized=False)
-    q = torch.zeros(plan.l_pad, QPK * Hkv, D)
+    q = torch.zeros(rows.rows, QPK * Hkv, D)  # the rank's window of the rows
     attn = engine.make_sharded_tree_attn(grid, paged=False)
     assert attn(q, None, None, pool, pool, 0, batch, D ** -0.5).shape == q.shape
     h = engine.host_window(grid, plan.blk_lo, plan.blk_hi, plan.l_pad, plan.block_len, QPK)

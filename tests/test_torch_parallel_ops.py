@@ -145,8 +145,7 @@ def test_flatten_partial_plain_matches_deft_tpu(kind, dp, sp):
     checked = 0
     for grid in grid_ranks(dp, sp):
         w = engine.flatten_window(grid, batch, plan.l_pad, paged)
-        R_pad = w.rows * dp
-        ql = engine.window_rows(torch.from_numpy(q), R_pad, w.r0, w.rows)
+        ql = sharding.row_window(grid, "dp", plan.l_pad).take(torch.from_numpy(q))
         arrs = [w.tok_lo, w.tok_hi, w.blk_lo, w.blk_hi]
         if paged and int8:
             got = tpq.paged_flatten_attention_q_partial(
@@ -203,7 +202,7 @@ def test_seq_partial_plain_matches_deft_tpu(int8, dp, sp):
     scale = D ** -0.5
     for grid in grid_ranks(dp, sp):
         w = seq_engine.seq_window(grid, batch, R)
-        ql = engine.window_rows(torch.from_numpy(q), w.rows * dp, w.r0, w.rows)
+        ql = sharding.row_window(grid, "dp", R).take(torch.from_numpy(q))
         tables = (w.seg_src, w.seg_off, w.seg_live, w.blk_live)
         jt = [jnp.asarray(t.numpy()) for t in tables]
         jq = jnp.asarray(ql.numpy()).reshape(w.rows, Hkv, QPK, D)
