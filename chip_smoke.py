@@ -21,6 +21,15 @@
         # the card, the build and the chain phase (9 below) alone
     python3 chip_smoke.py --attention-only
         # the card, the build and the attention phase (4a below) alone
+    python3 chip_smoke.py --replay-only
+        # the card, the build and the replay phase (9a below) alone
+
+Every phase runs the runtime's default decode path (replayed spans, as a
+user's call does) but two, which set the per-step chain (DEFT_REPLAY_EXEC=0
+DEFT_PLAN_PATCH=0) for their runs: 8 (workloads), whose mid-run holds and
+merge read-backs hook forward_tree_decode and apply_kv_copies, which the
+record path does not call step by step, and 9 (chain), which holds that
+chain against the per-step path; 9a runs the three paths side by side.
 
 Phases, each fatal on failure (the script then exits non-zero and prints no
 result line):
@@ -72,9 +81,12 @@ result line):
   4. main:    the 8B model (random bf16 weights from a CUDA torch.Generator,
               all 32 layers) serves Simple_Tree few-shot, width 50, prompt
               4000, 64 generated tokens, block_len 256, in flatten then seq
-              mode, its steps chained on the device and the runs under
-              set_sync_debug_mode("error") (phase 9 holds their tokens
-              against the per-step path); B1-B3's launch counters must move
+              mode on the default path (replayed spans from plan slabs,
+              its steps chained on the device), the runs under
+              set_sync_debug_mode("error") (phase 9a holds the same runs'
+              tokens against the decode windows and the per-step chain,
+              phase 9 that chain against the per-step path); the kernels
+              line's launches are this run's; B1-B3's launch counters must move
               during this run, and
               the first decode step's logits must agree between modes
               (relative L2 error below LOGITS_LIMIT), while two controls on
@@ -130,8 +142,8 @@ result line):
               (merge copies read back equal to their sources, the root
               grown by the accept schedule, no lm_head after the prefill),
               W3 Beam_Search (50 live beams a step), W4 Random_Tree (the
-              same schedule in both modes; W1, W2 and W4 chained on the
-              device under set_sync_debug_mode("error"), their tokens held
+              same schedule in both modes; W1, W2 and W4 on the per-step
+              chain under set_sync_debug_mode("error"), their tokens held
               against the per-step path in phase 9), each flatten then seq with
               each mode's own decode kernels only, and a mid-run step held
               in the flatten run (the first after the first branch, prune
@@ -153,29 +165,50 @@ result line):
               the main path's settings: Simple_Tree, W1 Practical_Tree
               (deferred selection), W2 Speculative_Decoding (pipelined
               logits-free steps), W4 Random_Tree (deferred), flatten and
-              seq: the chained runs are phases 4's and 8's, made under
+              seq: W1's, W2's and W4's chained runs are phase 8's, the
+              others made here, all under
               set_sync_debug_mode("error"), where only the runner's
               host_wait (and the script's own checks inside the run) may
               wait, and this phase runs the per-step side on a runner built
               as theirs; then the main path over int8 KV (flatten) and the
-              batch path's four requests through BatchedEngine in both
-              modes, each per-step and chained here: equal branch token ids
+              batch path's four requests through
+              BatchedEngine in both modes, each per-step and chained here:
+              equal branch token ids
               in every pair (if not, the per-step path is rerun twice as a
               control).  A .item() under the mode must raise first; the moe
               path runs one such pair too.  Each run prints TPOT, e2e, the
-              sum of iter_time and its host waits; the main flatten path
-              runs in turns (per-step, chained, per-step: the host drifts
-              within a call); the top-K tie rule (one int64 topk, no host
+              sum of iter_time and its host waits (the main flatten path's
+              turns are 9a's); the top-K tie rule (one int64 topk, no host
               read) is timed against the rule it replaced (fp32 topk, a host
               read of the tie width) at 50 rows of the vocabulary, k 50 and
               64; with --profile, 8 profiled main flatten steps of each path
               in turns (per-step, chained, chained, per-step);
+ 9a. replay:  deft_tpu's default decode path (runtime/generate.py's record
+              path, runner.execute_recorded's slab windows and steps)
+              against its decode windows (DEFT_REPLAY_EXEC=0) and the
+              per-step chain (DEFT_REPLAY_EXEC=0 DEFT_PLAN_PATCH=0), each
+              on a fresh runner under its switches and under
+              set_sync_debug_mode("error"): main flatten and seq, W1
+              Practical_Tree, W2 Speculative_Decoding and W4 Random_Tree
+              (its gather plans, B6) in flatten, and main flatten over
+              int8 KV; the launch counts set to 0 before
+              each run, each path's decode kernel launched; branch token ids
+              equal across the three paths (else the first position that
+              differs and the top-2 margin there, from a per-step rerun with
+              full logits, are printed, and the phase fails); TPOT, e2e, the
+              sum of iter_time, host waits, plan copies to the card and
+              plan_upload_bytes against plan_full_bytes of every run; the
+              main flatten paths in turns (replay, windows, chain, chain,
+              windows, replay);
  10. int8w:   the main path's workload over int8 weights made on the card
               (weight_dtype "int8-pallas"), flatten then seq: B9 launches 129
               times a decode step (4 matmuls x 32 layers + lm_head) and never
               in prefill; the first decode step's logits against the same
               codes and scales under "int8" (the plain expression, 0 B9
-              launches) below LOGITS_LIMIT;
+              launches) below LOGITS_LIMIT; the flatten run (the default,
+              replayed path) against the decode windows and the per-step
+              chain as in 9a: equal ids, B9 129 times a decode step on
+              each;
  11. moe:     Mixtral-8x7B widths at deft_tpu's 6 layers (PRESETS
               ["mixtral-6l"], bf16 weights from a CUDA torch.Generator), the
               main path's workload over a prompt of ids below its 32000-token
@@ -209,18 +242,19 @@ result line):
               a fault control above it (in every layer sp rank 1's state,
               the prompt's end and the leaves' tokens, left out of the
               merge); the live plan tokens of each sp rank, each at least a
-              quarter of them; 16 decode tokens a mode (SHARDED_GEN; the
+              quarter of them; 8 decode tokens a mode (SHARDED_GEN; the
               main path runs 63), their greedy ids against the main path's
-              first 16, TTFT and TPOT (four processes sharing one card: no
+              first 8, TTFT and TPOT (four processes sharing one card: no
               statement on several cards' speed); the prefill's 4000 tokens
               split over sp; then the batch path's four requests
-              through BatchedEngine, flatten then seq: B8 on every rank's
+              through BatchedEngine, flatten then seq (31 decode steps,
+              SHARDED_BATCH_GEN): B8 on every rank's
               heads at admission, its last-token logits against the batch
               path's admission below LOGITS_LIMIT (the vocab join left out
               above it), B1p or B11 and B2p on every rank, no single-device
               decode kernel; then an int8 KV cache (B4p, B5p; 8 decode
               tokens, its first step against the int8 path's); then grid
-              2x1x2 over the 16-token prompt, 16 decode tokens a mode:
+              2x1x2 over the 16-token prompt, 8 decode tokens a mode:
               flatten (B11 with dp 2), node, tree_index and Medusa; every
               grid run, admission and
               prefill included, under set_sync_debug_mode("error");
@@ -402,10 +436,14 @@ SHARDED_GRID = (1, 2, 2)
 SHORT_GRID = (2, 1, 2)
 # the 8B's main workload with its rows over dp (dp 2, tp 2)
 DP_GRID = (2, 1, 2)
-# tokens a branch of grid 1x2x2's main runs and of SHORT_GRID's runs (16
+# tokens a branch of grid 1x2x2's main runs and of SHORT_GRID's runs (8
 # decode steps, where the single card's paths run 63: the grids share the
-# script's time with DP_GRID's path)
-SHARDED_GEN = 17
+# script's time with DP_GRID's path and the replay phase)
+SHARDED_GEN = 9
+# tokens a branch of the batch path's four requests on grid 1x2x2 (31
+# decode steps, 63 on the single card): its flatten plans turn from gather
+# plans (B11) to paged ones (B1p) after step 18
+SHARDED_BATCH_GEN = 32
 # the wgmma bodies, whose C entries encode TMA tensor maps on the host per call
 TMA_KERNELS = ("prefill", "ragged_prefill", "gmm", "gmm_scaled")
 # the launch counter of a wrapper that counts two kernels (ops/gmm.py)
@@ -3672,23 +3710,6 @@ def batch_chain_pair(runner, prompts, mode, tag, smi):
           f"{tag}: chained branch tokens differ from per-step")
 
 
-def main_turns(runner, prompt, per_step_run, smi):
-    """The host's speed drifts within a call: chain_pair's per-step run of
-    the main flatten path, then a chained and a per-step run right after
-    it, make turns (per-step, chained, per-step), printed together."""
-    from deft_tpu_torch.control import workloads
-    from deft_tpu_torch.runtime import ForwardMode
-
-    turns = [("per-step", per_step_run["pm"])]
-    for path in ("chained", "per-step"):
-        fn = per_step(workloads.simple_tree) if path == "per-step" else workloads.simple_tree
-        turns.append((path, generate_run(runner, ForwardMode.TREE_DECODE_FLATTEN,
-                                         prompt, fn)["pm"]))
-    print("[chain] main flatten in turns: " + "; ".join(
-        f"{path} TPOT {pm.TPOT:.4f} ms, e2e {pm.e2e_latency:.1f} ms, sum of iter_time "
-        f"{sum(pm.iter_time):.1f} ms" for path, pm in turns) + f"; {smi}", flush=True)
-
-
 def topk_widened(probs, k):
     """The runner's top-K tie rule before the chain (topk_lowest_index as
     it was): torch.topk widened to every entry tied with a row's k-th
@@ -3746,21 +3767,23 @@ def topk_rule_timing(dev, vocab, smi):
 
 
 def phase_chain(dev, params, prompt, smi, chained=None, profile: bool = False):
-    """Device-chained decode (runtime/generate.py, BatchedEngine's
-    all-greedy fast path) against the per-step path, on the main path's
-    settings (8B bf16, prompt 4000, width 50, 64 tokens): Simple_Tree, W1
-    Practical_Tree (deferred selection), W2 Speculative_Decoding (pipelined
-    logits-free steps) and W4 Random_Tree (deferred), each flatten and seq,
-    the main path over int8 KV in flatten, and the batch path's four
-    requests through BatchedEngine: equal branch token ids in every pair.
-    `chained`: {tag: {mode: run}}, the chained runs that phase_main
-    ("main") and phase_workloads ("W1 tot", "W2 spec", "W4 random") made
-    under sync_checked; the per-step runs here take runners built as
-    theirs were.  Without them (--chain-only), the chained runs are made
-    here.  Every chained run goes under set_sync_debug_mode("error"),
-    after a control that the mode raises on a .item().  Prints TPOT, e2e,
-    the sum of iter_time and the host waits of each run, the main flatten
-    path in turns, and the top-K tie rule's time against the rule it
+    """The per-step device chain (runtime/generate.py under
+    DEFT_REPLAY_EXEC=0 DEFT_PLAN_PATCH=0, which the caller sets;
+    BatchedEngine's all-greedy fast path) against the per-step path, on
+    the main path's settings (8B bf16, prompt 4000, width 50, 64 tokens):
+    Simple_Tree, W1 Practical_Tree (deferred selection), W2
+    Speculative_Decoding (pipelined logits-free steps) and W4 Random_Tree
+    (deferred), each flatten and seq, the main path over int8 KV in
+    flatten, and the batch path's four requests through BatchedEngine:
+    equal branch token ids in every pair.  (The main flatten path's turns
+    are the replay phase's.)  `chained`: {tag: {mode: run}}, the chained
+    runs that phase_workloads ("W1 tot", "W2 spec", "W4 random") made
+    under sync_checked on the same chain; the per-step runs here take
+    runners built as theirs were.  The others (all of them with
+    --chain-only) are made here.  Every chained run goes under
+    set_sync_debug_mode("error"), after a control that the mode raises on
+    a .item().  Prints TPOT, e2e, the sum of iter_time and the host waits
+    of each run, and the top-K tie rule's time against the rule it
     replaced; with `profile`, 8 profiled main flatten steps of each path in
     turns."""
     import torch
@@ -3787,14 +3810,11 @@ def phase_chain(dev, params, prompt, smi, chained=None, profile: bool = False):
           "check cannot see a hidden wait")
     topk_rule_timing(dev, cfg.vocab_size, smi)
 
-    runner = make_runner(cfg, params, dev)  # phase_main's
+    runner = make_runner(cfg, params, dev)  # as phase_main's
     runner.retain_full_logits = False
     for mode_name, mode in modes:
-        pair = chain_pair(runner, mode, prompt, f"main {mode_name}", workloads.simple_tree,
-                          None, smi, chained.get("main", {}).get(mode_name),
-                          ", the main phase's run")
-        if mode is flatten:
-            main_turns(runner, prompt, pair["per-step"], smi)
+        chain_pair(runner, mode, prompt, f"main {mode_name}", workloads.simple_tree,
+                   None, smi)
     if profile:
         for path in ("per-step", "chained", "chained", "per-step"):
             fn = (per_step(workloads.simple_tree) if path == "per-step"
@@ -3841,12 +3861,209 @@ def phase_chain(dev, params, prompt, smi, chained=None, profile: bool = False):
     print(f"[chain] the phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
-def phase_int8w(dev, prompt, ids, main_runs):
+# the switch settings of the replay phase (runtime/generate.py): deft_tpu's
+# default path (replayed spans), its decode windows, and the per-step chain,
+# which the workloads and chain phases run (main sets PER_STEP_CHAIN there)
+PATHS = {"replay": {},
+         "windows": {"DEFT_REPLAY_EXEC": "0"},
+         "per-step chain": {"DEFT_REPLAY_EXEC": "0", "DEFT_PLAN_PATCH": "0"}}
+PER_STEP_CHAIN = PATHS["per-step chain"]
+SWITCHES = ("DEFT_REPLAY_EXEC", "DEFT_PLAN_PATCH", "DEFT_COMPACT_PLAN",
+            "DEFT_REPLAY_WINDOWS", "DEFT_REPLAY_UNIFORM")
+
+
+@contextlib.contextmanager
+def switched(env: dict):
+    """The runtime's switches set to `env` (the others unset) while open,
+    as they were after."""
+    before = {k: os.environ.get(k) for k in SWITCHES}
+    for k in SWITCHES:
+        os.environ.pop(k, None)
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def first_difference(a, b):
+    """(branch, position) of the first token where two runs' sorted branches
+    differ, or None."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        for j, (s, t) in enumerate(zip(x, y)):
+            if s != t:
+                return i, j
+        if len(x) != len(y):
+            return i, min(len(x), len(y))
+    return None if len(a) == len(b) else (min(len(a), len(b)), 0)
+
+
+def top2_margins(runner, mode, prompt, fn, template):
+    """The per-step chain rerun with full logits kept: each decode step's
+    top-2 probability margin of every row (the control printed where two
+    paths' tokens differ)."""
+    from unittest import mock
+
+    import torch
+
+    margins, forward = [], runner.forward_tree_decode
+
+    def hooked(mode, plan, **kw):
+        view, t = forward(mode, plan, **kw)
+        with sync_allowed():
+            p = torch.softmax(view.full_logits().float(), dim=-1)
+            top = torch.topk(p, 2, dim=-1).values
+            margins.append((top[:, 0] - top[:, 1]).cpu().numpy()[:plan.n_leaves])
+        return view, t
+
+    runner.retain_full_logits, runner._plan_patch = True, False
+    with switched(PER_STEP_CHAIN), mock.patch.object(runner, "forward_tree_decode", hooked):
+        generate_run(runner, mode, prompt, fn, template)
+    runner.retain_full_logits = False
+    return margins
+
+
+def replay_line(tag, path, run, smi):
+    pm, c = run["pm"], run["copies"]
+    print(f"[replay] {tag} {path}: TPOT {pm.TPOT:.4f} ms, e2e {pm.e2e_latency:.1f} ms, "
+          f"sum of iter_time {sum(pm.iter_time):.1f} ms, {run['waits']} host waits, "
+          f"{c['plan_copies']} plan copies to the card, plan bytes shipped "
+          f"{c['plan_upload_bytes']} of {c['plan_full_bytes']} in full uploads "
+          f"({c['plan_upload_bytes'] / max(c['plan_full_bytes'], 1):.4f}), slab windows "
+          f"{c['win']}, slab steps {c['step']}, {len(pm.iter_time)} steps; "
+          f"under set_sync_debug_mode('error'); launches {run['launches']}; {smi}",
+          flush=True)
+
+
+def replay_run(cfg, params, dev, prompt, tag, path, mode, fn, template, kw):
+    """One generation of `fn` on a fresh runner built (and run) under the
+    path's switches, under sync_checked, the launch counts set to 0 just
+    before it; generate_run's dict with the runner's plan copies, bytes
+    and slab items ("copies")."""
+    with switched(PATHS[path]):
+        runner = make_runner(cfg, params, dev, **kw)
+        runner.retain_full_logits = False
+        reset_counts()
+        with sync_checked(f"replay {tag} {path}"):
+            run = generate_run(runner, mode, prompt, fn, template)
+    run["copies"] = {k: getattr(runner, k) for k in ("plan_copies", "plan_upload_bytes",
+                                                      "plan_full_bytes")}
+    run["copies"].update(runner.replay_stats)
+    run["runner"] = runner
+    return run
+
+
+def replay_paths(cfg, params, dev, prompt, tag, mode, fn, template, kw, kernel, paths,
+                 smi, want=None):
+    """`fn` on each of `paths` in turn (replay_run: a fresh runner, the
+    sync check, the launch counts from 0), each run's line printed; each
+    run launched a decode kernel of its mode's side and `kernel` (if not
+    None), the replay path ran slab items, and the branch token ids equal
+    the first run's, or `want` (a default-path run made before, its
+    branches sorted).  Where they differ, the first position that differs
+    and the top-2 margin at that decode step (a per-step rerun with full
+    logits) are printed, and the phase fails.  Returns the runs in
+    order."""
+    sides = SEQ_SIDE if mode.is_sequential else FLATTEN_SIDE
+    runs = []
+    for path in paths:
+        run = replay_run(cfg, params, dev, prompt, tag, path, mode, fn, template, kw)
+        replay_line(tag, path, run, smi)
+        check(any(run["launches"].get(k, 0) for k in sides),
+              f"replay {tag} {path}: no {sides} kernel launched")
+        if kernel is not None:
+            check(run["launches"].get(kernel, 0) > 0,
+                  f"replay {tag} {path}: {kernel} never launched")
+        if path == "replay":
+            check(run["copies"]["win"] + run["copies"]["step"] > 0,
+                  f"replay {tag}: no span ran from slabs")
+        seqs = sorted(map(tuple, run["seqs"]))
+        want = seqs if want is None else want
+        where = first_difference(seqs, want)
+        if where is not None:
+            margins = top2_margins(run["runner"], mode, prompt, fn, template)
+            # token j of a branch comes from iteration j, decode step j - 1
+            step = where[1] - 1
+            m = margins[step] if 0 <= step < len(margins) else None
+            print(f"[replay] {tag}: {path} differs from the first run at branch "
+                  f"{where[0]} token {where[1]}; top-2 probability margin at that "
+                  f"decode step: min {np.min(m) if m is not None else 'n/a'}, "
+                  f"per row {None if m is None else np.round(m, 6).tolist()}",
+                  flush=True)
+        check(where is None and seqs, f"replay {tag}: {path} branch tokens differ "
+              "from the first run's")
+        del run["runner"]
+        release()
+        runs.append(run)
+    print(f"[replay] {tag}: branch tokens equal on every path ({len(want)} branches, "
+          f"{sum(len(x) for x in want)} tokens)", flush=True)
+    return runs
+
+
+def phase_replay(dev, params, prompt, smi):
+    """deft_tpu's default decode path on the card (runtime/generate.py's
+    record path and runner.execute_recorded; DEFT_REPLAY_EXEC, on by
+    default) against its decode windows (DEFT_REPLAY_EXEC=0) and the
+    per-step chain (DEFT_REPLAY_EXEC=0 DEFT_PLAN_PATCH=0), on the main
+    path's settings (8B bf16, prompt 4000, width 50, 64 tokens): main
+    flatten and seq (Simple_Tree), W1 Practical_Tree, W2
+    Speculative_Decoding and W4 Random_Tree (gather plans: B6) in flatten,
+    and the main flatten path over int8 KV.  Each run is made on a fresh
+    runner under its path's switches and under
+    set_sync_debug_mode("error") (after the chain phase's control): only
+    runner.host_wait may wait, so a span's dispatch, from its slab upload
+    to its first chunk fetch, never does; the launch counts are set to 0
+    just before each run and read after it, and each path's decode kernel
+    must have launched.  The branch token ids must be equal across the
+    three paths of every run (replay_paths).  Prints TPOT, e2e, the sum of
+    iter_time, host waits, the plan copies to the card and
+    plan_upload_bytes against plan_full_bytes of each run; the main
+    flatten paths run in turns (replay, windows, per-step chain, then
+    back)."""
+    from deft_tpu_torch.control import workloads
+    from deft_tpu_torch.data import generate_accepted_len_list
+    from deft_tpu_torch.data.synthetic import synth_spec_tree, synth_tot_tree
+    from deft_tpu_torch.models import PRESETS
+    from deft_tpu_torch.runtime import ForwardMode
+
+    t_phase = time.perf_counter()
+    cfg = PRESETS["8b"]
+    flatten, seq = ForwardMode.TREE_DECODE_FLATTEN, ForwardMode.DECODE
+    tot = synth_tot_tree(seed=SEED, width=4, max_leaves=WIDTH, total_iters=GEN_LEN - 1)
+    spec = synth_spec_tree(token_tree_size=WIDTH, gen_len=GEN_LEN - 1, seed=SEED)
+    generate_accepted_len_list(GEN_LEN, spec, seed=SEED)
+    wl = dict(slots=BATCH_SLOTS, max_requests=WL_REQUESTS, use_tree_index=True)
+    order = list(PATHS)
+    # tag -> (mode, workload, template, make_runner's kwargs, kernel, paths)
+    runs = {
+        "main flatten": (flatten, workloads.simple_tree, None, {}, "paged_flatten",
+                         order + order[::-1]),
+        "main seq": (seq, workloads.simple_tree, None, {}, "paged_seq", order),
+        "W1 tot flatten": (flatten, workloads.practical_tree, tot, wl, None, order),
+        "W2 spec flatten": (flatten, workloads.speculative_decoding, spec, wl, None, order),
+        "W4 random flatten": (flatten, workloads.random_tree, None, wl, "flatten_gather",
+                              order),
+        "main flatten, int8 KV": (flatten, workloads.simple_tree, None,
+                                  {"kv_dtype": "int8"}, "paged_flatten_q", order),
+    }
+    for tag, (mode, fn, template, kw, kernel, paths) in runs.items():
+        replay_paths(cfg, params, dev, prompt, tag, mode, fn, template, kw, kernel, paths,
+                     smi)
+    print(f"[replay] the phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def phase_int8w(dev, prompt, ids, main_runs, smi):
     """The main path's workload over int8 weights made on the card
     (weight_dtype "int8-pallas"): B9 launches 129 times a decode step, and
-    the first step agrees with the same codes and scales under "int8".
-    Returns the path's launches and its first step's logits (B9's), for
-    the 2x1x2 grid's int8-weight run."""
+    the first step agrees with the same codes and scales under "int8";
+    the flatten run (the default path, replayed spans) gives the ids of
+    the decode windows and the per-step chain (replay_paths), each with
+    129 B9 launches a step.  Returns the path's launches and its first
+    step's logits (B9's), for the 2x1x2 grid's int8-weight run."""
     import torch
     from deft_tpu_torch.models import PRESETS
     from deft_tpu_torch.models.loader import random_params
@@ -3906,7 +4123,17 @@ def phase_int8w(dev, prompt, ids, main_runs):
               flush=True)
     print(f"[int8w] launches during the int8-weight path: {launches}", flush=True)
     first = logits["int8-pallas"].cpu()
-    del runner, params, expr, logits
+    del runner, expr, logits
+    release()
+    want = sorted(map(tuple, runs["flatten"]["seqs"]))
+    for path, r in zip(("windows", "per-step chain"), replay_paths(
+            cfg, params, dev, prompt, "int8w flatten", flatten,
+            None, None, {}, "int8_matmul", ("windows", "per-step chain"), smi, want)):
+        n, steps = r["launches"].get("int8_matmul", 0), len(r["paged"])
+        check(n == per_step * steps,
+              f"int8w flatten {path}: B9 launched {n} times in {steps} decode steps, "
+              f"not {per_step} a step")
+    del params
     release()
     return launches, first
 
@@ -4351,8 +4578,8 @@ def rank_batch(grid, cfg, prompts):
             return plan
 
         eng.build_plan = recording_build
-        reqs = [Request(p, Branch_Controller(workloads.simple_tree), len(p) + GEN_LEN,
-                        width=WIDTH, depth=1) for p in prompts]
+        reqs = [Request(p, Branch_Controller(workloads.simple_tree),
+                        len(p) + SHARDED_BATCH_GEN, width=WIDTH, depth=1) for p in prompts]
         reset_counts()
         torch.cuda.synchronize()
         staged, staged_s, waits = grid.staged, grid.staged_s, host_wait.waits
@@ -4722,9 +4949,10 @@ def sharded_batch(out, batch_runs, launches) -> None:
         check(err_fault > LOGITS_LIMIT,
               f"sharded batch {mode}: the vocab join left out stays under the limit")
         seqs = r["seqs"]
-        check(all(len(b) == WIDTH and all(len(x) == GEN_LEN - 1 for x in b) for b in seqs),
-              f"sharded batch {mode}: expected {WIDTH} branches of {GEN_LEN - 1} tokens "
-              "per request")
+        check(all(len(b) == WIDTH and all(len(x) == SHARDED_BATCH_GEN - 1 for x in b)
+                  for b in seqs),
+              f"sharded batch {mode}: expected {WIDTH} branches of "
+              f"{SHARDED_BATCH_GEN - 1} tokens per request")
         tok = sum(len(x) for b in seqs for x in b)
         same = [a == b for got, want in zip(seqs, batch_runs[mode][0])
                 for x, y in zip(sorted(got), sorted(want)) for a, b in zip(x, y)]
@@ -6553,16 +6781,20 @@ def main(argv=None) -> int:
     ap.add_argument("--attention-only", action="store_true",
                     help="only the card, the build and the attention phase "
                          "(phase_attention); prints no result line")
+    ap.add_argument("--replay-only", action="store_true",
+                    help="only the card, the build and the replay phase (the replay, "
+                         "window and per-step chain paths, phase_replay); prints no "
+                         "result line")
     ap.add_argument("--root", default=None,
                     help="with --flatten-only, --seq-only or --prefill-only: import "
                          "deft_tpu_torch from this checkout (a parent commit timed in "
                          "turns with this one)")
     args = ap.parse_args(argv)
     only = (args.flatten_only + args.seq_only + args.prefill_only + args.workloads_only
-            + args.chain_only + args.attention_only)
+            + args.chain_only + args.attention_only + args.replay_only)
     if only > 1:
         ap.error("--flatten-only, --seq-only, --prefill-only, --workloads-only, "
-                 "--chain-only and --attention-only are separate runs")
+                 "--chain-only, --attention-only and --replay-only are separate runs")
     if args.root is not None:
         if not (args.flatten_only or args.seq_only or args.prefill_only):
             ap.error("--root goes with --flatten-only, --seq-only or --prefill-only")
@@ -6606,7 +6838,8 @@ def main(argv=None) -> int:
                 phase_seq_only(dev, shapes, edges=args.root is None)
             print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}", flush=True)
             return 0
-        if not (args.workloads_only or args.chain_only or args.attention_only):
+        if not (args.workloads_only or args.chain_only or args.attention_only
+                or args.replay_only):
             shapes.update(wide_shapes(dev))
             with timed_phase("kernels"):
                 errs = phase_kernels(dev, shapes)
@@ -6621,7 +6854,12 @@ def main(argv=None) -> int:
             return 0
         if args.workloads_only or args.chain_only:
             phase = phase_workloads if args.workloads_only else phase_chain
-            phase(dev, params, main_prompt(), smi, profile=args.profile)
+            with switched(PER_STEP_CHAIN):
+                phase(dev, params, main_prompt(), smi, profile=args.profile)
+            print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}", flush=True)
+            return 0
+        if args.replay_only:
+            phase_replay(dev, params, main_prompt(), smi)
             print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}", flush=True)
             return 0
         with timed_phase("main"):
@@ -6642,19 +6880,20 @@ def main(argv=None) -> int:
             batch, batch_runs = phase_batch(dev, params, args.profile)
         launches["ragged_prefill"] = batch["ragged_prefill"]
         launches["flatten_gather"] += batch["flatten_gather"]  # its multi-tree gather steps
-        with timed_phase("workloads"):
+        with timed_phase("workloads"), switched(PER_STEP_CHAIN):
             wl, wl_chained, wl_gathers = phase_workloads(dev, params, prompt, smi,
                                                          args.profile)
             workload_gather_cases(dev, wl_gathers, shapes)
         for k in ("flatten_gather", "seq_gather"):  # their driven gather plans
             launches[k] += wl.get(k, 0)
-        with timed_phase("chain"):
-            phase_chain(dev, params, prompt, smi, {"main": main_runs, **wl_chained},
-                        args.profile)
+        with timed_phase("chain"), switched(PER_STEP_CHAIN):
+            phase_chain(dev, params, prompt, smi, wl_chained, args.profile)
+        with timed_phase("replay"):
+            phase_replay(dev, params, prompt, smi)
         del params
         release()
         with timed_phase("int8w"):
-            int8w_launches, lw = phase_int8w(dev, prompt, ids, main_runs)
+            int8w_launches, lw = phase_int8w(dev, prompt, ids, main_runs, smi)
         launches["int8_matmul"] = int8w_launches["int8_matmul"]
         with timed_phase("moe"):
             moe_launches, moe_runs, moe_logits = phase_moe(dev, smi, args.profile)

@@ -14,7 +14,8 @@ all-greedy fast path (batched.py:170-250): it computes the top-1 only, is
 enqueued without waiting, takes the previous all-greedy step's device ids
 as its q tokens, and gives every leaf a placeholder token, backfilled from
 the step's host copy at the next admission or structural step
-(runtime/generate.py resolve_backfills); the host waits every 8 such steps.
+(runtime/generate.py resolve_backfills); the host waits every
+DEFT_SYNC_PERIOD (8) such steps.
 Other steps read their logits on the host.  Each tree's queued merge copies
 (speculative decoding) land before its alloc (batched.py:190).  Node mode
 runs on the multi-tree flatten plan, as in deft_tpu (:101, :209-212);
@@ -34,7 +35,7 @@ from typing import List, Optional
 
 from deft_tpu_torch.core.tree import TreeCache
 from deft_tpu_torch.plan.multi import build_multi_flatten_plan, build_multi_seq_plan
-from deft_tpu_torch.runtime.generate import SYNC_PERIOD, resolve_backfills
+from deft_tpu_torch.runtime.generate import resolve_backfills, sync_period
 from deft_tpu_torch.runtime.modes import ForwardMode
 from deft_tpu_torch.runtime.runner import LogitsView, ModelRunner, packs_heads
 
@@ -216,7 +217,7 @@ class BatchedEngine:
             for req in self.active:
                 req.iter += 1
             self._steps_since_wait += 1
-            if self._steps_since_wait >= SYNC_PERIOD:
+            if self._steps_since_wait >= sync_period():
                 view.wait()
                 self._steps_since_wait = 0
             return

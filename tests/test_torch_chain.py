@@ -14,7 +14,14 @@ tree_generate on the same weights (its replay path) and its BatchedEngine.
 Also: the device top-k tie rule against ``jax.lax.top_k``, a gloo grid
 1x1x2 against the single device, and the runner's count of its host waits,
 on one device and on each rank of a gloo grid 1x2x1.
+
+The port's runs here take the per-step chain (``per_step_path``:
+DEFT_REPLAY_EXEC=0 DEFT_PLAN_PATCH=0), which is what these tests hold:
+by default tree_generate records such steps and replays them from slabs,
+or runs them as decode windows (tests/test_torch_replay.py).
 """
+
+import contextlib
 
 import math
 
@@ -43,9 +50,10 @@ from deft_tpu_torch.parallel import launch
 from deft_tpu_torch.parallel.launch import generate_tokens, greedy_waits, run_all
 from deft_tpu_torch.runtime import ModelRunner, mode_from_cli, tree_generate
 from deft_tpu_torch.runtime.batched import BatchedEngine, Request
-from deft_tpu_torch.runtime.generate import SYNC_PERIOD
+from deft_tpu_torch.runtime.generate import sync_period
 from deft_tpu_torch.runtime.runner import host_wait, topk_lowest_index
 
+SYNC_PERIOD = sync_period()
 ECFG = dict(kv_pool_slots=4096, max_requests=64, max_context_len=512,
             min_token_bucket=128, dtype="float32")
 PROMPT = list(range(7, 19))  # tests/test_torch_workloads.py's
@@ -81,6 +89,16 @@ CASES = {
 }
 
 
+@contextlib.contextmanager
+def per_step_path():
+    """The port's tree_generate on its per-step chain: no record path, no
+    decode windows (the runner reads DEFT_PLAN_PATCH when it is made)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("DEFT_REPLAY_EXEC", "0")
+        mp.setenv("DEFT_PLAN_PATCH", "0")
+        yield
+
+
 def per_step(fn):
     """``fn`` without its declarations: every step reads host logits."""
     def wrapped(*a, **k):
@@ -104,8 +122,9 @@ def reference():
 
 
 def port_runner(params, **kw):
-    return ModelRunner(PRESETS["tiny"], EngineConfig(**{**ECFG, **kw}), device="cpu",
-                       params=params)
+    with per_step_path():
+        return ModelRunner(PRESETS["tiny"], EngineConfig(**{**ECFG, **kw}), device="cpu",
+                           params=params)
 
 
 def port_run(runner, case, mode="flatten", chained=True):
@@ -121,10 +140,11 @@ def port_run(runner, case, mode="flatten", chained=True):
         return forward(mode, plan, **kw)
 
     runner.forward_tree_decode = recording
-    tree_generate(runner, mode_from_cli(mode), None, PROMPT,
-                  max_seq_len=len(PROMPT) + gen, width=width, depth=2,
-                  branch_controller=Branch_Controller(fn if chained else per_step(fn)),
-                  tree_template=make(tloader) if make else None)
+    with per_step_path():
+        tree_generate(runner, mode_from_cli(mode), None, PROMPT,
+                      max_seq_len=len(PROMPT) + gen, width=width, depth=2,
+                      branch_controller=Branch_Controller(fn if chained else per_step(fn)),
+                      tree_template=make(tloader) if make else None)
     return branches(runner.tree), calls
 
 
@@ -307,9 +327,10 @@ def test_host_waits_counted(reference, grid_waits, chained):
 
     runner.forward_tree_decode = recording
     fn = workloads.simple_tree if chained else per_step(workloads.simple_tree)
-    tree_generate(runner, mode_from_cli("flatten"), None, PROMPT,
-                  max_seq_len=len(PROMPT) + WAITS_GEN, width=3, depth=1,
-                  branch_controller=Branch_Controller(fn))
+    with per_step_path():
+        tree_generate(runner, mode_from_cli("flatten"), None, PROMPT,
+                      max_seq_len=len(PROMPT) + WAITS_GEN, width=3, depth=1,
+                      branch_controller=Branch_Controller(fn))
     G = WAITS_GEN - 1
     tokens, grid_total, grid_steps = grid_waits[chained]
     assert sorted(tokens) == sorted(tuple(s.token_ids) for s in runner.tree.all_finished_seqs)

@@ -150,7 +150,11 @@ def test_int8_weight_generation_matches_deft_tpu(reference, wdt, mode, monkeypat
     assert len(got) == WIDTH and got == reference[wdt, mode]
     if wdt == "int8":
         assert not calls
-    else:  # 11 decode steps x (4 x 2 layers + lm_head), prefill never
+    else:
+        # 11 decode steps: the first 10 replayed as one slab window of 10
+        # sub-steps, the last per step; each 4 x 2 layers + lm_head;
+        # prefill never
+        assert runner.replay_stats == {"win": 1, "step": 0, "subs": 10}
         assert len(calls) == 11 * 9 and {c[0] for c in calls} == {8}
 
 

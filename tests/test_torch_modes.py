@@ -6,11 +6,10 @@
 - build_node_plan (whole nodes and chunked) and build_tree_index_plan equal
   deft_tpu's field by field on a fragmented tree (branches, prunes,
   speculative merges), built with the same fixed kwargs;
-- Medusa's dense-attention IO accounting equals deft_tpu's.  deft_tpu
-  counts it on its per-step path only (generate.py:597-605); its replay
-  and decode-window paths, which the port does not have, count the flatten
-  mask.  So its Medusa run here takes the per-step path: retained logits
-  turn replay off, DEFT_PLAN_PATCH=0 the windows;
+- Medusa's IO accounting equals deft_tpu's on both packages' default
+  path: the dense model on the per-step path (generate.py:597-605), the
+  flatten mask on the replayed steps (:406-411), as deft_tpu's default CLI
+  run counts it;
 - the runner routes each mode to its attention entry, on one device and on
   a grid, which runs every decode mode.
 """
@@ -66,12 +65,8 @@ def reference():
             ("flatten", ("flatten", "paged", None))]:
         ecfg = JEngineConfig(**ECFG, attention=JAttentionConfig(
             block_len=BLOCK, node_chunk_len=chunk))
-        with pytest.MonkeyPatch.context() as mp:
-            if name == "medusa":
-                mp.setenv("DEFT_PLAN_PATCH", "0")
-            jr = JRunner(JPRESETS["tiny"], ecfg, kernels="xla", seed=0,
-                         use_tree_index=mode == "tree_index",
-                         retain_full_logits=name == "medusa")
+        jr = JRunner(JPRESETS["tiny"], ecfg, kernels="xla", seed=0,
+                     use_tree_index=mode == "tree_index")
         params = jr.params
         out[name] = generate(jr, j_tree_generate, JController(jworkloads.simple_tree),
                              j_mode(mode, mem))
@@ -112,7 +107,9 @@ def test_mode_matches_deft_tpu_and_flatten(reference, name):
 
 def test_medusa_io_accounting_matches_deft_tpu(reference):
     """UNPAGED_MEDUSA counts the dense baseline's materialised scores, mask
-    and softmax bytes, per layer (deft_tpu generate.py:597-605)."""
+    and softmax bytes, per layer, on its per-step steps (deft_tpu
+    generate.py:597-605), and the flatten mask on its replayed ones
+    (:406-411): every field equals deft_tpu's default run's."""
     jparams, ref = reference
     runner = port_runner(jparams)
     _, pm = generate(runner, tree_generate, Branch_Controller(workloads.simple_tree),

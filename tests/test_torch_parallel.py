@@ -51,7 +51,7 @@ from deft_tpu_torch.models import PRESETS
 from deft_tpu_torch.parallel import dryrun_multichip, launch
 from deft_tpu_torch.parallel.launch import (batched_tokens, first_step, generate_tokens,
                                             run_all)
-from deft_tpu_torch.runtime.generate import SYNC_PERIOD
+from deft_tpu_torch.runtime.generate import sync_period
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 GEN = dict(kv_pool_slots=1024, max_requests=16, max_context_len=128,
@@ -78,7 +78,7 @@ OTHER_MODES = {"node": ("node", "paged", None), "node_chunk": ("node_chunk", "pa
 MODE_WIDTH = 6
 # the batched engine: three requests of unequal prompts, width 3 (leaf
 # offsets 0, 3, 6 in 16 rows: grid 2x2x1's second dp window starts inside
-# the third tree's leaves), SYNC_PERIOD + 2 tokens each (one 8-step wait
+# the third tree's leaves), sync_period() + 2 tokens each (one 8-step wait
 # of the all-greedy fast path); the flatten-family plans are gather plans
 # (B11) at the first steps and segment-aligned (B1p) at the last, the seq
 # plans segment-aligned (B2p)
@@ -86,7 +86,7 @@ BATCH = dict(kv_pool_slots=4096, max_requests=64, max_context_len=512,
              min_token_bucket=128, dtype="float32")
 BATCH_PROMPTS = [[7 + (i * 7 + j) % 401 for j in range(n)]
                  for i, n in enumerate((256, 160, 128))]
-BATCH_GEN = SYNC_PERIOD + 2
+BATCH_GEN = sync_period() + 2
 BATCH_MODES = ("flatten", "node", "seq")
 # over int8 KV on grid 1x2x2 (the batched engine's int8 rule: 128-token
 # segments; the windows run B11's int8 form and B5p)
@@ -161,8 +161,9 @@ def j_generate(cfg, ecfg, prompt, mode, max_seq_len, **kw):
 
 
 def j_mode_generate(mode, mem, chunk):
-    """deft_tpu's single-device Simple_Tree run in a CLI mode (its per-step
-    path for Medusa, as tests/test_torch_modes.py runs it)."""
+    """deft_tpu's single-device Simple_Tree run in a CLI mode (for Medusa
+    without decode windows, DEFT_PLAN_PATCH=0; the port's grids run every
+    step per step, and the tokens are the same on every path)."""
     ecfg = JEngineConfig(**GEN, attention=JAttentionConfig(node_chunk_len=chunk))
     with pytest.MonkeyPatch.context() as mp:
         if mode == "tree":

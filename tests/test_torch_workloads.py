@@ -147,7 +147,9 @@ def test_speculative_skip_matches_retained_logits(port_params, case):
     """Speculative decoding's decode steps read no logits: they skip the
     lm_head ("skip", an (R, 1) view of zeros) unless full logits are
     retained, which turns them back into "topk" (deft_tpu
-    tests/test_e2e.py:152).  The replayed tree is the same either way."""
+    tests/test_e2e.py:152).  The replayed tree is the same either way.
+    Each step goes through forward_tree_decode: the record path, which
+    retained logits turn off, is off here too (DEFT_REPLAY_EXEC=0)."""
     out = {}
     for retain in (False, True):
         runner = port_runner(port_params, retain_full_logits=retain)
@@ -161,7 +163,9 @@ def test_speculative_skip_matches_retained_logits(port_params, case):
             return view, t
 
         runner.forward_tree_decode = recording
-        out[retain] = port_run(runner, case, "flatten")[0]
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("DEFT_REPLAY_EXEC", "0")
+            out[retain] = port_run(runner, case, "flatten")[0]
         assert set(kinds) == {"skip"}  # every decode step is logits-free
         assert set(ks) == ({runner.topk_k} if retain else {1})
     assert out[False] == out[True]
