@@ -23,6 +23,13 @@
         # the card, the build and the attention phase (4a below) alone
     python3 chip_smoke.py --replay-only
         # the card, the build and the replay phase (9a below) alone
+    python3 chip_smoke.py --wide-only
+        # the card, the build and the served runs that reach the wide heads'
+        # kernel instances and the other ones first served beside them: B7
+        # at the wide heads' batch seq plans against its plain version, 6's
+        # int8 seq through BatchedEngine, 7's int8 KV engine runs, 15's
+        # wide-head families (bf16, int8 KV, batched, grid 2x1x2), 11 and
+        # 14's mixtral-6l on grid 2x1x2
 
 Every phase runs the runtime's default decode path (replayed spans, as a
 user's call does) but two, which set the per-step chain (DEFT_REPLAY_EXEC=0
@@ -67,7 +74,9 @@ result line):
               B6 and B11 take at their path shapes.  B6 runs at the short
               tree and at the batch path's four trees halfway (their
               multi-tree gather plan), bf16 and int8 pools, with the row
-              tiles the runner counts on the host.  The wide heads
+              tiles the runner counts on the host; B4 also on those trees
+              eight steps later, the plan paged under the batch engine's
+              int8 rule (the batch path's int8 flatten steps).  The wide heads
               (WIDE_HEADS: Phi-3-mini 32/32 x D 96, Gemma-7B 16/16 x D 256,
               which take gather plans only) run B3, B8, B6, B7 and B11
               (B6, B7 and B11 over bf16 and int8 pools) at the same path
@@ -76,8 +85,11 @@ result line):
               b7_edges' synthetic paths at qpk 1, 2 and 8 with its
               controls; b6_edges: B6 and B11 at 4- and 8-warp blocks, 1,
               the rule's and twice its spans, DUMP_SLOT's row NaN, both dp
-              windows, with controls); their rows in the kernels line are
-              named <kernel>_d96 and <kernel>_d256;
+              windows, with controls), and B7 on the batch path's four
+              trees halfway, the multi-tree seq plan the batched engine
+              builds at their widths (wide_batch_seq: the plain version a
+              chunk of leaves at a time; not timed); their rows in the
+              kernels line are named <kernel>_d96 and <kernel>_d256;
   4. main:    the 8B model (random bf16 weights from a CUDA torch.Generator,
               all 32 layers) serves Simple_Tree few-shot, width 50, prompt
               4000, 64 generated tokens, block_len 256, in flatten then seq
@@ -123,6 +135,9 @@ result line):
   6. short:   the same weights and workload over the CLI's default 16-token
               prompt, flatten then seq, bf16 then int8 KV: the steps whose
               plans are not segment-aligned run B6 and B7, which must launch;
+              then int8 KV in seq mode through BatchedEngine, one request:
+              its int8 rule (waste 3) gathers every step, so B7 runs over
+              int8 pools (tree_generate's, waste 32, pages them: B5);
   7. batch:   four requests with distinct prompts of 4000, 3000, 2000 and
               1000 tokens (the 8B bf16 weights, bf16 KV, 40960 slots), each a
               width-50 Simple_Tree of 64 tokens a branch: first each alone
@@ -133,7 +148,11 @@ result line):
               flatten and in seq: B8 launches once a layer, B3 never, B1 or
               B6 (flatten) and B2 or B7 (seq) must launch; B6's launches at
               the flatten run's gather steps join the short path's in the
-              kernels line;
+              kernels line; B8's outputs in the admission's first and last
+              layers against its plain version on the same inputs (the
+              prompts start inside 64-token tiles); then the two engine runs
+              over an int8 KV cache on the same weights: B6 over int8 pools
+              must launch, B4 at the steps whose multi-tree plan pages;
   8. workloads: every workload and decode mode on the main path's settings
               (bf16 weights, prompt 4000, 64 tokens, width 50), each run
               through tree_generate with its launches, TTFT, TPOT and peak
@@ -247,11 +266,12 @@ result line):
               first 8, TTFT and TPOT (four processes sharing one card: no
               statement on several cards' speed); the prefill's 4000 tokens
               split over sp; then the batch path's four requests
-              through BatchedEngine, flatten then seq (31 decode steps,
+              through BatchedEngine, flatten then seq (23 decode steps,
               SHARDED_BATCH_GEN): B8 on every rank's
               heads at admission, its last-token logits against the batch
               path's admission below LOGITS_LIMIT (the vocab join left out
-              above it), B1p or B11 and B2p on every rank, no single-device
+              above it), B11 on the gather steps and B1p on the paged steps
+              (both on every rank), B2p on every rank, no single-device
               decode kernel; then an int8 KV cache (B4p, B5p; 8 decode
               tokens, its first step against the int8 path's); then grid
               2x1x2 over the 16-token prompt, 8 decode tokens a mode:
@@ -279,7 +299,11 @@ result line):
  14. sharded-moe: mixtral-6l on grid 1x2x2 (4 experts a rank): B10 on every
               rank's prefill, its last-token logits against the moe path's
               below MOE_LIMIT, then 8 decode tokens under
-              set_sync_debug_mode("error");
+              set_sync_debug_mode("error"); then on grid 2x1x2 (DP_GRID, every
+              expert on each rank): a decode rank's 32 of the plan's 64 rows
+              through each layer's MoE block, B10 on every rank's prefill,
+              the first step against the moe path's below MOE_STEP_LIMIT
+              (the other dp window's rows left out above it), 8 tokens;
  15. families: Qwen2.5-7B (qkv bias, 7 q heads a KV head), Qwen3-8B
               (qk-norm), Gemma-7B (Gemma norms, GeGLU, tied lm_head,
               head_dim 256) and Phi-3-mini's widths (head_dim 96; its
@@ -297,12 +321,23 @@ result line):
               every step) launched, TTFT, TPOT and peak memory printed,
               and for the wide heads B6's (with its merge) and B7's device
               ms in 4 profiled steps of each mode against their device busy
-              and wall time; Phi-3-mini's and Gemma's B3,
-              B6 and B7 launches join the kernels line's _d96 and _d256
-              rows;
+              and wall time.  The wide heads on the same weights: (e) the
+              same workload over int8 KV, int8 seq against int8 flatten
+              below the family's limit between the same controls, B6 and B7
+              over int8 pools; (f) the batch path's protocol (7) at their
+              heads, below the family's limit: B8, B6 and B7, never B1/B2;
+              then (g) each on grid 2x1x2 over the 16-token prompt (SHORT_GRID,
+              full depth): the first step on rank 0 against the single
+              card's below the family's limit (the other dp window's rows
+              left out above it), 8 tokens flatten and seq over bf16 and
+              flatten over int8 pools: B11 and B7 on every rank.  Their B3,
+              B8, B6, B7 and B11 launches (rank 0's) fill the kernels line's
+              _d96 and _d256 rows, none of which may read 0;
  16. tracing: one short CLI run under --trace-dir: the Chrome trace holds
               the decode_step spans and kernels of the port;
- 17. timing:  CUDA-event times of each kernel, its plain version and, where
+ 17. timing:  (run after 14 and before 15, whose four Gemma-7B ranks need
+              the card the kernel cases held) CUDA-event times of each
+              kernel, its plain version and, where
               one PyTorch call computes the same function, that call, at its
               path's shapes, beside the least time the card could take
               (B6 at both its plans, B7 at the short tree and the main
@@ -327,6 +362,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import inspect
 import json
 import os
@@ -440,10 +476,15 @@ DP_GRID = (2, 1, 2)
 # decode steps, where the single card's paths run 63: the grids share the
 # script's time with DP_GRID's path and the replay phase)
 SHARDED_GEN = 9
-# tokens a branch of the batch path's four requests on grid 1x2x2 (31
-# decode steps, 63 on the single card): its flatten plans turn from gather
-# plans (B11) to paged ones (B1p) after step 18
-SHARDED_BATCH_GEN = 32
+# tokens a branch of the batch path's four requests on grid 1x2x2 (23
+# decode steps; 63 on the single card, 31 before the wide heads' grids
+# shared the script's time): its flatten plans are gather plans (B11) up to
+# step 13 and paged (B1p on multi-tree windows) from step 14, its seq plans
+# paged (B2p)
+SHARDED_BATCH_GEN = 24
+# tokens a branch of the moe-int8w path's flatten and seq runs (16 decode
+# steps of about 0.25 s; the other paths run 63)
+MOE_INT8W_GEN = 17
 # the wgmma bodies, whose C entries encode TMA tensor maps on the host per call
 TMA_KERNELS = ("prefill", "ragged_prefill", "gmm", "gmm_scaled")
 # the launch counter of a wrapper that counts two kernels (ops/gmm.py)
@@ -454,6 +495,8 @@ COUNT_ATTR = {"gmm_scaled": "scaled_launches"}
 # are rows of their own in the kernels line, checked and timed at the
 # heads of the model named: head_dim -> (model, Hq, Hkv)
 WIDE_HEADS = {96: ("Phi-3-mini", 32, 32), 256: ("Gemma-7B", 16, 16)}
+# the served family of each wide head width (FAMILIES)
+WIDE_FAMILY = {96: "phi-3-mini", 256: "gemma-7b"}
 WIDE_OF = {f"{base}_d{D}": base for D in WIDE_HEADS
            for base in ("prefill", "ragged_prefill", "flatten_gather", "seq_gather",
                         "flatten_gather_partial")}
@@ -799,6 +842,23 @@ def batch_partial_case(name, trees, dev, gen, grid):
             (plan, live), wargs)
 
 
+def batch_int8_case(trees, dev, gen):
+    """B4 (paged_flatten_q) on the trees' multi-tree flatten plan built with
+    the batch engine's rules for int8 pools (runtime/batched.py build_plan:
+    block_len 256, min_token_bucket 1024, 128-token segments at waste 3),
+    which must come out paged; the 8B's heads (Hq 32, Hkv 8, D 128), int8
+    pools.  Returns path_shapes' (label, plan, args)."""
+    import torch
+    from deft_tpu_torch.plan.multi import build_multi_flatten_plan
+
+    plan = build_multi_flatten_plan(trees, q_per_kv=4, block_len=256, min_token_bucket=1024,
+                                    seg_len=(128,), waste_limit=3.0)
+    check(plan.paged, "the batch int8 plan is not paged: B4 would not run there")
+    return ("batch int8 plan", plan,
+            plan_args("paged_flatten_q", plan, trees[0].token_to_kv_pool.size, 4, 8, 128,
+                      torch.bfloat16, dev, gen, "int8"))
+
+
 def named_args(name, args) -> dict:
     """Kernel `name`'s arguments by the names of its wrapper's parameters,
     so that only the ops modules know their order."""
@@ -925,8 +985,9 @@ def path_shapes(dev):
     on the batch path's four trees halfway (their multi-tree gather plan,
     ``batch_case``), B11 at rank 0's window of that plan on SHARDED_GRID,
     and B1p and B2p at that window of the batch plan eight steps later
-    (paged multi-tree plans, ``batch_partial_case``); prefill of the
-    4000-token prompt; B8 over the batch
+    (paged multi-tree plans, ``batch_partial_case``), B4 on that whole plan
+    under the batch engine's int8 rule (paged, ``batch_int8_case``);
+    prefill of the 4000-token prompt; B8 over the batch
     path's four prompts; B9 at R = 64 (one width-50 tree) and 256 (the batch
     path's 200 leaves) for each of the 8B matmul weights; B10 at Mixtral's
     prefill of the 4000-token prompt (top-2 of random router logits over 8
@@ -993,6 +1054,9 @@ def path_shapes(dev):
     paged = batch_trees(GEN_LEN // 2 + 8, np.random.default_rng(SEED + 3))
     for name in ("paged_flatten_partial", "paged_seq_partial"):
         out[name].append(batch_partial_case(name, paged, dev, gen, grid0))
+    # B4 on the whole batch plan at that step under the engine's int8 rule,
+    # which pages it: the batch path's int8 flatten steps run B4 there
+    out["paged_flatten_q"].append(batch_int8_case(paged, dev, gen))
     out["int8_matmul"] = []
     for name, (H, I) in INT8_SHAPES.items():
         w = s = None
@@ -1053,7 +1117,9 @@ def wide_shapes(dev):
     main tree halfway and at the short tree's fifth step (gather seq plans,
     the only ones at these widths); B11 at rank 0's window of SHORT_GRID on
     the short tree (tp 2: half the KV heads); each over bf16 pools, then
-    int8.  name -> [(label, plan, args)], as path_shapes."""
+    int8; B6 also at the batch path's four trees halfway (their multi-tree
+    gather plan, bf16 pools).  name -> [(label, plan, args)], as
+    path_shapes."""
     import torch
     from deft_tpu_torch.parallel.mesh import Grid
 
@@ -1063,6 +1129,7 @@ def wide_shapes(dev):
     main = grow_tree(PROMPT_LEN, WIDTH, GEN_LEN // 2, 16384, np.random.default_rng(SEED))
     short = grow_tree(16, WIDTH, GEN_LEN // 2, 16384, np.random.default_rng(SEED))
     seq_short = grow_tree(16, WIDTH, 4, 16384, np.random.default_rng(SEED))
+    batch = batch_trees(GEN_LEN // 2, np.random.default_rng(SEED + 3))
     out = {}
     for D, (model, Hq, Hkv) in WIDE_HEADS.items():
         qpk = Hq // Hkv
@@ -1078,6 +1145,11 @@ def wide_shapes(dev):
             out[name] = [(f"{model} {label} {kv}", *wide_case(kind, tree, qpk, Hkv, D, kv,
                                                              dev, gen))
                          for label, tree in trees for kv in ("inherit", "int8")]
+        # B6 also at the batch path's multi-tree plan halfway, as the
+        # families phase's batched flatten run serves it
+        out[f"flatten_gather_d{D}"].append((f"{model} batch inherit",
+                                            *batch_case(batch, "inherit", dev, gen, qpk,
+                                                        Hkv, D)))
         out[f"flatten_gather_partial_d{D}"] = []
         for kv in ("inherit", "int8"):
             plan, args = wide_case("flatten", short, qpk, Hkv // 2, D, kv, dev, gen)
@@ -1104,17 +1176,23 @@ def phase_card():
     return smi[0], name
 
 
-def sass_count(name: str, opcode: str, function: str = "") -> int:
-    """How many `opcode` instructions the library of csrc/<name>.cu holds,
-    from cuobjdump's SASS; with `function`, only in the kernels whose
-    mangled names contain it."""
+@functools.lru_cache(maxsize=None)
+def sass_of(name: str) -> str:
+    """cuobjdump's SASS of the library of csrc/<name>.cu, dumped once."""
     from pathlib import Path
 
     from deft_tpu_torch.ops import _cuda
 
     tool = Path(_cuda._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "--dump-sass", str(_cuda.library_path(name))],
+    return subprocess.run([str(tool), "--dump-sass", str(_cuda.library_path(name))],
                           capture_output=True, text=True, check=True).stdout
+
+
+def sass_count(name: str, opcode: str, function: str = "") -> int:
+    """How many `opcode` instructions the library of csrc/<name>.cu holds,
+    from cuobjdump's SASS; with `function`, only in the kernels whose
+    mangled names contain it."""
+    sass = sass_of(name)
     bodies = sass.split("Function : ")
     return sum(b.count(opcode) for b in bodies[1:] if function in b.split("\n", 1)[0]) \
         if function else sass.count(opcode)
@@ -1198,8 +1276,11 @@ def phase_build(bodies: bool = True):
     # the bf16 bodies of B3/B8 (every width), B10, B9, B1 and B6 run on
     # wgmma (HGMMA in their SASS), B2's, B4's, B5's and B7's over bf16 q on
     # mma.sync (HMMA)
+    t0 = time.perf_counter()
     hgmma = {name: sass_count(name, "HGMMA") for name in _cuda.SOURCES}
     hmma = {name: sass_count(name, "HMMA") for name in _cuda.SOURCES}
+    print(f"[build] SASS of the {len(_cuda.SOURCES)} libraries dumped in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     print(f"[build] HGMMA instructions by library: {hgmma}", flush=True)
     print(f"[build] HMMA instructions by library: {hmma}", flush=True)
     if not bodies:
@@ -1391,6 +1472,8 @@ def phase_kernels(dev, shapes):
     b1_edges(dev, gen, shapes)
     b6_edges(dev, gen, shapes)
     wide_edges(dev, gen)
+    for name, e in wide_batch_seq(dev, gen).items():
+        errs[name] = max(errs[name], e)
     return errs
 
 
@@ -2184,6 +2267,49 @@ def b6_wide_edges(dev, gen):
                                                                  plan.l_pad))[:1], tol)
 
 
+def wide_batch_seq(dev, gen) -> dict:
+    """B7 at each wide head width (WIDE_HEADS) on the batch path's four
+    trees halfway: the multi-tree seq plan that BatchedEngine builds where
+    the heads do not pack (runtime/batched.py build_plan: a gather plan,
+    200 leaves over paths of up to 4000-odd tokens), bf16 q and pools, as
+    the families phase's batched seq run serves it.  Checked against its
+    plain version on the live leaves, a chunk of leaves at a time: the plain
+    version gathers each path's K and V in fp32, over 10 GB for all the
+    leaves at once.  Not timed.  Returns {name: max abs err}."""
+    import torch
+    from deft_tpu_torch.plan.multi import build_multi_seq_plan
+
+    bf16 = torch.bfloat16
+    trees = batch_trees(GEN_LEN // 2, np.random.default_rng(SEED + 3))
+    S = trees[0].token_to_kv_pool.size
+    errs = {}
+    for D, (model, Hq, Hkv) in WIDE_HEADS.items():
+        name = f"seq_gather_d{D}"
+        fn, plain = wrappers()[name]
+        plan = build_multi_seq_plan(trees, want_paged=False, q_per_kv=Hq // Hkv,
+                                    block_len=256, min_token_bucket=1024)
+        check(not plan.paged, f"{name}: the wide heads' batch seq plan is paged")
+        pools, _ = random_pools("inherit", S, Hkv, D, bf16, dev, gen)
+        q = torch.randn((plan.l_pad, Hq, D), generator=gen, device=dev).to(bf16)
+        paths, seq_lens = to_dev([plan.paths, plan.seq_lens], dev)
+        got = fn(q, *pools, 0, paths, seq_lens, D ** -0.5)
+        torch.cuda.synchronize()
+        n, C = plan.n_leaves, plan.paths.shape[1]
+        chunk = max(1, int(2e9 // (C * Hkv * D * 8)))
+        want = torch.cat([plain(q[r:e], *pools, 0, paths[r:e], seq_lens[r:e], D ** -0.5)
+                          for r in range(0, n, chunk) for e in (min(r + chunk, n),)])
+        e = rel_err(got[:n], want)
+        print(f"[kernels] {name} {model} batch seq plan ({n} leaves, paths {C} wide, "
+              f"{plan.total_kv} live path rows; plain {chunk} leaves at a time): rel err "
+              f"{e:.3e}, tol {TOL['bfloat16']:.0e}", flush=True)
+        check(e < TOL["bfloat16"] and bool(torch.isfinite(got[:n]).all()),
+              f"{name} {model} batch seq plan disagrees with its plain version: {e}")
+        errs[name] = float((got[:n].double() - want.double()).abs().max())
+        del got, want, pools, q
+        release()
+    return errs
+
+
 def wide_edges(dev, gen):
     """The wide heads' kernels (WIDE_HEADS: D 96 and 256) beyond their path
     shapes, each against its plain version, every output finite.  fp32
@@ -2500,10 +2626,12 @@ def sync_checked(tag, on=True):
               f"card: {e}")
 
 
-def generate_run(runner, mode, prompt, fn=None, template=None, rng=None):
-    """One generation through tree_generate, of the workload `fn` (default
-    Simple_Tree) at WIDTH; returns {"pm", "seqs", "paged", "leaves",
-    "launches", "lm_head", "waits"}: the finished branches' token ids, each
+def generate_run(runner, mode, prompt, fn=None, template=None, rng=None,
+                 gen_len=GEN_LEN):
+    """One generation of `gen_len` tokens through tree_generate, of the
+    workload `fn` (default Simple_Tree) at WIDTH; returns {"pm", "seqs",
+    "paged", "leaves", "launches", "lm_head", "waits"}: the finished
+    branches' token ids, each
     step's plan layout and live leaves, the kernels launched and the lm_head
     products taken during the run, and the runner's host waits."""
     from unittest import mock
@@ -2531,7 +2659,7 @@ def generate_run(runner, mode, prompt, fn=None, template=None, rng=None):
     with (mock.patch.object(runner, "build_plan", recording_build),
           mock.patch.object(llama, "lm_head", counting_lm_head)):
         pm = tree_generate(runner, mode, None, prompt,
-                           max_seq_len=len(prompt) + GEN_LEN, width=WIDTH, depth=1,
+                           max_seq_len=len(prompt) + gen_len, width=WIDTH, depth=1,
                            branch_controller=Branch_Controller(
                                fn or workloads.simple_tree),
                            tree_template=template, perf_metrics=PerfMetrics(),
@@ -2543,20 +2671,21 @@ def generate_run(runner, mode, prompt, fn=None, template=None, rng=None):
                          if v > before[k]}}
 
 
-def generate_both(runner, prompt, tag, count_plans=False, sync_check=False):
+def generate_both(runner, prompt, tag, count_plans=False, sync_check=False,
+                  gen_len=GEN_LEN):
     """Flatten then seq through tree_generate (under sync_checked with
-    `sync_check`); checks each run finishes its branches and returns {mode:
-    generate_run's dict}."""
+    `sync_check`), `gen_len` tokens; checks each run finishes its branches
+    and returns {mode: generate_run's dict}."""
     from deft_tpu_torch.runtime import ForwardMode
 
     out = {}
     for mode_name, mode in (("flatten", ForwardMode.TREE_DECODE_FLATTEN),
                             ("seq", ForwardMode.DECODE)):
         with sync_checked(f"{tag} {mode_name}", sync_check):
-            run = out[mode_name] = generate_run(runner, mode, prompt)
+            run = out[mode_name] = generate_run(runner, mode, prompt, gen_len=gen_len)
         pm, seqs, paged, moved = run["pm"], run["seqs"], run["paged"], run["launches"]
-        check(len(seqs) == WIDTH and all(len(s) == GEN_LEN - 1 for s in seqs),
-              f"{tag} {mode_name}: expected {WIDTH} branches of {GEN_LEN - 1} tokens")
+        check(len(seqs) == WIDTH and all(len(s) == gen_len - 1 for s in seqs),
+              f"{tag} {mode_name}: expected {WIDTH} branches of {gen_len - 1} tokens")
         check(np.isfinite(pm.TPOT) and pm.TPOT > 0, f"{tag} {mode_name}: bad TPOT")
         steps = (f", plans paged at {sum(paged)} of {len(paged)} steps"
                  if count_plans else "")
@@ -2946,6 +3075,58 @@ def phase_short(dev, params, profile: bool = False):
               f"flatten_gather was never launched in the {kv} short flatten run")
     check(runs["inherit"]["seq"]["launches"].get("seq_gather", 0) > 0,
           "seq_gather was never launched in the bf16 short seq run")
+    for k, n in short_int8_seq(dev, params, prompt, runs["int8"]["seq"]["seqs"]).items():
+        launches[k] = launches.get(k, 0) + n
+    return launches
+
+
+def short_int8_seq(dev, params, prompt, want) -> dict:
+    """The 16-token prompt over an int8 KV cache in seq mode through
+    BatchedEngine, one request: the engine's int8 rule (128-token segments
+    at waste 3) leaves every step of this tree a gather seq plan, so B7
+    runs over int8 pools; tree_generate's rule (waste 32) pages the same
+    plans (B5, the short int8 run above).  WIDTH branches of GEN_LEN - 1
+    tokens, B7 launched, B5 never; greedy ids against that run (`want`)
+    printed.  Returns the run's launches."""
+    from deft_tpu_torch.control import Branch_Controller, workloads
+    from deft_tpu_torch.models import PRESETS
+    from deft_tpu_torch.runtime import ForwardMode
+    from deft_tpu_torch.runtime.batched import BatchedEngine, Request
+
+    runner = make_runner(PRESETS["8b"], params, dev, kv_dtype="int8",
+                         prompt_len=len(prompt))
+    runner.retain_full_logits = False
+    eng = BatchedEngine(runner, ForwardMode.DECODE)
+    paged = []
+
+    def recording_build(trees, build=eng.build_plan):
+        plan = build(trees)
+        paged.append(plan.paged)
+        return plan
+
+    eng.build_plan = recording_build
+    req = Request(prompt, Branch_Controller(workloads.simple_tree), len(prompt) + GEN_LEN,
+                  width=WIDTH, depth=1)
+    reset_counts()
+    eng.add_requests([req])
+    steps = eng.run()
+    launches = read_counts()
+    seqs = [list(s.token_ids) for s in req.finished_seqs]
+    same = (np.mean([a == b for x, y in zip(sorted(seqs), sorted(want))
+                     for a, b in zip(x, y)]) if want else float("nan"))
+    print(f"[short int8] seq through BatchedEngine: {steps} steps, plans paged at "
+          f"{sum(paged)} of {len(paged)}; B7 over int8 pools (seq_gather) "
+          f"{launches['seq_gather']} launches, B5 {launches['paged_seq_q']}; greedy ids "
+          f"equal to the tree_generate int8 seq run's (B5) at {same:.4f} of positions "
+          f"(branches sorted); launches { {k: n for k, n in launches.items() if n} }",
+          flush=True)
+    check(len(seqs) == WIDTH and all(len(x) == GEN_LEN - 1 for x in seqs),
+          f"short int8 seq (batched engine): expected {WIDTH} branches of {GEN_LEN - 1} "
+          "tokens")
+    check(launches["seq_gather"] > 0 and launches["paged_seq_q"] == 0,
+          f"short int8 seq (batched engine): B7 did not take the gather plans: {launches}")
+    del runner
+    release()
     return launches
 
 
@@ -2959,30 +3140,25 @@ def batch_prompts() -> list:
             for n in BATCH_LENS]
 
 
-def phase_batch(dev, params, profile: bool = False):
-    """Four requests with distinct prompts (BATCH_LENS), each a width-50
-    Simple_Tree: each alone, then all four through one ragged prefill (B8)
-    and one multi-tree step on the same branch tokens, held against the
-    alone runs; then BatchedEngine.add_requests + run() in flatten and in
-    seq.  Returns the launch counts of the two engine runs, summed, and
-    {mode: (each request's branches, KV tokens read)} of those runs, with
-    "admission": the ragged prefill's last-token logits, (4, V) fp32 on the
-    host."""
+def batch_admission(runner, prompts, tag, limit):
+    """Each of `prompts` alone (its prefill, B3, and its first decode step
+    of WIDTH leaves on its top-WIDTH tokens), then all of them through one
+    ragged prefill (B8: once a layer, B3 never) and one multi-tree step
+    whose leaves carry the alone runs' branch tokens: each request's
+    prefill logits and first-step rows against its alone run's, relative
+    L2 below `limit`; B8's output in the first and last layers against its
+    plain version on the same inputs, within TOL.  Returns the ragged
+    prefill's last-token logits, (n, V) fp32 on the host."""
+    from unittest import mock
+
     import torch
-    from deft_tpu_torch.control import Branch_Controller, workloads
     from deft_tpu_torch.core import TreeCache
-    from deft_tpu_torch.models import PRESETS
-    from deft_tpu_torch.obs import PerfMetrics
-    from deft_tpu_torch.runtime import ForwardMode, tree_generate
-    from deft_tpu_torch.runtime.batched import BatchedEngine, Request
+    from deft_tpu_torch.ops import attn_impls
+    from deft_tpu_torch.ops.prefill import ragged_prefill_attention_plain
+    from deft_tpu_torch.runtime import ForwardMode
+    from deft_tpu_torch.runtime.batched import BatchedEngine
 
-    cfg = PRESETS["8b"]
-    prompts = batch_prompts()
-    runner = make_runner(cfg, params, dev, prompt_len=max(BATCH_LENS),
-                         slots=BATCH_SLOTS, max_requests=4 * (WIDTH + 2))
     flatten = ForwardMode.TREE_DECODE_FLATTEN
-
-    # each request alone: its prefill (B3) and its first decode step
     alone = []
     for p in prompts:
         runner.reset_state()
@@ -2996,22 +3172,40 @@ def phase_batch(dev, params, profile: bool = False):
         alone.append((view.full_logits()[0].float(), ids, v.full_logits()[:WIDTH].float()))
     runner.reset_state()
 
-    # the four in one ragged prefill, then one multi-tree step whose leaves
-    # carry the alone runs' branch tokens
+    # the first and last layers' B8 outputs against its plain version on the
+    # same inputs: the served shapes, prompts starting inside 64-token tiles
+    L, held = runner.cfg.num_layers, {}
+    attn = attn_impls.ragged_prefill_attn
+
+    def holding(q, k_new, v_new, k_pool, v_pool, li, batch, scale):
+        o = attn(q, k_new, v_new, k_pool, v_pool, li, batch, scale)
+        if li in (0, L - 1):
+            held[li] = rel_err(o, ragged_prefill_attention_plain(q, k_new, v_new,
+                                                                 batch.seg_ids, scale))
+        return o
+
     trees = [TreeCache(runner.token_to_kv_pool, runner.req_to_token_pool)
              for _ in prompts]
     reset_counts()
-    view = runner.forward_prefill_batch(prompts, trees)
+    with mock.patch.object(attn_impls, "ragged_prefill_attn", holding):
+        view = runner.forward_prefill_batch(prompts, trees)
     torch.cuda.synchronize()
     counts = read_counts()
-    check(counts["ragged_prefill"] == cfg.num_layers and counts["prefill"] == 0,
-          f"one ragged prefill launched {counts}")
+    check(counts["ragged_prefill"] == L and counts["prefill"] == 0,
+          f"{tag}: one ragged prefill launched {counts}")
+    starts = [int(x) for x in np.cumsum([0] + [len(p) for p in prompts[:-1]])]
+    print(f"[{tag}] B8 in the admission ({sum(map(len, prompts))} tokens, prompts from "
+          f"tokens {starts}, {[x % 64 for x in starts]} into a 64-token tile) "
+          f"against its plain version, max error relative to the largest output: "
+          + ", ".join(f"layer {li} {e:.3e}" for li, e in sorted(held.items()))
+          + f" (tolerance {TOL['bfloat16']:.0e})", flush=True)
+    check(all(e < TOL["bfloat16"] for e in held.values()),
+          f"{tag}: B8 in the admission strays from its plain version: {held}")
     for t, (_, ids, _) in zip(trees, alone):
         for c, child in enumerate(t.branch(t.root, WIDTH)):
             child.append_token(int(ids[c]))
         t.alloc()
-    eng = BatchedEngine(runner, flatten)
-    plan = eng.build_plan(trees)
+    plan = BatchedEngine(runner, flatten).build_plan(trees)
     v, _ = runner.forward_tree_decode(flatten, plan)
     step_logits = v.full_logits().float()
     for i, (lp, _, lf) in enumerate(alone):
@@ -3019,20 +3213,36 @@ def phase_batch(dev, params, profile: bool = False):
         e_pre = rel_l2(view.full_logits()[i].float(), lp)
         e_dec = rel_l2(lb, lf)
         top1 = float((lb.argmax(-1) == lf.argmax(-1)).float().mean())
-        print(f"[batch] request {i} (prompt {BATCH_LENS[i]}): relative L2 against "
+        print(f"[{tag}] request {i} (prompt {len(prompts[i])}): relative L2 against "
               f"alone, ragged prefill (B8) vs prefill (B3) {e_pre:.3e}, first "
               f"multi-tree step (plan paged={plan.paged}) vs alone {e_dec:.3e} "
-              f"(limit {LOGITS_LIMIT:.0e}); top-1 agreement {top1:.3f}, "
+              f"(limit {limit:.0e}); top-1 agreement {top1:.3f}, "
               f"prefill top-1 {int(view.ids[i, 0]) == int(lp.argmax())}", flush=True)
-        check(e_pre < LOGITS_LIMIT, f"request {i}: ragged prefill logits {e_pre}")
-        check(e_dec < LOGITS_LIMIT, f"request {i}: first batched step logits {e_dec}")
-    launches, out = {}, {"admission": view.full_logits().float().cpu()}
+        check(e_pre < limit, f"{tag} request {i}: ragged prefill logits {e_pre}")
+        check(e_dec < limit, f"{tag} request {i}: first batched step logits {e_dec}")
     for t in trees:
         t.free()
     runner.reset_state()
-    runner.retain_full_logits = False
+    return view.full_logits().float().cpu()
 
-    for mode_name, mode in (("flatten", flatten), ("seq", ForwardMode.DECODE)):
+
+def batch_engine(runner, prompts, tag, paged_kernels=True):
+    """BatchedEngine.add_requests + run() over `prompts` (each a width-50
+    Simple_Tree of GEN_LEN tokens), flatten then seq, each on a fresh pool:
+    B8 once a layer and B3 never in the admission, every request WIDTH
+    branches of GEN_LEN - 1 tokens, a decode kernel of the mode's side
+    (FLATTEN_SIDE / SEQ_SIDE) launched; with paged_kernels=False (heads
+    that do not pack) B6 or B7 launched and B1/B2/B4/B5 never.  Returns
+    (the runs' launches summed, {mode: (each request's branches, KV tokens
+    read)}, {mode: each step's plan.paged})."""
+    import torch
+    from deft_tpu_torch.control import Branch_Controller, workloads
+    from deft_tpu_torch.runtime import ForwardMode
+    from deft_tpu_torch.runtime.batched import BatchedEngine, Request
+
+    launches, out, layouts = {}, {}, {}
+    for mode_name, mode in (("flatten", ForwardMode.TREE_DECODE_FLATTEN),
+                            ("seq", ForwardMode.DECODE)):
         # a fresh pool for each mode: the slots the previous run's requests
         # freed come back scattered, and prompts laid on them are not
         # segment-aligned, which sends every step to the gather kernels
@@ -3061,29 +3271,63 @@ def phase_batch(dev, params, profile: bool = False):
             launches[k] = launches.get(k, 0) + n
         seqs = [[list(s.token_ids) for s in r.finished_seqs] for r in reqs]
         check(all(len(b) == WIDTH and all(len(x) == GEN_LEN - 1 for x in b) for b in seqs),
-              f"batch {mode_name}: expected {WIDTH} branches of {GEN_LEN - 1} tokens "
+              f"{tag} {mode_name}: expected {WIDTH} branches of {GEN_LEN - 1} tokens "
               "per request")
         tok = sum(len(x) for b in seqs for x in b)
         paged = sum(p.paged for p in plans)
         kv = sum(p.n_tokens if mode_name == "flatten" else p.total_kv for p in plans)
         moved = {k: n for k, n in counts.items() if n}
-        print(f"[batch] {mode_name}: admission (one ragged prefill of "
-              f"{sum(BATCH_LENS)} tokens + root branching) {t_adm * 1e3:.3f} ms, "
+        print(f"[{tag}] {mode_name}: admission (one ragged prefill of "
+              f"{sum(map(len, prompts))} tokens + root branching) {t_adm * 1e3:.3f} ms, "
               f"{steps} steps, {tok} generated tokens in {wall * 1e3:.1f} ms, "
               f"{wall * 1e3 / tok:.4f} ms/token aggregate; plans paged at {paged} "
               f"of {len(plans)} steps (gather at {len(plans) - paged}); "
               f"launches {moved}", flush=True)
-        check(counts["ragged_prefill"] == cfg.num_layers,
-              f"batch {mode_name}: B8 launched {counts['ragged_prefill']} times, "
+        check(counts["ragged_prefill"] == runner.cfg.num_layers,
+              f"{tag} {mode_name}: B8 launched {counts['ragged_prefill']} times, "
               f"not once a layer")
-        check(counts["prefill"] == 0, f"batch {mode_name}: B3 ran on the batch path")
-        pair = (("paged_flatten", "flatten_gather") if mode_name == "flatten"
-                else ("paged_seq", "seq_gather"))
-        check(counts[pair[0]] + counts[pair[1]] > 0,
-              f"batch {mode_name}: neither {pair[0]} nor {pair[1]} launched")
+        check(counts["prefill"] == 0, f"{tag} {mode_name}: B3 ran on the batch path")
+        side = FLATTEN_SIDE if mode_name == "flatten" else SEQ_SIDE
+        check(any(counts[k] for k in side),
+              f"{tag} {mode_name}: no kernel of {side} launched")
+        check(paged_kernels or (counts[side[-1]] > 0 and not any(counts[k]
+                                                                  for k in side[:-1])),
+              f"{tag} {mode_name}: heads that do not pack ran {moved}, not {side[-1]} alone")
         out[mode_name] = (seqs, kv)
-    print(f"[batch] kv_io_reduction (seq KV tokens read / flatten's, over the "
+        layouts[mode_name] = [p.paged for p in plans]
+    print(f"[{tag}] kv_io_reduction (seq KV tokens read / flatten's, over the "
           f"run's plans) {out['seq'][1] / out['flatten'][1]:.4f}", flush=True)
+    return launches, out, layouts
+
+
+def batch_runner(cfg, params, dev, kv_dtype="inherit"):
+    """A runner of the batch path's pools (BATCH_SLOTS) and requests."""
+    return make_runner(cfg, params, dev, kv_dtype=kv_dtype, prompt_len=max(BATCH_LENS),
+                       slots=BATCH_SLOTS, max_requests=4 * (WIDTH + 2))
+
+
+def phase_batch(dev, params, profile: bool = False):
+    """Four requests with distinct prompts (BATCH_LENS), each a width-50
+    Simple_Tree: each alone, then all four through one ragged prefill (B8)
+    and one multi-tree step on the same branch tokens, held against the
+    alone runs (batch_admission); then BatchedEngine.add_requests + run()
+    in flatten and in seq (batch_engine); then the same engine runs over
+    an int8 KV cache on the same weights (batch_int8).  Returns the launch
+    counts of the engine runs, summed, and {mode: (each request's branches,
+    KV tokens read)} of the bf16 runs, with "admission": the ragged
+    prefill's last-token logits, (4, V) fp32 on the host."""
+    from deft_tpu_torch.control import Branch_Controller, workloads
+    from deft_tpu_torch.models import PRESETS
+    from deft_tpu_torch.obs import PerfMetrics
+    from deft_tpu_torch.runtime import ForwardMode, tree_generate
+
+    cfg = PRESETS["8b"]
+    prompts = batch_prompts()
+    runner = batch_runner(cfg, params, dev)
+    out = {"admission": batch_admission(runner, prompts, "batch", LOGITS_LIMIT)}
+    runner.retain_full_logits = False
+    launches, runs, _ = batch_engine(runner, prompts, "batch")
+    out.update(runs)
 
     # greedy ids of the flatten engine against each request alone, printed
     # and not held: the batched step's matmuls run at 256 rows, not 64, so
@@ -3091,6 +3335,7 @@ def phase_batch(dev, params, profile: bool = False):
     # (PERF.md).  Branches are matched by sorting: a near-tie in the
     # prefill's top-50 reorders the root's children, so the i-th branch of
     # one run need not start with the i-th branch's token of the other
+    flatten = ForwardMode.TREE_DECODE_FLATTEN
     same, whole = [], 0
     for p, got in zip(prompts, out["flatten"][0]):
         runner.reset_state()
@@ -3110,7 +3355,38 @@ def phase_batch(dev, params, profile: bool = False):
         profile_batch(runner, prompts, WIDTH, steps=8)
     del runner
     release()
+    for k, n in batch_int8(dev, params, prompts).items():
+        launches[k] = launches.get(k, 0) + n
     return launches, out
+
+
+def batch_int8(dev, params, prompts) -> dict:
+    """The batch path's four requests through BatchedEngine over an int8 KV
+    cache (the 8B's `params`), flatten then seq, gated as the bf16 runs
+    are; B6 over int8 pools must launch on the multi-tree gather plans.
+    The engine's int8 rule (128-token segments at waste 3) pages some
+    flatten steps: those run B4, counted and not gated.  Returns the
+    runs' launches."""
+    import torch
+    from deft_tpu_torch.models import PRESETS
+
+    runner = batch_runner(PRESETS["8b"], params, dev, kv_dtype="int8")
+    check(runner.k_pool.data.dtype == torch.int8,
+          "the batch int8 runner's pools are not int8")
+    runner.retain_full_logits = False
+    launches, _, layouts = batch_engine(runner, prompts, "batch int8")
+    flat = layouts["flatten"]
+    print(f"[batch int8] multi-tree flatten plans paged at {sum(flat)} of {len(flat)} "
+          f"steps: B4 (paged_flatten_q) {launches['paged_flatten_q']} launches on one "
+          f"card, B6 over int8 pools (flatten_gather) {launches['flatten_gather']}; seq "
+          f"B5 {launches['paged_seq_q']}, B7 {launches['seq_gather']}", flush=True)
+    check(launches["flatten_gather"] > 0,
+          "batch int8: B6 over int8 pools never launched on the multi-tree gather plans")
+    check(launches["paged_flatten"] == 0 and launches["paged_seq"] == 0,
+          f"batch int8: a bf16-pool paged kernel ran: {launches}")
+    del runner
+    release()
+    return launches
 
 
 # -- the workloads phase: every workload and decode mode on the card ------------------
@@ -4277,7 +4553,8 @@ def moe_first_step(runner, prompt, tag):
     the attention controls of logits_controls on the same step; counts the
     (leaf, layer) pairs whose top-2 experts differ between the two modes.
     Holds seq, the noise control and the dropped block to MOE_STEP_LIMIT.
-    Returns the launch counts of one more flatten step on the same tree."""
+    Returns the launch counts of one more flatten step on the same tree,
+    the branch tokens and the flatten step's (WIDTH, V) logits on the host."""
     from unittest import mock
 
     from deft_tpu_torch.models import llama
@@ -4319,12 +4596,13 @@ def moe_first_step(runner, prompt, tag):
     runner.forward_tree_decode(flatten, runner.build_plan(flatten))
     counts = {k: n for k, n in read_counts().items() if n}
     runner.reset_state()
-    return counts
+    return counts, ids, lf.cpu()
 
 
-def generate_counting_prefills(runner, prompt, tag):
-    """generate_both, with each prefill's launches recorded apart: returns
-    (runs, [launches of each prefill], launches of the whole run)."""
+def generate_counting_prefills(runner, prompt, tag, gen_len=GEN_LEN):
+    """generate_both (`gen_len` tokens), with each prefill's launches
+    recorded apart: returns (runs, [launches of each prefill], launches of
+    the whole run)."""
     prefills = []
     real = runner.forward_prefill
 
@@ -4338,7 +4616,7 @@ def generate_counting_prefills(runner, prompt, tag):
     runner.forward_prefill = counted
     try:
         reset_counts()
-        runs = generate_both(runner, prompt, tag)
+        runs = generate_both(runner, prompt, tag, gen_len=gen_len)
         launches = read_counts()
     finally:
         del runner.forward_prefill
@@ -4371,7 +4649,7 @@ def phase_moe(dev, smi, profile: bool = False):
     # the prefill's last-token logits, for the sharded-moe path
     prefill_logits = runner.forward_prefill(prompt).full_logits()[0].float().cpu()
     runner.reset_state()
-    moe_first_step(runner, prompt, "moe")
+    _, ids, lf = moe_first_step(runner, prompt, "moe")
     runner.retain_full_logits = False
     runs, prefills, launches = generate_counting_prefills(runner, prompt, "moe")
     per = 3 * cfg.num_layers
@@ -4393,7 +4671,7 @@ def phase_moe(dev, smi, profile: bool = False):
             profile_decode(runner, mode, prompt, WIDTH, steps=8)
     del runner, params
     release()
-    return launches, runs, prefill_logits
+    return launches, runs, {"prefill": prefill_logits, "ids": ids, "first": lf}
 
 
 def moe_prompt(cfg):
@@ -4427,12 +4705,13 @@ def phase_moe_int8w(dev, moe_runs, profile: bool = False):
     prompt = moe_prompt(cfg)
     moe_route_check(runner, prompt, "moe-int8w", MOE_INT8_LIMIT)
     per_step = 2 * cfg.num_layers + 1
-    step = moe_first_step(runner, prompt, "moe-int8w")
+    step, _, _ = moe_first_step(runner, prompt, "moe-int8w")
     check(step.get("int8_matmul") == per_step and not step.get("gmm")
           and not step.get("gmm_scaled"),
           f"moe-int8w: one decode step launched {step}, expected B9 {per_step}, B10 0")
     runner.retain_full_logits = False
-    runs, prefills, launches = generate_counting_prefills(runner, prompt, "moe-int8w")
+    runs, prefills, launches = generate_counting_prefills(runner, prompt, "moe-int8w",
+                                                          gen_len=MOE_INT8W_GEN)
     per = 3 * cfg.num_layers
     check(len(prefills) == 2 and all(p.get("gmm_scaled") == per and not p.get("gmm")
                                      for p in prefills),
@@ -4912,8 +5191,8 @@ def sharded_batch(out, batch_runs, launches) -> None:
     for every request, and above it with the vocab join left out (rank 0's
     own vocab block, zeros elsewhere: what rank 0 holds without the join);
     on every rank B8 once a layer at admission and B3 never, the mode's
-    partial kernels (B1p or B11; B2p or B7 on the rank's heads) launched,
-    the single-device decode kernels never; the greedy ids' share equal to
+    partial kernels launched (flatten: B11 on the gather steps and B1p on
+    the paged ones; seq: B2p), the single-device decode kernels never; the greedy ids' share equal to
     the single-card batch path's, printed (branches sorted, as phase_batch
     compares them; bf16 near-ties flip tokens, PERF.md); rank 0's launches
     of the partial entries and B8 join `launches`."""
@@ -4960,7 +5239,8 @@ def sharded_batch(out, batch_runs, launches) -> None:
               f"16 query / 4 KV heads) {r['admission_ms']:.3f} ms, {r['steps']} steps, "
               f"{tok} generated tokens in {r['wall_ms']:.1f} ms, "
               f"{r['wall_ms'] / tok:.4f} ms/token aggregate (four ranks sharing one "
-              f"card), plans paged at {sum(r['paged'])} of {len(r['paged'])} steps; "
+              f"card), plans paged at {sum(r['paged'])} of {len(r['paged'])} steps "
+              f"({[i for i, p in enumerate(r['paged']) if p]}); "
               f"rank 0's host waits {r['waits']}, collectives gloo staged through the "
               f"host {r['staged']} taking {r['staged_ms']:.1f} ms "
               f"({r['admission_staged_ms']:.1f} of them in the admission); greedy ids "
@@ -4970,11 +5250,13 @@ def sharded_batch(out, batch_runs, launches) -> None:
               f"{[{k: n for k, n in c.items() if n} for c in r['admission']]}; run "
               f"launches by rank {[{k: n for k, n in c.items() if n} for c in r['counts']]}",
               flush=True)
+        # flatten: B11 on the gather plans, B1p once the plans come out paged
+        need = pairs[mode] if mode == "flatten" else pairs[mode][:1]
         for a, c in zip(r["admission"], r["counts"]):
             check(a["ragged_prefill"] == L and a["prefill"] == 0,
                   f"sharded batch {mode}: admission launched {a}, not B8 once a layer")
-            check(c[pairs[mode][0]] + c[pairs[mode][1]] > 0,
-                  f"sharded batch {mode}: neither {' nor '.join(pairs[mode])} launched: {c}")
+            check(all(c[k] > 0 for k in need),
+                  f"sharded batch {mode}: not all of {need} launched: {c}")
             check(all(c[k] == 0 for k in SINGLE_DECODE),
                   f"sharded batch {mode}: a single-device decode kernel launched: {c}")
         for k, n in r["counts"][0].items():
@@ -5014,31 +5296,127 @@ def sharded_modes(runs, launches) -> None:
                 launches[k] = launches.get(k, 0) + n
 
 
-def phase_sharded_moe(moe_logits):
+def phase_sharded_moe(moe_ref, grids=(SHARDED_GRID, DP_GRID)):
     """mixtral-6l on grid 1x2x2 over gloo on the one card: 4 experts a rank
     (sp 2), their inner dims over tp 2; the prefill's B10 launches on every
-    rank, its last-token logits against the moe path's below MOE_LIMIT;
-    then 8 decode tokens."""
+    rank, its last-token logits against the moe path's (`moe_ref`, phase_moe)
+    below MOE_LIMIT; then 8 decode tokens.  Then on DP_GRID, the MoE block
+    on its dp rows (sharded_moe_dp).  `grids`: which of the two run."""
     from deft_tpu_torch.models import PRESETS
 
     per = 3 * PRESETS["mixtral-6l"].num_layers
+    if SHARDED_GRID in grids:
+        t0 = time.perf_counter()
+        out = run_grid(sharded_moe_rank, SHARDED_GRID)
+        e = rel_l2(out["logits"], moe_ref["prefill"])
+        run = out["runs"]["flatten"]
+        print(f"[sharded-moe] grid {SHARDED_GRID}: prefill last-token logits against the "
+              f"moe path's, relative L2 {e:.3e} (limit {MOE_LIMIT:g}), top-1 equal "
+              f"{int(out['logits'].argmax()) == int(moe_ref['prefill'].argmax())}; prefill "
+              f"launches by rank {[{k: n for k, n in c.items() if n} for c in out['prefill']]}; "
+              f"8 decode tokens: TTFT {run['TTFT']:.3f} ms, TPOT {run['TPOT']:.4f} ms (four "
+              f"ranks sharing one card); {time.perf_counter() - t0:.1f} s", flush=True)
+        check(e < MOE_LIMIT, f"sharded MoE prefill logits stray from the moe path's: {e}")
+        for c in out["prefill"]:
+            check(c["gmm"] == per and c["gmm_scaled"] == 0,
+                  f"sharded-moe: B10 launches of a rank's prefill {c}, expected gmm {per}")
+        check(len(run["seqs"]) == WIDTH and all(len(x) == 8 for x in run["seqs"]),
+              "sharded-moe: expected 50 branches of 8 tokens")
+    if DP_GRID in grids:
+        sharded_moe_dp(moe_ref, per)
+
+
+def sharded_moe_dp_rank(grid, prompt, ids):
+    """mixtral-6l on one rank of DP_GRID (every expert, its inner dims over
+    tp 2): the moe path's prefill and first decode step on its branch
+    tokens `ids`, with the rows each MoE block call took (runner._shard.moe)
+    and the launches counted around the prefill; the step's logits, every
+    row joined over dp; then SHARDED_GEN tokens in flatten (rank_generate).
+    Every rank's readings are gathered."""
+    import torch
+    from deft_tpu_torch.models import PRESETS
+    from deft_tpu_torch.models.llama import forward_layers
+    from deft_tpu_torch.runtime import ForwardMode
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flatten = ForwardMode.TREE_DECODE_FLATTEN
+    runner = make_runner(PRESETS["mixtral-6l"], None, grid.device, mesh=grid)
+    moe, rows = runner._shard.moe, []
+
+    def counting_moe(cfg, lp, h, window):
+        rows.append(h.shape[0])
+        return moe(cfg, lp, h, window)
+
+    runner._shard.moe = counting_moe
+    reset_counts()
+    first_step(runner, prompt, ids)
+    mine = {"prefill": read_counts(), "prefill moe rows": sorted(set(rows))}
+    rows.clear()
+    plan = runner.build_plan(flatten)
+    view, _ = runner.forward_tree_decode(flatten, plan)
+    mine.update({"step moe rows": list(rows), "step rows": forward_layers.last_rows,
+                 "l_pad": plan.l_pad})
+    runner._shard.moe = moe
+    out = {"first": view.full_logits()[:WIDTH].float().cpu()}
+    runner.reset_state()
+    runner.retain_full_logits = False
+    out["runs"] = rank_generate(grid, runner, prompt, SHARDED_GEN, ("flatten",))
+    out["ranks"] = rank_counts_of(grid, mine)
+    del runner
+    release()
+    return out
+
+
+def sharded_moe_dp(moe_ref, per) -> None:
+    """(h) mixtral-6l on DP_GRID (sharded_moe_dp_rank): each rank runs its
+    dp window, half the plan's padded rows, through every layer's MoE block
+    at the first decode step; B10 (gmm) takes every rank's prefill, `per`
+    launches; the step's logits against the moe path's flatten step
+    (`moe_ref`) below MOE_STEP_LIMIT, with the other dp window's rows left
+    out above it; SHARDED_GEN tokens in flatten: WIDTH branches, B11 or B1p
+    on every rank."""
+    from deft_tpu_torch.models import PRESETS
+
+    L, dp = PRESETS["mixtral-6l"].num_layers, DP_GRID[0]
     t0 = time.perf_counter()
-    out = run_grid(sharded_moe_rank, SHARDED_GRID)
-    e = rel_l2(out["logits"], moe_logits)
+    out = run_grid(sharded_moe_dp_rank, DP_GRID, (moe_prompt(PRESETS["mixtral-6l"]),
+                                                   moe_ref["ids"]))
+    tag = f"[sharded-moe] grid {DP_GRID}"
+    ranks, first, want = out["ranks"], out["first"], moe_ref["first"]
+    unjoined = first.clone()
+    unjoined[ranks[0]["l_pad"] // dp:] = 0
+    err, err_fault = rel_l2(first, want), rel_l2(unjoined, want)
     run = out["runs"]["flatten"]
-    print(f"[sharded-moe] grid {SHARDED_GRID}: prefill last-token logits against the "
-          f"moe path's, relative L2 {e:.3e} (limit {MOE_LIMIT:g}), top-1 equal "
-          f"{int(out['logits'].argmax()) == int(moe_logits.argmax())}; prefill launches by "
-          f"rank {[{k: n for k, n in c.items() if n} for c in out['prefill']]}; 8 decode "
-          f"tokens: TTFT {run['TTFT']:.3f} ms, TPOT {run['TPOT']:.4f} ms (four ranks "
-          f"sharing one card); {time.perf_counter() - t0:.1f} s", flush=True)
-    check(e < MOE_LIMIT, f"sharded MoE prefill logits stray from the moe path's: {e}")
-    for c in out["prefill"]:
-        check(c["gmm"] == per and c["gmm_scaled"] == 0,
-              f"sharded-moe: B10 launches of a rank's prefill {c}, expected gmm {per}")
-    check(len(run["seqs"]) == WIDTH and all(len(x) == 8 for x in run["seqs"]),
-          "sharded-moe: expected 50 branches of 8 tokens")
-    return out["prefill"][0]
+    print(f"{tag}: rows through the MoE block by rank, a decode step "
+          f"{[r['step moe rows'] for r in ranks]} (plan {ranks[0]['l_pad']} rows; dense "
+          f"layers {[r['step rows'] for r in ranks]}), the prefill "
+          f"{[r['prefill moe rows'] for r in ranks]}; prefill launches by rank "
+          f"{[{k: n for k, n in r['prefill'].items() if n} for r in ranks]}; first decode "
+          f"step's logits against the moe path's, relative L2 {err:.3e}, with the other dp "
+          f"window's rows left out {err_fault:.3e} (limit {MOE_STEP_LIMIT:g}); "
+          f"{SHARDED_GEN - 1} decode tokens: TTFT {run['TTFT']:.3f} ms, TPOT "
+          f"{run['TPOT']:.4f} ms (four ranks sharing one card), launches by rank "
+          f"{[{k: n for k, n in c.items() if n} for c in run['counts']]}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(tuple(first.shape) == tuple(want.shape) and bool(first.isfinite().all()),
+          f"{tag}: first-step logits {tuple(first.shape)} not finite or not "
+          f"{tuple(want.shape)}")
+    check(err < MOE_STEP_LIMIT, f"{tag}: first-step logits stray from the moe path's: {err}")
+    check(err_fault > MOE_STEP_LIMIT,
+          f"{tag}: the dp join left out stays under the limit: {err_fault}")
+    for r in ranks:
+        half = r["l_pad"] // dp
+        check(r["step moe rows"] == [half] * L and r["step rows"] == half,
+              f"{tag}: a rank's MoE blocks took {r['step moe rows']} rows at a decode step "
+              f"(dense layers {r['step rows']}), not {half} in each of {L} layers")
+        check(r["prefill"]["gmm"] == per and r["prefill"]["gmm_scaled"] == 0,
+              f"{tag}: B10 launches of a rank's prefill {r['prefill']}, expected gmm {per}")
+    check(len(run["seqs"]) == WIDTH and all(len(x) == SHARDED_GEN - 1 for x in run["seqs"]),
+          f"{tag}: expected {WIDTH} branches of {SHARDED_GEN - 1} tokens")
+    for c in run["counts"]:
+        check(c["paged_flatten_partial"] + c["flatten_gather_partial"] > 0
+              and all(c[k] == 0 for k in SINGLE_DECODE),
+              f"{tag} flatten: launches of a rank {c}")
 
 
 def phase_sharded_dp(prompt, ids, lf, lw, main_runs):
@@ -5475,7 +5853,12 @@ def family_serve(name, source, hf_cfg, dev, smi) -> dict:
     block printed);
     the decode kernels each mode must run (B1/B2 where the heads pack, B6/B7
     at the wide heads, never the other layout's); TTFT, TPOT and peak
-    memory printed.  Returns the served runs' launches."""
+    memory printed.  At the wide heads, on the same weights: (e) the same
+    workload over int8 KV (wide_int8), (f) the batch path's four requests
+    through BatchedEngine (wide_batch) and the 16-token prompt's first
+    step, the grids' reference (short_first_step).  Returns {"serve": the
+    served runs' launches} and, at the wide heads, "int8", "batch" (their
+    launches) and "short"."""
     import torch
     from deft_tpu_torch.models.config import LlamaConfig
     from deft_tpu_torch.models.loader import random_params
@@ -5492,22 +5875,14 @@ def family_serve(name, source, hf_cfg, dev, smi) -> dict:
     runner.reset_state()
     first_step(runner, prompt, ids)
     paged = packs_heads(cfg.head_dim)
-    half = "flatten, every other prompt block dropped"
     lf, ls, readings = logits_controls(runner, WIDTH, midrun=not paged,
-                                       extra=((half, lambda b: drop_block(b, every=2)),))
+                                       extra=((HALF_DROPPED, lambda b: drop_block(b, every=2)),))
     limit = FAMILY_LIMITS[name]
     print(f"[families] {name}: first decode step, relative L2 error of the logits "
           f"against flatten's: " + ", ".join(f"{k} {v:.3e}" for k, v in readings.items())
           + f" (limit {limit:.0e}); top-1 agreement seq "
           f"{float((lf.argmax(-1) == ls.argmax(-1)).float().mean()):.3f}", flush=True)
-    check(readings["seq"] < limit, f"families {name}: flatten and seq logits "
-          f"disagree: {readings['seq']}")
-    check(readings["flatten+ulp noise"] < limit,
-          f"families {name}: one ulp of attention noise moves the logits past the limit")
-    # the fault the limit must see: half the prompt's blocks lost (a split-KV
-    # merge that drops every other span); one dropped block is printed beside
-    check(readings[half] > limit,
-          f"families {name}: half the prompt's blocks dropped stay under the limit")
+    family_controls(f"families {name}", readings, limit)
     runner.reset_state()
     runner.retain_full_logits = False
     reset_counts()
@@ -5532,9 +5907,124 @@ def family_serve(name, source, hf_cfg, dev, smi) -> dict:
           f"TPOT {f.TPOT:.4f} / {s.TPOT:.4f} ms (flatten / seq), peak {peak:.2f} GB, launches "
           f"{ {k: n for k, n in launches.items() if n} }; {time.perf_counter() - t0:.1f} s; "
           f"{smi}", flush=True)
-    del runner, params
+    del runner
+    release()
+    out = {"serve": launches}
+    if not paged:
+        out["int8"] = wide_int8(name, cfg, params, prompt, ids, lf, dev, smi)
+        out["batch"] = wide_batch(name, cfg, params, dev, smi)
+        out["short"] = short_first_step(cfg, params, dev)
+    del params
+    release()
+    return out
+
+
+# the every-other-prompt-block fault of the families' first steps
+HALF_DROPPED = "flatten, every other prompt block dropped"
+
+
+def family_controls(tag, readings, limit) -> None:
+    """A family's first-step gate: seq and one ulp of attention noise below
+    its limit, every other prompt block dropped above it (logits_controls'
+    readings with HALF_DROPPED)."""
+    check(readings["seq"] < limit, f"{tag}: flatten and seq logits disagree: "
+          f"{readings['seq']}")
+    check(readings["flatten+ulp noise"] < limit,
+          f"{tag}: one ulp of attention noise moves the logits past the limit")
+    # the fault the limit must see: half the prompt's blocks lost (a split-KV
+    # merge that drops every other span); one dropped block is printed beside
+    check(readings[HALF_DROPPED] > limit,
+          f"{tag}: half the prompt's blocks dropped stay under the limit")
+
+
+# decode kernels that read the paged layout (B1, B2, B4, B5): never at heads
+# that do not pack
+PAGED_DECODE = ("paged_flatten", "paged_seq", "paged_flatten_q", "paged_seq_q")
+
+
+def wide_int8(name, cfg, params, prompt, ids, lf_bf16, dev, smi) -> dict:
+    """(e) The family's main workload over an int8 KV cache on the bf16
+    serve's weights: the first decode step (the bf16 serve's branch tokens
+    `ids`) int8 seq against int8 flatten below FAMILY_LIMITS, between the
+    same two controls as the bf16 step (family_controls); int8 flatten
+    against the bf16 serve's flatten (`lf_bf16`) printed, not gated; then
+    flatten and seq through tree_generate: B6 and B7 launch over int8
+    pools, the paged kernels never.  Returns the runs' launches."""
+    import torch
+
+    tag = f"families {name} int8"
+    runner = make_runner(cfg, params, dev, kv_dtype="int8")
+    check(runner.k_pool.data.dtype == torch.int8 and runner.k_pool.quantized,
+          f"{tag}: the runner's pools are not int8")
+    first_step(runner, prompt, ids)
+    lq, lqs, readings = logits_controls(runner, WIDTH, midrun=True,
+                                        extra=((HALF_DROPPED, lambda b: drop_block(b, every=2)),))
+    limit = FAMILY_LIMITS[name]
+    print(f"[{tag}] first decode step over int8 pools, relative L2 error of the logits "
+          f"against int8 flatten's: " + ", ".join(f"{k} {v:.3e}" for k, v in readings.items())
+          + f" (limit {limit:.0e}); int8 flatten against bf16 flatten {rel_l2(lq, lf_bf16):.3e}"
+          f" (not gated); top-1 agreement seq "
+          f"{float((lq.argmax(-1) == lqs.argmax(-1)).float().mean()):.3f}, against bf16 "
+          f"{float((lq.argmax(-1) == lf_bf16.argmax(-1)).float().mean()):.3f}", flush=True)
+    family_controls(tag, readings, limit)
+    runner.reset_state()
+    runner.retain_full_logits = False
+    reset_counts()
+    runs = generate_both(runner, prompt, tag, count_plans=True)
+    launches = read_counts()
+    for mode, k in (("flatten", "flatten_gather"), ("seq", "seq_gather")):
+        moved = runs[mode]["launches"]
+        check(moved.get(k, 0) > 0 and not any(moved.get(p, 0) for p in PAGED_DECODE),
+              f"{tag} {mode}: {k} did not take every step over int8 pools: {moved}")
+    print(f"[{tag}] over int8 pools: flatten_gather_d{cfg.head_dim} "
+          f"{launches['flatten_gather']}, seq_gather_d{cfg.head_dim} "
+          f"{launches['seq_gather']} launches; {smi}", flush=True)
+    del runner
     release()
     return launches
+
+
+def wide_batch(name, cfg, params, dev, smi) -> dict:
+    """(f) The batch path's protocol at the family's heads, on the bf16
+    serve's weights: the four requests of BATCH_LENS alone, then through
+    one ragged prefill (B8 at the family's width, once a layer) and one
+    multi-tree step held against the alone runs below FAMILY_LIMITS
+    (batch_admission); then BatchedEngine flatten and seq (batch_engine):
+    B6 and B7 on the multi-tree gather plans, B1/B2 never.  Returns the
+    engine runs' launches."""
+    rng = np.random.default_rng(SEED + 3)
+    prompts = [[int(t) for t in rng.integers(4, cfg.vocab_size - 4, n)] for n in BATCH_LENS]
+    tag = f"families {name} batch"
+    runner = batch_runner(cfg, params, dev)
+    batch_admission(runner, prompts, tag, FAMILY_LIMITS[name])
+    runner.retain_full_logits = False
+    launches, _, _ = batch_engine(runner, prompts, tag, paged_kernels=False)
+    print(f"[{tag}] ragged_prefill_d{cfg.head_dim} {launches['ragged_prefill']}, "
+          f"flatten_gather_d{cfg.head_dim} {launches['flatten_gather']}, "
+          f"seq_gather_d{cfg.head_dim} {launches['seq_gather']} launches; {smi}", flush=True)
+    del runner
+    release()
+    return launches
+
+
+def short_first_step(cfg, params, dev) -> tuple:
+    """The CLI's 16-token prompt on one card: (prompt, the prefill's top
+    WIDTH ids, the first flatten decode step's (WIDTH, V) fp32 logits on
+    the host), the wide grids' reference."""
+    from deft_tpu_torch.cli.run import make_prompt
+    from deft_tpu_torch.runtime import ForwardMode
+
+    prompt = make_prompt(None, 16 + GEN_LEN, cfg.vocab_size, SEED)
+    runner = make_runner(cfg, params, dev, prompt_len=len(prompt))
+    _, ids = runner.forward_prefill(prompt).topk(0, WIDTH)
+    runner.reset_state()
+    first_step(runner, prompt, ids)
+    flatten = ForwardMode.TREE_DECODE_FLATTEN
+    view, _ = runner.forward_tree_decode(flatten, runner.build_plan(flatten))
+    lf = view.full_logits()[:WIDTH].float().cpu()
+    del runner
+    release()
+    return prompt, ids, lf
 
 
 def step_share(runner, prompt, name, smi, steps=4) -> None:
@@ -5557,33 +6047,147 @@ def step_share(runner, prompt, name, smi, steps=4) -> None:
               f"{steps} steps); {smi}", flush=True)
 
 
-def phase_families(dev, smi) -> dict:
+def phase_families(dev, smi, wide_only: bool = False) -> dict:
     """LOADED_FAMILIES written at 2 layers (family_write), each loaded by a
     CLI run, the runs at once (family_cli), and checked (family_load); then
-    each of FAMILIES served at full width and depth (family_serve).
-    Returns the kernels line's launches of the wide heads' kernels: the
-    served runs' B3, B6 and B7 of Phi-3-mini's widths (D 96) and Gemma-7B
-    (D 256); the others 0 (no served path: a batch, a grid)."""
-    written = {name: family_write(name, FAMILIES[name][1], dev) for name in LOADED_FAMILIES}
+    each of FAMILIES served at full width and depth (family_serve), the
+    wide heads also over int8 KV and batched; then the wide heads on a grid
+    (phase_wide_grids).  wide_only: the wide heads' families alone, no
+    checkpoint.  Returns the kernels line's launches of the wide heads'
+    kernels: B3, B6 and B7 of the served runs (bf16 and int8 KV), B8, B6
+    and B7 of the batched runs, B11, B7 and B3 of rank 0's grid runs, at
+    Phi-3-mini's widths (D 96) and Gemma-7B's (D 256)."""
+    if not wide_only:
+        written = {name: family_write(name, FAMILIES[name][1], dev)
+                   for name in LOADED_FAMILIES}
+        t0 = time.perf_counter()
+        procs = {name: family_cli(w) for name, w in written.items()}
+        try:
+            for name, w in written.items():
+                family_load(name, FAMILIES[name][0], w, procs[name], t0, dev)
+        finally:
+            for proc in procs.values():  # a failed check leaves no process behind
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        del written
+        release()
+    served = {name: family_serve(name, *FAMILIES[name], dev, smi) for name in FAMILIES
+              if not wide_only or name in WIDE_FAMILY.values()}
+    grids = phase_wide_grids({name: served[name]["short"] for name in WIDE_FAMILY.values()})
+    out = {}
+    for D, family in WIDE_FAMILY.items():
+        runs = [served[family][k] for k in ("serve", "int8", "batch")] + [grids[family]]
+        for base in ("prefill", "ragged_prefill", "flatten_gather", "seq_gather",
+                     "flatten_gather_partial"):
+            out[f"{base}_d{D}"] = sum(r.get(base, 0) for r in runs)
+    return out
+
+
+def wide_grid_rank(grid, refs):
+    """The wide-head families on one rank of SHORT_GRID at full depth, one
+    after the other (`refs`: {name: (prompt, ids)}), each from the rank's
+    slices of family_serve's weights (the seed): the 16-token prompt's
+    first flatten decode step on the single card's branch tokens `ids`
+    (its logits, every row joined over dp, and the step's launches), then
+    SHARDED_GEN tokens flatten and seq over bf16 pools and flatten over
+    int8 pools (rank_generate, under sync_checked)."""
+    import torch
+    from deft_tpu_torch.models.config import LlamaConfig
+    from deft_tpu_torch.runtime import ForwardMode
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flatten, out = ForwardMode.TREE_DECODE_FLATTEN, {}
+    for name, (prompt, ids) in refs.items():
+        cfg, got = LlamaConfig.from_hf_config(FAMILIES[name][1]), {}
+        torch.cuda.reset_peak_memory_stats(grid.device)
+        for kv, modes in (("inherit", ("flatten", "seq")), ("int8", ("flatten",))):
+            # 8192 slots: the prompt and each leaf's 128-slot chunk; four
+            # Gemma ranks share the card with the script's own tensors
+            runner = make_runner(cfg, None, grid.device, kv_dtype=kv,
+                                 prompt_len=len(prompt), slots=8192, mesh=grid)
+            if kv == "inherit":
+                first_step(runner, prompt, ids)
+                plan = runner.build_plan(flatten)
+                reset_counts()
+                view, _ = runner.forward_tree_decode(flatten, plan)
+                got.update(first=view.full_logits()[:WIDTH].float().cpu(), l_pad=plan.l_pad,
+                           first_counts=rank_counts(grid))
+                runner.reset_state()
+            runner.retain_full_logits = False
+            got[kv] = rank_generate(grid, runner, prompt, SHARDED_GEN, modes)
+            del runner
+            release()
+        got["peak GB"] = rank_counts_of(grid,
+                                        torch.cuda.max_memory_allocated(grid.device) / 1e9)
+        out[name] = got
+    return out
+
+
+def phase_wide_grids(refs) -> dict:
+    """(g) The wide-head families (WIDE_FAMILY) on SHORT_GRID, four gloo
+    ranks on the one card, one launch, full depth (wide_grid_rank): rank 0's first-step
+    logits against the single card's (`refs[name]`: short_first_step)
+    below FAMILY_LIMITS, with the other dp window's rows left out (what
+    rank 0 holds without the join) above it; on every rank B11 in each
+    flatten run (bf16 and int8 pools) and B7 in the seq run, on the rank's
+    heads, and no single-card decode kernel; WIDTH branches of
+    SHARDED_GEN - 1 tokens.  Returns {name: rank 0's launches of the
+    runs}."""
+    import torch
+
+    held = torch.cuda.memory_allocated() / 1e9
     t0 = time.perf_counter()
-    procs = {name: family_cli(w) for name, w in written.items()}
-    try:
-        for name, w in written.items():
-            family_load(name, FAMILIES[name][0], w, procs[name], t0, dev)
-    finally:
-        for proc in procs.values():  # a failed check leaves no process behind
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
-    del written
-    release()
-    launches = {}
-    for name, (source, hf_cfg) in FAMILIES.items():
-        launches[name] = family_serve(name, source, hf_cfg, dev, smi)
-    out = {wide: 0 for wide in WIDE_OF}
-    for D, family in ((96, "phi-3-mini"), (256, "gemma-7b")):
-        out.update({f"{base}_d{D}": launches[family][base]
-                    for base in ("prefill", "flatten_gather", "seq_gather")})
+    runs = run_grid(wide_grid_rank, SHORT_GRID, ({name: refs[name][:2]
+                                                  for name in WIDE_FAMILY.values()},))
+    print(f"[wide-grid] one launch of grid {SHORT_GRID} for {list(runs)}: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    out = {}
+    for D, name in WIDE_FAMILY.items():
+        got, lf = runs[name], refs[name][2]
+        tag = f"[wide-grid] {name}, grid {SHORT_GRID}"
+        first = got["first"]
+        unjoined = first.clone()
+        unjoined[got["l_pad"] // SHORT_GRID[0]:] = 0
+        err, err_fault = rel_l2(first, lf), rel_l2(unjoined, lf)
+        limit = FAMILY_LIMITS[name]
+        print(f"{tag}: first decode step (16-token prompt, plan {got['l_pad']} rows) "
+              f"against the single card's, relative L2 {err:.3e}, with the other dp "
+              f"window's rows left out {err_fault:.3e} (limit {limit:.0e}); top-1 "
+              f"agreement {float((first.argmax(-1) == lf.argmax(-1)).float().mean()):.3f}; "
+              f"its launches by rank "
+              f"{[{k: n for k, n in c.items() if n} for c in got['first_counts']]}; peak "
+              f"{[round(g, 2) for g in got['peak GB']]} GB by rank beside the script's "
+              f"{held:.2f} GB", flush=True)
+        check(tuple(first.shape) == tuple(lf.shape) and bool(first.isfinite().all()),
+              f"{tag}: first-step logits {tuple(first.shape)} not finite or not "
+              f"{tuple(lf.shape)}")
+        check(err < limit, f"{tag}: first-step logits stray from the single card's: {err}")
+        check(err_fault > limit, f"{tag}: the dp join left out stays under the limit: "
+              f"{err_fault}")
+        launches = {}
+        for kv, mode, want in (("inherit", "flatten", "flatten_gather_partial"),
+                               ("inherit", "seq", "seq_gather"),
+                               ("int8", "flatten", "flatten_gather_partial")):
+            r = got[kv][mode]
+            print(f"{tag} {'int8' if kv == 'int8' else 'bf16'} KV {mode}: TTFT "
+                  f"{r['TTFT']:.3f} ms, TPOT {r['TPOT']:.4f} ms (four ranks sharing one "
+                  f"card), plans paged at {sum(r['paged'])} of {len(r['paged'])} steps; "
+                  f"launches by rank "
+                  f"{[{k: n for k, n in c.items() if n} for c in r['counts']]}", flush=True)
+            check(len(r["seqs"]) == WIDTH and all(len(x) == SHARDED_GEN - 1 for x in r["seqs"]),
+                  f"{tag} {kv} {mode}: expected {WIDTH} branches of {SHARDED_GEN - 1} tokens")
+            for c in r["counts"]:
+                check(c[want] > 0 and c["prefill"] > 0,
+                      f"{tag} {kv} {mode}: {want} or B3 did not launch on a rank: {c}")
+                check(all(c[k] == 0 for k in SINGLE_DECODE + ("paged_flatten_partial",
+                                                              "paged_flatten_q_partial",
+                                                              "paged_seq_partial",
+                                                              "paged_seq_q_partial")),
+                      f"{tag} {kv} {mode}: a single-card or paged decode kernel ran: {c}")
+            for k, n in r["counts"][0].items():
+                launches[k] = launches.get(k, 0) + n
+        out[name] = launches
     return out
 
 
@@ -6742,6 +7346,45 @@ def phase_prefill_only(dev):
                   f"{bound:.4f} ms (operations), {bound / ms:.1%} of the bound", flush=True)
 
 
+def phase_wide_only(dev, smi) -> None:
+    """--wide-only: this script's runs of the wide heads' served paths and
+    of the other kernel instances they brought to a served run, each phase
+    as in the full run: the 16-token prompt's int8 seq through BatchedEngine
+    (B7 over int8 pools) and the 8B batch path over int8 KV (B6 over int8
+    pools, B4 where a plan pages) on the 8B weights; Phi-3-mini's widths
+    and Gemma-7B served (bf16, int8 KV, batched, grid 2x1x2:
+    phase_families(wide_only=True)); mixtral-6l's moe path and the MoE
+    block on grid 2x1x2's dp rows.  First B7 at the wide heads' batch seq
+    plans against its plain version (wide_batch_seq), as the kernels phase
+    holds it."""
+    import torch
+    from deft_tpu_torch.cli.run import make_prompt
+    from deft_tpu_torch.models import PRESETS
+    from deft_tpu_torch.models.loader import random_params
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 20)
+    wide_batch_seq(dev, gen)
+    cfg = PRESETS["8b"]
+    params = random_params(cfg, SEED, dev, torch.bfloat16)
+    with timed_phase("short int8 seq"):
+        prompt = make_prompt(None, 16 + GEN_LEN, cfg.vocab_size, SEED)
+        short_int8_seq(dev, params, prompt, [])
+    with timed_phase("batch int8"):
+        batch_int8(dev, params, batch_prompts())
+    del params
+    release()
+    with timed_phase("families (wide)"):
+        wide = phase_families(dev, smi, wide_only=True)
+    print(f"[wide] the wide heads' launches: {wide}", flush=True)
+    for name, n in wide.items():
+        check(n > 0, f"wide: {name} never launched on a served run")
+    with timed_phase("moe"):
+        _, _, moe_ref = phase_moe(dev, smi)
+    with timed_phase("sharded-moe (dp)"):
+        phase_sharded_moe(moe_ref, grids=(DP_GRID,))
+
+
 @contextlib.contextmanager
 def timed_phase(name):
     """Print the seconds the block took, as "[time] name: s"."""
@@ -6785,16 +7428,23 @@ def main(argv=None) -> int:
                     help="only the card, the build and the replay phase (the replay, "
                          "window and per-step chain paths, phase_replay); prints no "
                          "result line")
+    ap.add_argument("--wide-only", action="store_true",
+                    help="only the card, the build and the wide heads' served paths: "
+                         "Phi-3-mini's widths and Gemma-7B over int8 KV, batched and on "
+                         "grid 2x1x2, the 8B batch path and the 16-token prompt's seq "
+                         "over int8 KV, mixtral-6l on grid 2x1x2 (phase_wide_only); "
+                         "prints no result line")
     ap.add_argument("--root", default=None,
                     help="with --flatten-only, --seq-only or --prefill-only: import "
                          "deft_tpu_torch from this checkout (a parent commit timed in "
                          "turns with this one)")
     args = ap.parse_args(argv)
     only = (args.flatten_only + args.seq_only + args.prefill_only + args.workloads_only
-            + args.chain_only + args.attention_only + args.replay_only)
+            + args.chain_only + args.attention_only + args.replay_only + args.wide_only)
     if only > 1:
         ap.error("--flatten-only, --seq-only, --prefill-only, --workloads-only, "
-                 "--chain-only, --attention-only and --replay-only are separate runs")
+                 "--chain-only, --attention-only, --replay-only and --wide-only are "
+                 "separate runs")
     if args.root is not None:
         if not (args.flatten_only or args.seq_only or args.prefill_only):
             ap.error("--root goes with --flatten-only, --seq-only or --prefill-only")
@@ -6828,7 +7478,8 @@ def main(argv=None) -> int:
             phase_prefill_only(dev)
             print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}", flush=True)
             return 0
-        shapes = path_shapes(dev)
+        with timed_phase("shapes"):
+            shapes = path_shapes(dev)
         if args.flatten_only or args.seq_only:
             if args.flatten_only:
                 shapes.update({k: v for k, v in wide_shapes(dev).items() if k in WIDE_FLAT})
@@ -6838,9 +7489,14 @@ def main(argv=None) -> int:
                 phase_seq_only(dev, shapes, edges=args.root is None)
             print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}", flush=True)
             return 0
+        if args.wide_only:
+            phase_wide_only(dev, smi)
+            print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}", flush=True)
+            return 0
         if not (args.workloads_only or args.chain_only or args.attention_only
                 or args.replay_only):
-            shapes.update(wide_shapes(dev))
+            with timed_phase("wide shapes"):
+                shapes.update(wide_shapes(dev))
             with timed_phase("kernels"):
                 errs = phase_kernels(dev, shapes)
         t0 = time.perf_counter()
@@ -6879,7 +7535,10 @@ def main(argv=None) -> int:
         with timed_phase("batch"):
             batch, batch_runs = phase_batch(dev, params, args.profile)
         launches["ragged_prefill"] = batch["ragged_prefill"]
-        launches["flatten_gather"] += batch["flatten_gather"]  # its multi-tree gather steps
+        # its multi-tree gather steps (bf16 and int8 pools), and B4 at its
+        # paged int8 steps
+        launches["flatten_gather"] += batch["flatten_gather"]
+        launches["paged_flatten_q"] += batch["paged_flatten_q"]
         with timed_phase("workloads"), switched(PER_STEP_CHAIN):
             wl, wl_chained, wl_gathers = phase_workloads(dev, params, prompt, smi,
                                                          args.profile)
@@ -6896,7 +7555,7 @@ def main(argv=None) -> int:
             int8w_launches, lw = phase_int8w(dev, prompt, ids, main_runs, smi)
         launches["int8_matmul"] = int8w_launches["int8_matmul"]
         with timed_phase("moe"):
-            moe_launches, moe_runs, moe_logits = phase_moe(dev, smi, args.profile)
+            moe_launches, moe_runs, moe_ref = phase_moe(dev, smi, args.profile)
         launches["gmm"] = moe_launches["gmm"]
         with timed_phase("moe-int8w"):
             launches["gmm_scaled"] = phase_moe_int8w(dev, moe_runs,
@@ -6910,15 +7569,20 @@ def main(argv=None) -> int:
         for k, n in dp_launches.items():
             launches[k] = launches.get(k, 0) + n
         with timed_phase("sharded-moe"):
-            phase_sharded_moe(moe_logits)
+            phase_sharded_moe(moe_ref)
+        with timed_phase("timing"):
+            timing = phase_timing(dev, shapes)
+        # four Gemma-7B ranks of the wide grids need the card
+        del shapes
+        release()
         with timed_phase("families"):
             launches.update(phase_families(dev, smi))
+        idle = [n for n in KERNELS if not launches.get(n)]
+        check(not idle, f"kernels no served path launched: {idle}")
         with timed_phase("tracing"):
             phase_tracing(dev)
         if args.profile:
             profile_kv_store(dev)
-        with timed_phase("timing"):
-            timing = phase_timing(dev, shapes)
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

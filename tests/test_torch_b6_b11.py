@@ -23,7 +23,8 @@ deft_tpu:
 - spans beyond the listed tiles (B11's window) merge as "saw nothing";
 - the plain versions of B6 and B11 against deft_tpu's Pallas kernels in
   interpret mode on a small multi-tree gather plan, over bf16/fp32 and
-  int8 pools (fp32 2e-5, bf16 2e-2, live rows).
+  int8 pools, at head_dim 64, 96 and 256 (fp32 2e-5, bf16 2e-2, live
+  rows).
 """
 
 from types import SimpleNamespace
@@ -331,14 +332,16 @@ def pools_for(kind, S, Hkv, D, dt, rng):
 
 @pytest.mark.parametrize("dt", list(DTYPES))
 @pytest.mark.parametrize("kind", ["inherit", "int8"])
-def test_b6_b11_plain_vs_pallas_on_multi_tree_plan(kind, dt):
+@pytest.mark.parametrize("D", [64, 96, 256])
+def test_b6_b11_plain_vs_pallas_on_multi_tree_plan(D, kind, dt):
     """Plain B6 against deft_tpu's flatten_attn_pallas, and plain B11 on
     the plan's first half of blocks (an sp window) against deft_tpu's
     flatten_attention_partial over the same KV gathered (int8 dequantised
     to q's dtype, as deft_tpu's engine does), Pallas in interpret mode;
-    live rows."""
+    live rows; at head_dim 64 and at Phi-3-mini's and Gemma's 96 and 256,
+    whose heads do not pack."""
     S, plan = multi_gather_plan()
-    Hkv, D = 2, 64
+    Hkv = 2
     rng = np.random.default_rng(5 if kind == "int8" else 6)
     (jk, jv), (tk, tv), (tks, tvs) = pools_for(kind, S, Hkv, D, dt, rng)
     jdt, tdt, tol = DTYPES[dt]

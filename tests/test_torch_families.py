@@ -14,7 +14,11 @@ tests/test_hf_parity.py builds them and saved with ``save_pretrained``:
 - an int8 load stays within 5e-2 of HF with an equal argmax;
 - ``--model`` runs the CLI on each checkpoint;
 - a tiny Qwen2 and Qwen3 on a gloo grid 1x1x2 give the single process's
-  first decode step within 2e-5.
+  first decode step within 2e-5;
+- Gemma at head_dim 256 and Phi-3 at 96 through the batched admission (three
+  prompts in one ragged prefill) give each prompt's single prefill and
+  deft_tpu's batched prefill within 2e-5, and BatchedEngine deft_tpu's
+  branches.
 
 Then the port's safetensors reader against ``safetensors.safe_open`` (F32,
 BF16 and a two-file checkpoint), the ``.bin`` path, and the loader's
@@ -32,17 +36,26 @@ from safetensors import safe_open
 from safetensors.torch import save_file
 
 import chip_smoke as cs
+import deft_tpu.core as jcore
+import deft_tpu_torch.core as tcore
 from deft_tpu.config import EngineConfig as JEngineConfig
+from deft_tpu.control import Branch_Controller as JController
+from deft_tpu.control import workloads as jworkloads
 from deft_tpu.models.config import LlamaConfig as JLlamaConfig
 from deft_tpu.models.loader import load_params as j_load_params
 from deft_tpu.runtime import ModelRunner as JRunner
+from deft_tpu.runtime import mode_from_cli as j_mode
+from deft_tpu.runtime.batched import BatchedEngine as JEngine
+from deft_tpu.runtime.batched import Request as JRequest
 from deft_tpu_torch.cli import run as cli
 from deft_tpu_torch.config import EngineConfig
+from deft_tpu_torch.control import Branch_Controller, workloads
 from deft_tpu_torch.models.config import LlamaConfig
 from deft_tpu_torch.models.loader import load_params, read_safetensors
 from deft_tpu_torch.parallel import launch
 from deft_tpu_torch.parallel.launch import first_step, run_all
-from deft_tpu_torch.runtime import ForwardMode, ModelRunner
+from deft_tpu_torch.runtime import ForwardMode, ModelRunner, mode_from_cli
+from deft_tpu_torch.runtime.batched import BatchedEngine, Request
 
 PROMPT = [3, 11, 250, 77, 141, 9, 62, 200, 5, 18, 33, 127]
 DECODE_STEPS = 6
@@ -55,8 +68,10 @@ _TINY = dict(vocab_size=256, hidden_size=64, intermediate_size=128,
              tie_word_embeddings=False, torch_dtype=torch.float32)
 
 
-def make_hf(family):
-    """The tiny HF model of ``family`` (tests/test_hf_parity.py:48-96)."""
+def make_hf(family, head_dim=16):
+    """The tiny HF model of ``family`` (tests/test_hf_parity.py:48-96).
+    ``head_dim``: Gemma's head width, or Phi-3's (its hidden size is the
+    heads' width, so 96 gives Phi-3-mini's)."""
     if family == "llama":
         cfg = transformers.LlamaConfig(rope_theta=10000.0, attention_bias=False,
                                        mlp_bias=False, **_TINY)
@@ -70,7 +85,8 @@ def make_hf(family):
         cls = transformers.Qwen3ForCausalLM
     elif family == "gemma":
         cfg = transformers.GemmaConfig(rope_theta=10000.0, attention_bias=False,
-                                       head_dim=16, **(_TINY | {"tie_word_embeddings": True}))
+                                       head_dim=head_dim,
+                                       **(_TINY | {"tie_word_embeddings": True}))
         cls = transformers.GemmaForCausalLM
     elif family == "mixtral":
         cfg = transformers.MixtralConfig(rope_theta=1e6, sliding_window=None,
@@ -78,13 +94,14 @@ def make_hf(family):
                                          num_experts_per_tok=2, **_TINY)
         cls = transformers.MixtralForCausalLM
     else:
+        half = head_dim // 2
         cfg = transformers.Phi3Config(
             rope_theta=10000.0, sliding_window=None, pad_token_id=0,
             original_max_position_embeddings=256,
             rope_scaling={"type": "longrope",
-                          "short_factor": [1.0 + 0.25 * i for i in range(8)],
-                          "long_factor": [4.0 + 0.5 * i for i in range(8)]},
-            **_TINY)
+                          "short_factor": [1.0 + 0.25 * i for i in range(half)],
+                          "long_factor": [4.0 + 0.5 * i for i in range(half)]},
+            **(_TINY | {"hidden_size": head_dim * _TINY["num_attention_heads"]}))
         cls = transformers.Phi3ForCausalLM
     torch.manual_seed(0)
     return cls(cfg).eval()
@@ -212,15 +229,22 @@ def test_cli_model_runs_each_family(hf_model, capsys):
     assert "TPOT (ms/token)" in out and out.count("Branch ID") == 2
 
 
+# the grid's checkpoints: name -> (family, head_dim); Gemma-7B's and
+# Phi-3-mini's head widths, whose heads do not pack (gather plans: B11)
+GRID_FAMILIES = {"qwen2": ("qwen2", 16), "qwen3": ("qwen3", 16),
+                 "gemma-d256": ("gemma", 256), "phi3-d96": ("phi3", 96)}
+
+
 @pytest.fixture(scope="module")
 def grid_checkpoints(tmp_path_factory):
-    """Tiny Qwen2 and Qwen3 checkpoints and their first decode step on a
-    gloo grid 1x1x2 (one launch for both)."""
+    """Tiny Qwen2 and Qwen3 checkpoints, a Gemma at head_dim 256 and a
+    Phi-3 at 96, and their first decode step on a gloo grid 1x1x2 (one
+    launch for all)."""
     paths = {}
-    for family in ("qwen2", "qwen3"):
-        d = tmp_path_factory.mktemp(f"grid_{family}")
-        make_hf(family).save_pretrained(d, safe_serialization=True)
-        paths[family] = str(d)
+    for name, (family, head_dim) in GRID_FAMILIES.items():
+        d = tmp_path_factory.mktemp(f"grid_{name}")
+        make_hf(family, head_dim).save_pretrained(d, safe_serialization=True)
+        paths[name] = str(d)
     calls = [(first_step, dict(cfg=LlamaConfig.from_pretrained(p),
                                ecfg=EngineConfig(**ECFG), prompt=PROMPT,
                                mode="flatten", width=3, model_path=p))
@@ -230,17 +254,67 @@ def grid_checkpoints(tmp_path_factory):
     return paths, dict(zip(paths, got))
 
 
-@pytest.mark.parametrize("family", ["qwen2", "qwen3"])
+@pytest.mark.parametrize("family", list(GRID_FAMILIES))
 def test_grid_matches_single_process(grid_checkpoints, family):
     paths, got = grid_checkpoints
     from deft_tpu_torch.parallel.mesh import Grid
 
-    one = first_step(Grid((1, 1, 1), 0, torch.device("cpu")),
-                     LlamaConfig.from_pretrained(paths[family]), EngineConfig(**ECFG),
+    cfg = LlamaConfig.from_pretrained(paths[family])
+    assert cfg.head_dim == GRID_FAMILIES[family][1]
+    one = first_step(Grid((1, 1, 1), 0, torch.device("cpu")), cfg, EngineConfig(**ECFG),
                      PROMPT, "flatten", width=3, model_path=paths[family])
     _, ids, vals = got[family]
     np.testing.assert_array_equal(ids, one[1])
     np.testing.assert_allclose(vals, one[2], rtol=2e-5, atol=0)
+
+
+# three prompts joined in one ragged prefill: the second and third start
+# inside a 64-token tile of the joined prompt
+BATCH_PROMPTS = [[7 + (i * 13 + j) % 241 for j in range(n)] for i, n in enumerate((100, 75, 45))]
+
+
+@pytest.mark.parametrize("family", ["gemma-d256", "phi3-d96"])
+def test_wide_family_batch_matches_single_prefills_and_deft_tpu(tmp_path, family):
+    """Gemma at head_dim 256 ((1 + w) norms, scaled embeddings, tanh-GELU)
+    and Phi-3 at 96 (fused projections) through the batched admission in
+    fp32: each prompt's last-token logits equal its own single prefill's
+    and deft_tpu's forward_prefill_batch's within 2e-5, with equal ids;
+    then BatchedEngine's branches equal deft_tpu's BatchedEngine's on the
+    same checkpoint."""
+    name, head_dim = GRID_FAMILIES[family]
+    make_hf(name, head_dim).save_pretrained(tmp_path, safe_serialization=True)
+    path = str(tmp_path)
+    runner = port_runner(path)
+    view = runner.forward_prefill_batch(
+        BATCH_PROMPTS, [tcore.TreeCache(runner.token_to_kv_pool, runner.req_to_token_pool)
+                        for _ in BATCH_PROMPTS])
+    got = view.full_logits().numpy()
+    for i, p in enumerate(BATCH_PROMPTS):
+        runner.reset_state()
+        one = runner.forward_prefill(p).full_logits()[0].numpy()
+        assert np.linalg.norm(got[i] - one) / np.linalg.norm(one) < 2e-5, i
+    jr = JRunner(JLlamaConfig.from_pretrained(path), JEngineConfig(**ECFG), kernels="xla",
+                 model_path=path, retain_full_logits=True)
+    jv = jr.forward_prefill_batch(BATCH_PROMPTS, [
+        jcore.TreeCache(jr.token_to_kv_pool, jr.req_to_token_pool) for _ in BATCH_PROMPTS])
+    want = np.asarray(jv._full)
+    assert np.linalg.norm(got - want) / np.linalg.norm(want) < 2e-5
+    np.testing.assert_array_equal(view.ids, np.asarray(jv.ids))
+
+    def branches(engine_cls, request_cls, ctl_cls, policy, r, mode):
+        eng = engine_cls(r, mode=mode)
+        reqs = [request_cls(p, ctl_cls(policy), len(p) + 5, width=2) for p in BATCH_PROMPTS]
+        eng.add_requests(reqs)
+        eng.run()
+        return [sorted(tuple(s.token_ids) for s in q.finished_seqs) for q in reqs]
+
+    runner.reset_state()
+    jr.reset_state()
+    ids = branches(BatchedEngine, Request, Branch_Controller, workloads.simple_tree, runner,
+                   mode_from_cli("flatten"))
+    assert all(len(b) == 2 and all(len(t) == 4 for t in b) for b in ids)
+    assert ids == branches(JEngine, JRequest, JController, jworkloads.simple_tree, jr,
+                           j_mode("flatten"))
 
 
 @pytest.mark.parametrize("kind", ["F32", "BF16", "two files"])
