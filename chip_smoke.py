@@ -30,6 +30,8 @@
         # int8 seq through BatchedEngine, 7's int8 KV engine runs, 15's
         # wide-head families (bf16, int8 KV, batched, grid 2x1x2), 11 and
         # 14's mixtral-6l on grid 2x1x2
+    python3 chip_smoke.py --lab-only
+        # the card, the build and the kernel lab phase (17a below) alone
 
 Every phase runs the runtime's default decode path (replayed spans, as a
 user's call does) but two, which set the per-step chain (DEFT_REPLAY_EXEC=0
@@ -172,8 +174,9 @@ result line):
               tokens; W6 the first decode step of node, node_chunk,
               tree_index, unpaged flatten/node/seq and Medusa against
               flatten's below LOGITS_LIMIT (the dropped block above), then
-              a Simple_Tree run each (Medusa: no decode kernel), then node
-              over int8 KV (B4 or B6); W7 four Speculative_Decoding
+              a Simple_Tree run each of W6_GEN tokens (Medusa: no decode
+              kernel), then node over int8 KV (B4 or B6); W7 four
+              Speculative_Decoding
               requests through BatchedEngine (B8 at admission, each
               request's merges by its schedule); B6's and B7's launches
               join the kernels line;
@@ -345,6 +348,21 @@ result line):
               bf16 cases in the kernels line; the wide heads' kernels at
               their path shapes); B1, B1p, B4, B4p, B6 and B11
               also with one span and with a warm L2 (flat_q_tile_cost).
+ 17a. lab:   (run after 17 and before 15) the flatten kernel lab
+              (deft_tpu_torch/experiments/kernel_lab.py, the port of
+              deft_tpu's experiments/kernel_lab.py) through its entry at the
+              full shapes, cases drawn on the card: B1 on each case, B12
+              (vB_b512), B13 (vD_b512), B14 (k2_b1024s512, deep_tq64_b512),
+              B15 (probe_exp2_b512) and full_b512, each timed by the lab a
+              32-layer step; the lab exits non-zero if a variant fails to
+              launch or disagrees with B1 on its case beyond 2e-2; B12-B15
+              must launch, every output be finite; then each against its
+              plain version on the same inputs (bf16 2e-2; the probe, fp32,
+              1e-5 absolute), its CUDA-event time, plain time, B1's library
+              call on the same case and bound (the probe's: its exp2 at 16 a
+              clock per SM at the reported maximum SM clock); the build
+              phase prints the MUFU.EX2 count of exp2f and the lab kernels'
+              registers, and their bodies must hold HMMA;
 Each path's counts are set to 0 just before it and read just after (the
 short path's two runs each, summed; the batch path's two engine runs each).
 Then one JSON line of kernels, the card's nvidia-smi line, and the last
@@ -370,6 +388,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -460,6 +479,12 @@ KERNELS = {
                             "int8", "paged"),
     "flatten_gather_partial": ("deft_tpu/ops/sharded_flatten.py:37", "flatten_gather.cu",
                                "flatten", None, "gather"),
+    # the flatten kernel lab's variants of B1 and its exp2 probe (B12-B15),
+    # driven by the lab phase through the lab's entry
+    "lab_passes": ("experiments/kernel_lab.py:142", "lab_flatten.cu", None, None, None),
+    "lab_fused": ("experiments/kernel_lab.py:312", "lab_flatten.cu", None, None, None),
+    "lab_k2": ("experiments/kernel_lab.py:544", "lab_flatten.cu", None, None, None),
+    "lab_exp2_probe": ("experiments/kernel_lab.py:763", "lab_probe.cu", None, None, None),
 }
 # each partial entry -> the kernel whose plan and arguments it takes
 PARTIAL_OF = {"paged_flatten_partial": "paged_flatten",
@@ -472,9 +497,10 @@ SHARDED_GRID = (1, 2, 2)
 SHORT_GRID = (2, 1, 2)
 # the 8B's main workload with its rows over dp (dp 2, tp 2)
 DP_GRID = (2, 1, 2)
-# tokens a branch of grid 1x2x2's main runs and of SHORT_GRID's runs (8
-# decode steps, where the single card's paths run 63: the grids share the
-# script's time with DP_GRID's path and the replay phase)
+# tokens a branch of the grid runs (grid 1x2x2's main and int8 runs,
+# SHORT_GRID's, DP_GRID's and the wide heads' grids): 8 decode steps, where
+# the single card's paths run 63 (the grids share the script's time with
+# the replay phase)
 SHARDED_GEN = 9
 # tokens a branch of the batch path's four requests on grid 1x2x2 (23
 # decode steps; 63 on the single card, 31 before the wide heads' grids
@@ -482,6 +508,12 @@ SHARDED_GEN = 9
 # step 13 and paged (B1p on multi-tree windows) from step 14, its seq plans
 # paged (B2p)
 SHARDED_BATCH_GEN = 24
+# tokens a branch of the workloads phase's W6 runs (node, node_chunk,
+# tree_index, the unpaged modes, node over int8 KV; 16 decode steps, after
+# each mode's first step is held against flatten's; 63 before: the host's
+# speed varies by up to a fifth from run to run, 1072 to 1304 s for one
+# script, and the full script has to stay within 1200 s)
+W6_GEN = 17
 # tokens a branch of the moe-int8w path's flatten and seq runs (16 decode
 # steps of about 0.25 s; the other paths run 63)
 MOE_INT8W_GEN = 17
@@ -541,6 +573,8 @@ def wrappers():
     from deft_tpu_torch.ops import flatten_attn as fa
     from deft_tpu_torch.ops import gmm as gm
     from deft_tpu_torch.ops import int8_matmul as i8
+    from deft_tpu_torch.ops import lab_flatten as lf
+    from deft_tpu_torch.ops import lab_probe as lp
     from deft_tpu_torch.ops import paged_flatten_attn as pf
     from deft_tpu_torch.ops import paged_quant as pq
     from deft_tpu_torch.ops import paged_seq_attn as ps
@@ -571,6 +605,10 @@ def wrappers():
                                 ps.paged_seq_attention_q_partial_plain),
         "flatten_gather_partial": (sf.flatten_attention_partial,
                                    sf.flatten_attention_partial_plain),
+        "lab_passes": (lf.lab_passes_attention, lf.lab_passes_attention_plain),
+        "lab_fused": (lf.lab_fused_attention, lf.lab_fused_attention_plain),
+        "lab_k2": (lf.lab_k2_attention, lf.lab_k2_attention_plain),
+        "lab_exp2_probe": (lp.lab_exp2_probe, lp.lab_exp2_probe_plain),
     }
     return out | {wide: out[base] for wide, base in WIDE_OF.items()}
 
@@ -1220,7 +1258,11 @@ MMA_BODIES = {"B2/B2p (deft_seq_q, bf16 KV)": ("paged_seq", "seq_q_mmaI13__nv_bf
               "B7 at D 96 and 256 (seq_q_wide, bf16 KV)": (
                   "seq_gather", "seq_q_wideI13__nv_bfloat16", "HMMA"),
               "B7 at D 96 and 256 (seq_q_wide, int8 KV)": ("seq_gather", "seq_q_wideIa",
-                                                           "HMMA")}
+                                                           "HMMA"),
+              # the kernel lab's variants of B1 (mma.sync)
+              "B12 (lab_passes)": ("lab_flatten", "lab_passes_kernel", "HMMA"),
+              "B13 (lab_fused)": ("lab_flatten", "lab_fused_kernel", "HMMA"),
+              "B14 (lab_k2)": ("lab_flatten", "lab_k2_kernel", "HMMA")}
 # the wide heads' bodies whose registers and spills phase_build prints and
 # which must not spill
 WIDE_BODIES = {"B3/B8 D 96": ("prefill", "prefill_wgmmaILi96E"),
@@ -1277,6 +1319,8 @@ def phase_build(bodies: bool = True):
     # wgmma (HGMMA in their SASS), B2's, B4's, B5's and B7's over bf16 q on
     # mma.sync (HMMA)
     t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(_cuda.SOURCES)) as pool:  # one cuobjdump a library
+        list(pool.map(sass_of, _cuda.SOURCES))
     hgmma = {name: sass_count(name, "HGMMA") for name in _cuda.SOURCES}
     hmma = {name: sass_count(name, "HMMA") for name in _cuda.SOURCES}
     print(f"[build] SASS of the {len(_cuda.SOURCES)} libraries dumped in "
@@ -1294,9 +1338,15 @@ def phase_build(bodies: bool = True):
     print(f"[build] tensor-core instructions by body: {bodies}", flush=True)
     for label, (op, n) in bodies.items():
         check(n > 0, f"the body of {label} holds no {op} instruction")
-    for label in ("B1/B1p (deft_flat_q, bf16 KV)", "B6/B11 (deft_flat_q, bf16 KV)"):
+    for label in ("B1/B1p (deft_flat_q, bf16 KV)", "B6/B11 (deft_flat_q, bf16 KV)",
+                  "B12 (lab_passes)", "B13 (lab_fused)", "B14 (lab_k2)"):
         for line in ptxas_lines(*MMA_BODIES[label][:2]):
             print(f"[build] {label.split()[0]} body: {line}", flush=True)
+    # B15 times the instruction the flatten bodies' exp2f becomes
+    ex2 = {name: sass_count(name, "MUFU.EX2") for name in ("lab_probe", "paged_flatten")}
+    print(f"[build] MUFU.EX2 instructions (exp2f under ops/_cuda.py's flags): {ex2}; "
+          f"B15: {ptxas_lines('lab_probe', 'lab_probe_kernel')}", flush=True)
+    check(all(ex2.values()), f"exp2f did not become MUFU.EX2: {ex2}")
     for label, (lib, fn) in WIDE_BODIES.items():
         lines = ptxas_lines(lib, fn)
         for line in lines:
@@ -3784,11 +3834,11 @@ def phase_workloads(dev, params, prompt, smi, profile: bool = False):
     ecfg = runner.ecfg
     for name, (mode, chunk) in modes.items():
         runner.ecfg = with_chunk(ecfg, chunk)
-        r = peak_run(runner, mode, prompt)
+        r = peak_run(runner, mode, prompt, gen_len=W6_GEN)
         add(r)
         workload_line(f"W6 {name}", r, smi)
-        check(len(r["seqs"]) == WIDTH and all(len(x) == GEN_LEN - 1 for x in r["seqs"]),
-              f"W6 {name}: expected {WIDTH} branches of {GEN_LEN - 1} tokens")
+        check(len(r["seqs"]) == WIDTH and all(len(x) == W6_GEN - 1 for x in r["seqs"]),
+              f"W6 {name}: expected {WIDTH} branches of {W6_GEN - 1} tokens")
         if mode is ForwardMode.UNPAGED_MEDUSA:
             check(not any(r["launches"].get(k, 0) for k in FLATTEN_SIDE + SEQ_SIDE),
                   f"W6 {name}: a decode kernel launched: {r['launches']}")
@@ -3806,7 +3856,7 @@ def phase_workloads(dev, params, prompt, smi, profile: bool = False):
                                lf, readings["flatten, block dropped"])
     runner.reset_state()
     runner.retain_full_logits = False
-    r = peak_run(runner, modes["node"][0], prompt)
+    r = peak_run(runner, modes["node"][0], prompt, gen_len=W6_GEN)
     add(r)
     workload_line("W6 node, int8 KV", r, smi)
     check_side("W6 node, int8 KV", r["launches"], "flatten")
@@ -4888,8 +4938,8 @@ def sharded_rank(grid, prompt, ids, prompts):
     sp rank 1's state left out of every layer's merge: the span that holds
     the prompt's end and the leaves' tokens), flatten then seq over 64
     tokens; then the batch path's four `prompts` through BatchedEngine
-    (rank_batch); then an int8 KV cache: its first step and 8 decode tokens
-    a mode.  The collectives gloo staged in the bf16 prefill and first step
+    (rank_batch); then an int8 KV cache: its first step and SHARDED_GEN - 1
+    decode tokens a mode.  The collectives gloo staged in the bf16 prefill and first step
     are gathered from every rank."""
     import contextlib
     from unittest import mock
@@ -4944,7 +4994,7 @@ def sharded_rank(grid, prompt, ids, prompts):
         runner.reset_state()
         runner.retain_full_logits = False
         out[f"{kv} runs"] = rank_generate(grid, runner, prompt,
-                                          SHARDED_GEN if kv == "inherit" else 9,
+                                          SHARDED_GEN,
                                           ("flatten", "seq"))
         out[f"{kv} peak GB"] = torch.cuda.max_memory_allocated(grid.device) / 1e9
         del runner
@@ -5000,7 +5050,7 @@ def sharded_moe_rank(grid):
     runner.reset_state()
     runner.retain_full_logits = False
     return dict(logits=logits, prefill=counts,
-                runs=rank_generate(grid, runner, prompt, 9, ("flatten",)))
+                runs=rank_generate(grid, runner, prompt, SHARDED_GEN, ("flatten",)))
 
 
 def layout_collectives(shape, step: str, layers: int, dp_rows: bool = True) -> int:
@@ -5023,8 +5073,8 @@ def sharded_dp_rank(grid, prompt, ids, weight_dtype, modes):
     the main prompt's prefill and first decode step (the rank's rows through
     the dense layers, models/llama.py forward_layers.last_rows, and the
     collectives gloo staged, each counted around that forward; the step's
-    launches and ms; its logits, every row joined over dp), then 8 decode
-    tokens in each of `modes` (rank_generate, under sync_checked).  Every
+    launches and ms; its logits, every row joined over dp), then
+    SHARDED_GEN - 1 decode tokens in each of `modes` (rank_generate, under sync_checked).  Every
     rank's readings are gathered."""
     import torch
     from deft_tpu_torch.models import PRESETS
@@ -5053,7 +5103,7 @@ def sharded_dp_rank(grid, prompt, ids, weight_dtype, modes):
     out = {"first": view.full_logits()[:WIDTH].float().cpu()}
     runner.reset_state()
     runner.retain_full_logits = False
-    out["runs"] = rank_generate(grid, runner, prompt, 9, modes)
+    out["runs"] = rank_generate(grid, runner, prompt, SHARDED_GEN, modes)
     mine["peak GB"] = torch.cuda.max_memory_allocated(grid.device) / 1e9
     out["ranks"] = rank_counts_of(grid, mine)
     del runner
@@ -5134,7 +5184,7 @@ def phase_sharded(prompt, ids, lf, lq, main_runs, batch_runs):
     check(readings["int8 first"] < LOGITS_LIMIT,
           f"sharded int8 first-step logits stray: {readings['int8 first']}")
     launches = {}
-    for kv, gen in (("inherit", SHARDED_GEN - 1), ("int8", 8)):
+    for kv, gen in (("inherit", SHARDED_GEN - 1), ("int8", SHARDED_GEN - 1)):
         for mode, r in out[f"{kv} runs"].items():
             check(len(r["seqs"]) == WIDTH and all(len(x) == gen for x in r["seqs"]),
                   f"sharded {kv} {mode}: expected {WIDTH} branches of {gen} tokens")
@@ -5300,7 +5350,7 @@ def phase_sharded_moe(moe_ref, grids=(SHARDED_GRID, DP_GRID)):
     """mixtral-6l on grid 1x2x2 over gloo on the one card: 4 experts a rank
     (sp 2), their inner dims over tp 2; the prefill's B10 launches on every
     rank, its last-token logits against the moe path's (`moe_ref`, phase_moe)
-    below MOE_LIMIT; then 8 decode tokens.  Then on DP_GRID, the MoE block
+    below MOE_LIMIT; then SHARDED_GEN - 1 decode tokens.  Then on DP_GRID, the MoE block
     on its dp rows (sharded_moe_dp).  `grids`: which of the two run."""
     from deft_tpu_torch.models import PRESETS
 
@@ -5314,14 +5364,14 @@ def phase_sharded_moe(moe_ref, grids=(SHARDED_GRID, DP_GRID)):
               f"moe path's, relative L2 {e:.3e} (limit {MOE_LIMIT:g}), top-1 equal "
               f"{int(out['logits'].argmax()) == int(moe_ref['prefill'].argmax())}; prefill "
               f"launches by rank {[{k: n for k, n in c.items() if n} for c in out['prefill']]}; "
-              f"8 decode tokens: TTFT {run['TTFT']:.3f} ms, TPOT {run['TPOT']:.4f} ms (four "
+              f"{SHARDED_GEN - 1} decode tokens: TTFT {run['TTFT']:.3f} ms, TPOT {run['TPOT']:.4f} ms (four "
               f"ranks sharing one card); {time.perf_counter() - t0:.1f} s", flush=True)
         check(e < MOE_LIMIT, f"sharded MoE prefill logits stray from the moe path's: {e}")
         for c in out["prefill"]:
             check(c["gmm"] == per and c["gmm_scaled"] == 0,
                   f"sharded-moe: B10 launches of a rank's prefill {c}, expected gmm {per}")
-        check(len(run["seqs"]) == WIDTH and all(len(x) == 8 for x in run["seqs"]),
-              "sharded-moe: expected 50 branches of 8 tokens")
+        check(len(run["seqs"]) == WIDTH and all(len(x) == SHARDED_GEN - 1 for x in run["seqs"]),
+              f"sharded-moe: expected {WIDTH} branches of {SHARDED_GEN - 1} tokens")
     if DP_GRID in grids:
         sharded_moe_dp(moe_ref, per)
 
@@ -5492,8 +5542,9 @@ def phase_sharded_dp(prompt, ids, lf, lw, main_runs):
                       f"{tag}: B9 launched {r['step launches'].get('int8_matmul', 0)} "
                       f"times in a decode step, not {per_step}")
         for mode, run in out["runs"].items():
-            check(len(run["seqs"]) == WIDTH and all(len(x) == 8 for x in run["seqs"]),
-                  f"{tag} {mode}: expected {WIDTH} branches of 8 tokens")
+            check(len(run["seqs"]) == WIDTH and all(len(x) == SHARDED_GEN - 1
+                                                    for x in run["seqs"]),
+                  f"{tag} {mode}: expected {WIDTH} branches of {SHARDED_GEN - 1} tokens")
             share = np.mean([a == b for x, y in zip(run["seqs"], main_runs[mode]["seqs"])
                              for a, b in zip(x, y)])
             print(f"{tag} {mode}: TTFT {run['TTFT']:.3f} ms, TPOT {run['TPOT']:.4f} ms "
@@ -7187,6 +7238,170 @@ def phase_timing(dev, shapes):
     return out
 
 
+# the lab phase: the kernel lab's variants it drives at the full shapes,
+# B1 on each case first (the lab holds every variant against the first
+# output of its case), and each lab kernel's row in the kernels line: the
+# variant its check, times and bound are taken at
+LAB_RUN = ("v0_b512", "vB_b512", "vD_b512", "k2_b1024s512", "full_b512", "deep_qw0_b512",
+           "deep_tq64_b512", "probe_exp2_b512")
+LAB_ROWS = {"lab_passes": "vB_b512", "lab_fused": "vD_b512", "lab_k2": "k2_b1024s512",
+            "lab_exp2_probe": "probe_exp2_b512"}
+# B14's other checked case: the deep tree with row tiles of 64
+LAB_K2_DEEP = "deep_tq64_b512"
+# B15 against its plain version: fp32 exp2 chains, absolute
+PROBE_TOL = 1e-5
+# B15 also at few sweeps, (nb, passes), from a random start tile: x <-
+# exp2(-0.9999 x) contracts by about 0.44 a sweep, so after some 14 sweeps
+# every chain sits within PROBE_TOL of one fixed point (the lab's 72 cannot
+# tell a wrong sweep count or one chain broadcast); at these counts each
+# sweep moves the output, and the chains differ, by far more than PROBE_TOL
+PROBE_FEW = tuple((1, p) for p in range(1, 9)) + ((3, 3), (2, 5), (5, 2), (2, 6))
+# the lab kernels and B1 also against their plain versions at this many
+# times the case's q
+LAB_SHARP = 8
+
+
+def probe_few_sweeps(dev) -> float:
+    """B15 against its plain version at PROBE_FEW's sweep counts, from a
+    start tile drawn per element (uniform in [-4, 2]) at the lab's (Rq,
+    512) shape.  Each case must also be sharp: one sweep more or less, or
+    every chain replaced by one, moves the plain output by more than 10 x
+    PROBE_TOL.  Returns the largest absolute error."""
+    import torch
+
+    from deft_tpu_torch.experiments import kernel_lab as kl
+    from deft_tpu_torch.ops import lab_probe as lp
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    x0 = torch.rand((kl.RQ, 512), generator=gen, device=dev) * 6 - 4
+    worst = 0.0
+    for nb, passes in PROBE_FEW:
+        got = lp.lab_exp2_probe(x0, nb, passes, kl.D)
+        want = lp.lab_exp2_probe_plain(x0, nb, passes, kl.D)
+        e = float((got - want).abs().max())
+        fewer = lp.lab_exp2_probe_plain(x0, 1, nb * passes - 1, kl.D)
+        more = lp.lab_exp2_probe_plain(x0, 1, nb * passes + 1, kl.D)
+        step = float(torch.minimum((want - fewer).abs().max(), (want - more).abs().max()))
+        spread = float(want.max() - want.min())
+        print(f"[lab] lab_exp2_probe nb {nb} x passes {passes} from a random tile vs plain: "
+              f"abs err {e:.3e}; one sweep moves it {step:.3e}, its chains span {spread:.3e}",
+              flush=True)
+        check(bool(torch.isfinite(got).all()) and e < PROBE_TOL,
+              f"lab_exp2_probe at nb {nb} x passes {passes} disagrees with its plain "
+              f"version: {e}")
+        check(min(step, spread) > 10 * PROBE_TOL,
+              f"lab_exp2_probe at nb {nb} x passes {passes}: the check is not sharp")
+        worst = max(worst, e)
+    return worst
+
+
+def phase_lab(dev, smi):
+    """The flatten kernel lab (deft_tpu_torch/experiments/kernel_lab.py) on
+    the card: its entry drives LAB_RUN at the full shapes (cases drawn on the
+    card), counts set to 0 just before and read just after: B12-B15 (and
+    B1) must launch, every output is finite and B12-B14 agree with B1's
+    output on the same case within 2e-2 (the lab exits non-zero else).
+    Then, on the cases and calls the entry hands back, each lab kernel
+    against its plain version on the same inputs (bf16 2e-2; the probe,
+    fp32, within PROBE_TOL absolute, also at few sweeps: probe_few_sweeps),
+    and at LAB_ROWS' cases its CUDA-event time, the plain version's, B1's
+    library call on the same case (SDPA over KV gathered ahead of time;
+    none for the probe) and its bound.  The cases are freed on return.
+    Returns (errs, timing, launches) of the four lab kernels."""
+    import torch
+    from types import SimpleNamespace
+
+    from deft_tpu_torch.experiments import kernel_lab as kl
+
+    t0 = time.perf_counter()
+    reset_counts()
+    results = {}
+    rc = kl.main(list(LAB_RUN), results=results)
+    counts = read_counts()
+    launches = {n: counts[n] for n in LAB_ROWS}
+    print(f"[lab] entry exit code {rc}; launches {launches}, B1 "
+          f"{counts['paged_flatten']}; {time.perf_counter() - t0:.1f} s", flush=True)
+    check(rc == 0, "the kernel lab failed a variant")
+    check(all(launches.values()) and counts["paged_flatten"] > 0,
+          f"a lab kernel never launched: {launches}")
+    for name, r in results.items():
+        check((r["layers"], r["t_pad"]) == (32, 8192),
+              f"lab {name} ran at {r['layers']} layers, T_PAD {r['t_pad']}: not the full shapes")
+        check(bool(torch.isfinite(r["out"]).all()), f"lab {name}: non-finite output")
+        if r["kernel"] in ("B12", "B13", "B14"):
+            check(r["rel"] < TOL["bfloat16"], f"lab {name} disagrees with B1: {r['rel']}")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    fns = wrappers()
+    rate = kl.exp2_rate(dev)
+    errs = {"lab_exp2_probe": probe_few_sweeps(dev)}
+    timing = {}
+    for name, variant in list(LAB_ROWS.items()) + [("lab_k2", LAB_K2_DEEP)]:
+        make, bl, _ = kl.VARIANTS[variant]
+        case, call = results[variant]["case"], results[variant]["call"]
+        fn, plain = fns[name]
+        check(call.fn is fn, f"{variant} does not run {name}")
+        args = call.args(kl.LAYERS - 1)
+        got = fn(*args)
+        torch.cuda.synchronize()
+        want = plain(*args)
+        finite = bool(torch.isfinite(got).all())
+        if name == "lab_exp2_probe":
+            e = float((got.double() - want.double()).abs().max())
+            ok = e < PROBE_TOL
+        else:
+            e = rel_err(got, want)
+            ok = e < TOL["bfloat16"]
+        print(f"[lab] {name} ({variant}) vs plain: {'abs' if name == 'lab_exp2_probe' else 'rel'} "
+              f"err {e:.3e}, finite {finite}", flush=True)
+        check(ok and finite, f"{name} ({variant}) disagrees with its plain version: {e}")
+        errs[name] = max(errs.get(name, 0.0), float((got.double() - want.double()).abs().max()))
+        if name != "lab_exp2_probe":
+            # the lab's q and K give nearly uniform weights (scores ~0.09
+            # N(0, 1)); at LAB_SHARP x q each row leans on its own largest
+            # scores: the kernel, and B1 on the same case, against plain
+            sharp = dict(case, q=(case["q"].float() * LAB_SHARP).to(torch.bfloat16))
+            for label, c in ((name, make(sharp)), ("B1", kl._b1(sharp))):
+                a = c.args(kl.LAYERS - 1)
+                e = rel_err(c.fn(*a), c.plain(*a))
+                print(f"[lab] {label} ({variant}, q x{LAB_SHARP}) vs plain: rel err {e:.3e}",
+                      flush=True)
+                check(e < TOL["bfloat16"], f"{label} ({variant}, sharp q) disagrees: {e}")
+            del sharp, c, a
+        if variant != LAB_ROWS[name]:
+            del case, call, args, got, want
+            continue
+        bound, by = kl.bound_ms(kl.work(call, case), rate)
+        lib = None
+        if name != "lab_exp2_probe":
+            b1 = kl._b1(case)
+            h = case["host"]
+            plan = SimpleNamespace(seg_src=h["seg_src"], seg_len=min(kl.SEG, bl),
+                                   tok_lo=h["tok_lo"], tok_hi=h["tok_hi"], blk_lo=h["blk_lo"],
+                                   blk_hi=h["blk_hi"], block_len=bl, n_leaves=kl.LEAVES)
+            lib, LIBRARY[name] = attention_library_row("paged_flatten", plan, b1.args(0), flush)
+        else:
+            LIBRARY[name] = ("none: no one PyTorch call computes the probe's chains of "
+                             "dependent exp2 (torch.exp2 is one sweep a launch)")
+        ms = time_ms(lambda: fn(*args), 20, flush)
+        plain_ms = time_ms(lambda: plain(*args), 3, flush)
+        lib_ms = time_ms(lib, 20, flush) if lib is not None else None
+        timing[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                            bound_by=by)
+        lib_txt = f"{lib_ms:.4f} ms ({LIBRARY[name]})" if lib_ms is not None else LIBRARY[name]
+        step = results[variant]["ms"]
+        print(f"[lab] {name} ({variant}, {results[variant]['kernel']}): kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, library {lib_txt}, bound {bound:.4f} ms ({by}"
+              f"{', exp2 at the SM clock nvidia-smi reports' if name == 'lab_exp2_probe' else ''})"
+              f", {bound / ms:.1%} of the bound; in the lab "
+              f"{'not timed' if step is None else f'{step:.4f} ms'} a {kl.LAYERS}-layer "
+              f"step; {smi}", flush=True)
+        del case, call, args, got, want, lib
+    del results, flush
+    release()
+    print(f"[lab] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return errs, timing, launches
+
+
 def phase_flatten_only(dev, shapes, profile: bool, edges: bool = True):
     """--flatten-only: the flatten kernels (B1, B1p, B4, B4p, B6 at the
     short and batch plans over bf16 and int8 pools, B11; B6 and B11 at the
@@ -7434,17 +7649,21 @@ def main(argv=None) -> int:
                          "grid 2x1x2, the 8B batch path and the 16-token prompt's seq "
                          "over int8 KV, mixtral-6l on grid 2x1x2 (phase_wide_only); "
                          "prints no result line")
+    ap.add_argument("--lab-only", action="store_true",
+                    help="only the card, the build and the kernel lab phase (B12-B15 "
+                         "through the lab's entry, phase_lab); prints no result line")
     ap.add_argument("--root", default=None,
                     help="with --flatten-only, --seq-only or --prefill-only: import "
                          "deft_tpu_torch from this checkout (a parent commit timed in "
                          "turns with this one)")
     args = ap.parse_args(argv)
     only = (args.flatten_only + args.seq_only + args.prefill_only + args.workloads_only
-            + args.chain_only + args.attention_only + args.replay_only + args.wide_only)
+            + args.chain_only + args.attention_only + args.replay_only + args.wide_only
+            + args.lab_only)
     if only > 1:
         ap.error("--flatten-only, --seq-only, --prefill-only, --workloads-only, "
-                 "--chain-only, --attention-only, --replay-only and --wide-only are "
-                 "separate runs")
+                 "--chain-only, --attention-only, --replay-only, --wide-only and "
+                 "--lab-only are separate runs")
     if args.root is not None:
         if not (args.flatten_only or args.seq_only or args.prefill_only):
             ap.error("--root goes with --flatten-only, --seq-only or --prefill-only")
@@ -7474,6 +7693,10 @@ def main(argv=None) -> int:
     try:
         smi, device_kind = phase_card()
         phase_build(bodies=args.root is None)
+        if args.lab_only:
+            phase_lab(dev, smi)
+            print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}", flush=True)
+            return 0
         if args.prefill_only:
             phase_prefill_only(dev)
             print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}", flush=True)
@@ -7575,6 +7798,11 @@ def main(argv=None) -> int:
         # four Gemma-7B ranks of the wide grids need the card
         del shapes
         release()
+        with timed_phase("lab"):
+            lab_errs, lab_timing, lab_launches = phase_lab(dev, smi)
+        errs.update(lab_errs)
+        timing.update(lab_timing)
+        launches.update(lab_launches)
         with timed_phase("families"):
             launches.update(phase_families(dev, smi))
         idle = [n for n in KERNELS if not launches.get(n)]

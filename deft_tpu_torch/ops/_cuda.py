@@ -26,7 +26,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("prefill", "paged_flatten", "paged_seq", "flatten_gather", "seq_gather",
-           "int8_matmul", "gmm")
+           "int8_matmul", "gmm", "lab_flatten", "lab_probe")
 HEADERS = ("flash_common.cuh", "flatten_body.cuh", "flat_q_body.cuh", "seq_body.cuh",
            "seq_q_body.cuh", "hopper.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
